@@ -1,0 +1,261 @@
+"""PatchTST transformer factory (port of
+``gordo_components_tpu/models/factories/transformer.py:37-322``).
+
+Channel-independent patching: each tag's lookback window is cut into
+patches, embedded, run through a shared pre-norm transformer encoder, and
+a linear head per channel emits the reconstruction. The attention core is
+``dense`` (plain PyTorch) or ``flash`` (the hand-written CUDA kernel on the
+card; see :mod:`gordo_components_tpu_torch.ops.flash_attention`).
+
+Parity with the flax modules, point by point:
+
+- flax ``nn.gelu`` is the tanh approximation; flax ``LayerNorm`` uses
+  ``epsilon=1e-6``;
+- patches are the slices ``[s, s + patch_length)`` for ``s`` in
+  ``range(0, window - patch_length + 1, stride)`` — ``Tensor.unfold``;
+- the q/k/v projection is one ``(d_model → 3·H·hd)`` matrix whose output
+  is read as ``(3, H, hd)`` row-major, like flax's ``DenseGeneral``;
+- the head is one ``Dense(1)`` over the row-major ``(B, F, P·d_model)``
+  flatten, followed by a second Dense only when ``n_features_out !=
+  n_features``; the output is float32.
+
+Every layer computes in ``compute_dtype``: weights are cast to it at use
+(so weights stored in bfloat16 for the bf16 serving rung compute in
+float32 when the architecture says float32, as flax promotes them), and
+LayerNorm statistics are taken in float32.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ...ops.attention import dense_attention
+from ...ops.flash_attention import flash_attention
+from ..modules import activation, resolve_dtype
+from ..register import register_model_factory
+
+_LN_EPS = 1e-6
+_ATTENTION_IMPLS = ("dense", "flash", "ring", "ring_flash")
+
+
+class ModelSpec(NamedTuple):
+    """A factory's product (the reference's ``ModelSpec`` without the
+    optimizer: training is a later slice)."""
+
+    module: nn.Module
+    loss: str
+    input_kind: str
+    config: Dict[str, Any]
+
+
+def _dense(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+    return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
+
+
+def _layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
+    out = F.layer_norm(
+        x.float(), norm.normalized_shape, norm.weight.float(),
+        norm.bias.float(), _LN_EPS,
+    )
+    return out.to(x.dtype)
+
+
+class MultiHeadSelfAttention(nn.Module):
+    """Fused q/k/v projection, attention core, output projection."""
+
+    def __init__(self, d_model: int, n_heads: int, attention_impl: str = "dense"):
+        super().__init__()
+        if d_model % n_heads != 0:
+            raise ValueError(
+                f"d_model ({d_model}) must be divisible by n_heads ({n_heads})"
+            )
+        if attention_impl not in ("dense", "flash"):
+            raise ValueError(
+                f"attention_impl {attention_impl!r} is not available in the "
+                "port; use 'dense' or 'flash'"
+            )
+        self.n_heads = n_heads
+        self.head_dim = d_model // n_heads
+        self.attention_impl = attention_impl
+        self.qkv = nn.Linear(d_model, 3 * d_model)
+        self.out = nn.Linear(d_model, d_model)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        qkv = _dense(x, self.qkv).unflatten(-1, (3, self.n_heads, self.head_dim))
+        q, k, v = qkv.unbind(dim=-3)  # each (..., seq, heads, head_dim)
+        if self.attention_impl == "flash":
+            out = flash_attention(q, k, v)
+        else:
+            out = dense_attention(q, k, v)
+        return _dense(out.flatten(-2), self.out)
+
+
+class TransformerEncoderLayer(nn.Module):
+    """Pre-norm encoder block (dropout is identity at inference)."""
+
+    def __init__(self, d_model: int, n_heads: int, ff_dim: int, attention_impl: str):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(d_model, eps=_LN_EPS)
+        self.attn = MultiHeadSelfAttention(d_model, n_heads, attention_impl)
+        self.norm2 = nn.LayerNorm(d_model, eps=_LN_EPS)
+        self.ff1 = nn.Linear(d_model, ff_dim)
+        self.ff2 = nn.Linear(ff_dim, d_model)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(_layer_norm(x, self.norm1))
+        h = _dense(_layer_norm(x, self.norm2), self.ff1)
+        h = F.gelu(h, approximate="tanh")
+        return x + _dense(h, self.ff2)
+
+
+class PatchTSTModule(nn.Module):
+    """``(batch, L, F) → (batch, F_out)`` channel-independent PatchTST."""
+
+    def __init__(
+        self,
+        n_features: int,
+        n_features_out: int,
+        lookback_window: int,
+        patch_length: int,
+        stride: int,
+        d_model: int,
+        n_heads: int,
+        n_layers: int,
+        ff_dim: int,
+        out_func: str = "linear",
+        compute_dtype: Any = "float32",
+        attention_impl: str = "dense",
+    ):
+        super().__init__()
+        self.n_features = n_features
+        self.lookback_window = lookback_window
+        self.patch_length = patch_length
+        self.stride = stride
+        self.d_model = d_model
+        self.n_patches = (lookback_window - patch_length) // stride + 1
+        self.out_func = out_func
+        self.dtype = resolve_dtype(compute_dtype)
+        self.patch_embed = nn.Linear(patch_length, d_model)
+        self.pos_embedding = nn.Parameter(torch.zeros(self.n_patches, d_model))
+        self.layers = nn.ModuleList(
+            TransformerEncoderLayer(d_model, n_heads, ff_dim, attention_impl)
+            for _ in range(n_layers)
+        )
+        self.norm = nn.LayerNorm(d_model, eps=_LN_EPS)
+        self.head = nn.Linear(self.n_patches * d_model, 1)
+        self.head_out = (
+            nn.Linear(n_features, n_features_out)
+            if n_features_out != n_features
+            else None
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        batch, window, n_features = x.shape
+        if window != self.lookback_window or n_features != self.n_features:
+            raise ValueError(
+                f"PatchTST expects (batch, {self.lookback_window}, "
+                f"{self.n_features}) windows, got {tuple(x.shape)}"
+            )
+        channels = x.to(self.dtype).transpose(1, 2)  # (B, F, L)
+        patches = channels.unfold(2, self.patch_length, self.stride)  # (B, F, P, pl)
+        h = patches.reshape(batch * n_features, self.n_patches, self.patch_length)
+        h = _dense(h, self.patch_embed) + self.pos_embedding.to(self.dtype)
+        for layer in self.layers:
+            h = layer(h)
+        h = _layer_norm(h, self.norm)
+        flat = h.reshape(batch, n_features, self.n_patches * self.d_model)
+        out = _dense(flat, self.head)[..., 0]  # per-channel head (B, F)
+        if self.head_out is not None:
+            out = _dense(out, self.head_out)
+        return activation(self.out_func)(out).float()
+
+
+@register_model_factory("patchtst")
+def patchtst(
+    n_features: int,
+    n_features_out: Optional[int] = None,
+    lookback_window: int = 32,
+    patch_length: int = 8,
+    stride: Optional[int] = None,
+    d_model: int = 64,
+    n_heads: int = 4,
+    n_layers: int = 2,
+    ff_dim: Optional[int] = None,
+    dropout: float = 0.0,
+    out_func: str = "linear",
+    optimizer: str = "Adam",
+    optimizer_kwargs: Optional[Dict[str, Any]] = None,
+    loss: str = "mse",
+    compute_dtype: str = "float32",
+    attention_impl: str = "dense",
+    remat: bool = False,
+    **unknown: Any,
+) -> ModelSpec:
+    """Validation and config as the reference's factory. ``dropout``,
+    ``optimizer*`` and ``remat`` shape training only and are kept in the
+    config so artifacts round-trip."""
+    if unknown:
+        raise ValueError(
+            f"Unknown hyperparameters for kind 'patchtst': {sorted(unknown)}"
+        )
+    if lookback_window < patch_length:
+        raise ValueError(
+            f"lookback_window ({lookback_window}) must be >= patch_length "
+            f"({patch_length})"
+        )
+    stride = stride or max(1, patch_length // 2)
+    ff_dim = ff_dim or 2 * d_model
+    n_features_out = n_features_out or n_features
+    if attention_impl not in _ATTENTION_IMPLS:
+        raise ValueError(
+            f"Unknown attention_impl {attention_impl!r}; "
+            "use 'dense', 'flash', 'ring', or 'ring_flash'"
+        )
+    if attention_impl in ("ring", "ring_flash"):
+        raise NotImplementedError(
+            f"attention_impl={attention_impl!r} needs ring attention over "
+            "torch.distributed, which is not ported yet (ROADMAP.md, "
+            "Queue 1: ring and ring_flash)"
+        )
+    if d_model % n_heads != 0:
+        raise ValueError(
+            f"d_model ({d_model}) must be divisible by n_heads ({n_heads})"
+        )
+    module = PatchTSTModule(
+        n_features=n_features,
+        n_features_out=n_features_out,
+        lookback_window=lookback_window,
+        patch_length=patch_length,
+        stride=stride,
+        d_model=d_model,
+        n_heads=n_heads,
+        n_layers=n_layers,
+        ff_dim=ff_dim,
+        out_func=out_func,
+        compute_dtype=compute_dtype,
+        attention_impl=attention_impl,
+    )
+    config = {
+        "n_features": n_features,
+        "n_features_out": n_features_out,
+        "lookback_window": lookback_window,
+        "patch_length": patch_length,
+        "stride": stride,
+        "d_model": d_model,
+        "n_heads": n_heads,
+        "n_layers": n_layers,
+        "ff_dim": ff_dim,
+        "dropout": dropout,
+        "out_func": out_func,
+        "optimizer": optimizer,
+        "optimizer_kwargs": dict(optimizer_kwargs or {}),
+        "loss": loss,
+        "compute_dtype": compute_dtype,
+        "attention_impl": attention_impl,
+        "remat": remat,
+    }
+    return ModelSpec(module=module, loss=loss, input_kind="window", config=config)

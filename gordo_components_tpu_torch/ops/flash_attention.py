@@ -1,0 +1,106 @@
+"""Blockwise (flash) attention forward (port of
+``gordo_components_tpu/ops/flash_attention.py``).
+
+The reference runs a Pallas TPU kernel (``_fwd_kernel`` via
+``_flash_fwd_3d``); the port runs ``csrc/flash_fwd.cu``, a CUDA kernel
+written for Hopper, on CUDA tensors, and :func:`flash_fwd_reference`, its
+plain PyTorch version, on CPU tensors. The choice follows the tensor's
+device and nothing else: a CUDA tensor launches the kernel or raises.
+
+Public contract kept from the reference:
+
+- :func:`flash_attention` takes and returns the flax layout
+  ``(..., seq, heads, head_dim)`` and sends a sequence that fits one tile
+  (``seq <= min(block_q, block_k)``) to :func:`dense_attention`;
+  ``block_q``/``block_k`` decide only that rule — the CUDA kernel's tiles
+  are its own;
+- :func:`flash_block_with_lse` is the ``(BH, S, D)`` forward with the
+  per-row logsumexp exposed (the ring composition's per-hop update, whose
+  caller is a later slice).
+
+Forward only: the backward (``_bwd_3d`` in the reference) comes with the
+training slice, so a gradient through the CUDA path raises.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from . import _kernels
+from .attention import dense_attention
+
+_DEF_BLOCK_Q = 128
+_DEF_BLOCK_K = 128
+
+
+def flash_fwd_reference(
+    q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor, scale: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version: ``(BH, S, D)`` → ``(out in q's dtype, lse (BH, S)
+    float32)``, computed in float32 with the whole score matrix."""
+    s = torch.einsum("bqd,bkd->bqk", q3.float(), k3.float()) * scale
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    out = torch.einsum("bqk,bkd->bqd", p, v3.float())
+    return out.to(q3.dtype), lse
+
+
+def flash_fwd(
+    q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor, scale: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(BH, S, D)`` attention forward on the tensors' own device: the
+    CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    if q3.device.type == "cpu":
+        return flash_fwd_reference(q3, k3, v3, scale)
+    if torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q3, k3, v3)
+    ):
+        raise NotImplementedError(
+            "flash attention backward is not ported yet (training slice); "
+            "run the forward under torch.no_grad()"
+        )
+    return _kernels.flash_fwd_cuda(
+        q3.contiguous(), k3.contiguous(), v3.contiguous(), scale
+    )
+
+
+def flash_block_with_lse(
+    q3: torch.Tensor,
+    k3: torch.Tensor,
+    v3: torch.Tensor,
+    scale: float,
+    block_q: int = _DEF_BLOCK_Q,
+    block_k: int = _DEF_BLOCK_K,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(BH, S, D)`` q/k/v → ``(out (BH, S, D), lse (BH, S))``; the block
+    sizes are accepted for the reference's signature and do not change the
+    result."""
+    return flash_fwd(q3, k3, v3, scale)
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    scale: Optional[float] = None,
+    block_q: int = _DEF_BLOCK_Q,
+    block_k: int = _DEF_BLOCK_K,
+) -> torch.Tensor:
+    """Exact attention; drop-in for :func:`dense_attention`. q/k/v
+    ``(..., seq, heads, head_dim)`` → ``(..., seq, heads, head_dim)``."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    *batch, seq, heads, head_dim = q.shape
+    if seq <= min(block_q, block_k):
+        return dense_attention(q, k, v, scale)
+    bh = heads
+    for dim in batch:
+        bh *= int(dim)
+
+    def to3d(a: torch.Tensor) -> torch.Tensor:
+        return a.movedim(-2, -3).reshape(bh, seq, head_dim)  # (..., H, S, D)
+
+    out3, _ = flash_fwd(to3d(q), to3d(k), to3d(v), float(scale))
+    return out3.reshape(*batch, heads, seq, head_dim).movedim(-3, -2)
