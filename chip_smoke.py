@@ -8,19 +8,25 @@ Phases; any failure exits non-zero before the result line:
 1. environment: torch/CUDA versions, the card's name and power limit, and
    a build of every CUDA kernel from ``gordo_components_tpu_torch/csrc``
    (one ``nvcc`` per source, all started together);
-2. each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it, with its time, the plain version's time
-   and one PyTorch library call's time as a yardstick (timed only; the
-   port never calls it);
+2. each kernel (the fp32 one of ``csrc/flash_fwd_f32.cu`` and the bf16 one
+   of ``csrc/flash_fwd_bf16.cu``) against its plain PyTorch version on the
+   card, at the slice shape and the edge shapes of ``CHECK_SHAPES``; then,
+   at the slice shape, its time, the plain version's time and one PyTorch
+   library call's time as a yardstick: SDPA on the 4-D view with its fused
+   backend forced and named (timed only; the port never calls it);
 3. the main path: a full-width long-window PatchTST anomaly machine
    (d_model 512, 8 heads, 3 layers, 64 tags, lookback 1440 = 179 patches,
    random weights from a seed in the flax layout, scalers fitted on seeded
-   data) is dumped as an artifact, served by the port's HTTP server on the
-   card, and asked a few ``POST /anomaly/prediction`` requests. The launch
-   counts are zeroed just before and read just after; every request must
-   launch the flash kernel once per layer, and every response must match
-   the same artifact scored by the port with ``device="cpu"`` (its plain
-   path).
+   data, float32) is dumped as an artifact, served by the port's HTTP
+   server on the card, and asked a few ``POST /anomaly/prediction``
+   requests. The launch counts are zeroed just before and read just after;
+   every request must launch the fp32 kernel once per layer, and every
+   response must match the same artifact scored by the port with
+   ``device="cpu"`` (its plain path);
+3b. the bf16 path: the same machine built with ``compute_dtype="bfloat16"``
+   answers one W = 16 request; it must launch the bf16 kernel once per
+   layer and the fp32 kernel never, and match the same artifact scored on
+   the card with dense attention in bf16.
 
 The line before last is ``nvidia-smi``'s name and power limit; the one
 before that the kernels' JSON record; the last line is the result.
@@ -50,10 +56,17 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
 FP32_ATOL = 2e-5  # summation order only (the reference's kernel-vs-dense bound)
 BF16_ATOL = 2e-2  # compared in bf16: one rounding of outputs near 1
+LSE_ATOL = 1e-4  # lse is float32 on both sides from the same inputs
 # served scores, GPU vs CPU plain path, relative to the array's magnitude:
 # float32 on both sides, GEMMs and the online softmax sum in other orders
 # (1e-6 .. 1e-5 relative); a wrong mask or layout is an O(1) error
 SERVE_RTOL = 1e-4
+# bf16 served scores, flash kernel vs dense attention, both on the card in
+# bf16: the dense path rounds its logits and softmax weights to bf16 (2^-9
+# relative each, ~1e-2 absolute on a logit of a few units), the kernel
+# keeps fp32 scores and rounds only P; three layers carry that into the
+# scores, ~1e-2 relative. A wrong mask, layout or transpose is O(1).
+BF16_SERVE_RTOL = 5e-2
 
 
 def fail(message: str) -> None:
@@ -94,6 +107,39 @@ def attention_bound(bh: int, seq: int, d: int, dtype) -> dict:
     }
 
 
+def library_view(t3, heads: int = SLICE["n_heads"]):
+    """The ``(W·tags, H, S, D)`` view of a ``(BH, S, D)`` tensor: the port
+    flattens ``(..., H, S, D)`` with the heads innermost, so this is the same
+    memory. PyTorch's fused attention backends take only 4-D inputs; on 3-D
+    inputs ``scaled_dot_product_attention`` runs its math backend, which
+    materialises the score matrix."""
+    bh, seq, d = t3.shape
+    return t3.view(bh // heads, heads, seq, d)
+
+
+def library_backend(dtype) -> str:
+    """The fused backend that is the yardstick: FlashAttention-2 in bf16, the
+    memory-efficient kernel in fp32 (FlashAttention takes no fp32)."""
+    return "FLASH_ATTENTION" if str(dtype) == "torch.bfloat16" else "EFFICIENT_ATTENTION"
+
+
+def time_library(torch, F, q, k, v, scale: float):
+    """One PyTorch call computing the same function, as a yardstick only (the
+    port never calls it): SDPA on the 4-D view with its fused backend forced.
+    If that backend refuses the inputs the phase fails: the math backend is
+    never what gets timed."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    name = library_backend(q.dtype)
+    q4, k4, v4 = (library_view(t) for t in (q, k, v))
+    try:
+        with sdpa_kernel(getattr(SDPBackend, name)):
+            ms = timed_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale))
+    except RuntimeError as exc:
+        fail(f"SDPA backend {name} refused {tuple(q4.shape)} {q4.dtype}: {exc}")
+    return name, ms
+
+
 def phase_environment():
     import torch
 
@@ -113,8 +159,22 @@ def phase_environment():
     return card
 
 
+SLICE_SHAPE = (16 * N_TAGS * SLICE["n_heads"], (LOOKBACK - 16) // 8 + 1, 64)
+# every kernel is held against its plain version at these shapes, in both
+# dtypes: the slice shape, S = 64 / 65 (one tile and one past it), S = 256,
+# S = 300 at D = 128 (the q-block split and the two-half head), and D = 12
+# (the bf16 kernel's plain-load path, where TMA's 16-byte stride rule fails)
+CHECK_SHAPES = [SLICE_SHAPE, (12, 129, 16), (3, 37, 8), (4, 64, 64), (4, 65, 64),
+                (4, 256, 64), (5, 300, 128), (2, 37, 12)]
+KERNELS = {  # kernel name -> (dtype, source)
+    "flash_fwd_f32": ("float32", "gordo_components_tpu_torch/csrc/flash_fwd_f32.cu"),
+    "flash_fwd_bf16": ("bfloat16", "gordo_components_tpu_torch/csrc/flash_fwd_bf16.cu"),
+}
+
+
 def phase_kernels(torch, device) -> dict:
-    """flash_fwd against flash_fwd_reference on the card."""
+    """Each flash kernel against flash_fwd_reference on the card, then its
+    time beside the plain version's and the library yardstick's."""
     import torch.nn.functional as F
 
     from gordo_components_tpu_torch.ops import _kernels
@@ -129,54 +189,61 @@ def phase_kernels(torch, device) -> dict:
         return [(0.5 * torch.randn(shape, generator=gen, device=device)).to(dtype)
                 for _ in range(3)]
 
-    slice_shape = (16 * N_TAGS * SLICE["n_heads"], (LOOKBACK - 16) // 8 + 1, 64)
-    cases = [
-        (slice_shape, torch.float32),
-        (slice_shape, torch.bfloat16),
-        ((12, 129, 16), torch.float32),
-        ((3, 37, 8), torch.float32),
-    ]
-    max_err = 0.0
-    for shape, dtype in cases:
+    def check(name, launch, shape, dtype):
         q, k, v = qkv(shape, dtype)
         scale = shape[-1] ** -0.5
-        out, lse = _kernels.flash_fwd_cuda(q, k, v, scale)
+        out, lse = launch(q, k, v, scale)
         ref_out, ref_lse = flash_fwd_reference(q, k, v, scale)
         torch.cuda.synchronize()
         atol = FP32_ATOL if dtype == torch.float32 else BF16_ATOL
         err = (out.float() - ref_out.float()).abs().max().item()
         lse_err = (lse - ref_lse).abs().max().item()
-        print(f"flash_fwd {tuple(shape)} {str(dtype)[6:]}: max|out-plain| {err:.3g} "
-              f"(atol {atol}), max|lse-plain| {lse_err:.3g} (atol {FP32_ATOL * 5})")
-        if not (err <= atol and lse_err <= FP32_ATOL * 5):
-            fail(f"flash_fwd disagrees with its plain version at {shape} {dtype}")
-        if dtype == torch.float32:
-            max_err = max(max_err, err)
+        print(f"{name} {tuple(shape)}: max|out-plain| {err:.3g} (atol {atol}), "
+              f"max|lse-plain| {lse_err:.3g} (atol {LSE_ATOL})")
+        if not (err <= atol and lse_err <= LSE_ATOL):
+            fail(f"{name} disagrees with its plain version at {shape}")
+        return err
+
+    record = {}
+    for name, (dtype_name, _) in KERNELS.items():
+        dtype = getattr(torch, dtype_name)
+        errs = [check(name, _kernels.flash_fwd_cuda, shape, dtype) for shape in CHECK_SHAPES]
+        record[name] = {"max_abs_err": max(errs)}
+    # the bf16 kernel's first build-up step (one warpgroup, one stage)
+    for shape in (SLICE_SHAPE, (5, 300, 128)):
+        check("flash_fwd_bf16 single-stage step", _kernels.flash_fwd_bf16_single_stage,
+              shape, torch.bfloat16)
     # the public entry with small blocks: (B, S, H, D) layout into the kernel
     q, k, v = qkv((1, 37, 3, 8), torch.float32)
-    before = _kernels.LAUNCHES["flash_fwd"]
+    before = _kernels.LAUNCHES["flash_fwd_f32"]
     out = flash_attention(q, k, v, block_q=8, block_k=8)
     ref = flash_attention(*(t.cpu() for t in (q, k, v)), block_q=8, block_k=8)
     err = (out.cpu() - ref).abs().max().item()
     print(f"flash_attention (1, 37, 3, 8) blocks 8: max|cuda-cpu| {err:.3g}")
-    if err > FP32_ATOL or _kernels.LAUNCHES["flash_fwd"] != before + 1:
+    if err > FP32_ATOL or _kernels.LAUNCHES["flash_fwd_f32"] != before + 1:
         fail("flash_attention on the card did not match the CPU path through the kernel")
 
-    record = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        q, k, v = qkv(slice_shape, dtype)
-        scale = slice_shape[-1] ** -0.5
-        ms = timed_ms(lambda: _kernels.flash_fwd_cuda(q, k, v, scale))
+    # times at the slice shape, in turns: kernel, plain, library, kernel
+    for name, (dtype_name, _) in KERNELS.items():
+        dtype = getattr(torch, dtype_name)
+        q, k, v = qkv(SLICE_SHAPE, dtype)
+        scale = SLICE_SHAPE[-1] ** -0.5
+        ms_first = timed_ms(lambda: _kernels.flash_fwd_cuda(q, k, v, scale))
         plain_ms = timed_ms(lambda: flash_fwd_reference(q, k, v, scale), iters=3)
-        library_ms = timed_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
-        bound = attention_bound(*slice_shape, dtype)
-        print(f"flash_fwd {slice_shape} {str(dtype)[6:]}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
-              f"({bound['bound_by']}: {bound['gflop']:.1f} GFLOP, {bound['gbytes']:.3f} GB)")
-        record[str(dtype)[6:]] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound)
+        library, library_ms = time_library(torch, F, q, k, v, scale)
+        ms_second = timed_ms(lambda: _kernels.flash_fwd_cuda(q, k, v, scale))
+        ms = (ms_first + ms_second) / 2
+        bound = attention_bound(*SLICE_SHAPE, dtype)
+        print(f"{name} {SLICE_SHAPE}: kernel {ms:.4f} ms ({ms_first:.4f}, {ms_second:.4f}), "
+              f"plain {plain_ms:.4f} ms, sdpa {library} {library_ms:.4f} ms, bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}: {bound['gflop']:.1f} GFLOP, "
+              f"{bound['gbytes']:.3f} GB); achieved {bound['gflop'] / ms:.1f} TFLOP/s, "
+              f"{bound['gbytes'] / ms:.3f} TB/s, {100 * bound['bound_ms'] / ms:.1f} % of bound")
+        record[name].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, library=library,
+                            **bound)
         del q, k, v
     torch.cuda.empty_cache()
-    return {"max_abs_err": max_err, "timings": record}
+    return record
 
 
 def slice_weights(rng: np.random.Generator) -> dict:
@@ -226,7 +293,7 @@ def sensor_rows(rng: np.random.Generator, n: int) -> np.ndarray:
     return (level + scale * (wave + 0.3 * rng.normal(size=(n, N_TAGS)))).astype(np.float32)
 
 
-def build_artifact(dest: str, device) -> list:
+def build_artifact(dest: str, device, compute_dtype: str = "float32") -> list:
     from gordo_components_tpu_torch.serializer import dump, pipeline_from_definition
 
     rng = np.random.default_rng(SEED)
@@ -240,7 +307,7 @@ def build_artifact(dest: str, device) -> list:
                                 "MinMaxScaler",
                                 {"PatchTSTAutoEncoder": {
                                     "kind": "patchtst", "lookback_window": LOOKBACK,
-                                    "attention_impl": "flash", "compute_dtype": "float32",
+                                    "attention_impl": "flash", "compute_dtype": compute_dtype,
                                     **SLICE,
                                 }},
                             ]
@@ -273,75 +340,122 @@ def build_artifact(dest: str, device) -> list:
     return tags
 
 
-def phase_serve(torch, device, tmp: str) -> int:
-    from gordo_components_tpu_torch import wire
+def serve(artifact: str, device, windows, rng) -> list:
+    """POST one request of each window count to the port's HTTP server on
+    the card. The launch counts are zeroed just before the first request and
+    read after each; returns (X, payload, launches by kernel) per request."""
     from gordo_components_tpu_torch.ops import _kernels
-    from gordo_components_tpu_torch.serializer import load
-    from gordo_components_tpu_torch.server.engine import ServingEngine
     from gordo_components_tpu_torch.server.server import make_server
-
-    artifact = os.path.join(tmp, "turbine-long-window")
-    started = time.perf_counter()
-    build_artifact(artifact, device)
-    print(f"artifact written in {time.perf_counter() - started:.1f} s: {sorted(os.listdir(artifact))}")
 
     httpd = make_server(artifact, port=0, device=device)
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
     url = (f"http://127.0.0.1:{httpd.server_address[1]}"
-           "/gordo/v0/project/turbine-long-window/anomaly/prediction")
-    rng = np.random.default_rng(SEED + 1)
-    requests, responses, launches = [], [], []
+           f"/gordo/v0/project/{os.path.basename(artifact)}/anomaly/prediction")
+    results = []
     try:
         _kernels.reset_launches()
-        for w in WINDOWS:
+        for w in windows:
             X = sensor_rows(rng, LOOKBACK + w - 1)
             body = json.dumps({"X": X.tolist()}).encode()
-            before = _kernels.LAUNCHES["flash_fwd"]
+            before = dict(_kernels.LAUNCHES)
             t0 = time.perf_counter()
             req = urllib.request.Request(url, data=body, method="POST",
                                          headers={"Content-Type": "application/json"})
             with urllib.request.urlopen(req, timeout=300) as resp:
                 status, payload = resp.status, json.loads(resp.read())
             ms = (time.perf_counter() - t0) * 1e3
-            launches.append(_kernels.LAUNCHES["flash_fwd"] - before)
-            print(f"POST W={w} ({len(X)} rows): HTTP {status}, {ms:.1f} ms, "
-                  f"flash_fwd launches {launches[-1]}")
+            launches = {n: _kernels.LAUNCHES[n] - before[n] for n in KERNELS}
+            print(f"POST W={w} ({len(X)} rows): HTTP {status}, {ms:.1f} ms, launches {launches}")
             if status != 200:
                 fail(f"HTTP {status} for W={w}")
-            requests.append(X)
-            responses.append(payload)
-        main_path_launches = dict(_kernels.LAUNCHES)
+            results.append((X, payload, launches))
     finally:
         httpd.shutdown()
         httpd.server_close()
         thread.join(timeout=30)
-    if any(n != SLICE["n_layers"] for n in launches):
-        fail(f"flash_fwd launches per request {launches}, expected {SLICE['n_layers']} each")
+    return results
+
+
+def compare_scores(label: str, w: int, payload: dict, plain: dict, rtol: float) -> float:
+    """The four score arrays of a response against another scoring of the
+    same rows: shapes, finiteness, and the worst difference relative to each
+    array's magnitude."""
+    data = payload["data"]
+    expected = {"model-input": (w, N_TAGS), "model-output": (w, N_TAGS),
+                "tag-anomaly-scores": (w, N_TAGS), "total-anomaly-score": (w,)}
+    worst = 0.0
+    for field, shape in expected.items():
+        got = np.asarray(data[field], np.float64)
+        if got.shape != shape or not np.isfinite(got).all():
+            fail(f"{label} W={w}: {field} has shape {got.shape} (want {shape}) or non-finite values")
+        ref = plain[field].astype(np.float64)
+        rel = np.abs(got - ref).max() / max(1.0, np.abs(ref).max())
+        worst = max(worst, rel)
+        if rel > rtol:
+            fail(f"{label} W={w}: {field} differs by {rel:.3g} (relative, limit {rtol})")
+    if len(payload["tag-thresholds"]) != N_TAGS:
+        fail("thresholds missing from the response")
+    return worst
+
+
+def phase_serve(torch, device, tmp: str) -> dict:
+    """The main path in float32: the slice machine served over HTTP; each
+    request launches the fp32 kernel once per layer and matches the CPU
+    plain path."""
+    from gordo_components_tpu_torch import wire
+    from gordo_components_tpu_torch.serializer import load
+    from gordo_components_tpu_torch.server.engine import ServingEngine
+
+    artifact = os.path.join(tmp, "turbine-long-window")
+    started = time.perf_counter()
+    build_artifact(artifact, device)
+    print(f"artifact written in {time.perf_counter() - started:.1f} s: {sorted(os.listdir(artifact))}")
+    results = serve(artifact, device, WINDOWS, np.random.default_rng(SEED + 1))
+    per_request = [r[2]["flash_fwd_f32"] for r in results]
+    if any(n != SLICE["n_layers"] for n in per_request) or any(
+            r[2]["flash_fwd_bf16"] for r in results):
+        fail(f"fp32 kernel launches per request {per_request}, expected {SLICE['n_layers']} "
+             "each and no bf16 launch")
 
     cpu_engine = ServingEngine({"m": load(artifact, device="cpu")}, device="cpu")
-    for w, X, payload in zip(WINDOWS, requests, responses):
-        data = payload["data"]
-        expected = {"model-input": (w, N_TAGS), "model-output": (w, N_TAGS),
-                    "tag-anomaly-scores": (w, N_TAGS), "total-anomaly-score": (w,)}
+    for w, (X, payload, _) in zip(WINDOWS, results):
         started = time.perf_counter()
         plain = dict(zip(wire.SCORE_FIELDS, cpu_engine.anomaly("m", X)))
         cpu_s = time.perf_counter() - started
-        worst = 0.0
-        for field, shape in expected.items():
-            got = np.asarray(data[field], np.float64)
-            if got.shape != shape or not np.isfinite(got).all():
-                fail(f"W={w}: {field} has shape {got.shape} (want {shape}) or non-finite values")
-            ref = plain[field].astype(np.float64)
-            rel = np.abs(got - ref).max() / max(1.0, np.abs(ref).max())
-            worst = max(worst, rel)
-            if rel > SERVE_RTOL:
-                fail(f"W={w}: {field} differs from the CPU plain path by {rel:.3g} (relative)")
-        if len(payload["tag-thresholds"]) != N_TAGS:
-            fail("thresholds missing from the response")
+        worst = compare_scores("fp32", w, payload, plain, SERVE_RTOL)
         print(f"W={w}: card vs CPU plain path, worst relative difference {worst:.3g} "
               f"(limit {SERVE_RTOL}); CPU scoring took {cpu_s:.1f} s")
-    return main_path_launches["flash_fwd"]
+    return {n: sum(r[2][n] for r in results) for n in KERNELS}
+
+
+def phase_serve_bf16(torch, device, tmp: str) -> dict:
+    """The bf16 path: the same slice machine built with compute_dtype
+    bfloat16, one W = 16 request over HTTP; it launches the bf16 kernel once
+    per layer (and the fp32 kernel never) and matches the same artifact
+    scored on the card with dense attention in bf16."""
+    from gordo_components_tpu_torch import wire
+    from gordo_components_tpu_torch.models.factories.transformer import MultiHeadSelfAttention
+    from gordo_components_tpu_torch.serializer import load
+    from gordo_components_tpu_torch.server.engine import ServingEngine
+
+    artifact = os.path.join(tmp, "turbine-long-window-bf16")
+    build_artifact(artifact, device, compute_dtype="bfloat16")
+    w = 16
+    [(X, payload, launches)] = serve(artifact, device, (w,), np.random.default_rng(SEED + 3))
+    if launches != {"flash_fwd_f32": 0, "flash_fwd_bf16": SLICE["n_layers"]}:
+        fail(f"bf16 request launched {launches}, expected {SLICE['n_layers']} bf16 launches only")
+    dense = load(artifact, device=device)
+    est = dense.base_estimator.regressor.steps[-1][1]
+    for module in est.module_.modules():
+        if isinstance(module, MultiHeadSelfAttention):
+            module.attention_impl = "dense"
+    plain = dict(zip(wire.SCORE_FIELDS,
+                     ServingEngine({"m": dense}, device=device).anomaly("m", X)))
+    worst = compare_scores("bf16", w, payload, plain, BF16_SERVE_RTOL)
+    print(f"bf16 W={w}: flash kernel vs dense attention on the card, worst relative "
+          f"difference {worst:.3g} (limit {BF16_SERVE_RTOL})")
+    return launches
 
 
 def main() -> None:
@@ -359,21 +473,17 @@ def main() -> None:
     card = phase_environment()
     kernels = phase_kernels(torch, device)
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
-        total_launches = phase_serve(torch, device, tmp)
-    t32 = kernels["timings"]["float32"]
+        launches = phase_serve(torch, device, tmp)
+        launches["flash_fwd_bf16"] = phase_serve_bf16(torch, device, tmp)["flash_fwd_bf16"]
     print(json.dumps({"kernels": [{
-        "name": "flash_fwd",
+        "name": name,
         "route": "cuda",
-        "source": "gordo_components_tpu_torch/csrc/flash_fwd.cu",
+        "source": source,
         "replaces": "gordo_components_tpu/ops/flash_attention.py:157",
-        "launches": total_launches,
-        "max_abs_err": kernels["max_abs_err"],
-        "ms": t32["ms"],
-        "plain_ms": t32["plain_ms"],
-        "bound_ms": t32["bound_ms"],
-        "bound_by": t32["bound_by"],
-        "library_ms": t32["library_ms"],
-    }]}))
+        "launches": launches[name],
+        **{key: kernels[name][key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library")},
+    } for name, (_, source) in KERNELS.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

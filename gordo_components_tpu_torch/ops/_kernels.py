@@ -35,11 +35,16 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
 
-# kernel name -> CUDA source; one shared library per source
-SOURCES: Dict[str, str] = {"flash_fwd": "flash_fwd.cu"}
+# kernel name -> CUDA source; one shared library per source. The flash
+# forward has one design per dtype: fp32 on CUDA cores, bf16 on wgmma + TMA.
+SOURCES: Dict[str, str] = {
+    "flash_fwd_f32": "flash_fwd_f32.cu",
+    "flash_fwd_bf16": "flash_fwd_bf16.cu",
+}
 
-# kernel name -> launches since the last reset (see reset_launches)
-LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+# kernel name -> launches since the last reset (see reset_launches);
+# "flash_fwd" counts the launches of both dtypes' flash kernels
+LAUNCHES: Dict[str, int] = {"flash_fwd": 0, **{name: 0 for name in SOURCES}}
 _LAUNCH_LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOAD_LOCK = threading.Lock()
@@ -51,9 +56,10 @@ def reset_launches() -> None:
             LAUNCHES[name] = 0
 
 
-def _count(name: str) -> None:
+def _count(*names: str) -> None:
     with _LAUNCH_LOCK:
-        LAUNCHES[name] += 1
+        for name in names:
+            LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:
@@ -130,15 +136,23 @@ def _library(name: str) -> ctypes.CDLL:
     return lib
 
 
+# kernel name -> its C entry's int arguments after the scale, served values:
+# fp32 (q rows per block cap, 0 = served; tiling, 0 = served), bf16
+# (design: 0 served, 1 the single-stage build-up step)
+_SERVED_VARIANT: Dict[str, Tuple[int, ...]] = {"flash_fwd_f32": (0, 0), "flash_fwd_bf16": (0,)}
+
+
 def _bind(name: str, lib: ctypes.CDLL) -> None:
-    if name == "flash_fwd":
-        ptr = ctypes.c_void_p
-        lib.gordo_flash_fwd.argtypes = [
-            ptr, ptr, ptr, ptr, ptr,  # q, k, v, out, lse
-            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # bh, seq, d
-            ctypes.c_float, ctypes.c_int, ptr,  # scale, dtype, stream
-        ]
-        lib.gordo_flash_fwd.restype = ctypes.c_int
+    ptr = ctypes.c_void_p
+    entry = getattr(lib, f"gordo_{name}")
+    entry.argtypes = [
+        ptr, ptr, ptr, ptr, ptr,  # q, k, v, out, lse
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # bh, seq, d
+        ctypes.c_float,  # scale
+        *[ctypes.c_int] * len(_SERVED_VARIANT[name]),
+        ptr,  # stream
+    ]
+    entry.restype = ctypes.c_int
 
 
 def _raise_on(lib: ctypes.CDLL, status: int, what: str) -> None:
@@ -147,14 +161,43 @@ def _raise_on(lib: ctypes.CDLL, status: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {status} ({message})")
 
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_KERNEL_FOR_DTYPE = {torch.float32: "flash_fwd_f32", torch.bfloat16: "flash_fwd_bf16"}
 
 
 def flash_fwd_cuda(
     q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor, scale: float
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/flash_fwd.cu`` on ``(BH, S, D)`` CUDA tensors →
-    ``(out (BH, S, D) in q's dtype, lse (BH, S) float32)``."""
+    """Launch the flash forward of q's dtype (``csrc/flash_fwd_f32.cu`` or
+    ``csrc/flash_fwd_bf16.cu``) on ``(BH, S, D)`` CUDA tensors → ``(out
+    (BH, S, D) in q's dtype, lse (BH, S) float32)``. A tensor is never cast
+    to the other dtype's kernel."""
+    return _launch_flash(q3, k3, v3, scale)
+
+
+def flash_fwd_f32_tiling(
+    q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor, scale: float, row_cap: int,
+    tiling: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fp32 kernel with ``row_cap`` q rows per block (0: the served 64)
+    and, at D <= 64, a register tiling (0: the served 4 x 8 tiles, 1: 8 x 8
+    tiles): the tiling sweep of ``tools/flash_kernel_sweep.py``."""
+    if q3.dtype != torch.float32:
+        raise ValueError(f"flash_fwd_f32_tiling takes float32, got {q3.dtype}")
+    return _launch_flash(q3, k3, v3, scale, (int(row_cap), int(tiling)))
+
+
+def flash_fwd_bf16_single_stage(
+    q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor, scale: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 kernel's first build-up step (one consumer warpgroup, one
+    stage, one bh per block: its products and swizzled layouts without the
+    ring or persistence), kept as a check on the card."""
+    if q3.dtype != torch.bfloat16:
+        raise ValueError(f"flash_fwd_bf16_single_stage takes bfloat16, got {q3.dtype}")
+    return _launch_flash(q3, k3, v3, scale, (1,))
+
+
+def _launch_flash(q3, k3, v3, scale, variant: Optional[Tuple[int, ...]] = None):
     for name, t in (("q", q3), ("k", k3), ("v", v3)):
         if t.device.type != "cuda":
             raise ValueError(f"flash_fwd_cuda: {name} is on {t.device}, not CUDA")
@@ -162,12 +205,14 @@ def flash_fwd_cuda(
             raise ValueError(f"flash_fwd_cuda: {name} must be (BH, S, D), got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"flash_fwd_cuda: {name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_fwd_cuda: {name} must start on a 16-byte boundary")
     if not (q3.shape == k3.shape == v3.shape):
         raise ValueError(
             "flash_fwd_cuda: self-attention needs equal q/k/v shapes, got "
             f"{tuple(q3.shape)}, {tuple(k3.shape)}, {tuple(v3.shape)}"
         )
-    if not (q3.dtype == k3.dtype == v3.dtype) or q3.dtype not in _DTYPE_CODES:
+    if not (q3.dtype == k3.dtype == v3.dtype) or q3.dtype not in _KERNEL_FOR_DTYPE:
         raise ValueError(
             "flash_fwd_cuda: q/k/v must share one dtype of float32 or bfloat16, "
             f"got {q3.dtype}, {k3.dtype}, {v3.dtype}"
@@ -179,16 +224,16 @@ def flash_fwd_cuda(
         raise ValueError(f"flash_fwd_cuda: head_dim must be a multiple of 4 up to 128, got {d}")
     if bh == 0 or seq == 0:
         raise ValueError(f"flash_fwd_cuda: empty input {tuple(q3.shape)}")
-    lib = _library("flash_fwd")
+    name = _KERNEL_FOR_DTYPE[q3.dtype]
+    lib = _library(name)
     out = torch.empty_like(q3)
     lse = torch.empty((bh, seq), dtype=torch.float32, device=q3.device)
     with torch.cuda.device(q3.device):
         stream = torch.cuda.current_stream(q3.device).cuda_stream
-        status = lib.gordo_flash_fwd(
-            q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), bh, seq, d, float(scale), _DTYPE_CODES[q3.dtype],
-            stream,
+        status = getattr(lib, f"gordo_{name}")(
+            q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            bh, seq, d, float(scale), *(variant or _SERVED_VARIANT[name]), stream,
         )
-    _raise_on(lib, status, "flash_fwd")
-    _count("flash_fwd")
+    _raise_on(lib, status, name)
+    _count("flash_fwd", name)
     return out, lse

@@ -2,10 +2,11 @@
 ``gordo_components_tpu/ops/flash_attention.py``).
 
 The reference runs a Pallas TPU kernel (``_fwd_kernel`` via
-``_flash_fwd_3d``); the port runs ``csrc/flash_fwd.cu``, a CUDA kernel
-written for Hopper, on CUDA tensors, and :func:`flash_fwd_reference`, its
-plain PyTorch version, on CPU tensors. The choice follows the tensor's
-device and nothing else: a CUDA tensor launches the kernel or raises.
+``_flash_fwd_3d``); the port runs a CUDA kernel written for Hopper on CUDA
+tensors, one per dtype (``csrc/flash_fwd_f32.cu``, ``csrc/flash_fwd_bf16.cu``),
+and :func:`flash_fwd_reference`, their plain PyTorch version, on CPU
+tensors. The choice follows the tensor's device and dtype and nothing
+else: a CUDA tensor launches its dtype's kernel or raises.
 
 Public contract kept from the reference:
 

@@ -93,6 +93,17 @@ def test_short_sequence_takes_dense_and_cpu_takes_plain_version():
 
 
 def test_kernel_wrapper_validates_before_building():
-    q = torch.zeros(2, 8, 8)
+    """Each dtype's kernel refuses a CPU tensor before anything is built or
+    counted: there is no CPU fallback inside the wrapper."""
+    before = dict(_kernels.LAUNCHES)
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.zeros(2, 8, 8, dtype=dtype)
+        with pytest.raises(ValueError, match="not CUDA"):
+            _kernels.flash_fwd_cuda(q, q, q, 1.0)
+    q = torch.zeros(2, 8, 8, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="not CUDA"):
-        _kernels.flash_fwd_cuda(q, q, q, 1.0)
+        _kernels.flash_fwd_bf16_single_stage(q, q, q, 1.0)
+    with pytest.raises(ValueError, match="float32"):
+        _kernels.flash_fwd_f32_tiling(q, q, q, 1.0, 64)
+    assert set(_kernels.SOURCES) == {"flash_fwd_f32", "flash_fwd_bf16"}
+    assert _kernels._LIBS == {} and _kernels.LAUNCHES == before

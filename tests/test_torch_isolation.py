@@ -19,7 +19,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "gordo_components_tpu")
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    tools = [ROOT / "tools" / name for name in ("torch_slice_profile.py", "flash_kernel_sweep.py")]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", *tools]
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))

@@ -6,9 +6,11 @@ run on a machine that has only PyTorch:
 
     python -m pytest tests/test_torch_kernels_gpu.py -m gpu -q --noconftest
 
-Tolerances: float32 atol 2e-5 (summation order only); bfloat16 atol 2e-2,
-compared in bfloat16 (one rounding of outputs near 1); lse is float32 on
-both sides from the same inputs.
+Each dtype has its own kernel (``csrc/flash_fwd_f32.cu``,
+``csrc/flash_fwd_bf16.cu``) and launch count; a bf16 input never reaches
+the fp32 kernel. Tolerances: float32 atol 2e-5 (summation order only);
+bfloat16 atol 2e-2, compared in bfloat16 (one rounding of outputs near 1);
+lse atol 1e-4, float32 on both sides from the same inputs.
 """
 
 import numpy as np
@@ -40,23 +42,46 @@ def _qkv(shape, device, dtype, seed=3):
     ]
 
 
+# each dtype's kernel at every S in {1, 37, 64, 65, 129, 179, 256, 300}
+# with every D in {8, 16, 64, 128}; then head_dims that are multiples of 4
+# but not of 8 (4, 12, 20, 100: the bf16 kernel's plain-load path, where
+# TMA's 16-byte row stride rule does not hold) and the served slice width
+_SHAPES = [(3, seq, d) for seq in (1, 37, 64, 65, 129, 179, 256, 300) for d in (8, 16, 64, 128)]
+_SHAPES += [(2, 64, 4), (2, 37, 12), (2, 129, 20), (2, 65, 100), (64, 179, 64)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize(
-    "shape,dtype",
-    [((12, 129, 16), "float32"), ((3, 37, 8), "float32"), ((2, 64, 4), "float32"),
-     ((5, 300, 128), "float32"), ((64, 179, 64), "float32"), ((64, 179, 64), "bfloat16")],
-)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", _SHAPES)
 def test_flash_fwd_matches_plain_version(shape, dtype, cuda_device):
     dt = getattr(torch, dtype)
     q, k, v = _qkv(shape, cuda_device, dt)
     scale = shape[-1] ** -0.5
-    before = _kernels.LAUNCHES["flash_fwd"]
+    before = dict(_kernels.LAUNCHES)
     out, lse = _kernels.flash_fwd_cuda(q, k, v, scale)
     ref_out, ref_lse = flash_fwd_reference(q, k, v, scale)
     torch.cuda.synchronize()
-    assert _kernels.LAUNCHES["flash_fwd"] == before + 1
+    own, other = ("flash_fwd_f32", "flash_fwd_bf16")[:: 1 if dt == torch.float32 else -1]
+    assert _kernels.LAUNCHES["flash_fwd"] == before["flash_fwd"] + 1
+    assert _kernels.LAUNCHES[own] == before[own] + 1
+    assert _kernels.LAUNCHES[other] == before[other]  # never the other dtype's kernel
     assert out.dtype == dt and lse.dtype == torch.float32
     torch.testing.assert_close(out, ref_out, atol=2e-5 if dt == torch.float32 else 2e-2, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 37, 64), (4, 179, 64), (2, 300, 128), (2, 65, 12)])
+def test_bf16_single_stage_step_matches_plain_version(shape, cuda_device):
+    """The bf16 kernel's first build-up step: one consumer warpgroup, one
+    stage, one bh per block. It checks the wgmma products, the swizzled
+    layouts and V's transpose bit apart from the ring and persistence."""
+    q, k, v = _qkv(shape, cuda_device, torch.bfloat16)
+    scale = shape[-1] ** -0.5
+    out, lse = _kernels.flash_fwd_bf16_single_stage(q, k, v, scale)
+    ref_out, ref_lse = flash_fwd_reference(q, k, v, scale)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref_out, atol=2e-2, rtol=0)
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
 
 
@@ -76,6 +101,13 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     h = torch.zeros(2, 8, 8, device=cuda_device, dtype=torch.float16)
     with pytest.raises(ValueError, match="bfloat16"):
         _kernels.flash_fwd_cuda(h, h, h, 1.0)
+    f32 = torch.zeros(2, 8, 4, device=cuda_device)
+    b16 = f32.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="one dtype"):  # never cast to the other kernel
+        _kernels.flash_fwd_cuda(f32, b16, b16, 1.0)
+    unaligned = torch.zeros(2 * 8 * 8 + 1, device=cuda_device)[1:].view(2, 8, 8)
+    with pytest.raises(ValueError, match="16-byte"):
+        _kernels.flash_fwd_cuda(unaligned, unaligned, unaligned, 1.0)
     with pytest.raises(NotImplementedError, match="backward"):
         g = torch.zeros(2, 8, 8, device=cuda_device, requires_grad=True)
         from gordo_components_tpu_torch.ops.flash_attention import flash_fwd
