@@ -1,4 +1,4 @@
-// Exact non-causal attention forward in bfloat16 on Hopper's tensor cores.
+// Non-causal attention forward in bfloat16 on Hopper's tensor cores.
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel`, launched by `_flash_fwd_3d`
 // in gordo_components_tpu/ops/flash_attention.py (pl.pallas_call at :157).
@@ -35,11 +35,11 @@
 //   two, with two accumulators for O.
 //
 // Resources (nvcc 12.8, -Xptxas -v, sm_90a; tools/flash_kernel_sweep.py):
-// the served <NH = 1, NWG = 3, NST = 6> runs 416 threads at 117 registers
+// the served <NH = 1, NWG = 3, NST = 6> runs 416 threads at 106 registers
 // with no spills, 240 bytes of static and 148,480 bytes of dynamic shared
-// memory: one block per SM. <2, 3, 2> (D > 64): 126 registers, 48 bytes
+// memory: one block per SM. <2, 3, 2> (D > 64): 128 registers, 48 bytes
 // spilled. Measured at the slice shape (NVIDIA H100 80GB HBM3, 700 W):
-// 0.35 ms, 2.2 TB/s, 65 % of the bytes bound (PERF.md, PR 2).
+// 0.34 ms, 2.25 TB/s, 67 % of the bytes bound (PERF.md, PR 2).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -73,11 +73,16 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
                "r"(bytes)
                : "memory");
 }
-// wait until the phase with this parity has completed; a wait that lasts
-// seconds means a fault in the pipeline, and traps rather than hangs
+// wait until the phase with this parity has completed. A debug build
+// (-DCUDA_KERNEL_DEBUG) traps after about 4 s of waiting, so that a fault in
+// the pipeline shows as a launch failure rather than a hang; the served
+// build waits without a limit, since a trap leaves the CUDA context unusable
+// and a correct wait can stretch under time-slicing or a debugger
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
+#ifdef CUDA_KERNEL_DEBUG
   const long long start = clock64();
+#endif
   while (true) {
     uint32_t done;
     asm volatile(
@@ -88,7 +93,9 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(addr), "r"(parity)
         : "memory");
     if (done) return;
+#ifdef CUDA_KERNEL_DEBUG
     if (clock64() - start > 8000000000LL) asm volatile("trap;");
+#endif
   }
 }
 
@@ -483,30 +490,40 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* out, float
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// C entry point, bound with ctypes: bfloat16 q, k, v (BH, S, D) contiguous
-// and 16-byte aligned, out (BH, S, D) bfloat16, lse (BH, S) float32.
-// design 0 is the served kernel (ring of stages, three consumer
-// warpgroups, persistent blocks); design 1 is the first build-up step,
-// kept as a check of the products alone (one consumer warpgroup, one stage,
-// one bh per block). Returns the cudaError_t of the launch (0 on success).
-extern "C" int gordo_flash_fwd_bf16(const void* q, const void* k, const void* v, void* out,
-                                    void* lse, int bh, int seq, int d, float scale, int design,
-                                    void* stream) {
-  if (bh <= 0 || seq <= 0 || d <= 0 || d > 128 || d % 4 != 0 || design < 0 || design > 1)
-    return (int)cudaErrorInvalidValue;
+// one 64-column tile of the head up to D = 64, two above (NST128 stages)
+template <int NWG, int NST64, int NST128>
+int dispatch(const void* q, const void* k, const void* v, void* out, void* lse, int bh, int seq,
+             int d, float scale, bool persistent, void* stream) {
+  if (bh <= 0 || seq <= 0 || d <= 0 || d > 128 || d % 4 != 0) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto qb = static_cast<const bf16*>(q), kb = static_cast<const bf16*>(k),
        vb = static_cast<const bf16*>(v);
   auto ob = static_cast<bf16*>(out);
   auto lf = static_cast<float*>(lse);
-  if (design == 1) {
-    if (d <= 64) return (int)launch<1, 1, 1>(qb, kb, vb, ob, lf, bh, seq, d, scale, false, s);
-    return (int)launch<2, 1, 1>(qb, kb, vb, ob, lf, bh, seq, d, scale, false, s);
-  }
-  if (d <= 64) return (int)launch<1, 3, 6>(qb, kb, vb, ob, lf, bh, seq, d, scale, true, s);
-  return (int)launch<2, 3, 2>(qb, kb, vb, ob, lf, bh, seq, d, scale, true, s);
+  if (d <= 64)
+    return (int)launch<1, NWG, NST64>(qb, kb, vb, ob, lf, bh, seq, d, scale, persistent, s);
+  return (int)launch<2, NWG, NST128>(qb, kb, vb, ob, lf, bh, seq, d, scale, persistent, s);
+}
+
+}  // namespace
+
+// C entry points, bound with ctypes: bfloat16 q, k, v (BH, S, D) contiguous
+// and 16-byte aligned, out (BH, S, D) bfloat16, lse (BH, S) float32. Each
+// returns the cudaError_t of the launch (0 on success).
+
+// The served kernel: a ring of stages, three consumer warpgroups,
+// persistent blocks.
+extern "C" int gordo_flash_fwd_bf16(const void* q, const void* k, const void* v, void* out,
+                                    void* lse, int bh, int seq, int d, float scale, void* stream) {
+  return dispatch<3, 6, 2>(q, k, v, out, lse, bh, seq, d, scale, true, stream);
+}
+
+// The first build-up step, kept as a check of the products alone: one
+// consumer warpgroup, one stage, one bh per block.
+extern "C" int gordo_flash_fwd_bf16_single_stage(const void* q, const void* k, const void* v,
+                                                 void* out, void* lse, int bh, int seq, int d,
+                                                 float scale, void* stream) {
+  return dispatch<1, 1, 1>(q, k, v, out, lse, bh, seq, d, scale, false, stream);
 }
 
 extern "C" const char* gordo_cuda_error_string(int code) {

@@ -1,4 +1,4 @@
-// Exact non-causal attention forward in float32 on CUDA cores, for Hopper.
+// Non-causal attention forward in float32 on CUDA cores, for Hopper.
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel`, launched by `_flash_fwd_3d`
 // in gordo_components_tpu/ops/flash_attention.py (pl.pallas_call at :157).
@@ -11,7 +11,9 @@
 // What bounds it on an H100: at the slice shape (BH 8192, S 179, D 64) one
 // call does 4*BH*S^2*D = 67.2 GFLOP on 1.5 GB, so at 67 TFLOP/s of fp32
 // outside the tensor cores the bound is operations, 1.00 ms. Every
-// product is an fp32 FFMA: no TF32, no tensor-core instruction.
+// product is an fp32 FFMA: no TF32, no tensor-core instruction. The
+// softmax's exponentials are MUFU `ex2.approx.ftz` (about 2 ulp, subnormal
+// results flushed to 0), not a correctly rounded exp.
 //
 // What the design does about it:
 // - Register tiles read from shared memory as 16-byte float4 loads along
@@ -28,7 +30,9 @@
 //   5.75 warps (one 184-thread block) fit on an SM, and run at 2.66 ms;
 //   4 x 8 tiles need 166 registers, fit 11.25 warps (three 120-thread
 //   blocks), and run at 2.21 ms (tools/flash_kernel_sweep.py, PERF.md
-//   PR 2). The 8 x 8 instantiation stays for that sweep.
+//   PR 2). The sweep builds its own libraries of this source with other
+//   values of FLASH_F32_ROWS_PER_BLOCK and FLASH_F32_TILE_ROWS; the served
+//   library takes the defaults below.
 // - A block owns up to 64 q rows of one sequence (S = 179 is three blocks
 //   of 60 rows, 120 threads). Larger blocks measured slower: two of 90
 //   rows 2.34 ms; one of all 179 rows with 8 x 8 tiles, which reads each
@@ -51,7 +55,7 @@
 // Resources (nvcc 12.8, -Xptxas -v, sm_90a; tools/flash_kernel_sweep.py):
 // the served <DP = 64, ROWS = 4> uses 166 registers with no spills and, at
 // S = 179, 68,416 bytes of dynamic shared memory for 120 threads: 3 blocks
-// (11.25 warps) per SM. <64, 8>: 254 registers, no spills.
+// (11.25 warps) per SM.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -63,7 +67,12 @@ constexpr int BK = 64;      // keys per chunk
 constexpr int TG = 8;       // lanes per row group (one per 8 key columns)
 constexpr int PST = BK + 8; // P row stride in floats
 constexpr int MAX_THREADS = 256;
-constexpr int SERVED_ROWS_PER_BLOCK = 64;
+#ifndef FLASH_F32_ROWS_PER_BLOCK
+#define FLASH_F32_ROWS_PER_BLOCK 64  // q rows per block, at most
+#endif
+#ifndef FLASH_F32_TILE_ROWS
+#define FLASH_F32_TILE_ROWS 4  // q rows of a thread's register tile at D <= 64
+#endif
 constexpr float MASK = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
@@ -350,13 +359,11 @@ cudaError_t sm_count(int* sms) {
 
 template <int DP, int ROWS>
 cudaError_t launch(const float* q, const float* k, const float* v, float* out, float* lse, int bh,
-                   int seq, int d, float scale, int row_cap, cudaStream_t stream) {
-  // q rows per block: SERVED_ROWS_PER_BLOCK, or row_cap when positive, up
-  // to what MAX_THREADS threads hold; longer sequences are split evenly
-  // into q-blocks
+                   int seq, int d, float scale, cudaStream_t stream) {
+  // q rows per block: FLASH_F32_ROWS_PER_BLOCK, up to what MAX_THREADS
+  // threads hold; longer sequences are split evenly into q-blocks
   const int most = MAX_THREADS / TG * ROWS;
-  int max_rows = row_cap > 0 ? row_cap : SERVED_ROWS_PER_BLOCK;
-  if (max_rows > most) max_rows = most;
+  const int max_rows = FLASH_F32_ROWS_PER_BLOCK < most ? FLASH_F32_ROWS_PER_BLOCK : most;
   const int n_qb = (seq + max_rows - 1) / max_rows;
   const int qb_rows = (seq + n_qb - 1) / n_qb;
   const int rg = (qb_rows + ROWS - 1) / ROWS;
@@ -386,24 +393,19 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* out, f
 }  // namespace
 
 // C entry point, bound with ctypes: float32 q, k, v (BH, S, D) contiguous,
-// out (BH, S, D) float32, lse (BH, S) float32. row_cap > 0 caps the q rows
-// per block and tiling = 1 takes 8 x 8 register tiles in place of the
-// served 4 x 8 at D <= 64: the knobs of a tiling sweep, 0 and 0 when served.
-// Returns the cudaError_t of the launch (0 on success); the caller raises.
+// out (BH, S, D) float32, lse (BH, S) float32. Returns the cudaError_t of
+// the launch (0 on success); the caller raises.
 extern "C" int gordo_flash_fwd_f32(const void* q, const void* k, const void* v, void* out,
-                                   void* lse, int bh, int seq, int d, float scale, int row_cap,
-                                   int tiling, void* stream) {
-  if (bh <= 0 || seq <= 0 || d <= 0 || d > 128 || d % 4 != 0 || tiling < 0 || tiling > 1)
-    return (int)cudaErrorInvalidValue;
+                                   void* lse, int bh, int seq, int d, float scale, void* stream) {
+  if (bh <= 0 || seq <= 0 || d <= 0 || d > 128 || d % 4 != 0) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto qf = static_cast<const float*>(q), kf = static_cast<const float*>(k),
        vf = static_cast<const float*>(v);
   auto of = static_cast<float*>(out), lf = static_cast<float*>(lse);
-  if (d <= 32) return (int)launch<32, 4>(qf, kf, vf, of, lf, bh, seq, d, scale, row_cap, s);
-  if (d <= 64 && tiling == 1)
-    return (int)launch<64, 8>(qf, kf, vf, of, lf, bh, seq, d, scale, row_cap, s);
-  if (d <= 64) return (int)launch<64, 4>(qf, kf, vf, of, lf, bh, seq, d, scale, row_cap, s);
-  return (int)launch<128, 4>(qf, kf, vf, of, lf, bh, seq, d, scale, row_cap, s);
+  if (d <= 32) return (int)launch<32, 4>(qf, kf, vf, of, lf, bh, seq, d, scale, s);
+  if (d <= 64)
+    return (int)launch<64, FLASH_F32_TILE_ROWS>(qf, kf, vf, of, lf, bh, seq, d, scale, s);
+  return (int)launch<128, 4>(qf, kf, vf, of, lf, bh, seq, d, scale, s);
 }
 
 extern "C" const char* gordo_cuda_error_string(int code) {

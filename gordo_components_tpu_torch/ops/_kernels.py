@@ -8,6 +8,12 @@ library's file name carries a hash of its source, so an edited kernel is
 rebuilt and a stale one is never loaded. Nothing here runs on import: the
 CPU tests import this module on machines with no ``nvcc`` and no card.
 
+With ``CUDA_KERNEL_DEBUG=1`` in the environment of the build, the sources
+are compiled with ``-DCUDA_KERNEL_DEBUG`` into libraries of their own: the
+bf16 kernel's pipeline waits then trap after seconds instead of waiting
+without a limit, so that a pipeline fault fails its launch rather than
+hanging the card (the GPU tests build so).
+
 Every launch wrapper checks its tensors, launches on PyTorch's current
 stream, raises on a non-zero launch status and adds one to its entry in
 :data:`LAUNCHES`. It never synchronises: a fault during the run surfaces
@@ -34,6 +40,13 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
+
+
+def nvcc_flags() -> List[str]:
+    """The flags of a build: :data:`NVCC_FLAGS`, and ``-DCUDA_KERNEL_DEBUG``
+    when ``CUDA_KERNEL_DEBUG=1``."""
+    debug = os.environ.get("CUDA_KERNEL_DEBUG") == "1"
+    return NVCC_FLAGS + (["-DCUDA_KERNEL_DEBUG"] if debug else [])
 
 # kernel name -> CUDA source; one shared library per source. The flash
 # forward has one design per dtype: fp32 on CUDA cores, bf16 on wgmma + TMA.
@@ -75,7 +88,7 @@ def _nvcc() -> str:
 def library_path(name: str) -> str:
     src = os.path.join(SRC_DIR, SOURCES[name])
     with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha256(fh.read() + " ".join(nvcc_flags()).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
@@ -87,7 +100,7 @@ def _start_build(name: str) -> Optional[Tuple[subprocess.Popen, str, str]]:
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{target}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(SRC_DIR, SOURCES[name])]
+    cmd = [_nvcc(), *nvcc_flags(), "-o", tmp, os.path.join(SRC_DIR, SOURCES[name])]
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )
@@ -131,25 +144,27 @@ def _library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(library_path(name))
             lib.gordo_cuda_error_string.argtypes = [ctypes.c_int]
             lib.gordo_cuda_error_string.restype = ctypes.c_char_p
-            _bind(name, lib)
+            for entry in _ENTRIES[name]:
+                bind_flash_entry(getattr(lib, entry))
             _LIBS[name] = lib
     return lib
 
 
-# kernel name -> its C entry's int arguments after the scale, served values:
-# fp32 (q rows per block cap, 0 = served; tiling, 0 = served), bf16
-# (design: 0 served, 1 the single-stage build-up step)
-_SERVED_VARIANT: Dict[str, Tuple[int, ...]] = {"flash_fwd_f32": (0, 0), "flash_fwd_bf16": (0,)}
+# kernel name -> its library's C entries; each takes (q, k, v, out, lse,
+# bh, seq, d, scale, stream)
+_ENTRIES: Dict[str, Tuple[str, ...]] = {
+    "flash_fwd_f32": ("gordo_flash_fwd_f32",),
+    "flash_fwd_bf16": ("gordo_flash_fwd_bf16", "gordo_flash_fwd_bf16_single_stage"),
+}
 
 
-def _bind(name: str, lib: ctypes.CDLL) -> None:
+def bind_flash_entry(entry) -> None:
+    """Set the argument and result types of a flash forward's C entry."""
     ptr = ctypes.c_void_p
-    entry = getattr(lib, f"gordo_{name}")
     entry.argtypes = [
         ptr, ptr, ptr, ptr, ptr,  # q, k, v, out, lse
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # bh, seq, d
         ctypes.c_float,  # scale
-        *[ctypes.c_int] * len(_SERVED_VARIANT[name]),
         ptr,  # stream
     ]
     entry.restype = ctypes.c_int
@@ -174,18 +189,6 @@ def flash_fwd_cuda(
     return _launch_flash(q3, k3, v3, scale)
 
 
-def flash_fwd_f32_tiling(
-    q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor, scale: float, row_cap: int,
-    tiling: int = 0,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The fp32 kernel with ``row_cap`` q rows per block (0: the served 64)
-    and, at D <= 64, a register tiling (0: the served 4 x 8 tiles, 1: 8 x 8
-    tiles): the tiling sweep of ``tools/flash_kernel_sweep.py``."""
-    if q3.dtype != torch.float32:
-        raise ValueError(f"flash_fwd_f32_tiling takes float32, got {q3.dtype}")
-    return _launch_flash(q3, k3, v3, scale, (int(row_cap), int(tiling)))
-
-
 def flash_fwd_bf16_single_stage(
     q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor, scale: float
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -194,10 +197,10 @@ def flash_fwd_bf16_single_stage(
     ring or persistence), kept as a check on the card."""
     if q3.dtype != torch.bfloat16:
         raise ValueError(f"flash_fwd_bf16_single_stage takes bfloat16, got {q3.dtype}")
-    return _launch_flash(q3, k3, v3, scale, (1,))
+    return _launch_flash(q3, k3, v3, scale, "gordo_flash_fwd_bf16_single_stage")
 
 
-def _launch_flash(q3, k3, v3, scale, variant: Optional[Tuple[int, ...]] = None):
+def _launch_flash(q3, k3, v3, scale, entry: Optional[str] = None):
     for name, t in (("q", q3), ("k", k3), ("v", v3)):
         if t.device.type != "cuda":
             raise ValueError(f"flash_fwd_cuda: {name} is on {t.device}, not CUDA")
@@ -230,9 +233,9 @@ def _launch_flash(q3, k3, v3, scale, variant: Optional[Tuple[int, ...]] = None):
     lse = torch.empty((bh, seq), dtype=torch.float32, device=q3.device)
     with torch.cuda.device(q3.device):
         stream = torch.cuda.current_stream(q3.device).cuda_stream
-        status = getattr(lib, f"gordo_{name}")(
+        status = getattr(lib, entry or f"gordo_{name}")(
             q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            bh, seq, d, float(scale), *(variant or _SERVED_VARIANT[name]), stream,
+            bh, seq, d, float(scale), stream,
         )
     _raise_on(lib, status, name)
     _count("flash_fwd", name)

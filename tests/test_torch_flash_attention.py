@@ -103,7 +103,7 @@ def test_kernel_wrapper_validates_before_building():
     q = torch.zeros(2, 8, 8, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="not CUDA"):
         _kernels.flash_fwd_bf16_single_stage(q, q, q, 1.0)
-    with pytest.raises(ValueError, match="float32"):
-        _kernels.flash_fwd_f32_tiling(q, q, q, 1.0, 64)
+    with pytest.raises(ValueError, match="bfloat16"):  # the bf16 kernel's step takes bf16 only
+        _kernels.flash_fwd_bf16_single_stage(q.float(), q.float(), q.float(), 1.0)
     assert set(_kernels.SOURCES) == {"flash_fwd_f32", "flash_fwd_bf16"}
     assert _kernels._LIBS == {} and _kernels.LAUNCHES == before

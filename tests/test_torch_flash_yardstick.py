@@ -70,3 +70,42 @@ def test_kernel_table_names_both_sources():
         assert source.startswith("gordo_components_tpu_torch/csrc/") and dtype in (
             "float32", "bfloat16")
     assert set(_kernels.LAUNCHES) == {"flash_fwd", *_kernels.SOURCES}
+
+
+@pytest.mark.parametrize(
+    "top,atol",
+    [(0.2, 4 * 2.0**-10), (0.3, 4 * 2.0**-9), (0.125, 4 * 2.0**-10), (1.0, 2e-2), (3.0, 2e-2)],
+)
+def test_bf16_tolerance_is_a_few_ulps_of_the_largest_output(top, atol):
+    ref = torch.tensor([0.01, -top, top / 2], dtype=torch.bfloat16)
+    assert chip_smoke.bf16_atol(ref) == pytest.approx(atol)
+    assert chip_smoke.bf16_atol(ref) <= chip_smoke.BF16_ATOL
+
+
+def test_bf16_tolerance_catches_a_key_dropped_from_pv_only():
+    """A fault confined to P·V (key 0 left out of the weighted sum but kept
+    in the softmax's denominator) passes 2e-2 at S = 179 and fails the
+    ulp-scaled tolerance; the plain output rounded to bf16 passes it."""
+    from gordo_components_tpu_torch.ops.flash_attention import flash_fwd_reference
+
+    gen = torch.Generator().manual_seed(chip_smoke.SEED)
+    q, k, v = ((0.5 * torch.randn(4, 179, 64, generator=gen)).to(torch.bfloat16)
+               for _ in range(3))
+    scale = 64 ** -0.5
+    ref, lse = flash_fwd_reference(q, k, v, scale)
+    p = torch.exp(torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale - lse[..., None])
+    faulty = (ref.float() - p[..., :1] * v[:, None, 0].float()).to(torch.bfloat16)
+    err = (faulty.float() - ref.float()).abs().max().item()
+    assert chip_smoke.bf16_atol(ref) < err < chip_smoke.BF16_ATOL
+    exact = torch.einsum("bqk,bkd->bqd", p, v.float())
+    assert (exact - ref.float()).abs().max().item() <= chip_smoke.bf16_atol(ref)
+
+
+def test_debug_build_is_a_library_of_its_own(monkeypatch):
+    monkeypatch.delenv("CUDA_KERNEL_DEBUG", raising=False)
+    served = {name: _kernels.library_path(name) for name in _kernels.SOURCES}
+    assert "-DCUDA_KERNEL_DEBUG" not in _kernels.nvcc_flags()
+    monkeypatch.setenv("CUDA_KERNEL_DEBUG", "1")
+    assert _kernels.nvcc_flags() == [*_kernels.NVCC_FLAGS, "-DCUDA_KERNEL_DEBUG"]
+    for name in _kernels.SOURCES:
+        assert _kernels.library_path(name) != served[name]

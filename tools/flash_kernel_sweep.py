@@ -7,7 +7,10 @@ design, on one CUDA card.
 - fp32 (``csrc/flash_fwd_f32.cu``): the served tiling (4 x 8 register
   tiles, at most 64 q rows per block) against other q rows per block and
   against 8 x 8 tiles (4 FFMA per float loaded from shared memory, at 254
-  registers), up to one block holding all 179 rows of a sequence;
+  registers), up to one block holding all 179 rows of a sequence. Each
+  tiling is a library of its own, built from the source with
+  ``-DFLASH_F32_ROWS_PER_BLOCK`` and ``-DFLASH_F32_TILE_ROWS`` (the served
+  library takes the source's defaults, 64 and 4);
 - bf16 (``csrc/flash_fwd_bf16.cu``): the served design (TMA ring, three
   consumer warpgroups, persistent blocks) against its first build-up step
   (one warpgroup, one stage, one bh per block).
@@ -18,54 +21,60 @@ of every instantiation, and the count of tensor-core (HGMMA, HMMA), TMA
 (UTMALDG) and fp32 FMA (FFMA) instructions.
 
 Every variant is first held against ``flash_fwd_reference`` (fp32 atol
-2e-5, bf16 atol 2e-2), then timed with CUDA events (10 launches after 2
-warm-ups) in ``--rounds`` rounds of turns. Prints the card's name and power
-limit and one JSON line. Needs one CUDA card.
+2e-5, bf16 ``chip_smoke.bf16_atol``), then timed with CUDA events (10
+launches after 2 warm-ups) in ``--rounds`` rounds of turns. Prints the
+card's name and power limit and one JSON line. Needs one CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-# (q rows per block, tiling): the served tiling is 64 rows of 4 x 8 tiles
-# (0); 1 is 8 x 8 tiles, whose uncapped block holds all 179 rows of a
-# slice sequence
-TILINGS = ((64, 0), (128, 0), (48, 0), (256, 1), (96, 1), (64, 1))
-TILE_NAMES = {0: "4x8", 1: "8x8"}
+# fp32 tilings, (q rows per block, register tile rows at D <= 64): the
+# served library is (64, 4); (256, 8) is one block holding all 179 rows of
+# a slice sequence
+TILINGS = ((64, 4), (128, 4), (48, 4), (256, 8), (96, 8), (64, 8))
 SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "FFMA")
+
+
+def compile_source(_kernels, source: str, lib: str, defines=()) -> list:
+    """nvcc with ``-Xptxas -v`` into ``lib``; ptxas's report per entry."""
+    ptxas = subprocess.run(
+        [_kernels._nvcc(), *_kernels.NVCC_FLAGS, *defines, "-Xptxas", "-v", "-o", lib,
+         os.path.join(_kernels.SRC_DIR, source)],
+        capture_output=True, text=True, timeout=600,
+    )
+    if ptxas.returncode != 0:
+        sys.exit(f"nvcc failed for {source} {list(defines)}:\n{ptxas.stderr}")
+    entries, current = [], None
+    for line in ptxas.stderr.splitlines():
+        found = re.search(r"Compiling entry function '(\w+)'", line)
+        if found:
+            current = {"entry": found.group(1)}
+            entries.append(current)
+        elif current is not None and "spill" in line:
+            current["spill"] = line.strip()
+        elif current is not None and "registers" in line:
+            current["usage"] = line.split(":", 1)[1].strip()
+    return entries
 
 
 def resources(_kernels) -> dict:
     """ptxas's report and SASS instruction counts of every kernel source."""
-    import re
-
     report = {}
     for name, source in _kernels.SOURCES.items():
         lib = os.path.join(_kernels.BUILD_DIR, f"resources-{name}.so")
-        ptxas = subprocess.run(
-            [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-Xptxas", "-v", "-o", lib,
-             os.path.join(_kernels.SRC_DIR, source)],
-            capture_output=True, text=True, timeout=600,
-        )
-        if ptxas.returncode != 0:
-            sys.exit(f"nvcc failed for {source}:\n{ptxas.stderr}")
-        entries, current = [], None
-        for line in ptxas.stderr.splitlines():
-            found = re.search(r"Compiling entry function '(\w+)'", line)
-            if found:
-                current = {"entry": found.group(1)}
-                entries.append(current)
-            elif current is not None and "spill" in line:
-                current["spill"] = line.strip()
-            elif current is not None and "registers" in line:
-                current["usage"] = line.split(":", 1)[1].strip()
+        entries = compile_source(_kernels, source, lib)
         sass = subprocess.run([os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump"),
                                "-sass", lib], capture_output=True, text=True, timeout=600).stdout
         counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in SASS_OPS}
@@ -79,6 +88,44 @@ def resources(_kernels) -> dict:
                 print(f"{source}: first {op}: {' '.join(found.group(0).split()[:-2])}")
         report[name] = {"entries": entries, "sass": counts}
     return report
+
+
+def build_tilings(_kernels) -> dict:
+    """One fp32 library per tiling, all compiled together: (rows, tile rows)
+    -> (library path, ptxas's report of its D <= 64 instantiation)."""
+    os.makedirs(_kernels.BUILD_DIR, exist_ok=True)
+
+    def build(tiling):
+        rows, tile = tiling
+        lib = os.path.join(_kernels.BUILD_DIR, f"sweep-f32-rows{rows}-tile{tile}.so")
+        entries = compile_source(_kernels, _kernels.SOURCES["flash_fwd_f32"], lib, (
+            f"-DFLASH_F32_ROWS_PER_BLOCK={rows}", f"-DFLASH_F32_TILE_ROWS={tile}"))
+        # the D <= 64 instantiation, flash_fwd_f32_kernel<64, tile>
+        [entry] = [e for e in entries if f"ILi64ELi{tile}E" in e["entry"]]
+        return lib, entry
+
+    with ThreadPoolExecutor(len(TILINGS)) as pool:
+        return dict(zip(TILINGS, pool.map(build, TILINGS)))
+
+
+def f32_launcher(_kernels, lib_path: str, scale: float):
+    """Launch ``gordo_flash_fwd_f32`` of one sweep library on (BH, S, D)
+    float32 CUDA tensors."""
+    import torch
+
+    entry = ctypes.CDLL(lib_path).gordo_flash_fwd_f32
+    _kernels.bind_flash_entry(entry)
+
+    def run(q, k, v):
+        out = torch.empty_like(q)
+        lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+        status = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                       *q.shape, scale, torch.cuda.current_stream(q.device).cuda_stream)
+        if status != 0:
+            sys.exit(f"{os.path.basename(lib_path)}: launch failed with CUDA error {status}")
+        return out, lse
+
+    return run
 
 
 def main() -> None:
@@ -105,10 +152,10 @@ def main() -> None:
     scale = shape[-1] ** -0.5
 
     variants = {}
-    for cap, tiling in TILINGS:
-        variants[f"f32 {TILE_NAMES[tiling]} tiles, rows<={cap}"] = (
-            torch.float32, lambda q, k, v, cap=cap, tiling=tiling:
-            _kernels.flash_fwd_f32_tiling(q, k, v, scale, cap, tiling))
+    for (rows, tile), (lib, entry) in build_tilings(_kernels).items():
+        print(f"f32 {tile}x8 tiles, rows<={rows}: {entry.get('usage')}; {entry.get('spill')}")
+        variants[f"f32 {tile}x8 tiles, rows<={rows}"] = (
+            torch.float32, f32_launcher(_kernels, lib, scale))
     variants["bf16 served"] = (torch.bfloat16, lambda q, k, v: _kernels.flash_fwd_cuda(q, k, v, scale))
     variants["bf16 single-stage step"] = (
         torch.bfloat16, lambda q, k, v: _kernels.flash_fwd_bf16_single_stage(q, k, v, scale))
@@ -120,7 +167,7 @@ def main() -> None:
         out, lse = fn(q, k, v)
         ref_out, ref_lse = flash_fwd_reference(q, k, v, scale)
         err = (out.float() - ref_out.float()).abs().max().item()
-        atol = 2e-5 if dt == torch.float32 else 2e-2
+        atol = 2e-5 if dt == torch.float32 else chip_smoke.bf16_atol(ref_out)
         if err > atol or (lse - ref_lse).abs().max().item() > 1e-4:
             sys.exit(f"{name} disagrees with its plain version: max|out-plain| {err}")
     times = {name: [] for name in variants}
