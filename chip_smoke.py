@@ -26,7 +26,23 @@ Phases; any failure exits non-zero before the result line:
 3b. the bf16 path: the same machine built with ``compute_dtype="bfloat16"``
    answers one W = 16 request; it must launch the bf16 kernel once per
    layer and the fp32 kernel never, and match the same artifact scored on
-   the card with dense attention in bf16.
+   the card with dense attention in bf16;
+4. the zoo: the reference's dense and LSTM machines at the widths of its own
+   configs (``ZOO``: the dense AE of ``bench.py``'s ``dense_ae_10tag``, the
+   ``feedforward_model`` defaults at 100 tags, the LSTM AE of
+   ``lstm_ae_50tag``, the LSTM forecast of ``lstm_forecast_100tag``, the
+   ``lstm_model`` defaults at 50 tags, that LSTM AE again with
+   ``compute_dtype="bfloat16"``, and a joint ``MultiStepForecast``), random
+   weights from a seed in the flax layout, dumped by the port into one
+   models directory and served by one HTTP server on the card. Each machine
+   answers requests of 144 and 1008 rows (a day and a week at 10-minute
+   resolution), each matching the same artifact scored on the CPU plain
+   path (bf16: at the same dtype, within ``BF16_SERVE_RTOL``), and no
+   request launches a flash kernel; the joint forecaster is listed as
+   skipped in ``/healthz`` and answers 503. One dense machine is scored at
+   the engine's ``bf16`` rung against the CPU at that rung, and one
+   1008-row request of ``lstm-ae-50tag`` and of ``dense-ae-default`` is
+   traced under ``torch.profiler`` (device time by kernel, launches).
 
 The line before last is ``nvidia-smi``'s name and power limit; the one
 before that the kernels' JSON record; the last line is the result.
@@ -37,11 +53,13 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -304,14 +322,14 @@ def slice_weights(rng: np.random.Generator) -> dict:
     return tree
 
 
-def sensor_rows(rng: np.random.Generator, n: int) -> np.ndarray:
+def sensor_rows(rng: np.random.Generator, n: int, tags: int = N_TAGS) -> np.ndarray:
     """Seeded plant-like signals: per-tag level and scale, slow drift, noise."""
     t = np.arange(n)[:, None]
-    level = rng.uniform(-50, 150, size=N_TAGS)
-    scale = rng.uniform(0.5, 20, size=N_TAGS)
-    phase = rng.uniform(0, 2 * np.pi, size=N_TAGS)
+    level = rng.uniform(-50, 150, size=tags)
+    scale = rng.uniform(0.5, 20, size=tags)
+    phase = rng.uniform(0, 2 * np.pi, size=tags)
     wave = np.sin(2 * np.pi * t / 720 + phase)
-    return (level + scale * (wave + 0.3 * rng.normal(size=(n, N_TAGS)))).astype(np.float32)
+    return (level + scale * (wave + 0.3 * rng.normal(size=(n, tags)))).astype(np.float32)
 
 
 def build_artifact(dest: str, device, compute_dtype: str = "float32") -> list:
@@ -361,6 +379,20 @@ def build_artifact(dest: str, device, compute_dtype: str = "float32") -> list:
     return tags
 
 
+def post(url: str, X: np.ndarray) -> tuple:
+    """POST ``{"X": rows}``; returns (HTTP status, payload, wall ms)."""
+    body = json.dumps({"X": X.tolist()}).encode()
+    req = urllib.request.Request(url, data=body, method="POST",
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            status, payload = resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as exc:
+        status, payload = exc.code, json.loads(exc.read())
+    return status, payload, (time.perf_counter() - t0) * 1e3
+
+
 def serve(artifact: str, device, windows, rng) -> list:
     """POST one request of each window count to the port's HTTP server on
     the card. The launch counts are zeroed just before the first request and
@@ -378,14 +410,8 @@ def serve(artifact: str, device, windows, rng) -> list:
         _kernels.reset_launches()
         for w in windows:
             X = sensor_rows(rng, LOOKBACK + w - 1)
-            body = json.dumps({"X": X.tolist()}).encode()
             before = dict(_kernels.LAUNCHES)
-            t0 = time.perf_counter()
-            req = urllib.request.Request(url, data=body, method="POST",
-                                         headers={"Content-Type": "application/json"})
-            with urllib.request.urlopen(req, timeout=300) as resp:
-                status, payload = resp.status, json.loads(resp.read())
-            ms = (time.perf_counter() - t0) * 1e3
+            status, payload, ms = post(url, X)
             launches = {n: _kernels.LAUNCHES[n] - before[n] for n in KERNELS}
             print(f"POST W={w} ({len(X)} rows): HTTP {status}, {ms:.1f} ms, launches {launches}")
             if status != 200:
@@ -398,13 +424,13 @@ def serve(artifact: str, device, windows, rng) -> list:
     return results
 
 
-def compare_scores(label: str, w: int, payload: dict, plain: dict, rtol: float) -> float:
-    """The four score arrays of a response against another scoring of the
-    same rows: shapes, finiteness, and the worst difference relative to each
-    array's magnitude."""
-    data = payload["data"]
-    expected = {"model-input": (w, N_TAGS), "model-output": (w, N_TAGS),
-                "tag-anomaly-scores": (w, N_TAGS), "total-anomaly-score": (w,)}
+def compare_arrays(label: str, w: int, data: dict, plain: dict, rtol: float,
+                   tags: int = N_TAGS) -> float:
+    """The four score arrays (``w`` rows of ``tags``) against another
+    scoring of the same rows: shapes, finiteness, and the worst difference
+    relative to each array's magnitude."""
+    expected = {"model-input": (w, tags), "model-output": (w, tags),
+                "tag-anomaly-scores": (w, tags), "total-anomaly-score": (w,)}
     worst = 0.0
     for field, shape in expected.items():
         got = np.asarray(data[field], np.float64)
@@ -415,7 +441,15 @@ def compare_scores(label: str, w: int, payload: dict, plain: dict, rtol: float) 
         worst = max(worst, rel)
         if rel > rtol:
             fail(f"{label} W={w}: {field} differs by {rel:.3g} (relative, limit {rtol})")
-    if len(payload["tag-thresholds"]) != N_TAGS:
+    return worst
+
+
+def compare_scores(label: str, w: int, payload: dict, plain: dict, rtol: float,
+                   tags: int = N_TAGS) -> float:
+    """A response's score arrays against ``plain`` (:func:`compare_arrays`),
+    and its thresholds."""
+    worst = compare_arrays(label, w, payload["data"], plain, rtol, tags)
+    if len(payload["tag-thresholds"]) != tags:
         fail("thresholds missing from the response")
     return worst
 
@@ -479,6 +513,207 @@ def phase_serve_bf16(torch, device, tmp: str) -> dict:
     return launches
 
 
+# phase 4: the reference's model zoo at the widths of its own configs.
+# name -> (estimator, estimator kwargs, tags); bench.py:122-173 for the
+# 10/50/100-tag machines, the factory defaults for the other two
+ZOO = {
+    "dense-ae-10tag": ("DenseAutoEncoder", dict(kind="feedforward_hourglass"), 10),
+    "dense-ae-default": ("DenseAutoEncoder", dict(kind="feedforward_model"), 100),
+    "lstm-ae-50tag": ("LSTMAutoEncoder", dict(
+        kind="lstm_symmetric", dims=[32], lookback_window=24), 50),
+    "lstm-forecast-100tag": ("LSTMForecast", dict(
+        kind="lstm_symmetric", dims=[32], lookback_window=24, horizon=3), 100),
+    "lstm-model-default": ("LSTMAutoEncoder", dict(kind="lstm_model", lookback_window=24), 50),
+    "lstm-ae-50tag-bf16": ("LSTMAutoEncoder", dict(
+        kind="lstm_symmetric", dims=[32], lookback_window=24, compute_dtype="bfloat16"), 50),
+    "multi-step-forecast": ("MultiStepForecast", dict(
+        kind="lstm_symmetric", dims=[32], lookback_window=24, horizon=3), 50),
+}
+ZOO_ROWS = (144, 1008, 144, 1008)  # a day and a week at 10-minute resolution, twice
+
+
+def zoo_weights(config: dict, rng: np.random.Generator) -> dict:
+    """Random weights in the flax layout of a dense or LSTM factory's
+    ``config``: Dense kernels ``(in, out)`` at 1/sqrt(fan_in); LSTM cells
+    ``OptimizedLSTMCell_i/{ii,if,ig,io}`` (input kernels, no bias) and
+    ``{hi,hf,hg,ho}`` (recurrent kernels with bias), head ``Dense_0``."""
+
+    def kernel(n_in, n_out):
+        return (rng.normal(size=(n_in, n_out)) / np.sqrt(n_in)).astype(np.float32)
+
+    def dense(n_in, n_out):
+        return {"kernel": kernel(n_in, n_out),
+                "bias": (0.01 * rng.normal(size=n_out)).astype(np.float32)}
+
+    if "units" in config:
+        widths = [config["n_features"], *config["units"]]
+        tree = {}
+        for i, (n_in, units) in enumerate(zip(widths[:-1], widths[1:])):
+            cell = {}
+            for gate in "ifgo":
+                cell[f"i{gate}"] = {"kernel": kernel(n_in, units)}
+                cell[f"h{gate}"] = dense(units, units)
+            tree[f"OptimizedLSTMCell_{i}"] = cell
+        tree["Dense_0"] = dense(widths[-1], config["n_features_out"])
+        return tree
+    dims = [config["n_features"], *config["encoding_dim"], *config["decoding_dim"],
+            config["n_features_out"]]
+    return {f"Dense_{i}": dense(n_in, n_out)
+            for i, (n_in, n_out) in enumerate(zip(dims[:-1], dims[1:]))}
+
+
+def build_zoo_artifact(dest: str, estimator: str, kwargs: dict, tags: int, device,
+                       rng: np.random.Generator) -> None:
+    """A DiffBasedAnomalyDetector / TransformedTargetRegressor / MinMaxScaler
+    pipeline around ``estimator`` (as bench.py builds them), scalers fitted
+    on seeded rows, seeded weights, the error scaler and thresholds on the
+    residuals of the training tail (not for a joint forecaster, which emits
+    horizon x F values per window), dumped by the port."""
+    from gordo_components_tpu_torch.serializer import dump, pipeline_from_definition
+
+    model = pipeline_from_definition({"DiffBasedAnomalyDetector": {"base_estimator": {
+        "TransformedTargetRegressor": {
+            "regressor": {"Pipeline": {"steps": ["MinMaxScaler", {estimator: kwargs}]}},
+            "transformer": "MinMaxScaler",
+        }}}})
+    ttr = model.base_estimator
+    scaler, est = (step for _, step in ttr.regressor.steps)
+    train = sensor_rows(rng, 2016, tags)
+    scaler.fit(train)
+    ttr.transformer.fit(train)
+    config = est._make_spec(tags, tags).config  # the joint forecaster's head is widened
+    est.to(device).set_state({"params": zoo_weights(config, rng), "n_features": tags,
+                              "n_features_out": tags})
+    if not getattr(est, "joint_horizon", False):
+        tail = train[-1008:]
+        pred = model.predict(tail)
+        residual = np.abs(tail[len(tail) - len(pred):] - pred)
+        model.scaler.fit(residual)
+        scaled = model.scaler.transform(residual)
+        model.tag_thresholds_ = np.percentile(scaled, 99, axis=0).astype(np.float32)
+        model.total_threshold_ = float(np.percentile(np.linalg.norm(scaled, axis=1), 99))
+    dump(model, dest, metadata={"dataset": {"tag_list": [f"TAG-{i:03d}" for i in range(tags)]}})
+
+
+def kernel_label(key: str) -> str:
+    """A profiler kernel name made short and readable: the kernel's own name
+    and, for PyTorch's elementwise kernels, the functor it applies."""
+    name = key.removeprefix("void ").split("<", 1)[0].split("(", 1)[0].split("::")[-1]
+    ops = re.findall(r"\w*Functor\w*|\w+_kernel_cuda", key)
+    return f"{name}[{ops[-1]}]" if ops else name[:80]
+
+
+def profile_request(torch, engine, name: str, X: np.ndarray) -> dict:
+    """One warm request under torch.profiler: device time summed by kernel,
+    the kernels launched and the device's idle share of the traced wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    engine.anomaly(name, X)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.anomaly(name, X)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    events = [evt for evt in prof.key_averages()
+              if evt.device_type == DeviceType.CUDA and evt.self_device_time_total]
+    kernels = [evt for evt in events if not evt.key.startswith(("Memcpy", "Memset"))]
+    busy_ms = sum(evt.self_device_time_total for evt in events) / 1e3
+    by_kernel = sorted(((kernel_label(evt.key), evt.self_device_time_total / 1e3, evt.count)
+                        for evt in kernels), key=lambda row: -row[1])
+    host_launches = sum(evt.count for evt in prof.key_averages()
+                        if evt.key in ("cudaLaunchKernel", "cuLaunchKernel"))
+    return {"machine": name, "rows": len(X), "traced_ms": traced_ms,
+            "device_busy_ms": busy_ms, "device_idle_share": 1 - busy_ms / traced_ms,
+            "kernel_launches": sum(evt.count for evt in kernels),
+            "host_launch_calls": host_launches,
+            "device_ms_by_kernel": [{"kernel": k, "ms": ms, "launches": n}
+                                    for k, ms, n in by_kernel[:8]]}
+
+
+def phase_zoo(torch, device, tmp: str) -> None:
+    """The dense and LSTM machines served by one HTTP server on the card,
+    each request against the CPU plain path and launching no flash kernel;
+    the joint forecaster skipped with a 503; one dense machine at the bf16
+    rung; two requests traced."""
+    from gordo_components_tpu_torch import wire
+    from gordo_components_tpu_torch.ops import _kernels
+    from gordo_components_tpu_torch.serializer import load
+    from gordo_components_tpu_torch.server.engine import ServingEngine
+    from gordo_components_tpu_torch.server.server import make_server
+
+    models_dir = os.path.join(tmp, "zoo")
+    rng = np.random.default_rng(SEED + 4)
+    started = time.perf_counter()
+    for name, (estimator, kwargs, tags) in ZOO.items():
+        build_zoo_artifact(os.path.join(models_dir, name), estimator, kwargs, tags, device, rng)
+    print(f"zoo: {len(ZOO)} artifacts written in {time.perf_counter() - started:.1f} s")
+
+    httpd = make_server(models_dir, port=0, device=device)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    requests = []  # (machine, X, status, payload, ms)
+    try:
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as resp:
+            skipped = json.loads(resp.read())["skipped"]
+        if sorted(skipped) != ["multi-step-forecast"]:
+            fail(f"zoo: /healthz skipped {sorted(skipped)}, expected the joint forecaster only")
+        print(f"zoo: /healthz skips multi-step-forecast: {skipped['multi-step-forecast']}")
+        _kernels.reset_launches()
+        for name, (_, _, tags) in ZOO.items():
+            url = f"{base}/gordo/v0/project/{name}/anomaly/prediction"
+            for rows in ZOO_ROWS:
+                X = sensor_rows(rng, rows, tags)
+                status, payload, ms = post(url, X)
+                print(f"zoo POST {name} {rows} rows: HTTP {status}, {ms:.2f} ms")
+                requests.append((name, X, status, payload, ms))
+        launches = {n: _kernels.LAUNCHES[n] for n in KERNELS}
+        engine = httpd.model_server.engine
+        traces = [profile_request(torch, engine, name, sensor_rows(rng, 1008, ZOO[name][2]))
+                  for name in ("lstm-ae-50tag", "dense-ae-default")]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    if any(launches.values()):
+        fail(f"zoo requests launched flash kernels: {launches}")
+    print(f"zoo: flash launches over {len(requests)} requests: {launches}")
+
+    cpu_engines = {}
+    for name, X, status, payload, ms in requests:
+        if name == "multi-step-forecast":
+            if status != 503:
+                fail(f"zoo: the joint forecaster answered HTTP {status}, expected 503")
+            continue
+        if status != 200:
+            fail(f"zoo: {name} answered HTTP {status}: {payload}")
+        if name not in cpu_engines:
+            cpu_engines[name] = ServingEngine(
+                {name: load(os.path.join(models_dir, name), device="cpu")}, device="cpu")
+        plain = dict(zip(wire.SCORE_FIELDS, cpu_engines[name].anomaly(name, X)))
+        rtol = BF16_SERVE_RTOL if name.endswith("bf16") else SERVE_RTOL
+        rows = len(plain["total-anomaly-score"])
+        worst = compare_scores(f"zoo {name}", rows, payload, plain, rtol, tags=X.shape[1])
+        print(f"zoo {name} {len(X)} rows ({rows} scored): card vs CPU plain path, worst "
+              f"relative difference {worst:.3g} (limit {rtol})")
+
+    # the engine's bf16 rung: bf16 weights and inputs, float32 architecture
+    name, tags = "dense-ae-default", ZOO["dense-ae-default"][2]
+    X = sensor_rows(rng, 1008, tags)
+    artifact = os.path.join(models_dir, name)
+    scored = [dict(zip(wire.SCORE_FIELDS, ServingEngine(
+        {name: load(artifact, device=where)}, precisions={name: "bf16"}, device=where,
+    ).anomaly(name, X))) for where in (device, "cpu")]
+    worst = compare_arrays(f"zoo {name} bf16 rung", len(X), scored[0], scored[1],
+                           BF16_SERVE_RTOL, tags=tags)
+    print(f"zoo {name} at the bf16 rung, 1008 rows: card vs CPU at the same rung, worst "
+          f"relative difference {worst:.3g} (limit {BF16_SERVE_RTOL})")
+    for trace in traces:
+        print(f"zoo profile: {json.dumps(trace)}")
+
+
 def main() -> None:
     try:
         import torch
@@ -496,6 +731,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
         launches = phase_serve(torch, device, tmp)
         launches["flash_fwd_bf16"] = phase_serve_bf16(torch, device, tmp)["flash_fwd_bf16"]
+        phase_zoo(torch, device, tmp)
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

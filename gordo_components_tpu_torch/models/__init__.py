@@ -4,8 +4,13 @@ API, loaded from the reference's artifacts (training is a later slice)."""
 from .register import get_factory, register_model_factory  # noqa: F401
 from .models import (  # noqa: F401
     BaseTorchEstimator,
+    DenseAutoEncoder,
+    KerasAutoEncoder,
+    KerasLSTMAutoEncoder,
+    KerasLSTMForecast,
     LSTMAutoEncoder,
     LSTMForecast,
+    MultiStepForecast,
     PatchTSTAutoEncoder,
     PatchTSTForecast,
 )

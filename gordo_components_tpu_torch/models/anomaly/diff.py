@@ -13,6 +13,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
+from ..models import DenseAutoEncoder
 from ..transformers import MinMaxScaler
 
 
@@ -24,10 +25,7 @@ class DiffBasedAnomalyDetector:
         require_thresholds: bool = False,
     ):
         if base_estimator is None:
-            raise ValueError(
-                "DiffBasedAnomalyDetector needs a base_estimator (the dense "
-                "default is not ported yet)"
-            )
+            base_estimator = DenseAutoEncoder()
         self.base_estimator = base_estimator
         self.scaler = scaler if scaler is not None else MinMaxScaler()
         self.require_thresholds = require_thresholds

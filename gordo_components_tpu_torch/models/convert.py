@@ -2,31 +2,43 @@
 
 ``state.npz`` holds a fitted estimator's flax parameter tree as nested
 ``…/params/<scope>/<leaf>`` arrays. :func:`params_from_flax` copies such a
-tree (a nested dict of numpy arrays) into a
-:class:`~gordo_components_tpu_torch.models.factories.transformer.PatchTSTModule`.
+tree (a nested dict of numpy arrays) into the port's module of the same
+architecture; the module's type picks the loader. Flax names its scopes
+automatically, in creation order:
 
-Flax's tree for PatchTST (auto-named scopes, in creation order):
-
-- ``Dense_0`` patch embedding, kernel ``(patch_len, d)``; ``pos_embedding (P, d)``;
-- ``TransformerEncoderLayer_i/{LayerNorm_0, MultiHeadSelfAttention_0/{qkv
+- PatchTST (:class:`~.factories.transformer.PatchTSTModule`): ``Dense_0``
+  patch embedding, kernel ``(patch_len, d)``; ``pos_embedding (P, d)``;
+  ``TransformerEncoderLayer_i/{LayerNorm_0, MultiHeadSelfAttention_0/{qkv
   kernel (d, 3, H, hd), bias (3, H, hd); out kernel (H, hd, d), bias (d,)},
-  LayerNorm_1, Dense_0, Dense_1}``;
-- ``LayerNorm_0`` final norm; ``Dense_1`` head ``(P·d, 1)``; ``Dense_2``
-  target projection, present only when ``n_features_out != n_features``.
+  LayerNorm_1, Dense_0, Dense_1}``; ``LayerNorm_0`` final norm;
+  ``Dense_1`` head ``(P·d, 1)``; ``Dense_2`` target projection, present
+  only when ``n_features_out != n_features``.
+- Dense autoencoder (:class:`~.modules.DenseAutoencoderModule`):
+  ``Dense_0 … Dense_n`` — the encoder, the decoder, then the output layer.
+- LSTM (:class:`~.modules.LSTMModule`): ``OptimizedLSTMCell_i`` per layer,
+  holding the input kernels ``ii, if, ig, io`` ``(F_in, units)`` without
+  bias and the recurrent kernels ``hi, hf, hg, ho`` ``(units, units)`` with
+  bias; then ``Dense_0``, the head on the last step's hidden state. There
+  is no ``RNN_*`` scope: flax binds the cell to the module that made it.
 
 Flax Dense kernels are ``(in, out)``; ``nn.Linear`` wants ``(out, in)``,
-so every kernel is flattened to ``(in, out)`` and transposed once here.
+so every Dense kernel is flattened to ``(in, out)`` and transposed once
+here. The LSTM cell keeps flax's ``(in, out)`` layout, each gate's kernel
+copied into its quarter of the last axis, in flax's order.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Set
 
 import numpy as np
 import torch
 from torch import nn
 
 from .factories.transformer import PatchTSTModule
+from .modules import DenseAutoencoderModule, LSTMModule
+
+_GATES = ("i", "f", "g", "o")
 
 
 def _copy(target: torch.Tensor, value: Any, where: str) -> None:
@@ -58,38 +70,78 @@ def _norm(norm: nn.LayerNorm, scope: Mapping[str, Any], where: str) -> None:
     _copy(norm.bias, scope["bias"], f"{where}/bias")
 
 
+def _load_patchtst(module: PatchTSTModule, tree: Mapping[str, Any]) -> Set[str]:
+    _dense(module.patch_embed, tree["Dense_0"], "Dense_0")
+    _copy(module.pos_embedding, tree["pos_embedding"], "pos_embedding")
+    for i, layer in enumerate(module.layers):
+        name = f"TransformerEncoderLayer_{i}"
+        scope = tree[name]
+        attn = scope["MultiHeadSelfAttention_0"]
+        _norm(layer.norm1, scope["LayerNorm_0"], f"{name}/LayerNorm_0")
+        _dense(layer.attn.qkv, attn["qkv"], f"{name}/qkv")
+        _dense_general_out(layer.attn.out, attn["out"], f"{name}/out")
+        _norm(layer.norm2, scope["LayerNorm_1"], f"{name}/LayerNorm_1")
+        _dense(layer.ff1, scope["Dense_0"], f"{name}/Dense_0")
+        _dense(layer.ff2, scope["Dense_1"], f"{name}/Dense_1")
+    _norm(module.norm, tree["LayerNorm_0"], "LayerNorm_0")
+    _dense(module.head, tree["Dense_1"], "Dense_1")
+    expected = {"Dense_0", "Dense_1", "LayerNorm_0", "pos_embedding"}
+    expected |= {f"TransformerEncoderLayer_{i}" for i in range(len(module.layers))}
+    if module.head_out is not None:
+        _dense(module.head_out, tree["Dense_2"], "Dense_2")
+        expected.add("Dense_2")
+    return expected
+
+
+def _load_dense(module: DenseAutoencoderModule, tree: Mapping[str, Any]) -> Set[str]:
+    names = [f"Dense_{i}" for i in range(len(module.layers))]
+    for name, layer in zip(names, module.layers):
+        _dense(layer, tree[name], name)
+    return set(names)
+
+
+def _load_lstm(module: LSTMModule, tree: Mapping[str, Any]) -> Set[str]:
+    names = [f"OptimizedLSTMCell_{i}" for i in range(len(module.cells))]
+    for name, cell in zip(names, module.cells):
+        scope = tree[name]
+        for k, gate in enumerate(_GATES):
+            cols = slice(k * cell.units, (k + 1) * cell.units)
+            _copy(cell.input_kernel[:, cols], scope[f"i{gate}"]["kernel"],
+                  f"{name}/i{gate}/kernel")
+            _copy(cell.recurrent_kernel[:, cols], scope[f"h{gate}"]["kernel"],
+                  f"{name}/h{gate}/kernel")
+            _copy(cell.recurrent_bias[cols], scope[f"h{gate}"]["bias"],
+                  f"{name}/h{gate}/bias")
+    _dense(module.head, tree["Dense_0"], "Dense_0")
+    return {*names, "Dense_0"}
+
+
+_LOADERS = (
+    (PatchTSTModule, _load_patchtst),
+    (DenseAutoencoderModule, _load_dense),
+    (LSTMModule, _load_lstm),
+)
+
+
 def params_from_flax(module: nn.Module, tree: Dict[str, Any]) -> nn.Module:
     """Load the flax parameter ``tree`` into ``module`` in place (and
-    return it). Raises on a missing scope or a shape that disagrees."""
-    if not isinstance(module, PatchTSTModule):
+    return it). Raises on a missing scope, an unexpected scope, or a shape
+    that disagrees."""
+    for cls, loader in _LOADERS:
+        if isinstance(module, cls):
+            break
+    else:
         raise TypeError(
-            f"params_from_flax supports PatchTSTModule; got {type(module).__name__}"
+            "params_from_flax supports "
+            f"{', '.join(cls.__name__ for cls, _ in _LOADERS)}; "
+            f"got {type(module).__name__}"
         )
     try:
-        _dense(module.patch_embed, tree["Dense_0"], "Dense_0")
-        _copy(module.pos_embedding, tree["pos_embedding"], "pos_embedding")
-        for i, layer in enumerate(module.layers):
-            name = f"TransformerEncoderLayer_{i}"
-            scope = tree[name]
-            attn = scope["MultiHeadSelfAttention_0"]
-            _norm(layer.norm1, scope["LayerNorm_0"], f"{name}/LayerNorm_0")
-            _dense(layer.attn.qkv, attn["qkv"], f"{name}/qkv")
-            _dense_general_out(layer.attn.out, attn["out"], f"{name}/out")
-            _norm(layer.norm2, scope["LayerNorm_1"], f"{name}/LayerNorm_1")
-            _dense(layer.ff1, scope["Dense_0"], f"{name}/Dense_0")
-            _dense(layer.ff2, scope["Dense_1"], f"{name}/Dense_1")
-        _norm(module.norm, tree["LayerNorm_0"], "LayerNorm_0")
-        _dense(module.head, tree["Dense_1"], "Dense_1")
-        if module.head_out is not None:
-            _dense(module.head_out, tree["Dense_2"], "Dense_2")
+        expected = loader(module, tree)
     except KeyError as exc:
         raise ValueError(
             f"params_from_flax: flax tree has no scope {exc.args[0]!r}"
         ) from None
-    expected = {"Dense_0", "Dense_1", "LayerNorm_0", "pos_embedding"}
-    expected |= {f"TransformerEncoderLayer_{i}" for i in range(len(module.layers))}
-    if module.head_out is not None:
-        expected.add("Dense_2")
     extra = set(tree) - expected
     if extra:
         raise ValueError(f"params_from_flax: unexpected flax scopes {sorted(extra)}")

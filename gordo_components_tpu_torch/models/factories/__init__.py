@@ -1,3 +1,3 @@
 """Model factories of the port; importing this package registers them."""
 
-from . import transformer  # noqa: F401
+from . import feedforward, lstm, transformer  # noqa: F401

@@ -27,7 +27,7 @@ LayerNorm statistics are taken in float32.
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -37,19 +37,10 @@ from ...ops.attention import dense_attention
 from ...ops.flash_attention import flash_attention
 from ..modules import activation, resolve_dtype
 from ..register import register_model_factory
+from .spec import ModelSpec
 
 _LN_EPS = 1e-6
 _ATTENTION_IMPLS = ("dense", "flash", "ring", "ring_flash")
-
-
-class ModelSpec(NamedTuple):
-    """A factory's product (the reference's ``ModelSpec`` without the
-    optimizer: training is a later slice)."""
-
-    module: nn.Module
-    loss: str
-    input_kind: str
-    config: Dict[str, Any]
 
 
 def _dense(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:

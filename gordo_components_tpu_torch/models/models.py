@@ -1,12 +1,16 @@
 """Estimator wrappers (port of ``gordo_components_tpu/models/models.py``:
-``BaseFlaxEstimator`` 59-102 and 255-269, state 335-353, ``LSTMAutoEncoder``
-and the PatchTST estimators 366-466).
+``BaseFlaxEstimator`` 59-102 and 255-269, state 335-353, the zoo's
+estimators 356-466 and the Keras aliases 471-473).
 
-This slice serves fitted artifacts: an estimator is built from its
+The port serves fitted artifacts: an estimator is built from its
 definition kwargs, then :meth:`BaseTorchEstimator.set_state` loads the
 reference's flax parameter tree into a torch module. ``fit`` raises —
 training is a later slice. The windowing contract is the reference's:
 ``lookahead`` None = flat rows, 0 = reconstruction, k ≥ 1 = forecast.
+
+An estimator has no device until :meth:`BaseTorchEstimator.to` is called;
+until then ``set_state`` and ``predict`` resolve ``None``, which is
+``cuda`` and raises without a card (see ``utils/backend.py``).
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ class BaseTorchEstimator:
         self.n_features_: Optional[int] = None
         self.n_features_out_: Optional[int] = None
         self.fit_duration_: Optional[float] = None
-        self.device = torch.device("cpu")
+        self.device: Optional[torch.device] = None  # cuda unless to("cpu")
 
     @property
     def lookback_window(self) -> int:
@@ -87,7 +91,7 @@ class BaseTorchEstimator:
     def predict(self, X) -> np.ndarray:
         """Predictions aligned per the windowing contract."""
         self._check_fitted()
-        x = torch.as_tensor(_as_float32(X), device=self.device)
+        x = torch.as_tensor(_as_float32(X), device=resolve_device(self.device))
         if self.lookahead is not None:
             x = windowing.sliding_windows(x, self.lookback_window, self.lookahead)
         with torch.inference_mode():
@@ -121,14 +125,24 @@ class BaseTorchEstimator:
         spec = self._make_spec(self.n_features_, self.n_features_out_)
         self.params_ = state["params"]
         module = params_from_flax(spec.module, self.params_)
-        self.module_ = module.eval().to(self.device)
+        self.module_ = module.eval().to(resolve_device(self.device))
         return self
 
 
+class DenseAutoEncoder(BaseTorchEstimator):
+    """X→X reconstruction with a feedforward kind, one output row per input
+    row (reference: ``KerasAutoEncoder``)."""
+
+    lookahead = None
+
+    def __init__(self, kind: str = "feedforward_hourglass", **kwargs: Any):
+        super().__init__(kind, **kwargs)
+
+
 class LSTMAutoEncoder(BaseTorchEstimator):
-    """Window → window's own last row. ``predict`` row ``j`` corresponds to
-    input row ``j + lookback_window - 1``. (The LSTM kinds themselves are a
-    later slice; the PatchTST estimators inherit this contract.)"""
+    """Window → window's own last row (reference: ``KerasLSTMAutoEncoder``).
+    ``predict`` row ``j`` corresponds to input row ``j + lookback_window -
+    1``; the PatchTST estimators inherit this contract."""
 
     lookahead = 0
 
@@ -137,7 +151,9 @@ class LSTMAutoEncoder(BaseTorchEstimator):
 
 
 class LSTMForecast(BaseTorchEstimator):
-    """Window → the ``horizon``-th-ahead row."""
+    """Window → the ``horizon``-th-ahead row (reference: ``KerasLSTMForecast``
+    is the ``horizon=1`` case). ``predict`` row ``j`` corresponds to input
+    row ``j + lookback_window - 1 + horizon``."""
 
     lookahead = 1
 
@@ -150,6 +166,27 @@ class LSTMForecast(BaseTorchEstimator):
 
     def get_params(self, deep: bool = True) -> Dict[str, Any]:
         return {**super().get_params(deep), "horizon": self.horizon}
+
+
+class MultiStepForecast(LSTMForecast):
+    """Joint multi-step forecast: window → all of rows ``t+1..t+horizon``
+    together. The head emits ``horizon × n_features_out`` values per window;
+    ``predict`` returns the flat ``(count, horizon·F)`` shape and
+    :meth:`predict_steps` the ``(count, horizon, F)`` view. The anomaly
+    engine scores one row per timestamp and refuses this estimator."""
+
+    joint_horizon = True
+
+    def __init__(self, kind: str = "lstm_symmetric", horizon: int = 2, **kwargs: Any):
+        super().__init__(kind, horizon=horizon, **kwargs)
+
+    def _make_spec(self, n_features: int, n_features_out: int):
+        return super()._make_spec(n_features, n_features_out * self.horizon)
+
+    def predict_steps(self, X) -> np.ndarray:
+        """Step ``s`` of row ``j`` forecasts input row ``j + lookback_window + s``."""
+        flat = self.predict(X)
+        return flat.reshape(flat.shape[0], self.horizon, -1)
 
 
 class PatchTSTAutoEncoder(LSTMAutoEncoder):
@@ -166,3 +203,10 @@ class PatchTSTForecast(LSTMForecast):
     def __init__(self, kind: str = "patchtst", **kwargs: Any):
         kwargs.setdefault("lookback_window", 32)
         super().__init__(kind, **kwargs)
+
+
+# the reference's Keras class names (the definition table maps their
+# ``gordo_components.model.models`` paths here)
+KerasAutoEncoder = DenseAutoEncoder
+KerasLSTMAutoEncoder = LSTMAutoEncoder
+KerasLSTMForecast = LSTMForecast

@@ -14,8 +14,10 @@ from typing import Any, Dict
 
 from ..models.anomaly.diff import DiffBasedAnomalyDetector
 from ..models.models import (
+    DenseAutoEncoder,
     LSTMAutoEncoder,
     LSTMForecast,
+    MultiStepForecast,
     PatchTSTAutoEncoder,
     PatchTSTForecast,
 )
@@ -32,8 +34,10 @@ CLASS_PATHS: Dict[str, type] = {
     f"{_REF}.pipeline.TransformedTargetRegressor": TransformedTargetRegressor,
     f"{_REF}.transformers.MinMaxScaler": MinMaxScaler,
     f"{_REF}.transformers.StandardScaler": StandardScaler,
+    f"{_REF}.models.DenseAutoEncoder": DenseAutoEncoder,
     f"{_REF}.models.LSTMAutoEncoder": LSTMAutoEncoder,
     f"{_REF}.models.LSTMForecast": LSTMForecast,
+    f"{_REF}.models.MultiStepForecast": MultiStepForecast,
     f"{_REF}.models.PatchTSTAutoEncoder": PatchTSTAutoEncoder,
     f"{_REF}.models.PatchTSTForecast": PatchTSTForecast,
 }
@@ -47,6 +51,7 @@ _ALIASES: Dict[str, str] = {
     "sklearn.preprocessing.data.MinMaxScaler": f"{_REF}.transformers.MinMaxScaler",
     "sklearn.preprocessing.StandardScaler": f"{_REF}.transformers.StandardScaler",
     "sklearn.preprocessing.data.StandardScaler": f"{_REF}.transformers.StandardScaler",
+    "gordo_components.model.models.KerasAutoEncoder": f"{_REF}.models.DenseAutoEncoder",
     "gordo_components.model.models.KerasLSTMAutoEncoder": f"{_REF}.models.LSTMAutoEncoder",
     "gordo_components.model.models.KerasLSTMForecast": f"{_REF}.models.LSTMForecast",
     "gordo_components.model.anomaly.diff.DiffBasedAnomalyDetector": (
@@ -54,6 +59,7 @@ _ALIASES: Dict[str, str] = {
     ),
 }
 _ALIASES.update({path.rsplit(".", 1)[1]: path for path in CLASS_PATHS})
+_ALIASES["KerasAutoEncoder"] = f"{_REF}.models.DenseAutoEncoder"
 _ALIASES["KerasLSTMAutoEncoder"] = f"{_REF}.models.LSTMAutoEncoder"
 _ALIASES["KerasLSTMForecast"] = f"{_REF}.models.LSTMForecast"
 

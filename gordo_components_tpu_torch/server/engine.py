@@ -3,11 +3,13 @@
 ``_lift_machine`` and ``_make_machine_score`` at 210-253 and 352-523, and
 the request validation of ``anomaly`` at 2917-2946).
 
-One machine per dispatch: scale → window → model forward → inverse-scale
-→ residual against the target columns → error-scale → per-row L2, all on
-the engine's device, then one stream-synchronised copy of the four arrays
-to the host. The reference's stacked, hot, megabatch and chunked programs
-are a later slice (ROADMAP.md).
+One machine per dispatch: scale → window (none for a dense model: one
+score per input row) → model forward → inverse-scale → residual against
+the target columns → error-scale → per-row L2, all on the engine's device,
+then one stream-synchronised copy of the four arrays to the host. A joint
+multi-step forecaster is refused with the reference's reason. The
+reference's stacked, hot, megabatch and chunked programs are a later slice
+(ROADMAP.md).
 
 Precision rungs: ``f32``, and ``bf16`` — weights stored in bfloat16 and
 windows rounded to bfloat16, with the forward computed in the
@@ -99,6 +101,13 @@ def _lift_machine(
     analyzed = analyze_model(model)
     est = analyzed.estimator
     est._check_fitted()
+    if getattr(est, "joint_horizon", False):
+        raise ValueError(
+            "joint multi-step forecast emits horizon x F values "
+            "per window; the anomaly engine scores one row per "
+            "timestamp — use the direct-horizon LSTMForecast "
+            "for anomaly serving"
+        )
     n_features = int(est.n_features_)
     n_targets = int(est.n_features_out_)
     if target_cols is None:

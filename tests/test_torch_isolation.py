@@ -9,6 +9,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -78,6 +79,22 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(tmp_path, monkeypatch):
                   lambda: ModelServer(str(tmp_path))):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             entry()
+    # an estimator given weights without a device: set_state, then predict
+    from gordo_components_tpu_torch.models import DenseAutoEncoder
+    from gordo_components_tpu_torch.models.register import get_factory
+
+    module = get_factory("feedforward_symmetric")(n_features=3, dims=(2,)).module
+    params = {f"Dense_{i}": {"kernel": layer.weight.detach().numpy().T,
+                             "bias": layer.bias.detach().numpy()}
+              for i, layer in enumerate(module.layers)}
+    state = {"params": params, "n_features": 3, "n_features_out": 3}
+    est = DenseAutoEncoder(kind="feedforward_symmetric", dims=[2])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        est.set_state(state)
+    est.to("cpu").set_state(state)
+    est.device = None  # weights loaded, no device asked for
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        est.predict(np.zeros((2, 3), np.float32))
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
