@@ -19,10 +19,10 @@ Phases; any failure exits non-zero before the result line:
    random weights from a seed in the flax layout, scalers fitted on seeded
    data, float32) is dumped as an artifact, served by the port's HTTP
    server on the card, and asked a few ``POST /anomaly/prediction``
-   requests. The launch counts are zeroed just before and read just after;
-   every request must launch the fp32 kernel once per layer, and every
-   response must match the same artifact scored by the port with
-   ``device="cpu"`` (its plain path);
+   requests, one at a time. The launch counts are zeroed just before and
+   read just after; every dispatch (one per lone request) must launch the
+   fp32 kernel once per layer, and every response must match the same
+   artifact scored by the port with ``device="cpu"`` (its plain path);
 3b. the bf16 path: the same machine built with ``compute_dtype="bfloat16"``
    answers one W = 16 request; it must launch the bf16 kernel once per
    layer and the fp32 kernel never, and match the same artifact scored on
@@ -42,7 +42,22 @@ Phases; any failure exits non-zero before the result line:
    skipped in ``/healthz`` and answers 503. One dense machine is scored at
    the engine's ``bf16`` rung against the CPU at that rung, and one
    1008-row request of ``lstm-ae-50tag`` and of ``dense-ae-default`` is
-   traced under ``torch.profiler`` (device time by kernel, launches).
+   traced under ``torch.profiler`` (device time by kernel, launches);
+5. the fleet (``FLEETS``): 100 dense machines at 10 tags, 32 LSTM AEs at
+   50 tags and 4 full-width PatchTST machines (the slice machine with other
+   seeds), dumped into one models directory and served by one HTTP server
+   through the stacked engine, which must hold one copy of the weights on
+   the card (every machine's own weights on the host, device memory within
+   ``HELD_SLACK`` of the stacked trees); each fleet's concurrent clients, spread over
+   its machines, send FLEET_ROUNDS timed rounds of requests (req/s, p50,
+   p99). Every dense and LSTM response must match the CPU plain path within
+   SERVE_RTOL; every PatchTST response the same request served alone on the
+   card within FUSED_RTOL, and one of them the CPU within SERVE_RTOL. Every
+   fleet must fuse (fusion ratio above 1) with no fused-path repair, and
+   the fp32 flash kernel must launch once per layer per PatchTST dispatch
+   (at BH = k·8192), fewer times than once per layer per request. One fused
+   dispatch per fleet is traced under ``torch.profiler`` (kernels, idle
+   share).
 
 The line before last is ``nvidia-smi``'s name and power limit; the one
 before that the kernels' JSON record; the last line is the result.
@@ -202,7 +217,9 @@ SLICE_SHAPE = (16 * N_TAGS * SLICE["n_heads"], (LOOKBACK - 16) // 8 + 1, 64)
 # SMs, a few blocks each), so every persistent block walks several work
 # items, as at the slice shape, in every instantiation: fp32 at D <= 32
 # and D = 128, bf16's two-half head and its plain-load path.
-CHECK_SHAPES = [SLICE_SHAPE, (12, 129, 16), (3, 37, 8), (4, 64, 64), (4, 65, 64),
+# a fused dispatch of the four-machine PatchTST fleet at W = 16 (phase 5)
+FUSED_SHAPE = (4 * SLICE_SHAPE[0], *SLICE_SHAPE[1:])
+CHECK_SHAPES = [SLICE_SHAPE, FUSED_SHAPE, (12, 129, 16), (3, 37, 8), (4, 64, 64), (4, 65, 64),
                 (4, 256, 64), (5, 300, 128), (2, 37, 12),
                 (4096, 65, 32), (2048, 300, 128), (1024, 129, 12)]
 KERNELS = {  # kernel name -> (dtype, source)
@@ -281,6 +298,13 @@ def phase_kernels(torch, device) -> dict:
         record[name].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, library=library,
                             **bound)
         del q, k, v
+        q, k, v = qkv(FUSED_SHAPE, dtype)
+        fused_ms = timed_ms(lambda: _kernels.flash_fwd_cuda(q, k, v, scale))
+        fused_bound = attention_bound(*FUSED_SHAPE, dtype)
+        print(f"{name} {FUSED_SHAPE}: kernel {fused_ms:.4f} ms, bound "
+              f"{fused_bound['bound_ms']:.4f} ms ({fused_bound['bound_by']}), "
+              f"{100 * fused_bound['bound_ms'] / fused_ms:.1f} % of bound")
+        del q, k, v
     torch.cuda.empty_cache()
     return record
 
@@ -332,10 +356,10 @@ def sensor_rows(rng: np.random.Generator, n: int, tags: int = N_TAGS) -> np.ndar
     return (level + scale * (wave + 0.3 * rng.normal(size=(n, tags)))).astype(np.float32)
 
 
-def build_artifact(dest: str, device, compute_dtype: str = "float32") -> list:
+def build_artifact(dest: str, device, compute_dtype: str = "float32", seed: int = SEED) -> list:
     from gordo_components_tpu_torch.serializer import dump, pipeline_from_definition
 
-    rng = np.random.default_rng(SEED)
+    rng = np.random.default_rng(seed)
     definition = {
         "DiffBasedAnomalyDetector": {
             "base_estimator": {
@@ -381,7 +405,11 @@ def build_artifact(dest: str, device, compute_dtype: str = "float32") -> list:
 
 def post(url: str, X: np.ndarray) -> tuple:
     """POST ``{"X": rows}``; returns (HTTP status, payload, wall ms)."""
-    body = json.dumps({"X": X.tolist()}).encode()
+    return post_body(url, json.dumps({"X": X.tolist()}).encode())
+
+
+def post_body(url: str, body: bytes) -> tuple:
+    """POST an encoded JSON body; returns (HTTP status, payload, wall ms)."""
     req = urllib.request.Request(url, data=body, method="POST",
                                  headers={"Content-Type": "application/json"})
     t0 = time.perf_counter()
@@ -395,8 +423,9 @@ def post(url: str, X: np.ndarray) -> tuple:
 
 def serve(artifact: str, device, windows, rng) -> list:
     """POST one request of each window count to the port's HTTP server on
-    the card. The launch counts are zeroed just before the first request and
-    read after each; returns (X, payload, launches by kernel) per request."""
+    the card, one at a time. The launch counts are zeroed just before the
+    first request and read after each; returns (X, payload, launches by
+    kernel, engine dispatches) per request."""
     from gordo_components_tpu_torch.ops import _kernels
     from gordo_components_tpu_torch.server.server import make_server
 
@@ -405,18 +434,22 @@ def serve(artifact: str, device, windows, rng) -> list:
     thread.start()
     url = (f"http://127.0.0.1:{httpd.server_address[1]}"
            f"/gordo/v0/project/{os.path.basename(artifact)}/anomaly/prediction")
+    engine = httpd.model_server.engine
     results = []
     try:
         _kernels.reset_launches()
         for w in windows:
             X = sensor_rows(rng, LOOKBACK + w - 1)
             before = dict(_kernels.LAUNCHES)
+            dispatches = engine.stats()["dispatches"]
             status, payload, ms = post(url, X)
             launches = {n: _kernels.LAUNCHES[n] - before[n] for n in KERNELS}
-            print(f"POST W={w} ({len(X)} rows): HTTP {status}, {ms:.1f} ms, launches {launches}")
+            dispatches = engine.stats()["dispatches"] - dispatches
+            print(f"POST W={w} ({len(X)} rows): HTTP {status}, {ms:.1f} ms, "
+                  f"{dispatches} dispatch(es), launches {launches}")
             if status != 200:
                 fail(f"HTTP {status} for W={w}")
-            results.append((X, payload, launches))
+            results.append((X, payload, launches, dispatches))
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -456,8 +489,8 @@ def compare_scores(label: str, w: int, payload: dict, plain: dict, rtol: float,
 
 def phase_serve(torch, device, tmp: str) -> dict:
     """The main path in float32: the slice machine served over HTTP; each
-    request launches the fp32 kernel once per layer and matches the CPU
-    plain path."""
+    dispatch (one per lone request) launches the fp32 kernel once per layer,
+    and each response matches the CPU plain path."""
     from gordo_components_tpu_torch import wire
     from gordo_components_tpu_torch.serializer import load
     from gordo_components_tpu_torch.server.engine import ServingEngine
@@ -468,13 +501,14 @@ def phase_serve(torch, device, tmp: str) -> dict:
     print(f"artifact written in {time.perf_counter() - started:.1f} s: {sorted(os.listdir(artifact))}")
     results = serve(artifact, device, WINDOWS, np.random.default_rng(SEED + 1))
     per_request = [r[2]["flash_fwd_f32"] for r in results]
-    if any(n != SLICE["n_layers"] for n in per_request) or any(
+    if any(r[3] != 1 for r in results) or any(n != SLICE["n_layers"] for n in per_request) or any(
             r[2]["flash_fwd_bf16"] for r in results):
-        fail(f"fp32 kernel launches per request {per_request}, expected {SLICE['n_layers']} "
-             "each and no bf16 launch")
+        fail(f"fp32 kernel launches per request {per_request} in dispatches "
+             f"{[r[3] for r in results]}: expected one dispatch of {SLICE['n_layers']} "
+             "launches each and no bf16 launch")
 
     cpu_engine = ServingEngine({"m": load(artifact, device="cpu")}, device="cpu")
-    for w, (X, payload, _) in zip(WINDOWS, results):
+    for w, (X, payload, _, _) in zip(WINDOWS, results):
         started = time.perf_counter()
         plain = dict(zip(wire.SCORE_FIELDS, cpu_engine.anomaly("m", X)))
         cpu_s = time.perf_counter() - started
@@ -497,7 +531,7 @@ def phase_serve_bf16(torch, device, tmp: str) -> dict:
     artifact = os.path.join(tmp, "turbine-long-window-bf16")
     build_artifact(artifact, device, compute_dtype="bfloat16")
     w = 16
-    [(X, payload, launches)] = serve(artifact, device, (w,), np.random.default_rng(SEED + 3))
+    [(X, payload, launches, _)] = serve(artifact, device, (w,), np.random.default_rng(SEED + 3))
     if launches != {"flash_fwd_f32": 0, "flash_fwd_bf16": SLICE["n_layers"]}:
         fail(f"bf16 request launched {launches}, expected {SLICE['n_layers']} bf16 launches only")
     dense = load(artifact, device=device)
@@ -714,6 +748,264 @@ def phase_zoo(torch, device, tmp: str) -> None:
         print(f"zoo profile: {json.dumps(trace)}")
 
 
+# phase 5: fleets of one architecture each, all served by one HTTP server.
+# name -> (machines, estimator, estimator kwargs, tags, rows per request,
+# client threads, requests per thread in each round). Widths: the dense
+# machine of bench_serving.py:248-307 at its 10 tags, the LSTM AE of
+# bench.py's lstm_ae_50tag at its 32 machines, the slice machine.
+FLEETS = {
+    "dense": (100, "DenseAutoEncoder", dict(kind="feedforward_hourglass"), 10, 144, 12, 10),
+    "lstm": (32, "LSTMAutoEncoder", dict(
+        kind="lstm_symmetric", dims=[32], lookback_window=24), 50, 144, 8, 8),
+    "patchtst": (4, "PatchTSTAutoEncoder", None, N_TAGS, LOOKBACK + 15, 4, 2),
+}
+FLEET_ROUNDS = 3
+# a fused PatchTST dispatch against the same request served alone on the
+# card: float32 both, the same kernels, but batched GEMMs (k machines in one
+# cuBLAS call) sum in another order than single ones (~1e-7 relative per
+# product); a request scored with another machine's weights or rows is O(1)
+FUSED_RTOL = 1e-5
+# device memory the fleet server may hold past its stacked trees: the warmup
+# left 0.9 MiB on an H100, and a second copy of one full-width PatchTST
+# machine (3 layers of 2.1 M float32 weights) would add about 24 MiB
+HELD_SLACK = 8 * 2**20
+
+
+def build_fleet(models_dir: str, device) -> dict:
+    """Every fleet's artifacts under ``models_dir``, distinct seeded weights
+    per machine; returns {fleet: [machine names]}."""
+    names = {}
+    for f, (fleet, (count, estimator, kwargs, tags, *_)) in enumerate(FLEETS.items()):
+        names[fleet] = [f"{fleet}-{i:03d}" for i in range(count)]
+        for i, name in enumerate(names[fleet]):
+            dest, seed = os.path.join(models_dir, name), SEED + 1000 * (f + 1) + i
+            if fleet == "patchtst":
+                build_artifact(dest, device, seed=seed)
+            else:
+                build_zoo_artifact(dest, estimator, kwargs, tags, device,
+                                   np.random.default_rng(seed))
+    return names
+
+
+def drive_fleet(base: str, fleet: str, names: list, rng) -> tuple:
+    """FLEET_ROUNDS timed rounds of concurrent clients spread over the
+    fleet's machines (client t's i-th request goes to machine t + i·threads,
+    shifted each round). The bodies are encoded before a round, and the
+    clients start it together. Returns ([(machine, X, payload)], round
+    records)."""
+    _, _, _, tags, rows, threads, per_thread = FLEETS[fleet]
+    responses, rounds = [], []
+    for r in range(FLEET_ROUNDS):
+        plan = [[(names[(t + i * threads + r * threads * per_thread) % len(names)],
+                  sensor_rows(rng, rows, tags)) for i in range(per_thread)]
+                for t in range(threads)]
+        bodies = [[json.dumps({"X": X.tolist()}).encode() for _, X in per_client]
+                  for per_client in plan]
+        out = [[] for _ in range(threads)]
+        errors = []
+        start = threading.Barrier(threads + 1)
+
+        def client(t):
+            try:
+                start.wait(timeout=60)
+                for (name, X), body in zip(plan[t], bodies[t]):
+                    status, payload, ms = post_body(
+                        f"{base}/gordo/v0/project/{name}/anomaly/prediction", body)
+                    if status != 200:
+                        raise RuntimeError(f"{name}: HTTP {status}: {payload}")
+                    out[t].append((name, X, payload, ms))
+            except Exception as exc:  # noqa: BLE001 - reported below, fails the phase
+                errors.append(exc)
+
+        workers = [threading.Thread(target=client, args=(t,)) for t in range(threads)]
+        for w in workers:
+            w.start()
+        start.wait(timeout=60)
+        started = time.perf_counter()
+        for w in workers:
+            w.join(timeout=600)
+        wall = time.perf_counter() - started
+        if errors or any(w.is_alive() for w in workers):
+            fail(f"fleet {fleet} round {r}: {errors[:3] or 'a client did not finish'}")
+        done = [entry for per_client in out for entry in per_client]
+        lat = np.asarray([entry[3] for entry in done])
+        rounds.append({"round": r, "requests": len(done), "wall_s": wall,
+                       "req_per_s": len(done) / wall, "p50_ms": float(np.percentile(lat, 50)),
+                       "p99_ms": float(np.percentile(lat, 99))})
+        print(f"fleet {fleet} round {r}: {json.dumps(rounds[-1])}")
+        responses += [entry[:3] for entry in done]
+    return responses, rounds
+
+
+def bucket_counts(engine, name: str) -> dict:
+    bucket, _ = engine._by_name[name]
+    return {"dispatches": bucket.dispatch_count, "requests": bucket.request_count,
+            "fallback_cold": bucket.fallback_cold_count,
+            "retry_isolated": bucket.retry_isolated_count}
+
+
+def profile_fused(torch, engine, names: list, Xs: list) -> dict:
+    """One fused dispatch of ``len(names)`` requests for distinct machines,
+    under torch.profiler: kernels launched and the device's idle share of
+    the traced wall (dispatch to results on the host)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gordo_components_tpu_torch.server.engine import _Item
+
+    bucket, _ = engine._by_name[names[0]]
+
+    def dispatch():
+        items = []
+        for name, X in zip(names, Xs):
+            x, m_valid = engine._prepare(bucket, X)
+            items.append(_Item(engine._by_name[name][1], x, m_valid))
+        bucket._dispatch(items[0].x.shape[0], items, defer=False)
+        for it in items:
+            if not it.done.wait(600) or it.error is not None:
+                fail(f"fused profile dispatch failed: {it.error}")
+
+    before = bucket.dispatch_count
+    dispatch()  # warm at this batch size
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        dispatch()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    if bucket.dispatch_count != before + 2 or bucket.max_batch_seen < len(names):
+        fail("the profiled requests did not share one dispatch")
+    events = [evt for evt in prof.key_averages()
+              if evt.device_type == DeviceType.CUDA and evt.self_device_time_total]
+    kernels = [evt for evt in events if not evt.key.startswith(("Memcpy", "Memset"))]
+    busy_ms = sum(evt.self_device_time_total for evt in events) / 1e3
+    return {"machines": len(names), "traced_ms": traced_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / traced_ms,
+            "kernel_launches": sum(evt.count for evt in kernels)}
+
+
+def phase_fleet(torch, device, tmp: str) -> dict:
+    """The stacked engine's fleets: 100 dense, 32 LSTM and 4 full-width
+    PatchTST machines dumped into one directory and served by one HTTP
+    server; each fleet's concurrent clients in FLEET_ROUNDS timed rounds.
+    Dense and LSTM responses against the CPU plain path; PatchTST responses
+    against the same request served alone on the card, one against the
+    CPU; fused dispatches (fusion ratio > 1) in every fleet, no fused-path
+    repair, and the fp32 flash kernel launched once per layer per PatchTST
+    dispatch. Returns the phase's flash launches."""
+    from gordo_components_tpu_torch import wire
+    from gordo_components_tpu_torch.models.analysis import analyze_model
+    from gordo_components_tpu_torch.ops import _kernels
+    from gordo_components_tpu_torch.serializer import load
+    from gordo_components_tpu_torch.server.engine import ServingEngine
+    from gordo_components_tpu_torch.server.server import make_server
+
+    models_dir = os.path.join(tmp, "fleet")
+    started = time.perf_counter()
+    names = build_fleet(models_dir, device)
+    print(f"fleet: {sum(map(len, names.values()))} artifacts written in "
+          f"{time.perf_counter() - started:.1f} s")
+    started = time.perf_counter()
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated()
+    httpd = make_server(models_dir, port=0, device=device)
+    held = torch.cuda.memory_allocated() - allocated
+    stacked = sum(b.stacked_nbytes() for b in httpd.model_server.engine._buckets)
+    print(f"fleet: server loaded, stacked and warmed up in {time.perf_counter() - started:.1f} s; "
+          f"device memory held {held / 2**20:.1f} MiB, stacked trees {stacked / 2**20:.1f} MiB")
+    # one copy of the weights: every loaded machine's own weights stay on the
+    # host, and the card holds the stacked trees plus what the warmup left
+    on_card = [name for name, machine in httpd.model_server.machines.items()
+               if any(t.is_cuda for t in analyze_model(
+                   machine.model).estimator.module_.state_dict().values())]
+    if on_card or held > stacked + HELD_SLACK:
+        httpd.server_close()
+        fail(f"fleet: the server holds {held} bytes on the card for {stacked} stacked bytes; "
+             f"machines with weights on the card: {on_card[:5]}")
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    engine = httpd.model_server.engine
+    rng = np.random.default_rng(SEED + 5)
+    results, launches = {}, {}
+    try:
+        stats = engine.stats()
+        if stats["buckets"] != len(FLEETS) or stats["machines"] != sum(map(len, names.values())):
+            fail(f"fleet: {stats['machines']} machines in {stats['buckets']} buckets")
+        for fleet, fleet_names in names.items():
+            before = bucket_counts(engine, fleet_names[0])
+            _kernels.reset_launches()
+            responses, rounds = drive_fleet(base, fleet, fleet_names, rng)
+            engine.quiesce()
+            if fleet == "patchtst":
+                launches = {n: _kernels.LAUNCHES[n] for n in KERNELS}
+            after = bucket_counts(engine, fleet_names[0])
+            delta = {key: after[key] - before[key] for key in after}
+            k = FLEETS[fleet][5]
+            Xs = [sensor_rows(rng, FLEETS[fleet][4], FLEETS[fleet][3]) for _ in range(k)]
+            trace = profile_fused(torch, engine, fleet_names[:k], Xs)
+            results[fleet] = {"responses": responses, "rounds": rounds, "counts": delta,
+                              "trace": trace}
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+
+    for fleet, result in results.items():
+        delta = result["counts"]
+        ratio = delta["requests"] / delta["dispatches"] if delta["dispatches"] else 0
+        summary = {"fleet": fleet, "machines": len(names[fleet]), "counts": delta,
+                   "fusion_ratio": ratio, "rounds": result["rounds"],
+                   "fused_dispatch_trace": result["trace"]}
+        print(f"fleet summary: {json.dumps(summary)}")
+        if delta["fallback_cold"] or delta["retry_isolated"]:
+            fail(f"fleet {fleet}: fused-path repairs counted: {delta}")
+        if not ratio > 1:
+            fail(f"fleet {fleet}: fusion ratio {ratio} ({delta['dispatches']} dispatches)")
+        if delta["requests"] != len(result["responses"]):
+            fail(f"fleet {fleet}: {delta['requests']} requests scored for "
+                 f"{len(result['responses'])} responses")
+
+    # dense and LSTM responses against the CPU plain path
+    cpu = ServingEngine({name: load(os.path.join(models_dir, name), device="cpu")
+                         for fleet in ("dense", "lstm") for name in names[fleet]}, device="cpu")
+    for fleet in ("dense", "lstm"):
+        worst = 0.0
+        for name, X, payload in results[fleet]["responses"]:
+            plain = dict(zip(wire.SCORE_FIELDS, cpu.anomaly(name, X)))
+            rows = len(plain["total-anomaly-score"])
+            worst = max(worst, compare_scores(f"fleet {fleet} {name}", rows, payload, plain,
+                                              SERVE_RTOL, tags=X.shape[1]))
+        print(f"fleet {fleet}: {len(results[fleet]['responses'])} responses vs the CPU plain "
+              f"path, worst relative difference {worst:.3g} (limit {SERVE_RTOL})")
+    cpu.close()
+
+    # PatchTST: every response against the same request alone on the card
+    responses = results["patchtst"]["responses"]
+    dispatches = results["patchtst"]["counts"]["dispatches"]
+    if not (launches["flash_fwd_f32"] == SLICE["n_layers"] * dispatches
+            < SLICE["n_layers"] * len(responses)) or launches["flash_fwd_bf16"]:
+        fail(f"fleet patchtst: flash launches {launches} for {dispatches} dispatches of "
+             f"{len(responses)} requests")
+    print(f"fleet patchtst: flash launches {launches} = {SLICE['n_layers']} x {dispatches} "
+          f"dispatches for {len(responses)} requests")
+    worst = 0.0
+    for name, X, payload in responses:
+        alone = dict(zip(wire.SCORE_FIELDS, engine.anomaly(name, X)))
+        worst = max(worst, compare_scores(f"fleet patchtst {name}", len(alone["model-output"]),
+                                          payload, alone, FUSED_RTOL, tags=X.shape[1]))
+    print(f"fleet patchtst: {len(responses)} fused responses vs the same request alone on the "
+          f"card, worst relative difference {worst:.3g} (limit {FUSED_RTOL})")
+    name, X, payload = responses[0]
+    cpu = ServingEngine({name: load(os.path.join(models_dir, name), device="cpu")}, device="cpu")
+    plain = dict(zip(wire.SCORE_FIELDS, cpu.anomaly(name, X)))
+    worst = compare_scores(f"fleet patchtst {name} vs CPU", len(plain["model-output"]),
+                           payload, plain, SERVE_RTOL, tags=X.shape[1])
+    print(f"fleet patchtst {name}: fused response vs the CPU plain path, worst relative "
+          f"difference {worst:.3g} (limit {SERVE_RTOL})")
+    cpu.close()
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -732,6 +1024,7 @@ def main() -> None:
         launches = phase_serve(torch, device, tmp)
         launches["flash_fwd_bf16"] = phase_serve_bf16(torch, device, tmp)["flash_fwd_bf16"]
         phase_zoo(torch, device, tmp)
+        launches["flash_fwd_f32"] += phase_fleet(torch, device, tmp)["flash_fwd_f32"]
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

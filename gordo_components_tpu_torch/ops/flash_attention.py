@@ -19,8 +19,16 @@ Public contract kept from the reference:
   per-row logsumexp exposed (the ring composition's per-hop update, whose
   caller is a later slice).
 
+The ``(BH, S, D)`` forward is one PyTorch operator, ``gordo::flash_fwd``
+(``torch.library.custom_op``): its CUDA implementation launches the kernel
+of q's dtype, its CPU implementation is the plain version. Its vmap rule
+folds the mapped dimension into BH and makes one call, so a program that
+maps a model with ``torch.func.vmap`` over k machines (the serving engine's fused
+dispatch) launches the kernel once per layer for all k, at BH = k·BH, as
+the reference's ``vmap`` over its Pallas call does.
+
 Forward only: the backward (``_bwd_3d`` in the reference) comes with the
-training slice, so a gradient through the CUDA path raises.
+training slice, so a gradient through the operator raises.
 """
 
 from __future__ import annotations
@@ -48,13 +56,50 @@ def flash_fwd_reference(
     return out.to(q3.dtype), lse
 
 
+@torch.library.custom_op(
+    "gordo::flash_fwd", mutates_args=(), device_types="cpu",
+    schema="(Tensor q, Tensor k, Tensor v, float scale) -> (Tensor, Tensor)",
+)
+def _flash_fwd_op(
+    q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor, scale: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(BH, S, D)`` → ``(out, lse)``; this body is the CPU implementation."""
+    return flash_fwd_reference(q3, k3, v3, scale)
+
+
+@_flash_fwd_op.register_kernel("cuda")
+def _flash_fwd_cuda(q3, k3, v3, scale):
+    return _kernels.flash_fwd_cuda(q3, k3, v3, scale)
+
+
+@_flash_fwd_op.register_fake
+def _flash_fwd_fake(q3, k3, v3, scale):
+    return torch.empty_like(q3), q3.new_empty(q3.shape[:2], dtype=torch.float32)
+
+
+def _flash_fwd_vmap(info, in_dims, q3, k3, v3, scale):
+    """k mapped ``(BH, S, D)`` inputs → one call at ``(k·BH, S, D)``: the
+    mapped dimension goes to the front (an unmapped operand is expanded),
+    folds into BH, and the outputs unfold again."""
+
+    def fold(t, dim):
+        t = t.movedim(dim, 0) if dim is not None else t.expand(info.batch_size, *t.shape)
+        return t.reshape(-1, *t.shape[2:]).contiguous()
+
+    n = info.batch_size
+    q, k, v = (fold(t, dim) for t, dim in zip((q3, k3, v3), in_dims[:3]))
+    out, lse = _flash_fwd_op(q, k, v, scale)
+    return (out.unflatten(0, (n, -1)), lse.unflatten(0, (n, -1))), (0, 0)
+
+
+_flash_fwd_op.register_vmap(_flash_fwd_vmap)
+
+
 def flash_fwd(
     q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor, scale: float
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(BH, S, D)`` attention forward on the tensors' own device: the
     CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
-    if q3.device.type == "cpu":
-        return flash_fwd_reference(q3, k3, v3, scale)
     if torch.is_grad_enabled() and any(
         t.requires_grad for t in (q3, k3, v3)
     ):
@@ -62,9 +107,7 @@ def flash_fwd(
             "flash attention backward is not ported yet (training slice); "
             "run the forward under torch.no_grad()"
         )
-    return _kernels.flash_fwd_cuda(
-        q3.contiguous(), k3.contiguous(), v3.contiguous(), scale
-    )
+    return _flash_fwd_op(q3.contiguous(), k3.contiguous(), v3.contiguous(), float(scale))
 
 
 def flash_block_with_lse(

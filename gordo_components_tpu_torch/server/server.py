@@ -13,6 +13,10 @@ reference's fast-JSON encoder. A request that is too short for the
 window, has the wrong width or holds non-finite values answers 400, as the
 reference does; a model that is not an anomaly detector answers 422.
 
+Every machine's artifact is loaded to the host; the stacked engine places
+one copy of each bucket's weights on the device, and is warmed up (kernel
+libraries built, cuBLAS handles made) before the server binds its port.
+
 Run: ``python -m gordo_components_tpu_torch.server --models-dir DIR
 [--port N] [--device cpu]``.
 """
@@ -48,9 +52,10 @@ class HTTPError(Exception):
 
 
 class _Machine:
-    def __init__(self, name: str, model_dir: str, device):
+    def __init__(self, name: str, model_dir: str):
         self.name = name
-        self.model = load(model_dir, device=device)
+        # on the host: the engine stacks the weights and places one copy
+        self.model = load(model_dir, device="cpu")
         self.metadata = load_metadata(model_dir)
 
     @property
@@ -92,13 +97,14 @@ def scan_models_dir(models_dir: str) -> Dict[str, str]:
 
 
 class ModelServer:
-    """Loaded machines + their engine; request handling without sockets."""
+    """Loaded machines + their warmed-up engine; request handling without
+    sockets. :meth:`close` stops the engine's collector threads."""
 
     def __init__(self, models_dir: str, project: str = "project", device: DeviceLike = None):
         self.device = resolve_device(device)
         self.project = project
         self.machines = {
-            name: _Machine(name, path, self.device)
+            name: _Machine(name, path)
             for name, path in scan_models_dir(models_dir).items()
         }
         if not self.machines:
@@ -110,6 +116,10 @@ class ModelServer:
         )
         for name, reason in self.engine.skipped.items():
             logger.warning("Machine %r is not served: %s", name, reason)
+        self.engine.warmup()
+
+    def close(self) -> None:
+        self.engine.close()
 
     def healthz(self) -> Dict[str, Any]:
         return {
@@ -254,14 +264,29 @@ class _Handler(BaseHTTPRequestHandler):
         logger.info("%s %s", self.address_string(), fmt % args)
 
 
+class _HTTPServer(ThreadingHTTPServer):
+    daemon_threads = True
+    # the listen backlog: socketserver's default of 5 drops the SYNs of a
+    # burst of concurrent clients, which retry after 1 s and then 3 s
+    request_queue_size = 128
+
+    def server_close(self) -> None:
+        super().server_close()
+        self.model_server.close()  # type: ignore[attr-defined]
+
+
 def make_server(
     models_dir: str, host: str = "127.0.0.1", port: int = 5555,
     device: DeviceLike = None, project: str = "project",
 ) -> ThreadingHTTPServer:
-    """Load every machine under ``models_dir`` and bind the HTTP server
-    (``port=0`` picks a free port: read ``server.server_address``)."""
+    """Load every machine under ``models_dir``, warm the engine up and bind
+    the HTTP server (``port=0`` picks a free port: read
+    ``server.server_address``); ``server_close()`` also closes the engine."""
     app = ModelServer(models_dir, project=project, device=device)
-    httpd = ThreadingHTTPServer((host, port), _Handler)
-    httpd.daemon_threads = True
+    try:
+        httpd = _HTTPServer((host, port), _Handler)
+    except BaseException:
+        app.close()
+        raise
     httpd.model_server = app  # type: ignore[attr-defined]
     return httpd

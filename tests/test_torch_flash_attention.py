@@ -92,6 +92,51 @@ def test_short_sequence_takes_dense_and_cpu_takes_plain_version():
     assert _kernels.LAUNCHES == before
 
 
+@pytest.mark.parametrize("in_dims", [(0, 0, 0), (0, None, None), (1, 1, 1)],
+                         ids=["all-mapped", "shared-kv", "mapped-dim-1"])
+def test_vmap_over_flash_attention_equals_the_per_item_loop(in_dims, monkeypatch):
+    """``torch.func.vmap`` of ``flash_attention`` over k = 3 stacked inputs
+    (the engine's fused dispatch over machines) equals the loop over items,
+    and the operator's vmap rule makes ONE call with the k items folded into
+    BH. Float32 on both sides through the same plain version: 1e-6."""
+    from gordo_components_tpu_torch.ops import flash_attention as module
+
+    rng = np.random.default_rng(23)
+    shapes = {0: (3, 2, 200, 2, 8), 1: (2, 3, 200, 2, 8), None: (2, 200, 2, 8)}
+    q, k, v = (torch.from_numpy(rng.normal(scale=0.5, size=shapes[d]).astype(np.float32))
+               for d in in_dims)
+    calls = []
+    reference = module.flash_fwd_reference
+
+    def spy(q3, k3, v3, scale):
+        calls.append(tuple(q3.shape))
+        return reference(q3, k3, v3, scale)
+
+    monkeypatch.setattr(module, "flash_fwd_reference", spy)
+    before = dict(_kernels.LAUNCHES)
+    with torch.inference_mode():
+        batched = torch.func.vmap(flash_attention, in_dims=in_dims)(q, k, v)
+        assert calls == [(3 * 2 * 2, 200, 8)]  # k · batch · heads
+        for i in range(3):
+            item = [t if d is None else t.select(d, i) for t, d in zip((q, k, v), in_dims)]
+            np.testing.assert_allclose(batched[i].numpy(), flash_attention(*item).numpy(),
+                                       atol=1e-6)
+    assert _kernels.LAUNCHES == before  # CPU tensors never reach the kernel
+
+
+def test_gradient_through_the_operator_raises_and_no_grad_runs():
+    """Forward only: with grad enabled and an input that requires grad the
+    operator refuses (the backward comes with the training slice)."""
+    from gordo_components_tpu_torch.ops.flash_attention import flash_fwd
+
+    q = torch.zeros(2, 8, 8, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="backward"):
+        flash_fwd(q, q, q, 1.0)
+    with torch.no_grad():
+        out, lse = flash_fwd(q, q, q, 1.0)
+    assert out.shape == (2, 8, 8) and lse.shape == (2, 8)
+
+
 def test_kernel_wrapper_validates_before_building():
     """Each dtype's kernel refuses a CPU tensor before anything is built or
     counted: there is no CPU fallback inside the wrapper."""

@@ -99,6 +99,36 @@ def test_bf16_single_stage_step_matches_plain_version(shape, cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_vmapped_operator_makes_one_launch_and_equals_per_item_launches(dtype, cuda_device):
+    """``torch.func.vmap`` of the flash operator over k = 4 machines at the
+    fleet's shape folds them into one launch at BH = 4·8192 = 32768, and
+    every item equals its own launch exactly (each bh row is computed the
+    same way whichever block takes it). An unmapped k/v is expanded."""
+    from gordo_components_tpu_torch.ops.flash_attention import flash_fwd
+
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    q, k, v = [(0.5 * torch.randn((4, 8192, 179, 64), generator=gen, device=cuda_device)).to(dt)
+               for _ in range(3)]
+    scale = 64 ** -0.5
+    own = "flash_fwd_f32" if dt == torch.float32 else "flash_fwd_bf16"
+    with torch.inference_mode():
+        before = _kernels.LAUNCHES[own]
+        out, lse = torch.func.vmap(flash_fwd, in_dims=(0, 0, 0, None))(q, k, v, scale)
+        assert _kernels.LAUNCHES[own] == before + 1
+        shared_kv, _ = torch.func.vmap(flash_fwd, in_dims=(0, None, None, None))(q, k[0], v[0], scale)
+        assert _kernels.LAUNCHES[own] == before + 2
+        for i in range(4):
+            item_out, item_lse = _kernels.flash_fwd_cuda(q[i], k[i], v[i], scale)
+            torch.testing.assert_close(out[i], item_out, atol=0, rtol=0)
+            torch.testing.assert_close(lse[i], item_lse, atol=0, rtol=0)
+            shared_out, _ = _kernels.flash_fwd_cuda(q[i], k[0], v[0], scale)
+            torch.testing.assert_close(shared_kv[i], shared_out, atol=0, rtol=0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
 def test_flash_attention_on_the_card_matches_the_cpu(cuda_device):
     q, k, v = _qkv((2, 200, 3, 8), cuda_device, torch.float32)
     out = flash_attention(q, k, v, block_q=96, block_k=64)

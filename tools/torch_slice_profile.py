@@ -6,8 +6,8 @@
 Builds the same seeded long-window PatchTST artifact as ``chip_smoke.py``,
 loads it on the card and scores ``--windows``-window requests:
 
-- host wall time of ``ServingEngine.anomaly`` (scoring, one synchronised
-  fetch) and of ``ModelServer.anomaly`` (JSON parse + validation + scoring
+- host wall time of ``ServingEngine.anomaly`` (one dispatch of the stacked
+  engine and its fetch) and of ``ModelServer.anomaly`` (JSON parse + validation + scoring
   + JSON encode), median of ``--iters``;
 - a ``torch.profiler`` trace of ``--iters`` engine calls: device time
   summed by kernel name, and the device's busy share of the traced wall
@@ -52,8 +52,8 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         artifact = os.path.join(tmp, "m")
         chip_smoke.build_artifact(artifact, device)
-        engine = ServingEngine({"m": load(artifact)})
-        app = ModelServer(artifact)
+        engine = ServingEngine({"m": load(artifact, device="cpu")}, device=device)
+        app = ModelServer(artifact, device=device)
     X = chip_smoke.sensor_rows(rng, chip_smoke.LOOKBACK + args.windows - 1)
     body = json.dumps({"X": X.tolist()}).encode()
     path = "/gordo/v0/project/m/anomaly/prediction"
