@@ -57,7 +57,33 @@ Phases; any failure exits non-zero before the result line:
    the fp32 flash kernel must launch once per layer per PatchTST dispatch
    (at BH = k·8192), fewer times than once per layer per request. One fused
    dispatch per fleet is traced under ``torch.profiler`` (kernels, idle
-   share).
+   share). Then the dense fleet's rounds run again with the clients asking
+   for the npz wire format (``Accept: application/x-gordo-npz``), every
+   response against the CPU, req/s, p50 and p99 printed beside JSON's;
+6. the int8 rung (``phase_int8``): the slice machine, ``dense-ae-default``,
+   ``lstm-ae-50tag`` and a four-machine PatchTST fleet, each written by the
+   port's ``write_artifact_files(..., precision="int8")`` (its metadata pins
+   int8, ``quant_int8.npz`` beside ``state.npz``) and served by one HTTP
+   server. The stacked weights must be int8 on the card; lone requests (W =
+   1 and 16; 1008 rows), a concurrent W = 16 round over the fleet and one
+   fused dispatch of 4 must each match the same artifact at int8 on the CPU
+   plain path within SERVE_RTOL and the same weights served at f32 on the
+   card within ``precision.error_budget("int8")`` (normalized total-score
+   parity); fp32 flash launches = 3 × PatchTST dispatches. Printed: stacked
+   bytes at int8 and f32, device memory held after boot, one int8 and one
+   f32 W = 16 request under ``torch.profiler``, the dequantize pass alone;
+7. the serving surface (``phase_surface``): one server with f32, bf16 and
+   int8 machines and a bare (non-detector) dense pipeline: ``/models``,
+   ``/metadata``, ``/healthz`` (fleet and per machine), ``/prediction`` (the
+   bare machine and a detector), ``/anomaly/prediction`` of the bare machine
+   (422), npz == JSON in float32, the trace id echoed, Prometheus
+   ``/metrics`` parsed and counting the requests made, a spent
+   ``X-Gordo-Deadline`` (504, no dispatch), a scoring fault (quarantine,
+   503, named by ``/healthz``, the others serving, probe recovery after the
+   cooldown), ``POST /reload`` (a rewritten, an added and a removed machine)
+   while clients keep scoring, and a server under ``GORDO_MAX_INFLIGHT=1``,
+   ``GORDO_MAX_QUEUE=0`` shedding 8 concurrent clients with 503 +
+   ``Retry-After`` while every 200 is right.
 
 The line before last is ``nvidia-smi``'s name and power limit; the one
 before that the kernels' JSON record; the last line is the result.
@@ -356,7 +382,11 @@ def sensor_rows(rng: np.random.Generator, n: int, tags: int = N_TAGS) -> np.ndar
     return (level + scale * (wave + 0.3 * rng.normal(size=(n, tags)))).astype(np.float32)
 
 
-def build_artifact(dest: str, device, compute_dtype: str = "float32", seed: int = SEED) -> list:
+def build_artifact(dest: str, device, compute_dtype: str = "float32", seed: int = SEED,
+                   precision: str = None) -> list:
+    """The slice machine with seeded weights and scalers, dumped by the port
+    (at ``precision``: its metadata pins the rung, and at int8
+    ``write_artifact_files`` writes the quantized sidecar)."""
     from gordo_components_tpu_torch.serializer import dump, pipeline_from_definition
 
     rng = np.random.default_rng(seed)
@@ -399,8 +429,15 @@ def build_artifact(dest: str, device, compute_dtype: str = "float32", seed: int 
     model.tag_thresholds_ = np.percentile(scaled, 99, axis=0).astype(np.float32)
     model.total_threshold_ = float(np.percentile(np.linalg.norm(scaled, axis=1), 99))
     tags = [f"TAG-{i:03d}" for i in range(N_TAGS)]
-    dump(model, dest, metadata={"dataset": {"tag_list": tags}})
+    dump(model, dest, metadata=artifact_metadata(tags, precision), precision=precision)
     return tags
+
+
+def artifact_metadata(tags: list, precision: str = None) -> dict:
+    metadata = {"dataset": {"tag_list": tags}}
+    if precision is not None:
+        metadata["precision"] = precision
+    return metadata
 
 
 def post(url: str, X: np.ndarray) -> tuple:
@@ -408,17 +445,38 @@ def post(url: str, X: np.ndarray) -> tuple:
     return post_body(url, json.dumps({"X": X.tolist()}).encode())
 
 
-def post_body(url: str, body: bytes) -> tuple:
-    """POST an encoded JSON body; returns (HTTP status, payload, wall ms)."""
-    req = urllib.request.Request(url, data=body, method="POST",
-                                 headers={"Content-Type": "application/json"})
+def http(method: str, url: str, body: bytes = None, headers: dict = None) -> tuple:
+    """One HTTP request; returns (status, response headers, body bytes,
+    wall ms)."""
+    req = urllib.request.Request(url, data=body, method=method, headers={
+        "Content-Type": "application/json", **(headers or {})})
     t0 = time.perf_counter()
     try:
         with urllib.request.urlopen(req, timeout=300) as resp:
-            status, payload = resp.status, json.loads(resp.read())
+            status, reply, raw = resp.status, dict(resp.headers), resp.read()
     except urllib.error.HTTPError as exc:
-        status, payload = exc.code, json.loads(exc.read())
-    return status, payload, (time.perf_counter() - t0) * 1e3
+        status, reply, raw = exc.code, dict(exc.headers), exc.read()
+    return status, reply, raw, (time.perf_counter() - t0) * 1e3
+
+
+def decode(reply: dict, raw: bytes) -> dict:
+    """A scoring response's payload, from JSON or from the npz wire format
+    (its arrays then numpy arrays)."""
+    from gordo_components_tpu_torch import wire
+
+    if wire.content_type_of(reply.get("Content-Type")) == wire.NPZ_CONTENT_TYPE:
+        return wire.payload_from_npz(raw)
+    return json.loads(raw)
+
+
+def post_body(url: str, body: bytes, npz: bool = False) -> tuple:
+    """POST an encoded JSON body, asking for the npz wire format if ``npz``;
+    returns (HTTP status, payload, wall ms)."""
+    from gordo_components_tpu_torch import wire
+
+    headers = {"Accept": wire.NPZ_CONTENT_TYPE} if npz else None
+    status, reply, raw, ms = http("POST", url, body, headers)
+    return status, decode(reply, raw), ms
 
 
 def serve(artifact: str, device, windows, rng) -> list:
@@ -597,7 +655,7 @@ def zoo_weights(config: dict, rng: np.random.Generator) -> dict:
 
 
 def build_zoo_artifact(dest: str, estimator: str, kwargs: dict, tags: int, device,
-                       rng: np.random.Generator) -> None:
+                       rng: np.random.Generator, precision: str = None) -> None:
     """A DiffBasedAnomalyDetector / TransformedTargetRegressor / MinMaxScaler
     pipeline around ``estimator`` (as bench.py builds them), scalers fitted
     on seeded rows, seeded weights, the error scaler and thresholds on the
@@ -626,7 +684,8 @@ def build_zoo_artifact(dest: str, estimator: str, kwargs: dict, tags: int, devic
         scaled = model.scaler.transform(residual)
         model.tag_thresholds_ = np.percentile(scaled, 99, axis=0).astype(np.float32)
         model.total_threshold_ = float(np.percentile(np.linalg.norm(scaled, axis=1), 99))
-    dump(model, dest, metadata={"dataset": {"tag_list": [f"TAG-{i:03d}" for i in range(tags)]}})
+    dump(model, dest, precision=precision, metadata=artifact_metadata(
+        [f"TAG-{i:03d}" for i in range(tags)], precision))
 
 
 def kernel_label(key: str) -> str:
@@ -787,12 +846,12 @@ def build_fleet(models_dir: str, device) -> dict:
     return names
 
 
-def drive_fleet(base: str, fleet: str, names: list, rng) -> tuple:
+def drive_fleet(base: str, fleet: str, names: list, rng, npz: bool = False) -> tuple:
     """FLEET_ROUNDS timed rounds of concurrent clients spread over the
     fleet's machines (client t's i-th request goes to machine t + i·threads,
     shifted each round). The bodies are encoded before a round, and the
-    clients start it together. Returns ([(machine, X, payload)], round
-    records)."""
+    clients start it together; with ``npz`` they ask for the npz wire
+    format. Returns ([(machine, X, payload)], round records)."""
     _, _, _, tags, rows, threads, per_thread = FLEETS[fleet]
     responses, rounds = [], []
     for r in range(FLEET_ROUNDS):
@@ -810,7 +869,7 @@ def drive_fleet(base: str, fleet: str, names: list, rng) -> tuple:
                 start.wait(timeout=60)
                 for (name, X), body in zip(plan[t], bodies[t]):
                     status, payload, ms = post_body(
-                        f"{base}/gordo/v0/project/{name}/anomaly/prediction", body)
+                        f"{base}/gordo/v0/project/{name}/anomaly/prediction", body, npz)
                     if status != 200:
                         raise RuntimeError(f"{name}: HTTP {status}: {payload}")
                     out[t].append((name, X, payload, ms))
@@ -829,7 +888,8 @@ def drive_fleet(base: str, fleet: str, names: list, rng) -> tuple:
             fail(f"fleet {fleet} round {r}: {errors[:3] or 'a client did not finish'}")
         done = [entry for per_client in out for entry in per_client]
         lat = np.asarray([entry[3] for entry in done])
-        rounds.append({"round": r, "requests": len(done), "wall_s": wall,
+        rounds.append({"round": r, "wire": "npz" if npz else "json",
+                       "requests": len(done), "wall_s": wall,
                        "req_per_s": len(done) / wall, "p50_ms": float(np.percentile(lat, 50)),
                        "p99_ms": float(np.percentile(lat, 99))})
         print(f"fleet {fleet} round {r}: {json.dumps(rounds[-1])}")
@@ -945,6 +1005,8 @@ def phase_fleet(torch, device, tmp: str) -> dict:
             trace = profile_fused(torch, engine, fleet_names[:k], Xs)
             results[fleet] = {"responses": responses, "rounds": rounds, "counts": delta,
                               "trace": trace}
+        # the dense fleet again, its clients asking for the npz wire format
+        npz_responses, npz_rounds = drive_fleet(base, "dense", names["dense"], rng, npz=True)
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -968,7 +1030,8 @@ def phase_fleet(torch, device, tmp: str) -> dict:
     # dense and LSTM responses against the CPU plain path
     cpu = ServingEngine({name: load(os.path.join(models_dir, name), device="cpu")
                          for fleet in ("dense", "lstm") for name in names[fleet]}, device="cpu")
-    for fleet in ("dense", "lstm"):
+    results["dense-npz"] = {"responses": npz_responses}
+    for fleet in ("dense", "lstm", "dense-npz"):
         worst = 0.0
         for name, X, payload in results[fleet]["responses"]:
             plain = dict(zip(wire.SCORE_FIELDS, cpu.anomaly(name, X)))
@@ -978,6 +1041,10 @@ def phase_fleet(torch, device, tmp: str) -> dict:
         print(f"fleet {fleet}: {len(results[fleet]['responses'])} responses vs the CPU plain "
               f"path, worst relative difference {worst:.3g} (limit {SERVE_RTOL})")
     cpu.close()
+    json_rounds = results["dense"]["rounds"]
+    print("fleet dense, JSON vs npz wire format: " + json.dumps({
+        wire_format: {key: [r[key] for r in rounds] for key in ("req_per_s", "p50_ms", "p99_ms")}
+        for wire_format, rounds in (("json", json_rounds), ("npz", npz_rounds))}))
 
     # PatchTST: every response against the same request alone on the card
     responses = results["patchtst"]["responses"]
@@ -1006,6 +1073,556 @@ def phase_fleet(torch, device, tmp: str) -> dict:
     return launches
 
 
+# phase 6: the int8 rung. The slice machine and the four PatchTST fleet
+# machines (other seeds) share one bucket; two zoo machines beside them.
+INT8_ZOO = ("dense-ae-default", "lstm-ae-50tag")
+INT8_FLEET = [f"patchtst-int8-{i}" for i in range(4)]
+
+
+def dequantize_profile(torch, bucket) -> dict:
+    """The dequantize pass of one machine of an int8 bucket alone, as the
+    program runs it (``q.float() * scale`` per parameter): its kernels
+    under torch.profiler and its time by CUDA events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    params = {key: q[0] for key, q in bucket.stacked["params"].items()}
+    scales = {key: s[0] for key, s in bucket.stacked["params_scale"].items()}
+
+    def dequantize():
+        return {key: q.to(torch.float32) * scales[key] for key, q in params.items()}
+
+    ms = timed_ms(dequantize)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        dequantize()
+        torch.cuda.synchronize()
+    kernels = [evt for evt in prof.key_averages()
+               if evt.device_type == DeviceType.CUDA and evt.self_device_time_total]
+    return {"weights": sum(q.numel() for q in params.values()), "tensors": len(params),
+            "ms": ms, "kernel_launches": sum(evt.count for evt in kernels),
+            "device_ms": sum(evt.self_device_time_total for evt in kernels) / 1e3}
+
+
+def concurrent_posts(urls_and_bodies: list) -> list:
+    """POST each (url, body) from its own thread, all started together;
+    returns (status, payload, ms) in order."""
+    out = [None] * len(urls_and_bodies)
+    start = threading.Barrier(len(urls_and_bodies))
+
+    def client(i, url, body):
+        start.wait(timeout=60)
+        out[i] = post_body(url, body)
+
+    workers = [threading.Thread(target=client, args=(i, *pair))
+               for i, pair in enumerate(urls_and_bodies)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(timeout=600)
+    if any(w.is_alive() for w in workers) or any(r is None for r in out):
+        fail("a concurrent client did not finish")
+    return out
+
+
+def phase_int8(torch, device, tmp: str) -> dict:
+    """The int8 rung on the card: the slice machine (W = 1 and W = 16 lone
+    requests), two zoo machines (1008 rows) and the four-machine PatchTST
+    fleet (a concurrent W = 16 round over HTTP, then one fused dispatch of
+    4), every artifact written by the port with its int8 sidecar and served
+    by one HTTP server. Every response matches the same artifact at int8 on
+    the CPU plain path within SERVE_RTOL, and the same weights served at
+    f32 on the card within the int8 parity budget; the stacked weights are
+    int8 on the card; the fp32 flash kernel launches once per layer per
+    PatchTST dispatch. Returns the phase's flash launches."""
+    from gordo_components_tpu_torch import precision, wire
+    from gordo_components_tpu_torch.ops import _kernels
+    from gordo_components_tpu_torch.serializer import load
+    from gordo_components_tpu_torch.server.engine import ServingEngine, _Item
+    from gordo_components_tpu_torch.server.server import make_server
+
+    models_dir = os.path.join(tmp, "int8")
+    rng = np.random.default_rng(SEED + 6)
+    started = time.perf_counter()
+    build_artifact(os.path.join(models_dir, "slice-int8"), device, precision="int8")
+    for i, name in enumerate(INT8_FLEET):
+        build_artifact(os.path.join(models_dir, name), device, seed=SEED + 3000 + i,
+                       precision="int8")
+    for name in INT8_ZOO:
+        estimator, kwargs, tags = ZOO[name]
+        build_zoo_artifact(os.path.join(models_dir, name), estimator, kwargs, tags, device, rng,
+                           precision="int8")
+    names = sorted(os.listdir(models_dir))
+    missing = [n for n in names
+               if precision.QUANT_INT8_FILE not in os.listdir(os.path.join(models_dir, n))]
+    if missing:
+        fail(f"int8: artifacts without {precision.QUANT_INT8_FILE}: {missing}")
+    print(f"int8: {len(names)} artifacts with {precision.QUANT_INT8_FILE} written in "
+          f"{time.perf_counter() - started:.1f} s")
+
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated()
+    httpd = make_server(models_dir, port=0, device=device)
+    held = torch.cuda.memory_allocated() - allocated
+    app = httpd.model_server
+    engine = app.engine
+    for bucket in engine._buckets:
+        leaves = list(bucket.stacked["params"].values())
+        if bucket.precision != "int8" or not all(
+                t.dtype == torch.int8 and t.device.type == device.type for t in leaves):
+            fail(f"int8: bucket {bucket.names} at {bucket.precision} holds "
+                 f"{sorted({(str(t.dtype), t.device.type) for t in leaves})}")
+    f32 = ServingEngine({name: m.model for name, m in app.machines.items()},
+                        precisions={name: "f32" for name in app.machines}, device=device)
+    nbytes = {rung: {b.names[0] if len(b.names) == 1 else "patchtst": b.stacked_nbytes()
+                     for b in e._buckets} for rung, e in (("int8", engine), ("f32", f32))}
+    print(f"int8: stacked trees {json.dumps(nbytes)}; int8 / f32 = "
+          f"{sum(nbytes['int8'].values()) / sum(nbytes['f32'].values()):.4f}; device memory "
+          f"held by the int8 server after boot {held / 2**20:.1f} MiB")
+    per_machine = nbytes["int8"]["patchtst"] / (1 + len(INT8_FLEET))
+    print(f"int8: one full-width PatchTST machine {per_machine / 2**20:.2f} MiB at int8, "
+          f"{nbytes['f32']['patchtst'] / (1 + len(INT8_FLEET)) / 2**20:.2f} MiB at f32")
+
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}/gordo/v0/project"
+    slice_bucket = engine._by_name["slice-int8"][0]
+    served = []  # (label, machine, X, scored arrays)
+    try:
+        _kernels.reset_launches()
+        before = slice_bucket.dispatch_count
+        lone = [("slice-int8", LOOKBACK + w - 1, N_TAGS) for w in (1, 16)]
+        lone += [(name, 1008, ZOO[name][2]) for name in INT8_ZOO]
+        for name, rows, tags in lone:
+            X = sensor_rows(rng, rows, tags)
+            status, payload, ms = post(f"{base}/{name}/anomaly/prediction", X)
+            print(f"int8 POST {name} {rows} rows: HTTP {status}, {ms:.1f} ms")
+            if status != 200:
+                fail(f"int8: {name} answered HTTP {status}: {payload}")
+            served.append(("lone", name, X, payload["data"]))
+        fleet_X = [sensor_rows(rng, LOOKBACK + 15, N_TAGS) for _ in INT8_FLEET]
+        replies = concurrent_posts([
+            (f"{base}/{name}/anomaly/prediction", json.dumps({"X": X.tolist()}).encode())
+            for name, X in zip(INT8_FLEET, fleet_X)])
+        for name, X, (status, payload, ms) in zip(INT8_FLEET, fleet_X, replies):
+            print(f"int8 fleet POST {name} W=16: HTTP {status}, {ms:.1f} ms")
+            if status != 200:
+                fail(f"int8: {name} answered HTTP {status}: {payload}")
+            served.append(("fleet", name, X, payload["data"]))
+        round_dispatches = slice_bucket.dispatch_count - before
+        # one fused dispatch of the four machines
+        items = []
+        for name, X in zip(INT8_FLEET, fleet_X):
+            x, m_valid = engine._prepare(slice_bucket, X)
+            items.append(_Item(engine._by_name[name][1], x, m_valid))
+        slice_bucket._dispatch(items[0].x.shape[0], items, defer=False)
+        for name, X, it in zip(INT8_FLEET, fleet_X, items):
+            if not it.done.wait(600) or it.error is not None:
+                fail(f"int8: fused dispatch failed: {it.error}")
+            served.append(("fused", name, X, dict(zip(wire.SCORE_FIELDS, it.result))))
+        dispatches = slice_bucket.dispatch_count - before
+        launches = {n: _kernels.LAUNCHES[n] for n in KERNELS}
+        if slice_bucket.max_batch_seen < len(INT8_FLEET):
+            fail("int8: the fused dispatch of the fleet did not hold all four requests")
+        X16 = served[1][2]
+        trace_int8 = profile_request(torch, engine, "slice-int8", X16)
+        trace_f32 = profile_request(torch, f32, "slice-int8", X16)
+        dequant = dequantize_profile(torch, slice_bucket)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    print(f"int8: {dispatches} PatchTST dispatches ({round_dispatches} for the concurrent "
+          f"round of {len(INT8_FLEET)}, then 1 fused), flash launches {launches}")
+    if launches != {"flash_fwd_f32": SLICE["n_layers"] * dispatches, "flash_fwd_bf16": 0}:
+        fail(f"int8: flash launches {launches} for {dispatches} PatchTST dispatches")
+    print(f"int8 profile W=16: {json.dumps(trace_int8)}")
+    print(f"f32 profile W=16, same weights and rows: {json.dumps(trace_f32)}")
+    print(f"int8 dequantize pass of one slice machine: {json.dumps(dequant)}")
+
+    cpu = ServingEngine(
+        {name: load(os.path.join(models_dir, name), device="cpu") for name in names},
+        precisions={name: "int8" for name in names},
+        quantized={name: precision.load_quantized(os.path.join(models_dir, name))
+                   for name in names},
+        device="cpu")
+    budget = precision.error_budget("int8")
+    plain_cache = {}
+    for label, name, X, data in served:
+        key = (name, X.shape[0], float(X[0, 0]))
+        if key not in plain_cache:
+            plain_cache[key] = dict(zip(wire.SCORE_FIELDS, cpu.anomaly(name, X)))
+        plain = plain_cache[key]
+        rows = len(plain["total-anomaly-score"])
+        worst = compare_arrays(f"int8 {label} {name}", rows, data, plain, SERVE_RTOL,
+                               tags=X.shape[1])
+        parity = precision.parity_error(f32.anomaly(name, X).total_anomaly_score,
+                                        np.asarray(data["total-anomaly-score"]))
+        print(f"int8 {label} {name} {len(X)} rows: card vs CPU at int8, worst relative "
+              f"difference {worst:.3g} (limit {SERVE_RTOL}); total-score parity with f32 on "
+              f"the card {parity:.4g} (budget {budget})")
+        if not parity <= budget:
+            fail(f"int8 {name}: parity error {parity} above the int8 budget {budget}")
+    cpu.close()
+    f32.close()
+    return launches
+
+
+# phase 7: the reference's serving surface on one server. name ->
+# (estimator kwargs of a zoo machine, precision pinned in its metadata,
+# anomaly detector or a bare pipeline)
+SURFACE = {
+    "dense-f32": ("dense-ae-10tag", None, True),
+    "dense-bf16": ("dense-ae-10tag", "bf16", True),
+    "dense-int8": ("dense-ae-10tag", "int8", True),
+    "lstm-int8": ("lstm-ae-50tag", "int8", True),
+    "bare-dense": ("dense-ae-10tag", None, False),
+}
+QUARANTINE_COOLDOWN = 1.0  # seconds
+
+
+def build_bare_artifact(dest: str, tags: int, device, rng: np.random.Generator) -> None:
+    """A bare Pipeline([MinMaxScaler, DenseAutoEncoder]): no anomaly
+    detector, so it serves /prediction only."""
+    from gordo_components_tpu_torch.serializer import dump, pipeline_from_definition
+
+    model = pipeline_from_definition({"Pipeline": {"steps": [
+        "MinMaxScaler", {"DenseAutoEncoder": {"kind": "feedforward_hourglass"}}]}})
+    scaler, est = (step for _, step in model.steps)
+    scaler.fit(sensor_rows(rng, 2016, tags))
+    config = est._make_spec(tags, tags).config
+    est.to(device).set_state({"params": zoo_weights(config, rng), "n_features": tags,
+                              "n_features_out": tags})
+    dump(model, dest, metadata=artifact_metadata([f"TAG-{i:03d}" for i in range(tags)]))
+
+
+def build_surface_machine(models_dir: str, name: str, device, seed: int) -> None:
+    zoo_name, rung, detector = SURFACE[name]
+    estimator, kwargs, tags = ZOO[zoo_name]
+    rng = np.random.default_rng(seed)
+    if detector:
+        build_zoo_artifact(os.path.join(models_dir, name), estimator, kwargs, tags, device, rng,
+                           precision=rung)
+    else:
+        build_bare_artifact(os.path.join(models_dir, name), tags, device, rng)
+
+
+def prometheus_counts(base: str) -> dict:
+    """``/metrics?format=prometheus`` parsed by the port's parser:
+    {(series name, sorted labels): value}."""
+    from gordo_components_tpu_torch.observability.exposition import parse_prometheus_text
+
+    status, _, raw, _ = http("GET", base + "/metrics?format=prometheus")
+    if status != 200:
+        fail(f"surface: /metrics?format=prometheus answered HTTP {status}")
+    return {(name, tuple(sorted(labels.items()))): value
+            for name, samples in parse_prometheus_text(raw.decode()).items()
+            for labels, value in samples}
+
+
+def phase_surface(torch, device, tmp: str) -> None:
+    """The reference's serving surface on the card, against the port's CPU
+    plain path: /models, /metadata, /healthz (fleet and per machine),
+    /prediction, /anomaly/prediction, npz against JSON, Prometheus
+    /metrics, a spent deadline (504, no dispatch), admission (503 +
+    Retry-After under GORDO_MAX_INFLIGHT=1, GORDO_MAX_QUEUE=0), quarantine
+    and probe recovery, and a reload (a rewritten, an added and a removed
+    machine) under in-flight requests."""
+    from gordo_components_tpu_torch import wire
+    from gordo_components_tpu_torch.observability.tracing import TRACE_HEADER
+    from gordo_components_tpu_torch.serializer import load
+    from gordo_components_tpu_torch.server.engine import ServingEngine
+    from gordo_components_tpu_torch.server.server import make_server
+
+    models_dir = os.path.join(tmp, "surface")
+    for i, name in enumerate(SURFACE):
+        build_surface_machine(models_dir, name, device, SEED + 4000 + i)
+    expected_precision = {name: rung or "f32" for name, (_, rung, _) in SURFACE.items()}
+
+    def cpu_engine(names):
+        return ServingEngine(
+            {n: load(os.path.join(models_dir, n), device="cpu") for n in names},
+            precisions={n: expected_precision.get(n, "f32") for n in names}, device="cpu")
+
+    def tags_of(name):
+        return ZOO[SURFACE.get(name, SURFACE["dense-f32"])[0]][2]
+
+    httpd = make_server(models_dir, port=0, device=device,
+                        quarantine_cooldown=QUARANTINE_COOLDOWN)
+    app = httpd.model_server
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    root = f"http://127.0.0.1:{httpd.server_address[1]}"
+    base = f"{root}/gordo/v0/project"
+    rng = np.random.default_rng(SEED + 7)
+    cpu = cpu_engine(list(SURFACE))
+    made = {}  # (endpoint, status) -> requests, checked against /metrics
+
+    def score(name, X, endpoint="anomaly/prediction", headers=None):
+        status, reply, raw, _ = http("POST", f"{base}/{name}/{endpoint}",
+                                     json.dumps({"X": X.tolist()}).encode(), headers)
+        # the server labels a client error's series "error"
+        label = "anomaly" if endpoint.startswith("anomaly") else "prediction"
+        key = ("error" if 400 <= status < 500 else label, status)
+        made[key] = made.get(key, 0) + 1
+        return status, reply, raw
+
+    def get_json(path):
+        status, reply, raw, _ = http("GET", root + path)
+        return status, reply, json.loads(raw)
+
+    try:
+        before = prometheus_counts(root)
+        status, _, models = get_json("/models")
+        if status != 200 or models["models"] != sorted(SURFACE):
+            fail(f"surface: /models answered {status} {models}")
+        for name in SURFACE:
+            status, _, meta = get_json(f"/gordo/v0/project/{name}/metadata")
+            if status != 200 or meta["name"] != name or \
+                    meta["metadata"].get("precision") != SURFACE[name][1]:
+                fail(f"surface: /metadata of {name} answered {status} {meta}")
+            status, _, health = get_json(f"/gordo/v0/project/{name}/healthz")
+            if status != 200 or health["precision"] != expected_precision[name]:
+                fail(f"surface: /healthz of {name} answered {status} {health}")
+        if get_json("/metadata")[0] != 404:
+            fail("surface: bare /metadata of a fleet did not answer 404")
+        status, _, health = get_json("/healthz")
+        if status != 200 or health["status"] != "ok" or \
+                health["store"]["precisions"] != expected_precision:
+            fail(f"surface: /healthz answered {status} {health}")
+        print(f"surface: /models, /metadata, /healthz answer; precisions "
+              f"{health['store']['precisions']}")
+
+        # /prediction on the bare machine and on a detector; 422 on the bare
+        for name in ("bare-dense", "dense-f32"):
+            X = sensor_rows(rng, 144, tags_of(name))
+            status, reply, raw = score(name, X, "prediction")
+            if status != 200:
+                fail(f"surface: /prediction of {name} answered HTTP {status}: {raw[:200]}")
+            got = np.asarray(json.loads(raw)["data"]["model-output"])
+            ref = cpu.predict(name, X)
+            rel = np.abs(got - ref).max() / max(1.0, np.abs(ref).max())
+            if rel > SERVE_RTOL:
+                fail(f"surface: /prediction of {name} differs from the CPU by {rel:.3g}")
+        status, _, raw = score("bare-dense", sensor_rows(rng, 144, 10))
+        if status != 422:
+            fail(f"surface: /anomaly/prediction of the bare machine answered {status}")
+        print("surface: /prediction serves the bare machine and a detector; "
+              "/anomaly/prediction of the bare machine answers 422")
+
+        # every detector, JSON and npz: the same float32 arrays; the CPU
+        npz_requests = 0
+        for name in ("dense-f32", "dense-bf16", "dense-int8", "lstm-int8"):
+            X = sensor_rows(rng, 1008, tags_of(name))
+            status, reply, raw = score(name, X, headers={TRACE_HEADER: f"chip-smoke-{name}"})
+            if status != 200 or reply.get(TRACE_HEADER) != f"chip-smoke-{name}":
+                fail(f"surface: {name} answered {status}, trace id {reply.get(TRACE_HEADER)}")
+            as_json = decode(reply, raw)
+            status, reply, raw = score(name, X, headers={"Accept": wire.NPZ_CONTENT_TYPE})
+            npz_requests += 1
+            if status != 200 or wire.content_type_of(reply.get("Content-Type")) != \
+                    wire.NPZ_CONTENT_TYPE:
+                fail(f"surface: npz request to {name} answered {status} {reply}")
+            as_npz = decode(reply, raw)
+            for field in wire.SCORE_FIELDS:
+                a = np.asarray(as_json["data"][field], np.float32)
+                b = as_npz["data"][field]
+                if b.dtype != np.float32 or not np.array_equal(a, b):
+                    fail(f"surface: {name} {field}: npz and JSON disagree")
+            plain = dict(zip(wire.SCORE_FIELDS, cpu.anomaly(name, X)))
+            rtol = BF16_SERVE_RTOL if name.endswith("bf16") else SERVE_RTOL
+            worst = compare_scores(f"surface {name}", len(plain["total-anomaly-score"]),
+                                   as_npz, plain, rtol, tags=X.shape[1])
+            print(f"surface {name}: npz == JSON in float32; vs the CPU {worst:.3g} (limit {rtol})")
+
+        # a deadline already spent: 504, and no dispatch
+        dispatches = app.engine.stats()["dispatches"]
+        status, reply, raw = score("dense-f32", sensor_rows(rng, 144, 10),
+                                   headers={"X-Gordo-Deadline": "0"})
+        if status != 504 or int(reply.get("Retry-After", 0)) < 1 or \
+                app.engine.stats()["dispatches"] != dispatches:
+            fail(f"surface: spent deadline answered {status} {reply} (dispatches "
+                 f"{dispatches} -> {app.engine.stats()['dispatches']})")
+        print(f"surface: spent deadline -> 504, Retry-After {reply['Retry-After']}, "
+              f"dispatches unchanged ({dispatches})")
+
+        after = prometheus_counts(root)
+        for (endpoint, status), n in sorted(made.items()):
+            key = ("gordo_server_requests_total",
+                   (("endpoint", endpoint), ("status", str(status))))
+            delta = after.get(key, 0) - before.get(key, 0)
+            if delta != n:
+                fail(f"surface: /metrics counts {delta} for {key}, {n} were made")
+        npz_key = ("gordo_server_wire_format_total", (("format", "npz"),))
+        if after.get(npz_key, 0) - before.get(npz_key, 0) != npz_requests:
+            fail("surface: /metrics does not count the npz responses")
+        print(f"surface: /metrics?format=prometheus parses and counts {json.dumps({f'{e} {s}': n for (e, s), n in sorted(made.items())})}")
+
+        quarantine_and_recover(app, base, rng)
+        reload_under_traffic(app, base, models_dir, device, rng, cpu_engine)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+        cpu.close()
+    admission_sheds(models_dir, device, rng, cpu_engine)
+
+
+def quarantine_and_recover(app, base: str, rng) -> None:
+    """A device fault while dense-int8 scores quarantines it (503, named by
+    /healthz) while the rest answer; after the cooldown one request probes
+    and recovers it."""
+    bucket, idx = app.engine._by_name["dense-int8"]
+    fault = threading.Event()
+    program = bucket._program
+
+    def faulty(idxs, xs):
+        if fault.is_set() and idx in idxs:
+            raise RuntimeError("injected device fault")
+        return program(idxs, xs)
+
+    bucket._program = faulty
+    X = sensor_rows(rng, 144, 10)
+    body = json.dumps({"X": X.tolist()}).encode()
+    url = f"{base}/dense-int8/anomaly/prediction"
+    fault.set()
+    status, reply, raw, _ = http("POST", url, body)
+    root = base.rsplit("/gordo/", 1)[0]
+    health = json.loads(http("GET", root + "/healthz")[2])
+    machine_health = http("GET", f"{base}/dense-int8/healthz")[0]
+    others = http("POST", f"{base}/dense-f32/anomaly/prediction", body)[0]
+    again = http("POST", url, body)[0]
+    if status != 503 or int(reply.get("Retry-After", 0)) < 1 or \
+            "dense-int8" not in health["quarantined"] or health["status"] != "degraded" or \
+            machine_health != 503 or others != 200 or again != 503:
+        fail(f"surface: quarantine: {status} {reply}, /healthz {health['status']} "
+             f"{sorted(health['quarantined'])}, machine healthz {machine_health}, "
+             f"others {others}, again {again}")
+    fault.clear()
+    time.sleep(QUARANTINE_COOLDOWN + 0.2)
+    probe = http("POST", url, body)[0]
+    health = json.loads(http("GET", root + "/healthz")[2])
+    bucket._program = program
+    if probe != 200 or health["status"] != "ok":
+        fail(f"surface: quarantine probe answered {probe}, /healthz {health['status']}")
+    print("surface: a scoring fault quarantines dense-int8 (503, named by /healthz, others "
+          "200); after the cooldown a probe recovers it")
+
+
+def reload_under_traffic(app, base: str, models_dir: str, device, rng, cpu_engine) -> None:
+    """Rewrite dense-f32's weights, add dense-new, remove dense-bf16 and
+    POST /reload while clients keep scoring lstm-int8: every in-flight
+    request completes, answers follow the new weights, and the removed
+    machine answers 404."""
+    import shutil
+
+    from gordo_components_tpu_torch import wire
+
+    X = sensor_rows(rng, 144, 10)
+    body = json.dumps({"X": X.tolist()}).encode()
+    old = json.loads(http("POST", f"{base}/dense-f32/anomaly/prediction", body)[2])
+    build_surface_machine(models_dir, "dense-f32", device, SEED + 5000)
+    shutil.copytree(os.path.join(models_dir, "dense-f32"), os.path.join(models_dir, "dense-new"))
+    shutil.rmtree(os.path.join(models_dir, "dense-bf16"))
+    X_lstm = sensor_rows(rng, 1008, 50)
+    lstm_body = json.dumps({"X": X_lstm.tolist()}).encode()
+    statuses, stop = [], threading.Event()
+
+    def client():
+        while not stop.is_set():
+            statuses.append(http("POST", f"{base}/lstm-int8/anomaly/prediction", lstm_body)[0])
+
+    clients = [threading.Thread(target=client) for _ in range(4)]
+    for c in clients:
+        c.start()
+    time.sleep(0.5)
+    root = base.rsplit("/gordo/", 1)[0]
+    status, _, raw, ms = http("POST", root + "/reload")
+    time.sleep(0.5)
+    stop.set()
+    for c in clients:
+        c.join(timeout=120)
+    report = json.loads(raw)
+    if status != 200 or report["added"] != ["dense-new"] or report["removed"] != ["dense-bf16"] \
+            or report["refreshed"] != ["dense-f32"] or report["errors"]:
+        fail(f"surface: /reload answered {status} {report}")
+    if any(c.is_alive() for c in clients) or not statuses or set(statuses) != {200}:
+        fail(f"surface: requests during the reload answered {sorted(set(statuses))}")
+    cpu = cpu_engine(["dense-f32", "dense-new"])
+    for name in ("dense-f32", "dense-new"):
+        status, reply, raw, _ = http("POST", f"{base}/{name}/anomaly/prediction", body)
+        if status != 200:
+            fail(f"surface: {name} after the reload answered {status}")
+        payload = decode(reply, raw)
+        plain = dict(zip(wire.SCORE_FIELDS, cpu.anomaly(name, X)))
+        compare_scores(f"surface reload {name}", len(X), payload, plain, SERVE_RTOL, tags=10)
+    cpu.close()
+    if np.allclose(old["data"]["model-output"], payload["data"]["model-output"]):
+        fail("surface: dense-f32 still answers with its old weights after the reload")
+    gone = http("POST", f"{base}/dense-bf16/anomaly/prediction", body)[0]
+    if gone != 404:
+        fail(f"surface: the removed machine answered {gone}")
+    print(f"surface: /reload in {ms:.0f} ms ({json.dumps(report)}); {len(statuses)} requests "
+          "in flight around it all answered 200; answers follow the new weights; the removed "
+          "machine answers 404")
+
+
+def admission_sheds(models_dir: str, device, rng, cpu_engine) -> None:
+    """A server started with GORDO_MAX_INFLIGHT=1 and GORDO_MAX_QUEUE=0
+    under 8 concurrent clients sheds some requests with 503 + Retry-After,
+    and every 200 it answers is right."""
+    from gordo_components_tpu_torch import wire
+    from gordo_components_tpu_torch.server.server import make_server
+
+    saved = {k: os.environ.get(k) for k in ("GORDO_MAX_INFLIGHT", "GORDO_MAX_QUEUE")}
+    os.environ.update(GORDO_MAX_INFLIGHT="1", GORDO_MAX_QUEUE="0")
+    try:
+        httpd = make_server(models_dir, port=0, device=device)
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = (f"http://127.0.0.1:{httpd.server_address[1]}"
+           "/gordo/v0/project/dense-f32/anomaly/prediction")
+    Xs = [sensor_rows(rng, 8064, 10) for _ in range(4)]
+    bodies = [json.dumps({"X": X.tolist()}).encode() for X in Xs]
+    answers = []
+    try:
+        def client(t):
+            for i in range(8):
+                k = (t + i) % len(Xs)
+                status, reply, raw, _ = http("POST", url, bodies[k])
+                answers.append((k, status, reply, raw))
+
+        workers = [threading.Thread(target=client, args=(t,)) for t in range(8)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=300)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    shed = [a for a in answers if a[1] == 503]
+    ok = [a for a in answers if a[1] == 200]
+    if len(answers) != 64 or not shed or not ok or len(shed) + len(ok) != len(answers) or \
+            any(int(a[2].get("Retry-After", 0)) < 1 for a in shed):
+        fail(f"surface: admission answered {sorted({a[1] for a in answers})}: {len(shed)} "
+             f"sheds, {len(ok)} served of {len(answers)}")
+    cpu = cpu_engine(["dense-f32"])
+    plain = [dict(zip(wire.SCORE_FIELDS, cpu.anomaly("dense-f32", X))) for X in Xs]
+    for k, _, reply, raw in ok:
+        compare_scores("surface admission", len(Xs[k]), decode(reply, raw), plain[k],
+                       SERVE_RTOL, tags=10)
+    cpu.close()
+    print(f"surface: GORDO_MAX_INFLIGHT=1 GORDO_MAX_QUEUE=0 under 8 clients: {len(shed)} of "
+          f"{len(answers)} shed with 503 (Retry-After {sorted({a[2]['Retry-After'] for a in shed})}"
+          f"), {len(ok)} served, each matching the CPU")
+
+
 def main() -> None:
     try:
         import torch
@@ -1025,6 +1642,8 @@ def main() -> None:
         launches["flash_fwd_bf16"] = phase_serve_bf16(torch, device, tmp)["flash_fwd_bf16"]
         phase_zoo(torch, device, tmp)
         launches["flash_fwd_f32"] += phase_fleet(torch, device, tmp)["flash_fwd_f32"]
+        launches["flash_fwd_f32"] += phase_int8(torch, device, tmp)["flash_fwd_f32"]
+        phase_surface(torch, device, tmp)
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -25,11 +25,19 @@ Flax Dense kernels are ``(in, out)``; ``nn.Linear`` wants ``(out, in)``,
 so every Dense kernel is flattened to ``(in, out)`` and transposed once
 here. The LSTM cell keeps flax's ``(in, out)`` layout, each gate's kernel
 copied into its quarter of the last axis, in flax's order.
+
+An int8 tree (:func:`quantized_params_from_flax`) carries one scale per
+flax leaf. Reshapes and transposes commute with a per-tensor scale, but
+the LSTM cell concatenates four gate leaves into one parameter, which then
+needs a scale per gate: each parameter's scale is whatever the loader made
+of its leaves' scales, cut down to the smallest shape that broadcasts to
+the parameter (a scalar for a Dense kernel, a ``(4·units,)`` vector for an
+LSTM kernel).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Set
+from typing import Any, Callable, Dict, Mapping, Set, Tuple
 
 import numpy as np
 import torch
@@ -146,3 +154,58 @@ def params_from_flax(module: nn.Module, tree: Dict[str, Any]) -> nn.Module:
     if extra:
         raise ValueError(f"params_from_flax: unexpected flax scopes {sorted(extra)}")
     return module
+
+
+def _broadcast_form(ids: torch.Tensor) -> torch.Tensor:
+    """``ids`` cut to size 1 along every axis it is constant on, then
+    stripped of leading unit axes: the smallest tensor that broadcasts back
+    to it."""
+    for axis in range(ids.dim()):
+        first = ids.narrow(axis, 0, 1)
+        if torch.equal(ids, first.expand_as(ids)):
+            ids = first
+    while ids.dim() and ids.shape[0] == 1:
+        ids = ids.squeeze(0)
+    return ids
+
+
+def quantized_params_from_flax(
+    make_module: Callable[[], nn.Module], q_tree: Dict[str, Any], scale_tree: Dict[str, Any]
+) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """An int8 flax tree and its per-leaf scales in the port's layout:
+    ``({name: int8 tensor}, {name: float32 scale})`` keyed like the
+    module's ``state_dict``, each scale broadcastable to its tensor, so
+    ``q.float() * scale`` is the float32 parameter that the dequantized
+    flax tree would load (the same multiply of the same values).
+    ``make_module`` builds a fresh module of the architecture.
+
+    The loader runs twice: on the int8 values (exact in float32) and on a
+    tree that fills each leaf with its own id, from which each parameter's
+    scale layout is read off, so it depends on the structure and never on
+    the values (machines of one architecture stack)."""
+    scales = []
+
+    def leaf_ids(q, s):
+        if isinstance(q, dict):
+            return {key: leaf_ids(q[key], s[key]) for key in q}
+        scales.append(np.float32(s))
+        return np.full(np.shape(q), len(scales), np.float32)  # ids from 1
+
+    def fresh() -> nn.Module:
+        with torch.device("meta"):
+            module = make_module()
+        module = module.to_empty(device="cpu")
+        for p in module.parameters():
+            p.data.zero_()
+        return module
+
+    ids = params_from_flax(fresh(), leaf_ids(q_tree, scale_tree)).state_dict()
+    values = params_from_flax(fresh(), q_tree).state_dict()
+    table = torch.from_numpy(np.asarray(scales, np.float32))
+    q_state, s_state = {}, {}
+    for name, value in values.items():
+        if bool((ids[name] < 1).any()):
+            raise ValueError(f"quantized_params_from_flax: {name} is not loaded from a flax leaf")
+        q_state[name] = value.to(torch.int8)
+        s_state[name] = table[_broadcast_form(ids[name]).long() - 1]
+    return q_state, s_state

@@ -1,5 +1,5 @@
 """Artifact load and dump (port of
-``gordo_components_tpu/serializer/persistence.py:53-57, 71-120, 173-207``).
+``gordo_components_tpu/serializer/persistence.py:53-57, 71-207``).
 
 The reference's pickle-free format, unchanged::
 
@@ -8,6 +8,7 @@ The reference's pickle-free format, unchanged::
       state.npz         # every fitted array under flattened "step/sub/key" paths
       state_meta.json   # non-array fitted state (history, widths, thresholds…)
       metadata.json     # build metadata (optional)
+      quant_int8.npz    # int8 weights + per-tensor scales (int8 rung only)
       MANIFEST.json     # per-file SHA-256 + size
 
 ``load`` verifies the manifest before it reads anything else, follows a
@@ -30,6 +31,7 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
+from .. import precision as precision_mod
 from ..models.anomaly.diff import DiffBasedAnomalyDetector
 from ..models.models import BaseTorchEstimator
 from ..models.pipeline import Pipeline, TransformedTargetRegressor
@@ -136,8 +138,40 @@ def load_metadata(source_dir: str) -> Dict[str, Any]:
         return json.load(fh)
 
 
-def dump(obj: Any, dest_dir: str, metadata: Optional[Dict[str, Any]] = None) -> str:
-    """Persist a fitted pipeline to ``dest_dir`` (replacing it whole)."""
+def write_artifact_files(
+    obj: Any,
+    dest_dir: str,
+    metadata: Optional[Dict[str, Any]] = None,
+    precision: Optional[str] = None,
+) -> None:
+    """Write the artifact files into the existing directory ``dest_dir``
+    (no manifest, no atomic rename: :func:`dump` wraps this). At the int8
+    rung ``quant_int8.npz`` (the per-tensor quantized weights and scales)
+    is written beside the untouched float32 ``state.npz``."""
+    with open(os.path.join(dest_dir, DEFINITION_FILE), "w") as fh:
+        json.dump(pipeline_into_definition(obj), fh, indent=2)
+    arrays, scalars = _flatten_state(obj.get_state())
+    _write_state_npz(os.path.join(dest_dir, STATE_FILE), arrays)
+    with open(os.path.join(dest_dir, STATE_META_FILE), "w") as fh:
+        json.dump(scalars, fh, indent=2, sort_keys=True)
+    if precision_mod.validate(precision) == "int8":
+        quant = precision_mod.quantized_arrays_for(obj)
+        if quant is not None:
+            _write_state_npz(os.path.join(dest_dir, precision_mod.QUANT_INT8_FILE), quant)
+    if metadata is not None:
+        with open(os.path.join(dest_dir, METADATA_FILE), "w") as fh:
+            json.dump(metadata, fh, indent=2, default=str)
+
+
+def dump(
+    obj: Any,
+    dest_dir: str,
+    metadata: Optional[Dict[str, Any]] = None,
+    precision: Optional[str] = None,
+) -> str:
+    """Persist a fitted pipeline to ``dest_dir`` (replacing it whole)
+    through :func:`write_artifact_files`, so the manifest hashes an int8
+    sidecar like every other file."""
     dest_dir = os.path.abspath(dest_dir)
     parent = os.path.dirname(dest_dir)
     os.makedirs(parent, exist_ok=True)
@@ -146,15 +180,7 @@ def dump(obj: Any, dest_dir: str, metadata: Optional[Dict[str, Any]] = None) -> 
     )
     os.makedirs(staging)
     try:
-        with open(os.path.join(staging, DEFINITION_FILE), "w") as fh:
-            json.dump(pipeline_into_definition(obj), fh, indent=2)
-        arrays, scalars = _flatten_state(obj.get_state())
-        _write_state_npz(os.path.join(staging, STATE_FILE), arrays)
-        with open(os.path.join(staging, STATE_META_FILE), "w") as fh:
-            json.dump(scalars, fh, indent=2, sort_keys=True)
-        if metadata is not None:
-            with open(os.path.join(staging, METADATA_FILE), "w") as fh:
-                json.dump(metadata, fh, indent=2, default=str)
+        write_artifact_files(obj, staging, metadata, precision)
         write_manifest(staging)
         if os.path.isdir(dest_dir):
             shutil.rmtree(dest_dir)

@@ -11,7 +11,7 @@ from .server import make_server
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(
         prog="python -m gordo_components_tpu_torch.server",
-        description="Serve model artifacts' /anomaly/prediction on the GPU.",
+        description="Serve model artifacts on the GPU: the reference's core HTTP surface.",
     )
     parser.add_argument("--models-dir", required=True,
                         help="one artifact directory, or a directory of them")

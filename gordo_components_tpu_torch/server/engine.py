@@ -2,8 +2,9 @@
 ``gordo_components_tpu/server/engine.py``: the knobs at 273-349,
 ``ScoreResult`` … ``_make_machine_score`` at 210-253 and 352-523, the
 pipeline at 611-748, ``_Bucket`` at 761-2499 and ``ServingEngine`` at
-2501-3220, without the mesh, hot cache, compile cache, spill tier and the
-observability seams — ROADMAP.md lists them).
+2501-3220 and its metrics at 95-190, without the mesh, hot cache, compile
+cache, spill tier, spans, traffic accounting, fault injection and QoS —
+ROADMAP.md lists them).
 
 Every machine that shares an architecture (the reference's signature:
 config, loss, widths, lookback, lookahead and precision) is stacked into
@@ -46,10 +47,20 @@ dispatch computes only the rows its longest real request holds (see
 ``_Bucket._batch_inputs``). Requests longer than ``max_rows_dispatch``
 score in overlapping chunks (``ServingEngine._chunked_score``).
 
-Precision rungs: ``f32``, and ``bf16`` — weights stored in bfloat16 and
-windows rounded to bfloat16, the forward computed in the architecture's
-``compute_dtype`` (flax promotes bf16 weights the same way) and
-everything around it in float32. ``int8`` raises ``NotImplementedError``.
+Precision rungs (``precision.py``): ``f32``; ``bf16`` — weights stored in
+bfloat16 and windows rounded to bfloat16, the forward computed in the
+architecture's ``compute_dtype`` (flax promotes bf16 weights the same way)
+and everything around it in float32; ``int8`` — weights quantized per flax
+leaf (the artifact's ``quant_int8.npz`` when it matches the parameters,
+else quantized on the fly with the same formula), stacked as int8 on the
+device with their float32 scales beside them, and dequantized inside the
+program on every dispatch (``q.float() * scale``, the reference's multiply)
+before the forward runs in float32.
+
+Every request checks its deadline (``resilience/deadline.py``) before it
+is queued and before each chunk, so expired work never reaches the
+device. Dispatches, requests per rung and megabatch events record into
+the port's metrics registry under the reference's series names.
 """
 
 from __future__ import annotations
@@ -68,15 +79,57 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import precision as precision_mod
 from ..models.analysis import analyze_model
+from ..models.convert import quantized_params_from_flax
 from ..models.transformers import MinMaxScaler, StandardScaler
+from ..observability.registry import REGISTRY
 from ..ops import windowing
 from ..ops.scaling import ScalerParams
+from ..resilience import deadline
 from ..utils.backend import DeviceLike, resolve_device
 
 logger = logging.getLogger(__name__)
 
-PRECISIONS = ("f32", "bf16", "int8")
+# -- engine telemetry (the reference's series; the process-wide registry,
+# so a scrape survives a reload's engine swap). Every dispatch of the port
+# runs the one fused program, so its path label is "mega" throughout and
+# the reference's gordo_engine_megabatch_fused_requests would repeat
+# gordo_engine_dispatch_batch_size.
+_M_DISPATCH_BATCH = REGISTRY.histogram(
+    "gordo_engine_dispatch_batch_size",
+    "Requests coalesced into one device dispatch (micro-batching)",
+    buckets=(1, 2, 4, 8, 16, 32, 64, 128),
+)
+_M_REQUESTS = REGISTRY.counter(
+    "gordo_engine_requests_total",
+    "Requests scored on device, by dispatch path",
+    labels=("path",),
+)
+_M_MEGA_MACHINES = REGISTRY.histogram(
+    "gordo_engine_megabatch_fused_machines",
+    "DISTINCT machines fused into one megabatch dispatch",
+    buckets=(1, 2, 4, 8, 16, 32, 64, 128),
+)
+_M_FILL_TRIGGER = REGISTRY.counter(
+    "gordo_engine_fill_window_total",
+    "Fill-window outcomes per leadership: size (a full max_batch was "
+    "pending before the window elapsed), timeout (window elapsed)",
+    labels=("trigger",),
+)
+_M_PRECISION = REGISTRY.counter(
+    "gordo_engine_precision_total",
+    "Requests scored on device by the serving bucket's numeric precision "
+    "(f32 / bf16 / int8)",
+    labels=("precision",),
+)
+_M_MEGA_EVENTS = REGISTRY.counter(
+    "gordo_engine_megabatch_events_total",
+    "Fused-path repairs: fallback_cold (enqueue failure rescored one "
+    "request per dispatch), retry_isolated (fetch failure rescored one "
+    "request at a time)",
+    labels=("event",),
+)
 
 
 # -- knobs (the reference's parse contract, kept as a copy) -------------------
@@ -148,19 +201,17 @@ def _affine(scaler: Optional[Any], width: int) -> ScalerParams:
     )
 
 
-def _validate_precision(value: Optional[str]) -> str:
-    """The reference's ``precision.validate`` (None or "" → f32); int8
-    raises ``NotImplementedError``: the port has no int8 rung yet."""
-    if value in (None, ""):
-        return "f32"
-    normalized = str(value).strip().lower()
-    if normalized not in PRECISIONS:
-        raise ValueError(f"unknown precision {value!r} (expected one of {PRECISIONS})")
-    if normalized == "int8":
-        raise NotImplementedError(
-            "the int8 rung is not ported yet (ROADMAP.md, Queue 1: int8)"
-        )
-    return normalized
+def _sidecar_matches(q_tree, params) -> bool:
+    """Whether a stored int8 sidecar can stand in for ``params`` (both flax
+    layout): the same nested keys and the same per-leaf shapes (the dtypes
+    differ by design)."""
+    if isinstance(q_tree, dict) != isinstance(params, dict):
+        return False
+    if not isinstance(params, dict):
+        return np.shape(q_tree) == np.shape(params)
+    return q_tree.keys() == params.keys() and all(
+        _sidecar_matches(q_tree[key], params[key]) for key in params
+    )
 
 
 @dataclass
@@ -173,10 +224,16 @@ class _MachineEntry:
     sy: ScalerParams
     es: ScalerParams
     tcols: torch.Tensor  # input-column index of each target tag
+    # int8 machines only: each parameter's float32 scale, broadcastable to
+    # it (``params`` then holds the int8 weights)
+    params_scale: Optional[Dict[str, torch.Tensor]] = None
 
     def tree(self) -> Dict[str, Any]:
-        return {"params": self.params, "sx": self.sx, "sy": self.sy,
+        tree = {"params": self.params, "sx": self.sx, "sy": self.sy,
                 "es": self.es, "tcols": self.tcols}
+        if self.params_scale is not None:
+            tree["params_scale"] = self.params_scale
+        return tree
 
 
 def _tree_map(fn, tree, *rest):
@@ -207,11 +264,14 @@ def _meta_template(module: torch.nn.Module) -> torch.nn.Module:
     return copy.deepcopy(module, memo)
 
 
-def _lift_machine(name: str, model: Any, target_cols, precision: Optional[str]):
+def _lift_machine(name: str, model: Any, target_cols, precision: Optional[str],
+                  quantized_pair=None):
     """Analyze one model into its stacked-engine form: ``(estimator,
     architecture signature, _MachineEntry)`` with host tensors. Raises
     ``ValueError`` for a machine the engine cannot score (the reference's
-    reasons) and ``NotImplementedError`` for the int8 rung."""
+    reasons). ``quantized_pair``: an int8 machine's stored ``(q_tree,
+    scale_tree)`` in the flax layout, used when it matches the
+    parameters."""
     analyzed = analyze_model(model)
     est = analyzed.estimator
     if est.module_ is None:
@@ -255,14 +315,34 @@ def _lift_machine(name: str, model: Any, target_cols, precision: Optional[str]):
         es = _identity(n_targets)  # the reference's fallback: raw |residuals|
     else:
         es = _affine(detector.scaler, n_targets)
-    prec = _validate_precision(precision)
-    # bf16: weights stored in bfloat16, host and device (half the stacked
-    # bytes); the modules cast them to the compute dtype at use
-    dtype = torch.bfloat16 if prec == "bf16" else None
-    params = {
-        key: value.detach().to("cpu", dtype=dtype or value.dtype)
-        for key, value in est.module_.state_dict().items()
-    }
+    prec = precision_mod.validate(precision)
+    params_scale = None
+    with torch.device("meta"):  # the config only: no weights are allocated
+        spec = est._make_spec(n_features, n_targets)
+    if prec == "int8":
+        pair = quantized_pair
+        if pair is not None and not _sidecar_matches(pair[0], est.params_):
+            # a stale sidecar (an older retrain's leaf shapes) would fail
+            # the bucket's stack and the whole boot with it
+            logger.warning(
+                "Machine %r: stored int8 sidecar disagrees with the model "
+                "params (tree or leaf shapes); quantizing on the fly instead",
+                name,
+            )
+            pair = None
+        if pair is None:
+            pair = precision_mod.quantize_tree_int8(est.params_)
+        params, params_scale = quantized_params_from_flax(
+            lambda: est._make_spec(n_features, n_targets).module, *pair
+        )
+    else:
+        # bf16: weights stored in bfloat16, host and device (half the
+        # stacked bytes); the modules cast them to the compute dtype at use
+        dtype = torch.bfloat16 if prec == "bf16" else None
+        params = {
+            key: value.detach().to("cpu", dtype=dtype or value.dtype)
+            for key, value in est.module_.state_dict().items()
+        }
     entry = _MachineEntry(
         name=name,
         params=params,
@@ -270,9 +350,8 @@ def _lift_machine(name: str, model: Any, target_cols, precision: Optional[str]):
         sy=_affine(analyzed.target_scaler, n_targets),
         es=es,
         tcols=torch.as_tensor(tcols, dtype=torch.long),
+        params_scale=params_scale,
     )
-    with torch.device("meta"):  # the config only: no weights are allocated
-        spec = est._make_spec(n_features, n_targets)
     sig = json.dumps(
         {
             "config": spec.config,
@@ -299,11 +378,17 @@ def _make_machine_score(lookback: int, lookahead: Optional[int], template, preci
     L, la = lookback, lookahead
 
     def machine_score(machine, x):
+        params = machine["params"]
+        if precision == "int8":
+            # in the program, every dispatch: int8 on the device, float32
+            # weights only for the forward's duration
+            scales = machine["params_scale"]
+            params = {key: q.to(torch.float32) * scales[key] for key, q in params.items()}
         xs = x * machine["sx"].scale + machine["sx"].offset
         inputs = xs if la is None else windowing.sliding_windows(xs, L, la)
         if precision == "bf16":
             inputs = inputs.to(torch.bfloat16)
-        pred = torch.func.functional_call(template, machine["params"], (inputs,)).float()
+        pred = torch.func.functional_call(template, params, (inputs,)).float()
         pred_raw = (pred - machine["sy"].offset) / machine["sy"].scale
         x_tail = x[x.shape[0] - pred_raw.shape[0] :]
         y_tail = x_tail.index_select(-1, machine["tcols"])
@@ -489,7 +574,8 @@ class _Bucket:
         self.max_batch_seen = 0
 
     def stacked_nbytes(self) -> int:
-        """Device bytes held by this bucket's stacked tree."""
+        """Device bytes held by this bucket's stacked tree (int8 weights
+        count one byte each)."""
         return sum(a.numel() * a.element_size() for a in _tree_leaves(self.stacked))
 
     # -- the program -----------------------------------------------------------
@@ -604,6 +690,7 @@ class _Bucket:
             self.fill_size_count += 1
         else:
             self.fill_timeout_count += 1
+        _M_FILL_TRIGGER.labels("size" if size_triggered else "timeout").inc()
 
     def _should_pipeline(self) -> bool:
         """Pipeline the fetch when the collector already has work or new
@@ -665,6 +752,7 @@ class _Bucket:
                 "rescoring one request per dispatch", len(items),
             )
             self.fallback_cold_count += 1
+            _M_MEGA_EVENTS.labels("fallback_cold").inc()
             for it in items:
                 self._dispatch(rows, [it], defer)
             return
@@ -762,6 +850,7 @@ class _Bucket:
                     "one request per dispatch", len(job.items),
                 )
                 self.retry_isolated_count += 1
+                _M_MEGA_EVENTS.labels("retry_isolated").inc()
                 self._retry_isolated_sync(job.items)
                 return
             self._fail(job.items, exc)
@@ -774,6 +863,7 @@ class _Bucket:
             # errors the waiters without counting them as served
             self._fill_results(job.items, x_tail, pred, scaled, total)
             self._account(len(job.items))
+            _M_MEGA_MACHINES.observe(len({it.idx for it in job.items}))
         except BaseException as exc:
             for it in job.items:
                 it.error = exc
@@ -810,6 +900,9 @@ class _Bucket:
         self.dispatch_count += 1
         self.request_count += k
         self.max_batch_seen = max(self.max_batch_seen, k)
+        _M_REQUESTS.labels("mega").inc(k)
+        _M_PRECISION.labels(self.precision).inc(k)
+        _M_DISPATCH_BATCH.observe(k)
 
     @staticmethod
     def _fill_results(items, x_tail, pred, scaled, total) -> None:
@@ -832,8 +925,10 @@ class ServingEngine:
     machine the engine cannot lift is recorded in :attr:`skipped` with
     its reason and answers ``KeyError``. ``target_cols``: optional
     ``{name: [input-column index of each target tag]}`` for target-subset
-    machines; ``precisions``: ``{name: rung}``. ``fill_window_us``
-    defaults to ``GORDO_FILL_WINDOW_US``.
+    machines; ``precisions``: ``{name: rung}``; ``quantized``: ``{name:
+    (q_tree, scale_tree)}``, int8 machines' stored sidecars
+    (``precision.load_quantized``). ``fill_window_us`` defaults to
+    ``GORDO_FILL_WINDOW_US``.
     """
 
     def __init__(
@@ -845,6 +940,7 @@ class ServingEngine:
         target_cols: Optional[Dict[str, Optional[List[int]]]] = None,
         fill_window_us: Optional[int] = None,
         precisions: Optional[Dict[str, str]] = None,
+        quantized: Optional[Dict[str, Tuple[Any, Any]]] = None,
         device: DeviceLike = None,
     ):
         self.device = resolve_device(device)
@@ -860,12 +956,14 @@ class ServingEngine:
         self.skipped: Dict[str, str] = {}
         target_cols = target_cols or {}
         precisions = precisions or {}
+        quantized = quantized or {}
 
         groups: Dict[str, List[Tuple[Any, _MachineEntry]]] = {}
         for name, model in models.items():
             try:
                 est, sig, entry = _lift_machine(
-                    name, model, target_cols.get(name), precisions.get(name)
+                    name, model, target_cols.get(name), precisions.get(name),
+                    quantized.get(name),
                 )
             except (ValueError, AttributeError, TypeError) as exc:
                 logger.info("Serving engine skips %r: %s", name, exc)
@@ -977,6 +1075,8 @@ class ServingEngine:
         if resolved is None:
             raise KeyError(name)
         bucket, idx = resolved
+        # expired work must not queue behind the bucket's leader latch
+        deadline.check("engine.dispatch")
         return self._chunked_score(
             bucket, X, lambda x_padded, m_valid: bucket.submit(idx, x_padded, m_valid)
         )
@@ -990,6 +1090,7 @@ class ServingEngine:
             X = X[None, :]
         cap = self.max_rows_dispatch
         if X.shape[0] <= cap:
+            deadline.check("engine.dispatch")
             x_padded, m_valid = self._prepare(bucket, X)
             return score_chunk(x_padded, m_valid)
         L, la = bucket.lookback, bucket.lookahead
@@ -1002,6 +1103,8 @@ class ServingEngine:
         start = 0
         n = X.shape[0]
         while start < n:
+            # a deadline that expires mid-backfill stops after this chunk
+            deadline.check("engine.dispatch_chunk")
             chunk = X[start : start + cap]
             if len(chunk) <= offset:  # fully covered by the previous chunk
                 break

@@ -152,8 +152,13 @@ def test_buckets_and_skipped_reasons_match_reference(fleet):
         assert all(p.device.type == "meta" for p in bucket.template.parameters())
         assert all(a.shape[0] == len(bucket.names)
                    for a in bucket.stacked["params"].values())
-    with pytest.raises(NotImplementedError, match="int8"):
-        ServingEngine(_ported(root, ["dense-a"]), precisions={"dense-a": "int8"}, device="cpu")
+    # an int8 machine lifts into a bucket of its own rung, as in the reference
+    int8 = {"dense-a": "int8"}
+    mixed = ServingEngine(_ported(root), target_cols=TARGET_COLS, precisions=int8, device="cpu")
+    assert _bucket_names(mixed) == _bucket_names(
+        RefEngine(models, target_cols=TARGET_COLS, precisions=int8))
+    assert mixed.stats()["precision"]["machines"]["int8"] == 1
+    mixed.close()
     ours.close()
     full.close()
 

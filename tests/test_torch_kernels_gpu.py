@@ -13,7 +13,9 @@ bfloat16 compared in bfloat16 at ``chip_smoke.bf16_atol`` (4 units in the
 last place of the largest plain output, at most 2e-2); lse atol 1e-4,
 float32 on both sides from the same inputs. The kernels are built with
 ``CUDA_KERNEL_DEBUG=1``, so a pipeline fault fails its launch rather than
-hanging the card.
+hanging the card. The last two tests serve an int8 PatchTST machine on the
+card: one fp32 launch per layer, the CPU's int8 scores within
+``chip_smoke.SERVE_RTOL``, and npz responses equal to JSON's in float32.
 """
 
 import os
@@ -156,3 +158,81 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         from gordo_components_tpu_torch.ops.flash_attention import flash_fwd
 
         flash_fwd(g, g, g, 1.0)
+
+
+@pytest.fixture(scope="module")
+def int8_artifact(tmp_path_factory):
+    """The full-width slice machine written at int8 by the port (metadata
+    pins the rung, ``quant_int8.npz`` beside ``state.npz``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from gordo_components_tpu_torch.utils.backend import resolve_device
+
+    path = str(tmp_path_factory.mktemp("int8") / "slice-int8")
+    chip_smoke.build_artifact(path, resolve_device("cuda"), precision="int8")
+    return path
+
+
+def _int8_engine(path, device):
+    from gordo_components_tpu_torch import precision
+    from gordo_components_tpu_torch.serializer import load
+    from gordo_components_tpu_torch.server.engine import ServingEngine
+
+    return ServingEngine({"m": load(path, device="cpu")}, precisions={"m": "int8"},
+                         quantized={"m": precision.load_quantized(path)}, device=device)
+
+
+@pytest.mark.gpu
+def test_int8_served_path_runs_the_fp32_kernel_and_matches_the_cpu(int8_artifact, cuda_device):
+    """An int8 PatchTST request on the card: int8 weights stacked on the
+    card, one fp32 flash launch per layer, and the scores of the CPU plain
+    path at int8 within chip_smoke.SERVE_RTOL (float32 both sides, the same
+    dequantized weights)."""
+    engine = _int8_engine(int8_artifact, cuda_device)
+    bucket = engine._buckets[0]
+    assert all(t.dtype == torch.int8 and t.is_cuda for t in bucket.stacked["params"].values())
+    X = chip_smoke.sensor_rows(np.random.default_rng(11), chip_smoke.LOOKBACK + 15)
+    before = dict(_kernels.LAUNCHES)
+    scored = engine.anomaly("m", X)
+    assert _kernels.LAUNCHES["flash_fwd_f32"] == before["flash_fwd_f32"] + chip_smoke.SLICE["n_layers"]
+    assert _kernels.LAUNCHES["flash_fwd_bf16"] == before["flash_fwd_bf16"]
+    plain = _int8_engine(int8_artifact, "cpu").anomaly("m", X)
+    for got, ref in zip(scored, plain):
+        assert np.abs(got - ref).max() <= chip_smoke.SERVE_RTOL * max(1.0, np.abs(ref).max())
+    engine.close()
+
+
+@pytest.mark.gpu
+def test_npz_round_trip_on_the_card_equals_json(int8_artifact, cuda_device):
+    """The same request over HTTP as JSON and as npz: the npz arrays are
+    float32 and equal the JSON values cast to float32."""
+    import json
+    import threading
+
+    from gordo_components_tpu_torch import wire
+    from gordo_components_tpu_torch.server.server import make_server
+
+    httpd = make_server(int8_artifact, port=0, device=cuda_device)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = (f"http://127.0.0.1:{httpd.server_address[1]}"
+           "/gordo/v0/project/slice-int8/anomaly/prediction")
+    X = chip_smoke.sensor_rows(np.random.default_rng(12), chip_smoke.LOOKBACK + 15)
+    body = json.dumps({"X": X.tolist()}).encode()
+    try:
+        status, reply, raw, _ = chip_smoke.http("POST", url, body)
+        assert status == 200
+        as_json = json.loads(raw)
+        status, reply, raw, _ = chip_smoke.http("POST", url, body,
+                                                {"Accept": wire.NPZ_CONTENT_TYPE})
+        assert status == 200 and wire.content_type_of(reply["Content-Type"]) == wire.NPZ_CONTENT_TYPE
+        as_npz = wire.payload_from_npz(raw)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    assert as_npz["tag-thresholds"] == as_json["tag-thresholds"]
+    for field in wire.SCORE_FIELDS:
+        assert as_npz["data"][field].dtype == np.float32
+        np.testing.assert_array_equal(as_npz["data"][field],
+                                      np.asarray(as_json["data"][field], np.float32))

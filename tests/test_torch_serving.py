@@ -123,7 +123,7 @@ def test_score_result_matches_reference_engine(artifacts, precision):
 
 
 def test_engine_rejects_bad_requests_and_int8(artifacts):
-    root, _, X = artifacts
+    root, models, X = artifacts
     model = load(str(root / "full"), device="cpu")
     engine = ServingEngine({"m": model}, device="cpu")
     with pytest.raises(ValueError, match="lookback_window"):
@@ -132,8 +132,10 @@ def test_engine_rejects_bad_requests_and_int8(artifacts):
         engine.anomaly("m", X[:, :3])
     with pytest.raises(KeyError):
         engine.anomaly("nope", X)
-    with pytest.raises(NotImplementedError, match="int8"):
-        ServingEngine({"m": model}, precisions={"m": "int8"}, device="cpu")
+    # the int8 rung serves: the reference engine's int8 scores
+    int8 = ServingEngine({"m": model}, precisions={"m": "int8"}, device="cpu")
+    ref_int8 = RefEngine({"m": models["full"]}, precisions={"m": "int8"})
+    _assert_scores_match(int8.anomaly("m", X), ref_int8.anomaly("m", X))
     blind = ServingEngine({"sub": load(str(root / "sub"), device="cpu")}, device="cpu")
     assert not blind.can_score("sub") and "subset" in blind.skipped["sub"]
 
@@ -159,7 +161,8 @@ def test_json_body_matches_reference_encoder(artifacts):
     app = ModelServer(str(root), device="cpu")
     body = json.dumps({"X": X.tolist()}).encode()
     for name in models:
-        text = app.anomaly(f"/gordo/v0/project/{name}/anomaly/prediction", body)
+        response = app.handle("POST", f"/gordo/v0/project/{name}/anomaly/prediction", {}, body)
+        text = response.body.decode()
         scored = app.engine.anomaly(name, X)
         model = models[name]
         extras = {

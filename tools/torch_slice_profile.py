@@ -7,7 +7,7 @@ Builds the same seeded long-window PatchTST artifact as ``chip_smoke.py``,
 loads it on the card and scores ``--windows``-window requests:
 
 - host wall time of ``ServingEngine.anomaly`` (one dispatch of the stacked
-  engine and its fetch) and of ``ModelServer.anomaly`` (JSON parse + validation + scoring
+  engine and its fetch) and of ``ModelServer.handle`` (JSON parse + validation + scoring
   + JSON encode), median of ``--iters``;
 - a ``torch.profiler`` trace of ``--iters`` engine calls: device time
   summed by kernel name, and the device's busy share of the traced wall
@@ -59,7 +59,7 @@ def main() -> None:
     path = "/gordo/v0/project/m/anomaly/prediction"
     for _ in range(2):  # warm-up: cuBLAS handles, allocator, kernel library load
         engine.anomaly("m", X)
-        app.anomaly(path, body)
+        app.handle("POST", path, {}, body)
 
     def wall_ms(fn):
         times = []
@@ -70,7 +70,7 @@ def main() -> None:
         return float(np.median(times))
 
     engine_ms = wall_ms(lambda: engine.anomaly("m", X))
-    server_ms = wall_ms(lambda: app.anomaly(path, body))
+    server_ms = wall_ms(lambda: app.handle("POST", path, {}, body))
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
