@@ -13,7 +13,13 @@ Phases; any failure exits non-zero before the result line:
    card, at the slice shape and the edge shapes of ``CHECK_SHAPES``; then,
    at the slice shape, its time, the plain version's time and one PyTorch
    library call's time as a yardstick: SDPA on the 4-D view with its fused
-   backend forced and named (timed only; the port never calls it);
+   backend forced and named (timed only; the port never calls it). The
+   backward (``csrc/flash_bwd.cu``, both dtypes) against
+   ``flash_bwd_reference`` at ``CHECK_SHAPES`` and the training shape
+   (16384, 179, 64), with and without an lse cotangent (max |Δ| of dq, dk,
+   dv each against ``bwd_atol``); then its time, the plain version's, the
+   library backward's (``torch.autograd.grad`` of that SDPA call, the
+   backward alone) and its bound, at the slice and the training shapes;
 3. the main path: a full-width long-window PatchTST anomaly machine
    (d_model 512, 8 heads, 3 layers, 64 tags, lookback 1440 = 179 patches,
    random weights from a seed in the flax layout, scalers fitted on seeded
@@ -83,7 +89,28 @@ Phases; any failure exits non-zero before the result line:
    cooldown), ``POST /reload`` (a rewritten, an added and a removed machine)
    while clients keep scoring, and a server under ``GORDO_MAX_INFLIGHT=1``,
    ``GORDO_MAX_QUEUE=0`` shedding 8 concurrent clients with 503 +
-   ``Retry-After`` while every 200 is right.
+   ``Retry-After`` while every 200 is right;
+8. training (``phase_train``): the slice machine's regressor (scalers, then
+   ``PatchTSTAutoEncoder.fit``, float32, flash attention) trained on the
+   card for one epoch over ``TRAIN_ROWS`` seeded rows, 8 Adam steps of 32
+   windows; the launch counts are zeroed just before and read just after:
+   3 fp32 forward and 3 fp32 backward launches per step, nothing else. The
+   same fit with dense attention (same initial parameters, same
+   permutation) must give the same loss history and W = 16 predictions
+   within ``TRAIN_RTOL``. Printed: wall per step, peak device memory, one
+   step under ``torch.profiler`` (device busy, GEMMs, flash forward and
+   backward, idle share) and the optimizer update alone. The trained
+   machine is dumped, served over HTTP and one W = 16 response held to the
+   model's own ``predict`` within ``SERVE_RTOL``. Then the bf16 path
+   (``phase_train_bf16``): the same fit at ``compute_dtype="bfloat16"``,
+   3 bf16 forward and backward launches per step, its loss within
+   ``BF16_SERVE_RTOL`` of the same fit with dense attention in bf16;
+9. a build at the zoo's widths (``phase_build``): ``dense-ae-default`` and
+   ``lstm-ae-50tag`` as anomaly detectors through the port's
+   ``build_model`` on the card (``cross_validate`` over 3 folds, then
+   ``fit``) on 2016 seeded rows, dumped with the build metadata (the
+   reference's keys checked), served by one HTTP server, each 1008-row
+   response against the CPU plain path, no flash launch.
 
 The line before last is ``nvidia-smi``'s name and power limit; the one
 before that the kernels' JSON record; the last line is the result.
@@ -124,6 +151,11 @@ BF16_ATOL = 2e-2  # compared in bf16: one rounding of outputs near 1
 # output by about |v| / S, ~1e-2 at S = 179, which BF16_ATOL lets through.
 BF16_ULPS = 4
 LSE_ATOL = 1e-4  # lse is float32 on both sides from the same inputs
+# the flash backward in float32, kernel vs plain version on the same saved
+# forward: float32 on both sides, the products summed in other orders and
+# exp on the MUFU unit (~2 ulp); relative to the largest grad, since a
+# grad sums S products of O(1) terms. A dropped key or a wrong mask is O(1)
+FP32_BWD_RTOL = 2e-5
 # served scores, GPU vs CPU plain path, relative to the array's magnitude:
 # float32 on both sides, GEMMs and the online softmax sum in other orders
 # (1e-6 .. 1e-5 relative); a wrong mask or layout is an O(1) error
@@ -147,6 +179,19 @@ def bf16_atol(ref) -> float:
     8 significant bits), never more than BF16_ATOL."""
     top = ref.float().abs().max().item()
     return min(BF16_ATOL, BF16_ULPS * math.ldexp(1.0, math.frexp(top)[1] - 8))
+
+
+def bwd_atol(ref) -> float:
+    """The flash backward's tolerance against its plain version on the same
+    saved forward: float32 grads within FP32_BWD_RTOL of the largest |plain|
+    grad (at least of 1); bfloat16 grads within :func:`bf16_atol`, and never
+    below FP32_BWD_RTOL: a grad that cancels to ~0 (one key: dP = delta)
+    is float32 rounding noise on both sides, which bf16 keeps."""
+    import torch
+
+    if ref.dtype == torch.bfloat16:
+        return max(bf16_atol(ref), FP32_BWD_RTOL)
+    return FP32_BWD_RTOL * max(1.0, ref.abs().max().item())
 
 
 def timed_ms(fn, iters: int = 10) -> float:
@@ -251,7 +296,18 @@ CHECK_SHAPES = [SLICE_SHAPE, FUSED_SHAPE, (12, 129, 16), (3, 37, 8), (4, 64, 64)
 KERNELS = {  # kernel name -> (dtype, source)
     "flash_fwd_f32": ("float32", "gordo_components_tpu_torch/csrc/flash_fwd_f32.cu"),
     "flash_fwd_bf16": ("bfloat16", "gordo_components_tpu_torch/csrc/flash_fwd_bf16.cu"),
+    "flash_bwd_f32": ("float32", "gordo_components_tpu_torch/csrc/flash_bwd.cu"),
+    "flash_bwd_bf16": ("bfloat16", "gordo_components_tpu_torch/csrc/flash_bwd.cu"),
 }
+FWD_KERNELS = ("flash_fwd_f32", "flash_fwd_bf16")
+BWD_KERNELS = ("flash_bwd_f32", "flash_bwd_bf16")
+REPLACES = {  # the TPU kernel each replaces
+    **dict.fromkeys(FWD_KERNELS, "gordo_components_tpu/ops/flash_attention.py:157"),
+    **dict.fromkeys(BWD_KERNELS, "gordo_components_tpu/ops/flash_attention.py:187-229"),
+}
+NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
+# the backward at the training step's shape (batch 32 x 64 tags x 8 heads)
+TRAIN_SHAPE = (32 * N_TAGS * SLICE["n_heads"], SLICE_SHAPE[1], SLICE_SHAPE[2])
 
 
 def phase_kernels(torch, device) -> dict:
@@ -287,8 +343,8 @@ def phase_kernels(torch, device) -> dict:
         return err
 
     record = {}
-    for name, (dtype_name, _) in KERNELS.items():
-        dtype = getattr(torch, dtype_name)
+    for name in FWD_KERNELS:
+        dtype = getattr(torch, KERNELS[name][0])
         errs = [check(name, _kernels.flash_fwd_cuda, shape, dtype) for shape in CHECK_SHAPES]
         record[name] = {"max_abs_err": max(errs)}
     # the bf16 kernel's first build-up step (one warpgroup, one stage)
@@ -306,8 +362,8 @@ def phase_kernels(torch, device) -> dict:
         fail("flash_attention on the card did not match the CPU path through the kernel")
 
     # times at the slice shape, in turns: kernel, plain, library, kernel
-    for name, (dtype_name, _) in KERNELS.items():
-        dtype = getattr(torch, dtype_name)
+    for name in FWD_KERNELS:
+        dtype = getattr(torch, KERNELS[name][0])
         q, k, v = qkv(SLICE_SHAPE, dtype)
         scale = SLICE_SHAPE[-1] ** -0.5
         ms_first = timed_ms(lambda: _kernels.flash_fwd_cuda(q, k, v, scale))
@@ -332,6 +388,112 @@ def phase_kernels(torch, device) -> dict:
               f"{100 * fused_bound['bound_ms'] / fused_ms:.1f} % of bound")
         del q, k, v
     torch.cuda.empty_cache()
+    record.update(phase_kernels_bwd(torch, device))
+    return record
+
+
+def bwd_bound(bh: int, seq: int, d: int, dtype, dlse: bool = False) -> dict:
+    """Least time for the flash backward on these inputs: q, k, v, out, dout
+    and lse (and dlse) read once, dq, dk, dv written once; 10·BH·S²·D
+    operations (five S x S x D products) at the peak rate of the inputs'
+    type."""
+    import torch
+
+    elem = torch.empty((), dtype=dtype).element_size()
+    nbytes = 8 * bh * seq * d * elem + (2 if dlse else 1) * bh * seq * 4
+    flops = 10 * bh * seq * seq * d
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_FLOPS[str(dtype).removeprefix("torch.")] * 1e3
+    return {
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "gflop": flops / 1e9,
+        "gbytes": nbytes / 1e9,
+    }
+
+
+def time_library_bwd(torch, F, q, k, v, do, scale: float):
+    """The library yardstick of the backward: ``torch.autograd.grad`` of SDPA
+    on the 4-D view with its fused backend forced, the backward alone timed
+    (the forward's graph is kept and differentiated again each time)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    name = library_backend(q.dtype)
+    q4, k4, v4 = (library_view(t).detach().requires_grad_() for t in (q, k, v))
+    try:
+        with sdpa_kernel(getattr(SDPBackend, name)):
+            out = F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+            ms = timed_ms(lambda: torch.autograd.grad(out, (q4, k4, v4), library_view(do),
+                                                      retain_graph=True))
+    except RuntimeError as exc:
+        fail(f"SDPA backend {name} refused the backward at {tuple(q4.shape)} {q4.dtype}: {exc}")
+    return name, ms
+
+
+def phase_kernels_bwd(torch, device) -> dict:
+    """The flash backward (csrc/flash_bwd.cu) against flash_bwd_reference on
+    the card, from the plain forward's saved out and lse, at CHECK_SHAPES and
+    the training shape, with and without an lse cotangent, in both dtypes;
+    then its time beside the plain version's, the library backward's and
+    the bound, at the slice and the training shapes."""
+    import torch.nn.functional as F
+
+    from gordo_components_tpu_torch.ops import _kernels
+    from gordo_components_tpu_torch.ops.flash_attention import (
+        flash_bwd_reference,
+        flash_fwd_reference,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+
+    def inputs(shape, dtype):
+        q, k, v, do = [(0.5 * torch.randn(shape, generator=gen, device=device)).to(dtype)
+                       for _ in range(4)]
+        out, lse = flash_fwd_reference(q, k, v, shape[-1] ** -0.5)
+        return q, k, v, out, lse, do
+
+    record = {}
+    for name in BWD_KERNELS:
+        dtype = getattr(torch, KERNELS[name][0])
+        worst = 0.0
+        for shape in CHECK_SHAPES + [TRAIN_SHAPE]:
+            q, k, v, out, lse, do = inputs(shape, dtype)
+            scale = shape[-1] ** -0.5
+            for dlse in (None, torch.randn(shape[:2], generator=gen, device=device)):
+                grads = _kernels.flash_bwd_cuda(q, k, v, out, lse, do, scale, dlse)
+                plain = flash_bwd_reference(q, k, v, out, lse, do, scale, dlse)
+                torch.cuda.synchronize()
+                errs = [(g.float() - r.float()).abs().max().item() for g, r in zip(grads, plain)]
+                atols = [bwd_atol(r) for r in plain]
+                print(f"{name} {tuple(shape)} {'dlse' if dlse is not None else 'no dlse'}: "
+                      f"max|d{{q,k,v}}-plain| {', '.join(f'{e:.3g}' for e in errs)} "
+                      f"(atol {', '.join(f'{a:.3g}' for a in atols)})")
+                if any(e > a for e, a in zip(errs, atols)):
+                    fail(f"{name} disagrees with its plain version at {shape}")
+                worst = max(worst, *errs)
+                del grads, plain
+            del q, k, v, out, lse, do
+        torch.cuda.empty_cache()
+        record[name] = {"max_abs_err": worst}
+        # times, in turns: kernel, plain, library, kernel; the training shape last
+        for shape in (SLICE_SHAPE, TRAIN_SHAPE):
+            q, k, v, out, lse, do = inputs(shape, dtype)
+            scale = shape[-1] ** -0.5
+            ms_first = timed_ms(lambda: _kernels.flash_bwd_cuda(q, k, v, out, lse, do, scale))
+            plain_ms = timed_ms(lambda: flash_bwd_reference(q, k, v, out, lse, do, scale), iters=3)
+            library, library_ms = time_library_bwd(torch, F, q, k, v, do, scale)
+            ms_second = timed_ms(lambda: _kernels.flash_bwd_cuda(q, k, v, out, lse, do, scale))
+            ms = (ms_first + ms_second) / 2
+            bound = bwd_bound(*shape, dtype)
+            print(f"{name} {shape}: kernel {ms:.4f} ms ({ms_first:.4f}, {ms_second:.4f}), "
+                  f"plain {plain_ms:.4f} ms, sdpa backward {library} {library_ms:.4f} ms, "
+                  f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
+                  f"{bound['gflop']:.1f} GFLOP, {bound['gbytes']:.3f} GB); achieved "
+                  f"{bound['gflop'] / ms:.1f} TFLOP/s, {100 * bound['bound_ms'] / ms:.1f} % of bound")
+            record[name].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, library=library,
+                                **bound, shape=list(shape))
+            del q, k, v, out, lse, do
+            torch.cuda.empty_cache()
     return record
 
 
@@ -560,7 +722,7 @@ def phase_serve(torch, device, tmp: str) -> dict:
     results = serve(artifact, device, WINDOWS, np.random.default_rng(SEED + 1))
     per_request = [r[2]["flash_fwd_f32"] for r in results]
     if any(r[3] != 1 for r in results) or any(n != SLICE["n_layers"] for n in per_request) or any(
-            r[2]["flash_fwd_bf16"] for r in results):
+            r[2][n] for r in results for n in ("flash_fwd_bf16", *BWD_KERNELS)):
         fail(f"fp32 kernel launches per request {per_request} in dispatches "
              f"{[r[3] for r in results]}: expected one dispatch of {SLICE['n_layers']} "
              "launches each and no bf16 launch")
@@ -590,7 +752,7 @@ def phase_serve_bf16(torch, device, tmp: str) -> dict:
     build_artifact(artifact, device, compute_dtype="bfloat16")
     w = 16
     [(X, payload, launches, _)] = serve(artifact, device, (w,), np.random.default_rng(SEED + 3))
-    if launches != {"flash_fwd_f32": 0, "flash_fwd_bf16": SLICE["n_layers"]}:
+    if launches != {**NO_LAUNCHES, "flash_fwd_bf16": SLICE["n_layers"]}:
         fail(f"bf16 request launched {launches}, expected {SLICE['n_layers']} bf16 launches only")
     dense = load(artifact, device=device)
     est = dense.base_estimator.regressor.steps[-1][1]
@@ -691,7 +853,10 @@ def build_zoo_artifact(dest: str, estimator: str, kwargs: dict, tags: int, devic
 def kernel_label(key: str) -> str:
     """A profiler kernel name made short and readable: the kernel's own name
     and, for PyTorch's elementwise kernels, the functor it applies."""
-    name = key.removeprefix("void ").split("<", 1)[0].split("(", 1)[0].split("::")[-1]
+    key = key.removeprefix("void ").replace("(anonymous namespace)::", "")
+    name = key.split("<", 1)[0].split("(", 1)[0].split("::")[-1]
+    if name in ("Kernel", "Kernel2") and "<" in key:  # CUTLASS's wrapper: name its GEMM
+        name = key.split("<", 1)[1].split(">", 1)[0].split(",", 1)[0].split("::")[-1].split("<")[0]
     ops = re.findall(r"\w*Functor\w*|\w+_kernel_cuda", key)
     return f"{name}[{ops[-1]}]" if ops else name[:80]
 
@@ -1050,7 +1215,8 @@ def phase_fleet(torch, device, tmp: str) -> dict:
     responses = results["patchtst"]["responses"]
     dispatches = results["patchtst"]["counts"]["dispatches"]
     if not (launches["flash_fwd_f32"] == SLICE["n_layers"] * dispatches
-            < SLICE["n_layers"] * len(responses)) or launches["flash_fwd_bf16"]:
+            < SLICE["n_layers"] * len(responses)) or launches["flash_fwd_bf16"] or any(
+                launches[n] for n in BWD_KERNELS):
         fail(f"fleet patchtst: flash launches {launches} for {dispatches} dispatches of "
              f"{len(responses)} requests")
     print(f"fleet patchtst: flash launches {launches} = {SLICE['n_layers']} x {dispatches} "
@@ -1233,7 +1399,7 @@ def phase_int8(torch, device, tmp: str) -> dict:
         thread.join(timeout=30)
     print(f"int8: {dispatches} PatchTST dispatches ({round_dispatches} for the concurrent "
           f"round of {len(INT8_FLEET)}, then 1 fused), flash launches {launches}")
-    if launches != {"flash_fwd_f32": SLICE["n_layers"] * dispatches, "flash_fwd_bf16": 0}:
+    if launches != {**NO_LAUNCHES, "flash_fwd_f32": SLICE["n_layers"] * dispatches}:
         fail(f"int8: flash launches {launches} for {dispatches} PatchTST dispatches")
     print(f"int8 profile W=16: {json.dumps(trace_int8)}")
     print(f"f32 profile W=16, same weights and rows: {json.dumps(trace_f32)}")
@@ -1623,6 +1789,286 @@ def admission_sheds(models_dir: str, device, rng, cpu_engine) -> None:
           f"), {len(ok)} served, each matching the CPU")
 
 
+# phase 8: training at full width. The slice machine's widths, trained one
+# epoch over TRAIN_ROWS seeded rows: 1695 - 1440 + 1 = 256 windows, 8 steps
+# of batch 32 (a layer's attention at BH = 32 x 64 x 8 = 16384), Adam
+TRAIN_ROWS = LOOKBACK + 255
+TRAIN_KWARGS = dict(batch_size=32, epochs=1)
+# flash-kernel fit vs dense-attention fit on the card, same initial
+# parameters and permutation: float32 both, the attention computed in
+# other orders (~1e-6 per step), carried through 8 Adam steps; a wrong
+# gradient (a dropped key, a missing term) moves the loss by O(1e-2) or more
+TRAIN_RTOL = 1e-3
+
+
+def slice_definition(attention_impl: str = "flash", **estimator_kwargs) -> dict:
+    """The slice machine's definition (the served one of phase 3)."""
+    return {"DiffBasedAnomalyDetector": {"base_estimator": {"TransformedTargetRegressor": {
+        "regressor": {"Pipeline": {"steps": ["MinMaxScaler", {"PatchTSTAutoEncoder": {
+            "kind": "patchtst", "lookback_window": LOOKBACK, "attention_impl": attention_impl,
+            **SLICE, **estimator_kwargs}}]}},
+        "transformer": "MinMaxScaler"}}}}
+
+
+def fit_slice(torch, device, attention_impl: str, rows: np.ndarray,
+              compute_dtype: str = "float32") -> tuple:
+    """The slice machine's regressor (scalers, then PatchTSTAutoEncoder.fit)
+    trained on the card; returns (model, estimator, wall s, peak bytes)."""
+    from gordo_components_tpu_torch.serializer import pipeline_from_definition
+
+    model = pipeline_from_definition(slice_definition(
+        attention_impl, compute_dtype=compute_dtype, **TRAIN_KWARGS))
+    est = model.base_estimator.regressor.steps[-1][1].to(device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    started = time.perf_counter()
+    model.base_estimator.fit(rows)
+    torch.cuda.synchronize()
+    return model, est, time.perf_counter() - started, torch.cuda.max_memory_allocated()
+
+
+def profile_train_step(torch, est, rows: np.ndarray) -> dict:
+    """One warm training step of the fitted flash machine (the library's
+    batch step on a batch of 32 windows, on copies of its parameters) under
+    torch.profiler: device busy, GEMMs, flash forward and backward, and the
+    idle share; then the optimizer update alone, traced the same way."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gordo_components_tpu_torch.models import train
+    from gordo_components_tpu_torch.models.factories.spec import apply_updates
+    from gordo_components_tpu_torch.ops import windowing
+
+    device = est.device
+    spec = est._make_spec(est.n_features_, est.n_features_out_)
+    module = est.module_
+    # copies: the traced steps must leave the trained machine as it is
+    params = {k: v.detach().clone().requires_grad_() for k, v in module.named_parameters()}
+    x_rows = torch.as_tensor(rows, device=device)
+    starts = torch.arange(32, device=device)
+    y = x_rows[LOOKBACK - 1:LOOKBACK - 1 + 32]
+    w = torch.ones(32, device=device)
+
+    def apply(p, s, g):
+        return torch.func.functional_call(
+            module, p, (windowing.gather_windows(x_rows, s, LOOKBACK),), {"generator": g})
+
+    step = train.make_batch_step(apply, spec.optimizer, loss=spec.loss)
+    state = spec.optimizer.init(list(params.values()))
+
+    def traced(fn):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t0) * 1e3
+        events = [evt for evt in prof.key_averages()
+                  if evt.device_type == DeviceType.CUDA and evt.self_device_time_total]
+        return traced_ms, events
+
+    def one_step():
+        nonlocal state
+        state, _, _ = step(params, state, (starts, y, w, None))
+
+    traced_ms, events = traced(one_step)
+    busy = sum(evt.self_device_time_total for evt in events) / 1e3
+
+    def total(*needles):
+        return sum(evt.self_device_time_total for evt in events
+                   if any(n in evt.key.lower() for n in needles)) / 1e3
+
+    values = list(params.values())
+    grads = [torch.randn_like(p) * 1e-3 for p in values]
+    opt_ms, opt_events = traced(lambda: apply_updates(
+        values, spec.optimizer.update(grads, spec.optimizer.init(values), values)[0]))
+    by_kernel = sorted(((kernel_label(evt.key), evt.self_device_time_total / 1e3, evt.count)
+                        for evt in events), key=lambda row: -row[1])
+    return {
+        "traced_ms": traced_ms, "device_busy_ms": busy, "device_idle_share": 1 - busy / traced_ms,
+        "gemm_ms": total("gemm", "cutlass", "xmma"),
+        "flash_fwd_ms": total("flash_fwd"), "flash_bwd_ms": total("flash_bwd"),
+        "optimizer_alone_device_ms": sum(e.self_device_time_total for e in opt_events) / 1e3,
+        "optimizer_alone_traced_ms": opt_ms,
+        "kernel_launches": sum(evt.count for evt in events),
+        "device_ms_by_kernel": [{"kernel": k, "ms": ms, "launches": n}
+                                for k, ms, n in by_kernel[:10]],
+    }
+
+
+def phase_train(torch, device, tmp: str) -> dict:
+    """Training at full width: the slice machine fitted on the card through
+    PatchTSTAutoEncoder.fit with the flash kernels, forward and backward
+    (3 launches each per step), then again with dense attention from the
+    same initial parameters and permutation (the card's own yardstick); the
+    trained machine dumped, served over HTTP and its W = 16 response held to
+    the trained model's own predict."""
+    from gordo_components_tpu_torch.models.anomaly.diff import fit_thresholds
+    from gordo_components_tpu_torch.ops import _kernels
+    from gordo_components_tpu_torch.serializer import dump
+
+    rng = np.random.default_rng(SEED + 8)
+    rows = sensor_rows(rng, TRAIN_ROWS)
+    steps = -(-(TRAIN_ROWS - LOOKBACK + 1) // TRAIN_KWARGS["batch_size"]) * TRAIN_KWARGS["epochs"]
+    _kernels.reset_launches()
+    model, est, wall, peak = fit_slice(torch, device, "flash", rows)
+    launches = {n: _kernels.LAUNCHES[n] for n in KERNELS}
+    per_step = SLICE["n_layers"] * steps
+    print(f"train flash: {steps} steps in {wall:.2f} s ({1e3 * wall / steps:.1f} ms per step, "
+          f"initialisation included), peak device memory {peak / 2**30:.2f} GiB, "
+          f"loss history {est.history_}, launches {launches}")
+    if launches != {**NO_LAUNCHES, "flash_fwd_f32": per_step, "flash_bwd_f32": per_step}:
+        fail(f"train: launches {launches}, expected {SLICE['n_layers']} fp32 forward and "
+             f"backward launches per step over {steps} steps")
+    if not all(np.isfinite(est.history_)):
+        fail(f"train: loss history {est.history_} is not finite")
+
+    _kernels.reset_launches()
+    dense_model, dense_est, dense_wall, dense_peak = fit_slice(torch, device, "dense", rows)
+    dense_launches = {n: _kernels.LAUNCHES[n] for n in KERNELS}
+    rel = max(abs(a - b) / abs(b) for a, b in zip(est.history_, dense_est.history_))
+    X = sensor_rows(rng, LOOKBACK + 15)
+    pred, dense_pred = model.base_estimator.predict(X), dense_model.base_estimator.predict(X)
+    pred_rel = np.abs(pred - dense_pred).max() / np.abs(dense_pred).max()
+    print(f"train dense: {steps} steps in {dense_wall:.2f} s, peak {dense_peak / 2**30:.2f} GiB, "
+          f"loss history {dense_est.history_}; flash vs dense: loss max relative difference "
+          f"{rel:.3g}, W=16 predictions {pred_rel:.3g} (limit {TRAIN_RTOL})")
+    if any(dense_launches.values()) or rel > TRAIN_RTOL or pred_rel > TRAIN_RTOL:
+        fail(f"train: the flash fit departs from the dense fit (loss {rel:.3g}, predictions "
+             f"{pred_rel:.3g}) or the dense fit launched {dense_launches}")
+    del dense_model, dense_est
+    torch.cuda.empty_cache()
+
+    scaled = model.base_estimator.regressor.steps[0][1].transform(rows)
+    trace = profile_train_step(torch, est, scaled)
+    print(f"train step profile (batch 32, BH 16384): {json.dumps(trace)}")
+
+    # the error scaler and thresholds on the training tail, then serve it
+    tail = rows[-(LOOKBACK + 127):]
+    model.tag_thresholds_, model.total_threshold_ = fit_thresholds(
+        model.scaler, np.abs(tail[LOOKBACK - 1:] - model.predict(tail)))
+    artifact = os.path.join(tmp, "turbine-trained")
+    dump(model, artifact, metadata=artifact_metadata([f"TAG-{i:03d}" for i in range(N_TAGS)]))
+    [(X, payload, served, _)] = serve(artifact, device, (16,), rng)
+    if served != {**NO_LAUNCHES, "flash_fwd_f32": SLICE["n_layers"]}:
+        fail(f"train: the trained machine's request launched {served}")
+    got = np.asarray(payload["data"]["model-output"], np.float64)
+    ref = model.predict(X).astype(np.float64)
+    worst = np.abs(got - ref).max() / max(1.0, np.abs(ref).max())
+    print(f"train: the trained machine served over HTTP, W=16 vs its own predict: {worst:.3g} "
+          f"(limit {SERVE_RTOL})")
+    if got.shape != ref.shape or worst > SERVE_RTOL:
+        fail(f"train: served output {got.shape} differs from predict by {worst:.3g}")
+    launches["flash_fwd_f32"] += served["flash_fwd_f32"]
+    return {"launches": launches, "trace": trace, "peak_gib": peak / 2**30}
+
+
+def phase_train_bf16(torch, device) -> dict:
+    """The bf16 training path: the slice machine with compute_dtype
+    bfloat16 fitted through the bf16 flash kernels (3 forward and 3
+    backward launches per step, no fp32 launch), against the same bf16 fit
+    with dense attention within BF16_SERVE_RTOL of the loss."""
+    from gordo_components_tpu_torch.ops import _kernels
+
+    rows = sensor_rows(np.random.default_rng(SEED + 8), TRAIN_ROWS)
+    steps = -(-(TRAIN_ROWS - LOOKBACK + 1) // TRAIN_KWARGS["batch_size"]) * TRAIN_KWARGS["epochs"]
+    _kernels.reset_launches()
+    _, est, wall, peak = fit_slice(torch, device, "flash", rows, "bfloat16")
+    launches = {n: _kernels.LAUNCHES[n] for n in KERNELS}
+    _, dense, _, _ = fit_slice(torch, device, "dense", rows, "bfloat16")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(est.history_, dense.history_))
+    print(f"train bf16 flash: {steps} steps in {wall:.2f} s, peak {peak / 2**30:.2f} GiB, loss "
+          f"history {est.history_}, launches {launches}; dense bf16 {dense.history_}, max "
+          f"relative difference {rel:.3g} (limit {BF16_SERVE_RTOL})")
+    per_step = SLICE["n_layers"] * steps
+    if launches != {**NO_LAUNCHES, "flash_fwd_bf16": per_step, "flash_bwd_bf16": per_step}:
+        fail(f"train bf16: launches {launches}, expected {per_step} bf16 forward and backward")
+    if not all(np.isfinite(est.history_)) or rel > BF16_SERVE_RTOL:
+        fail(f"train bf16: loss {est.history_} against dense attention's {dense.history_}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+# phase 9: the model phase of a build at the zoo's widths (phase 4's
+# dense-ae-default and lstm-ae-50tag), cross-validated and fitted on the
+# card, over two weeks of 10-minute rows
+BUILD = {name: ZOO[name] for name in ("dense-ae-default", "lstm-ae-50tag")}
+BUILD_ROWS = 2016
+BUILD_METADATA_KEYS = {"name", "gordo_components_tpu_torch_version", "model", "dataset",
+                       "build_duration_s", "build_phases", "user_defined"}
+BUILD_MODEL_KEYS = {"model_config", "model_builder_metadata", "cross_validation",
+                    "model_training_duration_s", "model_creation_date"}
+BUILD_DETECTOR_KEYS = {"type", "base_estimator", "cross_validation", "tag_thresholds",
+                       "total_threshold"}
+
+
+def phase_build(torch, device, tmp: str) -> None:
+    """The zoo's machines built on the card: the port's build_model (the
+    definition, cross_validate over 3 folds, fit), dumped with the build
+    metadata, served by one HTTP server; every response against the same
+    artifact on the CPU plain path, and no flash launch."""
+    from gordo_components_tpu_torch import wire
+    from gordo_components_tpu_torch.builder import build_model
+    from gordo_components_tpu_torch.ops import _kernels
+    from gordo_components_tpu_torch.serializer import dump, load, load_metadata
+    from gordo_components_tpu_torch.server.engine import ServingEngine
+    from gordo_components_tpu_torch.server.server import make_server
+
+    models_dir = os.path.join(tmp, "built")
+    rng = np.random.default_rng(SEED + 9)
+    _kernels.reset_launches()
+    for name, (estimator, kwargs, tags) in BUILD.items():
+        config = {"DiffBasedAnomalyDetector": {"base_estimator": {"TransformedTargetRegressor": {
+            "regressor": {"Pipeline": {"steps": ["MinMaxScaler", {estimator: kwargs}]}},
+            "transformer": "MinMaxScaler"}}}}
+        X = sensor_rows(rng, BUILD_ROWS, tags)
+        tag_list = [f"TAG-{i:03d}" for i in range(tags)]
+        started = time.perf_counter()
+        model, metadata = build_model(name, config, X, device=device,
+                                      dataset_metadata={"tag_list": tag_list})
+        dump(model, os.path.join(models_dir, name), metadata=metadata)
+        written = load_metadata(os.path.join(models_dir, name))
+        cv = written["model"]["cross_validation"]
+        print(f"build {name}: {time.perf_counter() - started:.2f} s (cv {cv['cv_duration_s']:.2f}"
+              f" s, fit {written['model']['model_training_duration_s']:.2f} s); fold scores "
+              + json.dumps([{k: round(v, 4) for k, v in s["scores"].items()} for s in cv["splits"]])
+              + f"; total threshold {model.total_threshold_:.4f}, tag thresholds "
+              f"{np.round(model.tag_thresholds_[:5], 4).tolist()}...")
+        detector_meta = written["model"]["model_builder_metadata"]
+        if (not BUILD_METADATA_KEYS <= set(written) or set(written["model"]) != BUILD_MODEL_KEYS
+                or set(detector_meta) != BUILD_DETECTOR_KEYS or len(cv["splits"]) != 3
+                or len(detector_meta["tag_thresholds"]) != tags):
+            fail(f"build {name}: the metadata lacks the reference's keys: {sorted(written)}, "
+                 f"{sorted(written['model'])}, {sorted(detector_meta)}")
+    launches = {n: _kernels.LAUNCHES[n] for n in KERNELS}
+    if any(launches.values()):
+        fail(f"build: the zoo's fits launched flash kernels: {launches}")
+
+    httpd = make_server(models_dir, port=0, device=device)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        for name, (_, _, tags) in BUILD.items():
+            X = sensor_rows(rng, 1008, tags)
+            status, payload, ms = post(f"{base}/gordo/v0/project/{name}/anomaly/prediction", X)
+            if status != 200:
+                fail(f"build {name}: HTTP {status}")
+            cpu = ServingEngine({name: load(os.path.join(models_dir, name), device="cpu")},
+                                device="cpu")
+            plain = dict(zip(wire.SCORE_FIELDS, cpu.anomaly(name, X)))
+            cpu.close()
+            w = len(plain["model-output"])
+            worst = compare_scores(f"build {name}", w, payload, plain, SERVE_RTOL, tags)
+            print(f"build {name}: served 1008 rows over HTTP in {ms:.1f} ms, vs the CPU plain "
+                  f"path {worst:.3g} (limit {SERVE_RTOL})")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+
+
 def main() -> None:
     try:
         import torch
@@ -1644,11 +2090,16 @@ def main() -> None:
         launches["flash_fwd_f32"] += phase_fleet(torch, device, tmp)["flash_fwd_f32"]
         launches["flash_fwd_f32"] += phase_int8(torch, device, tmp)["flash_fwd_f32"]
         phase_surface(torch, device, tmp)
+        trained = phase_train(torch, device, tmp)["launches"]
+        trained_bf16 = phase_train_bf16(torch, device)
+        for name in KERNELS:
+            launches[name] += trained[name] + trained_bf16[name]
+        phase_build(torch, device, tmp)
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
         "source": source,
-        "replaces": "gordo_components_tpu/ops/flash_attention.py:157",
+        "replaces": REPLACES[name],
         "launches": launches[name],
         **{key: kernels[name][key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library")},

@@ -1,4 +1,4 @@
-"""Carry flax parameters across into the port's modules.
+"""Carry flax parameters across into the port's modules, and back.
 
 ``state.npz`` holds a fitted estimator's flax parameter tree as nested
 ``…/params/<scope>/<leaf>`` arrays. :func:`params_from_flax` copies such a
@@ -23,7 +23,8 @@ automatically, in creation order:
 
 Flax Dense kernels are ``(in, out)``; ``nn.Linear`` wants ``(out, in)``,
 so every Dense kernel is flattened to ``(in, out)`` and transposed once
-here. The LSTM cell keeps flax's ``(in, out)`` layout, each gate's kernel
+here. :func:`flax_from_params` writes a port-trained module back as such a
+tree, so a port-trained artifact loads in the reference. The LSTM cell keeps flax's ``(in, out)`` layout, each gate's kernel
 copied into its quarter of the last axis, in flax's order.
 
 An int8 tree (:func:`quantized_params_from_flax`) carries one scale per
@@ -154,6 +155,92 @@ def params_from_flax(module: nn.Module, tree: Dict[str, Any]) -> nn.Module:
     if extra:
         raise ValueError(f"params_from_flax: unexpected flax scopes {sorted(extra)}")
     return module
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy().copy()
+
+
+def _dense_tree(layer: nn.Linear, kernel_shape: Tuple[int, ...] = None,
+                bias_shape: Tuple[int, ...] = None) -> Dict[str, np.ndarray]:
+    """An ``nn.Linear`` as flax's Dense scope: the kernel back to ``(in,
+    out)``, reshaped to a DenseGeneral's axes when given."""
+    kernel = _array(layer.weight).T
+    bias = _array(layer.bias)
+    return {
+        "kernel": kernel.reshape(kernel_shape) if kernel_shape else kernel,
+        "bias": bias.reshape(bias_shape) if bias_shape else bias,
+    }
+
+
+def _norm_tree(norm: nn.LayerNorm) -> Dict[str, np.ndarray]:
+    return {"scale": _array(norm.weight), "bias": _array(norm.bias)}
+
+
+def _patchtst_tree(module: PatchTSTModule) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {
+        "Dense_0": _dense_tree(module.patch_embed),
+        "pos_embedding": _array(module.pos_embedding),
+    }
+    for i, layer in enumerate(module.layers):
+        attn = layer.attn
+        h, hd = attn.n_heads, attn.head_dim
+        d = h * hd
+        tree[f"TransformerEncoderLayer_{i}"] = {
+            "LayerNorm_0": _norm_tree(layer.norm1),
+            "MultiHeadSelfAttention_0": {
+                "qkv": _dense_tree(attn.qkv, (d, 3, h, hd), (3, h, hd)),
+                "out": _dense_tree(attn.out, (h, hd, d)),
+            },
+            "LayerNorm_1": _norm_tree(layer.norm2),
+            "Dense_0": _dense_tree(layer.ff1),
+            "Dense_1": _dense_tree(layer.ff2),
+        }
+    tree["LayerNorm_0"] = _norm_tree(module.norm)
+    tree["Dense_1"] = _dense_tree(module.head)
+    if module.head_out is not None:
+        tree["Dense_2"] = _dense_tree(module.head_out)
+    return tree
+
+
+def _dense_ae_tree(module: DenseAutoencoderModule) -> Dict[str, Any]:
+    return {f"Dense_{i}": _dense_tree(layer) for i, layer in enumerate(module.layers)}
+
+
+def _lstm_tree(module: LSTMModule) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for i, cell in enumerate(module.cells):
+        scope: Dict[str, Any] = {}
+        for k, gate in enumerate(_GATES):
+            cols = slice(k * cell.units, (k + 1) * cell.units)
+            scope[f"i{gate}"] = {"kernel": _array(cell.input_kernel[:, cols])}
+            scope[f"h{gate}"] = {"kernel": _array(cell.recurrent_kernel[:, cols]),
+                                 "bias": _array(cell.recurrent_bias[cols])}
+        tree[f"OptimizedLSTMCell_{i}"] = scope
+    tree["Dense_0"] = _dense_tree(module.head)
+    return tree
+
+
+_TREES = (
+    (PatchTSTModule, _patchtst_tree),
+    (DenseAutoencoderModule, _dense_ae_tree),
+    (LSTMModule, _lstm_tree),
+)
+
+
+def flax_from_params(module: nn.Module) -> Dict[str, Any]:
+    """The inverse of :func:`params_from_flax`: ``module``'s parameters as
+    the reference's flax tree of float32 numpy arrays (what ``state.npz``
+    holds under ``…/params``). Dense kernels go back to ``(in, out)`` (and
+    to a DenseGeneral's axes), an LSTM cell's concatenated kernels back to
+    flax's per-gate leaves."""
+    for cls, tree_of in _TREES:
+        if isinstance(module, cls):
+            return tree_of(module)
+    raise TypeError(
+        f"flax_from_params supports {', '.join(cls.__name__ for cls, _ in _TREES)}; "
+        f"got {type(module).__name__}"
+    )
 
 
 def _broadcast_form(ids: torch.Tensor) -> torch.Tensor:

@@ -5,8 +5,7 @@
 ``feedforward_symmetric`` (mirrored dims) and ``feedforward_hourglass``
 (``compression_factor`` + ``encoding_layers`` via ``hourglass_calc_dims``),
 with the reference's hyperparameter names, defaults, errors and ``config``
-records. ``optimizer*`` and ``loss`` shape training only and are kept in
-the config so artifacts round-trip.
+records, and the optimizer that ``optimizer``/``optimizer_kwargs`` name.
 """
 
 from __future__ import annotations
@@ -15,7 +14,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 from ..modules import DenseAutoencoderModule
 from ..register import register_model_factory
-from .spec import ModelSpec
+from .spec import ModelSpec, make_optimizer
 
 
 def _reject_unknown(kind: str, unknown: dict) -> None:
@@ -98,7 +97,13 @@ def _build(
         "loss": loss,
         "compute_dtype": compute_dtype,
     }
-    return ModelSpec(module=module, loss=loss, input_kind="flat", config=config)
+    return ModelSpec(
+        module=module,
+        optimizer=make_optimizer(optimizer, optimizer_kwargs),
+        loss=loss,
+        input_kind="flat",
+        config=config,
+    )
 
 
 @register_model_factory("feedforward_model")

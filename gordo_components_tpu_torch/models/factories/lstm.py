@@ -14,7 +14,7 @@ from typing import Any, Dict, Optional, Sequence
 from ..modules import LSTMModule
 from ..register import register_model_factory
 from .feedforward import _broadcast_funcs, _reject_unknown, hourglass_calc_dims
-from .spec import ModelSpec
+from .spec import ModelSpec, make_optimizer
 
 
 def _build(
@@ -41,6 +41,7 @@ def _build(
         funcs=resolved_funcs,
         out_func=out_func,
         compute_dtype=compute_dtype,
+        dropout=dropout,
     )
     config = {
         "n_features": n_features,
@@ -55,7 +56,13 @@ def _build(
         "loss": loss,
         "compute_dtype": compute_dtype,
     }
-    return ModelSpec(module=module, loss=loss, input_kind="window", config=config)
+    return ModelSpec(
+        module=module,
+        optimizer=make_optimizer(optimizer, optimizer_kwargs),
+        loss=loss,
+        input_kind="window",
+        config=config,
+    )
 
 
 @register_model_factory("lstm_model")

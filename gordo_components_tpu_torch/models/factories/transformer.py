@@ -21,8 +21,17 @@ Parity with the flax modules, point by point:
 
 Every layer computes in ``compute_dtype``: weights are cast to it at use
 (so weights stored in bfloat16 for the bf16 serving rung compute in
-float32 when the architecture says float32, as flax promotes them), and
-LayerNorm statistics are taken in float32.
+float32 when the architecture says float32, as flax promotes them), every
+Dense rounds its product before it adds its bias (:func:`~..modules.linear`,
+flax's two roundings in bf16), and LayerNorm statistics are taken in
+float32.
+
+Training, as the reference trains: with a dropout ``generator`` the forward
+applies dropout after the patch embedding and on both residual branches,
+and on the attention weights of the dense path (the flash path never
+materialises them, so it trains with residual dropout only); ``remat``
+recomputes each encoder layer in the backward pass
+(``torch.utils.checkpoint``) and leaves the parameters as they are.
 """
 
 from __future__ import annotations
@@ -31,20 +40,17 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ...ops.attention import dense_attention
 from ...ops.flash_attention import flash_attention
-from ..modules import activation, resolve_dtype
+from ..modules import activation, dropout, dropout_generator, linear, resolve_dtype
 from ..register import register_model_factory
-from .spec import ModelSpec
+from .spec import ModelSpec, make_optimizer
 
 _LN_EPS = 1e-6
 _ATTENTION_IMPLS = ("dense", "flash", "ring", "ring_flash")
-
-
-def _dense(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
-    return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
 
 
 def _layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
@@ -58,7 +64,8 @@ def _layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
 class MultiHeadSelfAttention(nn.Module):
     """Fused q/k/v projection, attention core, output projection."""
 
-    def __init__(self, d_model: int, n_heads: int, attention_impl: str = "dense"):
+    def __init__(self, d_model: int, n_heads: int, attention_impl: str = "dense",
+                 dropout_rate: float = 0.0):
         super().__init__()
         if d_model % n_heads != 0:
             raise ValueError(
@@ -72,35 +79,48 @@ class MultiHeadSelfAttention(nn.Module):
         self.n_heads = n_heads
         self.head_dim = d_model // n_heads
         self.attention_impl = attention_impl
+        self.dropout_rate = dropout_rate
         self.qkv = nn.Linear(d_model, 3 * d_model)
         self.out = nn.Linear(d_model, d_model)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        qkv = _dense(x, self.qkv).unflatten(-1, (3, self.n_heads, self.head_dim))
+    def forward(
+        self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
+        qkv = linear(x, self.qkv).unflatten(-1, (3, self.n_heads, self.head_dim))
         q, k, v = qkv.unbind(dim=-3)  # each (..., seq, heads, head_dim)
         if self.attention_impl == "flash":
             out = flash_attention(q, k, v)
+        elif self.dropout_rate > 0.0 and generator is not None:
+            # the weights are materialised here, so dropout can reach them
+            logits = torch.einsum("...qhd,...khd->...hqk", q, k) * self.head_dim**-0.5
+            weights = dropout(torch.softmax(logits, dim=-1), self.dropout_rate, generator)
+            out = torch.einsum("...hqk,...khd->...qhd", weights, v)
         else:
             out = dense_attention(q, k, v)
-        return _dense(out.flatten(-2), self.out)
+        return linear(out.flatten(-2), self.out)
 
 
 class TransformerEncoderLayer(nn.Module):
-    """Pre-norm encoder block (dropout is identity at inference)."""
+    """Pre-norm encoder block; dropout only under a ``generator``."""
 
-    def __init__(self, d_model: int, n_heads: int, ff_dim: int, attention_impl: str):
+    def __init__(self, d_model: int, n_heads: int, ff_dim: int, attention_impl: str,
+                 dropout_rate: float = 0.0):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.norm1 = nn.LayerNorm(d_model, eps=_LN_EPS)
-        self.attn = MultiHeadSelfAttention(d_model, n_heads, attention_impl)
+        self.attn = MultiHeadSelfAttention(d_model, n_heads, attention_impl, dropout_rate)
         self.norm2 = nn.LayerNorm(d_model, eps=_LN_EPS)
         self.ff1 = nn.Linear(d_model, ff_dim)
         self.ff2 = nn.Linear(ff_dim, d_model)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(_layer_norm(x, self.norm1))
-        h = _dense(_layer_norm(x, self.norm2), self.ff1)
-        h = F.gelu(h, approximate="tanh")
-        return x + _dense(h, self.ff2)
+    def forward(
+        self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
+        h = self.attn(_layer_norm(x, self.norm1), generator)
+        x = x + dropout(h, self.dropout_rate, generator)
+        h = linear(_layer_norm(x, self.norm2), self.ff1)
+        h = linear(F.gelu(h, approximate="tanh"), self.ff2)
+        return x + dropout(h, self.dropout_rate, generator)
 
 
 class PatchTSTModule(nn.Module):
@@ -120,9 +140,13 @@ class PatchTSTModule(nn.Module):
         out_func: str = "linear",
         compute_dtype: Any = "float32",
         attention_impl: str = "dense",
+        dropout_rate: float = 0.0,
+        remat: bool = False,
     ):
         super().__init__()
         self.n_features = n_features
+        self.dropout_rate = dropout_rate
+        self.remat = remat
         self.lookback_window = lookback_window
         self.patch_length = patch_length
         self.stride = stride
@@ -133,7 +157,7 @@ class PatchTSTModule(nn.Module):
         self.patch_embed = nn.Linear(patch_length, d_model)
         self.pos_embedding = nn.Parameter(torch.zeros(self.n_patches, d_model))
         self.layers = nn.ModuleList(
-            TransformerEncoderLayer(d_model, n_heads, ff_dim, attention_impl)
+            TransformerEncoderLayer(d_model, n_heads, ff_dim, attention_impl, dropout_rate)
             for _ in range(n_layers)
         )
         self.norm = nn.LayerNorm(d_model, eps=_LN_EPS)
@@ -144,7 +168,9 @@ class PatchTSTModule(nn.Module):
             else None
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
         batch, window, n_features = x.shape
         if window != self.lookback_window or n_features != self.n_features:
             raise ValueError(
@@ -154,15 +180,30 @@ class PatchTSTModule(nn.Module):
         channels = x.to(self.dtype).transpose(1, 2)  # (B, F, L)
         patches = channels.unfold(2, self.patch_length, self.stride)  # (B, F, P, pl)
         h = patches.reshape(batch * n_features, self.n_patches, self.patch_length)
-        h = _dense(h, self.patch_embed) + self.pos_embedding.to(self.dtype)
+        h = linear(h, self.patch_embed) + self.pos_embedding.to(self.dtype)
+        h = dropout(h, self.dropout_rate, generator)
         for layer in self.layers:
-            h = layer(h)
+            # each layer draws from a generator of its own, so that a layer
+            # recomputed under remat draws the masks it drew the first time
+            layer_gen = dropout_generator(generator)
+            if self.remat and torch.is_grad_enabled():
+                h = torch.utils.checkpoint.checkpoint(
+                    self._run_layer, layer, h, layer_gen, use_reentrant=False
+                )
+            else:
+                h = layer(h, layer_gen)
         h = _layer_norm(h, self.norm)
         flat = h.reshape(batch, n_features, self.n_patches * self.d_model)
-        out = _dense(flat, self.head)[..., 0]  # per-channel head (B, F)
+        out = linear(flat, self.head)[..., 0]  # per-channel head (B, F)
         if self.head_out is not None:
-            out = _dense(out, self.head_out)
+            out = linear(out, self.head_out)
         return activation(self.out_func)(out).float()
+
+    @staticmethod
+    def _run_layer(layer, h, generator):
+        if generator is not None:  # a recompute starts from the layer's own seed
+            generator = torch.Generator().manual_seed(generator.initial_seed())
+        return layer(h, generator)
 
 
 @register_model_factory("patchtst")
@@ -187,8 +228,8 @@ def patchtst(
     **unknown: Any,
 ) -> ModelSpec:
     """Validation and config as the reference's factory. ``dropout``,
-    ``optimizer*`` and ``remat`` shape training only and are kept in the
-    config so artifacts round-trip."""
+    ``remat`` and ``optimizer*`` shape training only; the config keeps them,
+    so artifacts round-trip."""
     if unknown:
         raise ValueError(
             f"Unknown hyperparameters for kind 'patchtst': {sorted(unknown)}"
@@ -229,6 +270,8 @@ def patchtst(
         out_func=out_func,
         compute_dtype=compute_dtype,
         attention_impl=attention_impl,
+        dropout_rate=dropout,
+        remat=remat,
     )
     config = {
         "n_features": n_features,
@@ -249,4 +292,10 @@ def patchtst(
         "attention_impl": attention_impl,
         "remat": remat,
     }
-    return ModelSpec(module=module, loss=loss, input_kind="window", config=config)
+    return ModelSpec(
+        module=module,
+        optimizer=make_optimizer(optimizer, optimizer_kwargs),
+        loss=loss,
+        input_kind="window",
+        config=config,
+    )

@@ -15,7 +15,7 @@ float32 under a bfloat16 compute dtype, as flax's does.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Sequence
+from typing import Any, Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -65,6 +65,36 @@ def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
     return F.linear(x, layer.weight.to(x.dtype)) + layer.bias.to(x.dtype)
 
 
+def _seed(generator: torch.Generator) -> int:
+    return int(torch.randint(0, 2**62, (), generator=generator))
+
+
+def dropout_generator(generator: Optional[torch.Generator]) -> Optional[torch.Generator]:
+    """A fresh CPU generator seeded from ``generator`` (None stays None): a
+    block that must draw the same masks again (an encoder layer recomputed
+    under ``remat``) takes one of these and never ``generator`` itself."""
+    return None if generator is None else torch.Generator().manual_seed(_seed(generator))
+
+
+def dropout(
+    x: torch.Tensor, rate: float, generator: Optional[torch.Generator]
+) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each element with probability ``1 - rate``
+    and scale the kept ones by ``1 / (1 - rate)``; the identity when
+    ``generator`` is None (flax's ``deterministic=True``) or ``rate`` is 0.
+    The mask is drawn on ``x``'s device by a generator seeded from the CPU
+    ``generator``: a fit draws the same seeds on the card and the CPU, but
+    the two devices' generators turn them into other masks, and neither
+    gives flax's bits: only the distribution is the reference's."""
+    if generator is None or rate <= 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    device_gen = torch.Generator(device=x.device).manual_seed(_seed(generator))
+    keep = torch.rand(x.shape, generator=device_gen, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class DenseAutoencoderModule(nn.Module):
     """Encoder/decoder MLP: ``(batch, F) → (batch, F_out)``.
 
@@ -93,8 +123,10 @@ class DenseAutoencoderModule(nn.Module):
         ]
         self.dtype = resolve_dtype(compute_dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = x.to(self.dtype)
+    def forward(
+        self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
+        h = x.to(self.dtype)  # no dropout here (the reference has none)
         for layer, act in zip(self.layers, self.activations):
             h = act(linear(h, layer))
         return h.float()
@@ -154,9 +186,9 @@ class LSTMModule(nn.Module):
     """Stacked LSTM over a lookback window: ``(batch, L, F) → (batch, F_out)``.
 
     flax's tree: ``OptimizedLSTMCell_{i}`` per layer, then ``Dense_0``, the
-    head, on the last step's hidden state with ``out_func``. The
-    reference's dropout between layers is the identity at inference, so
-    the module has none (its factory keeps ``dropout`` in the config).
+    head, on the last step's hidden state with ``out_func``. ``dropout``
+    follows every layer's output sequence under a dropout ``generator``
+    (training), as in the reference; without one it is the identity.
     """
 
     def __init__(
@@ -167,8 +199,10 @@ class LSTMModule(nn.Module):
         funcs: Sequence[str],
         out_func: str = "linear",
         compute_dtype: Any = "float32",
+        dropout: float = 0.0,
     ):
         super().__init__()
+        self.dropout_rate = dropout
         widths = [n_features, *units]
         self.cells = nn.ModuleList(
             OptimizedLSTMCell(n_in, n_units, func)
@@ -178,9 +212,11 @@ class LSTMModule(nn.Module):
         self.out_act = activation(out_func)
         self.dtype = resolve_dtype(compute_dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
         h = x.to(self.dtype)
         for cell in self.cells:
-            h = cell(h, self.dtype)
+            h = dropout(cell(h, self.dtype), self.dropout_rate, generator)
         last = h[:, -1, :].to(self.dtype)
         return self.out_act(linear(last, self.head)).float()

@@ -1,5 +1,6 @@
 """``Pipeline`` and ``TransformedTargetRegressor`` (port of
-``gordo_components_tpu/models/pipeline.py:40-108, 201-265``).
+``gordo_components_tpu/models/pipeline.py:40-108, 201-295``), and
+:func:`clone_pipeline`, the unfitted copy cross-validation fits per fold.
 
 State keys are the reference's: a pipeline's steps by position
 (``step_i``), a target regressor's ``regressor`` and ``transformer``.
@@ -7,6 +8,7 @@ State keys are the reference's: a pipeline's steps by position
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -32,18 +34,36 @@ class Pipeline:
     def __init__(self, steps: Sequence[Union[Tuple[str, Any], Any]]):
         self.steps = _name_steps(steps)
 
-    def fit(self, X, y=None, **kwargs):
-        raise NotImplementedError(
-            "training is not ported yet (ROADMAP.md, Queue 1: training)"
-        )
+    def _transform_through(self, X, fit: bool = False, y=None):
+        for _, step in self.steps[:-1]:
+            if not fit:
+                X = step.transform(X)
+            elif hasattr(step, "fit_transform"):
+                X = step.fit_transform(X, y)
+            else:
+                X = step.fit(X, y).transform(X)
+        return X
+
+    def fit(self, X, y=None, **kwargs) -> "Pipeline":
+        """Fit each transform on the output of the one before, then the
+        final estimator."""
+        self.steps[-1][1].fit(self._transform_through(X, fit=True, y=y), y, **kwargs)
+        return self
 
     def predict(self, X) -> np.ndarray:
-        for _, step in self.steps[:-1]:
-            X = step.transform(X)
-        return self.steps[-1][1].predict(X)
+        return self.steps[-1][1].predict(self._transform_through(X))
 
     def get_params(self, deep: bool = True) -> Dict[str, Any]:
         return {"steps": list(self.steps)}
+
+    def get_metadata(self) -> Dict[str, Any]:
+        return {
+            "type": "Pipeline",
+            "steps": [
+                {name: step.get_metadata() if hasattr(step, "get_metadata") else {}}
+                for name, step in self.steps
+            ],
+        }
 
     def get_state(self) -> Dict[str, Any]:
         return {
@@ -66,10 +86,14 @@ class TransformedTargetRegressor:
         self.regressor = regressor
         self.transformer = transformer
 
-    def fit(self, X, y=None, **kwargs):
-        raise NotImplementedError(
-            "training is not ported yet (ROADMAP.md, Queue 1: training)"
-        )
+    def fit(self, X, y=None, **kwargs) -> "TransformedTargetRegressor":
+        """Fit the transformer on the targets (``y``, else ``X``), then the
+        regressor on the transformed targets."""
+        y_arr = X if y is None else y
+        if self.transformer is not None:
+            y_arr = self.transformer.fit_transform(y_arr)
+        self.regressor.fit(X, y_arr, **kwargs)
+        return self
 
     def predict(self, X) -> np.ndarray:
         pred = self.regressor.predict(X)
@@ -79,6 +103,14 @@ class TransformedTargetRegressor:
 
     def get_params(self, deep: bool = True) -> Dict[str, Any]:
         return {"regressor": self.regressor, "transformer": self.transformer}
+
+    def get_metadata(self) -> Dict[str, Any]:
+        return {
+            "type": "TransformedTargetRegressor",
+            "regressor": (
+                self.regressor.get_metadata() if hasattr(self.regressor, "get_metadata") else {}
+            ),
+        }
 
     def get_state(self) -> Dict[str, Any]:
         return {
@@ -98,3 +130,27 @@ class TransformedTargetRegressor:
         if self.transformer is not None and hasattr(self.transformer, "set_state"):
             self.transformer.set_state(state.get("transformer", {}))
         return self
+
+
+def clone_pipeline(obj: Any) -> Any:
+    """A deep, unfitted copy of a pipeline or estimator graph: every object
+    rebuilt from its ``get_params``, nested graphs cloned too, so that
+    cross-validation folds share no fitted state. An estimator's device
+    (:meth:`BaseTorchEstimator.to`) carries over."""
+    if isinstance(obj, Pipeline):
+        return Pipeline([(name, clone_pipeline(step)) for name, step in obj.steps])
+    if isinstance(obj, TransformedTargetRegressor):
+        return TransformedTargetRegressor(
+            regressor=clone_pipeline(obj.regressor),
+            transformer=None if obj.transformer is None else clone_pipeline(obj.transformer),
+        )
+    if hasattr(obj, "get_params"):
+        params = {
+            key: clone_pipeline(value) if hasattr(value, "get_params") else copy.deepcopy(value)
+            for key, value in obj.get_params(deep=False).items()
+        }
+        clone = type(obj)(**params)
+        if getattr(obj, "device", None) is not None:
+            clone.to(obj.device)
+        return clone
+    return copy.deepcopy(obj)

@@ -3,6 +3,7 @@
 
 from .windowing import (  # noqa: F401
     forecast_targets,
+    gather_windows,
     n_windows,
     reconstruction_targets,
     sliding_windows,

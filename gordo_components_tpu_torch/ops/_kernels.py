@@ -48,16 +48,22 @@ def nvcc_flags() -> List[str]:
     debug = os.environ.get("CUDA_KERNEL_DEBUG") == "1"
     return NVCC_FLAGS + (["-DCUDA_KERNEL_DEBUG"] if debug else [])
 
-# kernel name -> CUDA source; one shared library per source. The flash
-# forward has one design per dtype: fp32 on CUDA cores, bf16 on wgmma + TMA.
+# library name -> CUDA source; one shared library per source. The flash
+# forward has one design per dtype: fp32 on CUDA cores, bf16 on wgmma + TMA;
+# the flash backward is one source with an entry per dtype.
 SOURCES: Dict[str, str] = {
     "flash_fwd_f32": "flash_fwd_f32.cu",
     "flash_fwd_bf16": "flash_fwd_bf16.cu",
+    "flash_bwd": "flash_bwd.cu",
 }
 
-# kernel name -> launches since the last reset (see reset_launches);
-# "flash_fwd" counts the launches of both dtypes' flash kernels
-LAUNCHES: Dict[str, int] = {"flash_fwd": 0, **{name: 0 for name in SOURCES}}
+# kernel name -> launches since the last reset (see reset_launches); a
+# kernel is one dtype's wrapper ("flash_bwd_f32" launches the three passes
+# of the backward once); "flash_fwd" and "flash_bwd" count both dtypes
+KERNEL_NAMES = ("flash_fwd_f32", "flash_fwd_bf16", "flash_bwd_f32", "flash_bwd_bf16")
+LAUNCHES: Dict[str, int] = {
+    "flash_fwd": 0, "flash_bwd": 0, **{name: 0 for name in KERNEL_NAMES}
+}
 _LAUNCH_LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOAD_LOCK = threading.Lock()
@@ -145,16 +151,18 @@ def _library(name: str) -> ctypes.CDLL:
             lib.gordo_cuda_error_string.argtypes = [ctypes.c_int]
             lib.gordo_cuda_error_string.restype = ctypes.c_char_p
             for entry in _ENTRIES[name]:
-                bind_flash_entry(getattr(lib, entry))
+                bind = bind_flash_bwd_entry if name == "flash_bwd" else bind_flash_entry
+                bind(getattr(lib, entry))
             _LIBS[name] = lib
     return lib
 
 
-# kernel name -> its library's C entries; each takes (q, k, v, out, lse,
-# bh, seq, d, scale, stream)
+# library name -> its C entries; a forward's take (q, k, v, out, lse, bh,
+# seq, d, scale, stream), a backward's see bind_flash_bwd_entry
 _ENTRIES: Dict[str, Tuple[str, ...]] = {
     "flash_fwd_f32": ("gordo_flash_fwd_f32",),
     "flash_fwd_bf16": ("gordo_flash_fwd_bf16", "gordo_flash_fwd_bf16_single_stage"),
+    "flash_bwd": ("gordo_flash_bwd_f32", "gordo_flash_bwd_bf16"),
 }
 
 
@@ -163,6 +171,20 @@ def bind_flash_entry(entry) -> None:
     ptr = ctypes.c_void_p
     entry.argtypes = [
         ptr, ptr, ptr, ptr, ptr,  # q, k, v, out, lse
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # bh, seq, d
+        ctypes.c_float,  # scale
+        ptr,  # stream
+    ]
+    entry.restype = ctypes.c_int
+
+
+def bind_flash_bwd_entry(entry) -> None:
+    """Set the argument and result types of a flash backward's C entry."""
+    ptr = ctypes.c_void_p
+    entry.argtypes = [
+        ptr, ptr, ptr, ptr, ptr,  # q, k, v, out, dout
+        ptr, ptr,  # lse, dlse (null when absent)
+        ptr, ptr, ptr, ptr,  # dq, dk, dv, delta scratch
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # bh, seq, d
         ctypes.c_float,  # scale
         ptr,  # stream
@@ -240,3 +262,68 @@ def _launch_flash(q3, k3, v3, scale, entry: Optional[str] = None):
     _raise_on(lib, status, name)
     _count("flash_fwd", name)
     return out, lse
+
+
+_BWD_FOR_DTYPE = {torch.float32: "flash_bwd_f32", torch.bfloat16: "flash_bwd_bf16"}
+
+
+def flash_bwd_cuda(
+    q3: torch.Tensor,
+    k3: torch.Tensor,
+    v3: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    dout: torch.Tensor,
+    scale: float,
+    dlse: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the flash backward (``csrc/flash_bwd.cu``) of q's dtype on
+    ``(BH, S, D)`` CUDA tensors: the forward's q, k, v, out and lse, the
+    output cotangent ``dout`` and, when given, the lse cotangent ``dlse``
+    ``(BH, S)`` → ``(dq, dk, dv)`` in q's dtype."""
+    tensors = {"q": q3, "k": k3, "v": v3, "out": out, "dout": dout}
+    for name, t in tensors.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"flash_bwd_cuda: {name} is on {t.device}, not CUDA")
+        if tuple(t.shape) != tuple(q3.shape) or t.dim() != 3:
+            raise ValueError(
+                f"flash_bwd_cuda: {name} must be (BH, S, D) like q {tuple(q3.shape)}, "
+                f"got {tuple(t.shape)}"
+            )
+        if t.dtype != q3.dtype:
+            raise ValueError(f"flash_bwd_cuda: {name} is {t.dtype}, q is {q3.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"flash_bwd_cuda: {name} must be contiguous")
+        if t.device != q3.device:
+            raise ValueError("flash_bwd_cuda: all tensors must be on one device")
+    if q3.dtype not in _BWD_FOR_DTYPE:
+        raise ValueError(f"flash_bwd_cuda: q/k/v must be float32 or bfloat16, got {q3.dtype}")
+    bh, seq, d = q3.shape
+    if bh == 0 or seq == 0:
+        raise ValueError(f"flash_bwd_cuda: empty input {tuple(q3.shape)}")
+    if d > 128:
+        raise ValueError(f"flash_bwd_cuda: head_dim must be at most 128, got {d}")
+    for name, t in (("lse", lse), ("dlse", dlse)):
+        if t is None:
+            continue
+        if (t.device != q3.device or t.dtype != torch.float32 or tuple(t.shape) != (bh, seq)
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"flash_bwd_cuda: {name} must be contiguous float32 ({bh}, {seq}) on "
+                f"{q3.device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+    name = _BWD_FOR_DTYPE[q3.dtype]
+    lib = _library("flash_bwd")
+    dq, dk, dv = torch.empty_like(q3), torch.empty_like(q3), torch.empty_like(q3)
+    delta = torch.empty((bh, seq), dtype=torch.float32, device=q3.device)
+    with torch.cuda.device(q3.device):
+        stream = torch.cuda.current_stream(q3.device).cuda_stream
+        status = getattr(lib, f"gordo_{name}")(
+            q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), None if dlse is None else dlse.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+            bh, seq, d, float(scale), stream,
+        )
+    _raise_on(lib, status, name)
+    _count("flash_bwd", name)
+    return dq, dk, dv

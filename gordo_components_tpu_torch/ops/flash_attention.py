@@ -27,8 +27,13 @@ maps a model with ``torch.func.vmap`` over k machines (the serving engine's fuse
 dispatch) launches the kernel once per layer for all k, at BH = k·BH, as
 the reference's ``vmap`` over its Pallas call does.
 
-Forward only: the backward (``_bwd_3d`` in the reference) comes with the
-training slice, so a gradient through the operator raises.
+The backward (the reference's ``_bwd_3d``, the ``custom_vjp`` rule of
+``_flash_3d`` and ``flash_block_with_lse``) is a second operator,
+``gordo::flash_bwd``, registered as ``gordo::flash_fwd``'s autograd rule:
+its CUDA implementation launches ``csrc/flash_bwd.cu``, its CPU
+implementation is :func:`flash_bwd_reference`. The forward saves ``(q, k,
+v, out, lse)``, as the reference does, and both outputs are differentiable:
+an lse cotangent enters the score gradient and never ``dv``.
 """
 
 from __future__ import annotations
@@ -54,6 +59,33 @@ def flash_fwd_reference(
     p = torch.exp(s - lse[..., None])
     out = torch.einsum("bqk,bkd->bqd", p, v3.float())
     return out.to(q3.dtype), lse
+
+
+def flash_bwd_reference(
+    q3: torch.Tensor,
+    k3: torch.Tensor,
+    v3: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    scale: float,
+    dlse: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of the backward: from the forward's ``(BH, S, D)``
+    q, k, v, out and ``(BH, S)`` lse, the output cotangent ``do`` and the
+    optional lse cotangent ``dlse`` → ``(dq, dk, dv)`` in the inputs'
+    dtypes, computed in float32 with the whole score matrix."""
+    qf, kf, vf, dof = (t.float() for t in (q3, k3, v3, do))
+    p = torch.exp(torch.einsum("bqd,bkd->bqk", qf, kf) * scale - lse[..., None])
+    dv = torch.einsum("bqk,bqd->bkd", p, dof)
+    dresid = torch.einsum("bqd,bkd->bqk", dof, vf)
+    dresid = dresid - torch.sum(dof * out.float(), dim=-1)[..., None]
+    if dlse is not None:
+        dresid = dresid + dlse.float()[..., None]
+    ds = p * dresid * scale
+    dq = torch.einsum("bqk,bkd->bqd", ds, kf)
+    dk = torch.einsum("bqk,bqd->bkd", ds, qf)
+    return dq.to(q3.dtype), dk.to(k3.dtype), dv.to(v3.dtype)
 
 
 @torch.library.custom_op(
@@ -95,18 +127,55 @@ def _flash_fwd_vmap(info, in_dims, q3, k3, v3, scale):
 _flash_fwd_op.register_vmap(_flash_fwd_vmap)
 
 
+@torch.library.custom_op(
+    "gordo::flash_bwd", mutates_args=(), device_types="cpu",
+    schema=(
+        "(Tensor q, Tensor k, Tensor v, Tensor out, Tensor lse, Tensor dout, "
+        "Tensor? dlse, float scale) -> (Tensor, Tensor, Tensor)"
+    ),
+)
+def _flash_bwd_op(q3, k3, v3, out, lse, dout, dlse, scale):
+    """``(BH, S, D)`` backward → ``(dq, dk, dv)``; this body is the CPU
+    implementation."""
+    return flash_bwd_reference(q3, k3, v3, out, lse, dout, scale, dlse)
+
+
+@_flash_bwd_op.register_kernel("cuda")
+def _flash_bwd_cuda(q3, k3, v3, out, lse, dout, dlse, scale):
+    return _kernels.flash_bwd_cuda(q3, k3, v3, out, lse, dout, scale, dlse)
+
+
+@_flash_bwd_op.register_fake
+def _flash_bwd_fake(q3, k3, v3, out, lse, dout, dlse, scale):
+    return torch.empty_like(q3), torch.empty_like(k3), torch.empty_like(v3)
+
+
+def _flash_fwd_setup_context(ctx, inputs, output):
+    q3, k3, v3, scale = inputs
+    out, lse = output
+    ctx.save_for_backward(q3, k3, v3, out, lse)
+    ctx.scale = scale
+
+
+def _flash_fwd_backward(ctx, dout, dlse):
+    q3, k3, v3, out, lse = ctx.saved_tensors
+    if dout is None:
+        dout = torch.zeros_like(out)
+    if dlse is not None:
+        dlse = dlse.contiguous()
+    dq, dk, dv = _flash_bwd_op(q3, k3, v3, out, lse, dout.contiguous(), dlse, ctx.scale)
+    return dq, dk, dv, None
+
+
+_flash_fwd_op.register_autograd(_flash_fwd_backward, setup_context=_flash_fwd_setup_context)
+
+
 def flash_fwd(
     q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor, scale: float
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(BH, S, D)`` attention forward on the tensors' own device: the
-    CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
-    if torch.is_grad_enabled() and any(
-        t.requires_grad for t in (q3, k3, v3)
-    ):
-        raise NotImplementedError(
-            "flash attention backward is not ported yet (training slice); "
-            "run the forward under torch.no_grad()"
-        )
+    CUDA kernel for CUDA tensors, the plain version for CPU tensors;
+    differentiable in both outputs."""
     return _flash_fwd_op(q3.contiguous(), k3.contiguous(), v3.contiguous(), float(scale))
 
 
@@ -118,9 +187,9 @@ def flash_block_with_lse(
     block_q: int = _DEF_BLOCK_Q,
     block_k: int = _DEF_BLOCK_K,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(BH, S, D)`` q/k/v → ``(out (BH, S, D), lse (BH, S))``; the block
-    sizes are accepted for the reference's signature and do not change the
-    result."""
+    """``(BH, S, D)`` q/k/v → ``(out (BH, S, D), lse (BH, S))``,
+    differentiable in both outputs; the block sizes are accepted for the
+    reference's signature and do not change the result."""
     return flash_fwd(q3, k3, v3, scale)
 
 

@@ -46,6 +46,18 @@ def sliding_windows(
     return x.unfold(0, lookback_window, 1)[:count].transpose(1, 2)
 
 
+def gather_windows(rows: torch.Tensor, starts: torch.Tensor, lookback_window: int) -> torch.Tensor:
+    """``(n, F)`` rows + ``(k,)`` window-start indices → ``(k, L, F)``.
+
+    The lazy twin of :func:`sliding_windows`: a training loop batches over
+    start indices and gathers each batch's windows when it runs, so the
+    device holds the ``(n, F)`` rows and never the L×-larger window tensor.
+    Window ``i`` is rows ``[starts[i], starts[i] + L)`` — the same index
+    arithmetic as :func:`sliding_windows`, whose strided view this indexes.
+    Every start must be in ``[0, n - L]``."""
+    return sliding_windows(rows, lookback_window)[starts]
+
+
 def reconstruction_targets(x: torch.Tensor, lookback_window: int) -> torch.Tensor:
     """Row ``i+L-1`` per window."""
     return x[lookback_window - 1 :]
@@ -61,6 +73,22 @@ def forecast_targets(
             "(use reconstruction_targets for lookahead=0)"
         )
     return x[lookback_window - 1 + lookahead :]
+
+
+def multi_step_targets(x, lookback_window: int, horizon: int):
+    """Joint-horizon targets: ``(n, F) → (count, horizon, F)``, window ``i``
+    targeting rows ``[i + L, i + L + horizon)``; zips with
+    ``sliding_windows(x, L, lookahead=horizon)``."""
+    if horizon < 1:
+        raise ValueError(f"horizon must be >= 1, got {horizon}")
+    count = n_windows(x.shape[0], lookback_window, horizon)
+    if count <= 0:
+        raise ValueError(
+            f"Need at least lookback_window+horizon={lookback_window + horizon} "
+            f"rows, got {x.shape[0]}"
+        )
+    idx = np.arange(count)[:, None] + lookback_window + np.arange(horizon)[None, :]
+    return x[idx]
 
 
 def window_output_index(

@@ -22,7 +22,12 @@ from ..models.models import (
     PatchTSTForecast,
 )
 from ..models.pipeline import Pipeline, TransformedTargetRegressor
-from ..models.transformers import MinMaxScaler, StandardScaler
+from ..models.transformers import (
+    FunctionTransformer,
+    InfImputer,
+    MinMaxScaler,
+    StandardScaler,
+)
 
 _REF = "gordo_components_tpu.models"
 
@@ -34,6 +39,8 @@ CLASS_PATHS: Dict[str, type] = {
     f"{_REF}.pipeline.TransformedTargetRegressor": TransformedTargetRegressor,
     f"{_REF}.transformers.MinMaxScaler": MinMaxScaler,
     f"{_REF}.transformers.StandardScaler": StandardScaler,
+    f"{_REF}.transformers.InfImputer": InfImputer,
+    f"{_REF}.transformers.FunctionTransformer": FunctionTransformer,
     f"{_REF}.models.DenseAutoEncoder": DenseAutoEncoder,
     f"{_REF}.models.LSTMAutoEncoder": LSTMAutoEncoder,
     f"{_REF}.models.LSTMForecast": LSTMForecast,
@@ -51,6 +58,8 @@ _ALIASES: Dict[str, str] = {
     "sklearn.preprocessing.data.MinMaxScaler": f"{_REF}.transformers.MinMaxScaler",
     "sklearn.preprocessing.StandardScaler": f"{_REF}.transformers.StandardScaler",
     "sklearn.preprocessing.data.StandardScaler": f"{_REF}.transformers.StandardScaler",
+    "sklearn.preprocessing.FunctionTransformer": f"{_REF}.transformers.FunctionTransformer",
+    "gordo_components.model.transformers.imputer.InfImputer": f"{_REF}.transformers.InfImputer",
     "gordo_components.model.models.KerasAutoEncoder": f"{_REF}.models.DenseAutoEncoder",
     "gordo_components.model.models.KerasLSTMAutoEncoder": f"{_REF}.models.LSTMAutoEncoder",
     "gordo_components.model.models.KerasLSTMForecast": f"{_REF}.models.LSTMForecast",

@@ -125,16 +125,26 @@ def test_vmap_over_flash_attention_equals_the_per_item_loop(in_dims, monkeypatch
 
 
 def test_gradient_through_the_operator_raises_and_no_grad_runs():
-    """Forward only: with grad enabled and an input that requires grad the
-    operator refuses (the backward comes with the training slice)."""
-    from gordo_components_tpu_torch.ops.flash_attention import flash_fwd
+    """The operator is differentiable (its registered backward runs the
+    plain ``flash_bwd_reference`` on CPU tensors, and no kernel), and it
+    still runs under ``no_grad``; a backward that is asked for a CPU
+    tensor's kernel raises instead."""
+    from gordo_components_tpu_torch.ops.flash_attention import flash_bwd_reference, flash_fwd
 
-    q = torch.zeros(2, 8, 8, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        flash_fwd(q, q, q, 1.0)
+    rng = np.random.default_rng(29)
+    q = torch.from_numpy(rng.normal(size=(2, 8, 8)).astype(np.float32)).requires_grad_()
+    before = dict(_kernels.LAUNCHES)
+    out, lse = flash_fwd(q, q, q, 1.0)
+    (dq,) = torch.autograd.grad(out.sum() + lse.sum(), q)
+    parts = flash_bwd_reference(q, q, q, out, lse, torch.ones_like(out), 1.0,
+                                torch.ones_like(lse))
+    np.testing.assert_allclose(dq.numpy(), sum(parts).detach().numpy(), atol=1e-6)
+    assert _kernels.LAUNCHES == before
     with torch.no_grad():
         out, lse = flash_fwd(q, q, q, 1.0)
-    assert out.shape == (2, 8, 8) and lse.shape == (2, 8)
+    assert out.shape == (2, 8, 8) and lse.shape == (2, 8) and not out.requires_grad
+    with pytest.raises(ValueError, match="not CUDA"):
+        _kernels.flash_bwd_cuda(q, q, q, out, lse, out, 1.0)
 
 
 def test_kernel_wrapper_validates_before_building():
@@ -150,5 +160,8 @@ def test_kernel_wrapper_validates_before_building():
         _kernels.flash_fwd_bf16_single_stage(q, q, q, 1.0)
     with pytest.raises(ValueError, match="bfloat16"):  # the bf16 kernel's step takes bf16 only
         _kernels.flash_fwd_bf16_single_stage(q.float(), q.float(), q.float(), 1.0)
-    assert set(_kernels.SOURCES) == {"flash_fwd_f32", "flash_fwd_bf16"}
+    g = torch.zeros(2, 8, 8)
+    with pytest.raises(ValueError, match="not CUDA"):
+        _kernels.flash_bwd_cuda(g, g, g, g, torch.zeros(2, 8), g, 1.0)
+    assert set(_kernels.SOURCES) == {"flash_fwd_f32", "flash_fwd_bf16", "flash_bwd"}
     assert _kernels._LIBS == {} and _kernels.LAUNCHES == before

@@ -62,14 +62,16 @@ def test_kernel_table_names_both_sources():
     assert _kernels.SOURCES == {
         "flash_fwd_f32": "flash_fwd_f32.cu",
         "flash_fwd_bf16": "flash_fwd_bf16.cu",
+        "flash_bwd": "flash_bwd.cu",
     }
     for source in _kernels.SOURCES.values():
         assert os.path.exists(os.path.join(_kernels.SRC_DIR, source))
-    assert set(chip_smoke.KERNELS) == set(_kernels.SOURCES)
+    assert set(chip_smoke.KERNELS) == set(_kernels.KERNEL_NAMES)
     for dtype, source in chip_smoke.KERNELS.values():
         assert source.startswith("gordo_components_tpu_torch/csrc/") and dtype in (
             "float32", "bfloat16")
-    assert set(_kernels.LAUNCHES) == {"flash_fwd", *_kernels.SOURCES}
+        assert os.path.basename(source) in _kernels.SOURCES.values()
+    assert set(_kernels.LAUNCHES) == {"flash_fwd", "flash_bwd", *_kernels.KERNEL_NAMES}
 
 
 @pytest.mark.parametrize(

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: no module of ``gordo_components_tpu_torch``,
-and not ``chip_smoke.py``, imports jax, flax or the JAX package; and every
-entry point runs on CUDA unless ``device="cpu"`` is passed — without a
-card it raises instead of quietly running on the CPU."""
+and not ``chip_smoke.py``, imports jax, flax, optax, sklearn, pandas or the
+JAX package; and every entry point runs on CUDA unless ``device="cpu"`` is
+passed — without a card it raises instead of quietly running on the CPU."""
 
 import ast
 import os
@@ -16,7 +16,7 @@ torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "gordo_components_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "gordo_components_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "gordo_components_tpu", "sklearn", "pandas")
 
 
 def _sources():

@@ -7,8 +7,10 @@ run on a machine that has only PyTorch:
     python -m pytest tests/test_torch_kernels_gpu.py -m gpu -q --noconftest
 
 Each dtype has its own kernel (``csrc/flash_fwd_f32.cu``,
-``csrc/flash_fwd_bf16.cu``) and launch count; a bf16 input never reaches
-the fp32 kernel. Tolerances: float32 atol 2e-5 (summation order only);
+``csrc/flash_fwd_bf16.cu``; the backward ``csrc/flash_bwd.cu`` has one
+entry per dtype) and launch count; a bf16 input never reaches the fp32
+kernel. The backward is held to ``chip_smoke.bwd_atol``; gradients and a
+small fit on the card are held to the same on the CPU. Tolerances: float32 atol 2e-5 (summation order only);
 bfloat16 compared in bfloat16 at ``chip_smoke.bf16_atol`` (4 units in the
 last place of the largest plain output, at most 2e-2); lse atol 1e-4,
 float32 on both sides from the same inputs. The kernels are built with
@@ -29,6 +31,7 @@ import chip_smoke  # noqa: E402
 from gordo_components_tpu_torch.ops import _kernels  # noqa: E402
 from gordo_components_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention,
+    flash_bwd_reference,
     flash_fwd_reference,
 )
 
@@ -138,6 +141,112 @@ def test_flash_attention_on_the_card_matches_the_cpu(cuda_device):
     torch.testing.assert_close(out.cpu(), ref, atol=2e-5, rtol=0)
 
 
+# the backward at every S in {1, 37, 64, 65, 179, 300} with every D in
+# {8, 16, 64, 128} (D = 8 pads to the 16-column tile), then BH large enough
+# that the grid holds many blocks per SM, at the served width
+_BWD_SHAPES = [(3, seq, d) for seq in (1, 37, 64, 65, 179, 300) for d in (8, 16, 64, 128)]
+_BWD_SHAPES += [(2, 37, 12), (2, 65, 100), (2048, 179, 64), (512, 129, 16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_dlse", [False, True], ids=["no-dlse", "dlse"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", _BWD_SHAPES)
+def test_flash_bwd_matches_plain_version(shape, dtype, with_dlse, cuda_device):
+    """``csrc/flash_bwd.cu`` against flash_bwd_reference on the same saved
+    forward: float32 within chip_smoke.bwd_atol (2e-5 of the largest plain
+    grad, summation order only), bfloat16 grads within 4 ulps of the
+    largest one; the lse cotangent, when given, changes dq and dk only."""
+    dt = getattr(torch, dtype)
+    q, k, v = _qkv(shape, cuda_device, dt)
+    do, _, _ = _qkv(shape, cuda_device, dt, seed=4)
+    scale = shape[-1] ** -0.5
+    out, lse = flash_fwd_reference(q, k, v, scale)
+    dlse = None
+    if with_dlse:
+        dlse = torch.from_numpy(
+            np.random.default_rng(5).normal(size=shape[:2]).astype(np.float32)).to(cuda_device)
+    before = dict(_kernels.LAUNCHES)
+    grads = _kernels.flash_bwd_cuda(q, k, v, out, lse, do, scale, dlse)
+    plain = flash_bwd_reference(q, k, v, out, lse, do, scale, dlse)
+    torch.cuda.synchronize()
+    own, other = ("flash_bwd_f32", "flash_bwd_bf16")[:: 1 if dt == torch.float32 else -1]
+    assert _kernels.LAUNCHES[own] == before[own] + 1
+    assert _kernels.LAUNCHES["flash_bwd"] == before["flash_bwd"] + 1
+    assert _kernels.LAUNCHES[other] == before[other]
+    for got, ref in zip(grads, plain):
+        assert got.dtype == dt and got.shape == ref.shape
+        torch.testing.assert_close(got, ref, atol=chip_smoke.bwd_atol(ref), rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_gradient_on_the_card_matches_the_cpu(dtype, cuda_device):
+    """``flash_attention`` and ``flash_block_with_lse`` differentiated on the
+    card (forward and backward kernels, one launch each) against the same
+    gradients on the CPU (the plain versions), in the working dtype."""
+    from gordo_components_tpu_torch.ops.flash_attention import flash_block_with_lse
+
+    dt = getattr(torch, dtype)
+    x = _qkv((2, 179, 3, 16), "cpu", dt, seed=6)
+    cot = _qkv((2, 179, 3, 16), "cpu", dt, seed=7)[0]
+    w = torch.from_numpy(np.random.default_rng(8).normal(size=(6, 179)).astype(np.float32))
+
+    def grads(device):
+        q, k, v = (t.to(device).requires_grad_() for t in x)
+        o = flash_attention(q, k, v)
+        o3, lse = flash_block_with_lse(*(t.movedim(-2, -3).reshape(6, 179, 16) for t in (q, k, v)),
+                                       16 ** -0.5)
+        loss = (o.float() * cot.to(device).float()).sum() + (lse * w.to(device)).sum()
+        loss = loss + o3.float().square().sum()
+        return [g.cpu() for g in torch.autograd.grad(loss, (q, k, v))]
+
+    before = dict(_kernels.LAUNCHES)
+    on_card = grads(cuda_device)
+    torch.cuda.synchronize()
+    own = "flash_bwd_f32" if dt == torch.float32 else "flash_bwd_bf16"
+    assert _kernels.LAUNCHES[own] == before[own] + 2
+    for got, ref in zip(on_card, grads("cpu")):
+        # bf16: the card's forward rounds P to bf16 before P V, so its saved
+        # out differs from the CPU's by an ulp, and that reaches every grad
+        atol = (chip_smoke.bwd_atol(ref) if dt == torch.float32 else
+                chip_smoke.BF16_SERVE_RTOL * max(1.0, ref.float().abs().max().item()))
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["patchtst-flash-P129", "lstm"])
+def test_fit_on_the_card_matches_the_cpu(name, cuda_device):
+    """One small fit on the card (the PatchTST at 129 patches through both
+    flash kernels, one launch of each per step for its one layer) against
+    the same fit on the CPU: the same initial parameters and permutations (one
+    CPU generator drives both), float32; losses within 1e-4 relative and
+    predictions within 1e-4 of their magnitude (GEMMs and the attention
+    summed in other orders over two epochs of Adam steps)."""
+    from gordo_components_tpu_torch.models import LSTMAutoEncoder, PatchTSTAutoEncoder
+
+    if name == "lstm":
+        make = lambda: LSTMAutoEncoder(kind="lstm_symmetric", dims=[8], lookback_window=12,
+                                       epochs=2, batch_size=16)  # noqa: E731
+        X = np.random.default_rng(13).normal(size=(100, 4)).astype(np.float32)
+    else:
+        make = lambda: PatchTSTAutoEncoder(lookback_window=1040, patch_length=16, stride=8,  # noqa: E731
+                                           d_model=16, n_heads=2, n_layers=1,
+                                           attention_impl="flash", epochs=2, batch_size=4)
+        X = np.random.default_rng(13).normal(size=(1047, 2)).astype(np.float32)
+    before = dict(_kernels.LAUNCHES)
+    card = make().to(cuda_device).fit(X)
+    torch.cuda.synchronize()
+    steps = 2 * -(-(len(X) - card.lookback_window + 1) // card.batch_size)
+    flash = steps if name != "lstm" else 0
+    assert _kernels.LAUNCHES["flash_fwd_f32"] == before["flash_fwd_f32"] + flash
+    assert _kernels.LAUNCHES["flash_bwd_f32"] == before["flash_bwd_f32"] + flash
+    cpu = make().to("cpu").fit(X)
+    np.testing.assert_allclose(card.history_, cpu.history_, rtol=1e-4)
+    got, ref = card.predict(X), cpu.predict(X)
+    assert np.abs(got - ref).max() <= 1e-4 * max(1.0, np.abs(ref).max())
+
+
 @pytest.mark.gpu
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     q = torch.zeros(2, 8, 6, device=cuda_device)  # head_dim not a multiple of 4
@@ -153,11 +262,17 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     unaligned = torch.zeros(2 * 8 * 8 + 1, device=cuda_device)[1:].view(2, 8, 8)
     with pytest.raises(ValueError, match="16-byte"):
         _kernels.flash_fwd_cuda(unaligned, unaligned, unaligned, 1.0)
-    with pytest.raises(NotImplementedError, match="backward"):
-        g = torch.zeros(2, 8, 8, device=cuda_device, requires_grad=True)
-        from gordo_components_tpu_torch.ops.flash_attention import flash_fwd
-
-        flash_fwd(g, g, g, 1.0)
+    # the backward: head_dim up to 128, one dtype, float32 lse, no cast
+    wide = torch.zeros(2, 8, 132, device=cuda_device)
+    lse = torch.zeros(2, 8, device=cuda_device)
+    with pytest.raises(ValueError, match="at most 128"):
+        _kernels.flash_bwd_cuda(wide, wide, wide, wide, lse, wide, 1.0)
+    with pytest.raises(ValueError, match="q is"):
+        _kernels.flash_bwd_cuda(f32, f32, f32, f32, lse[:, :8], b16, 1.0)
+    with pytest.raises(ValueError, match="lse"):
+        _kernels.flash_bwd_cuda(f32, f32, f32, f32, lse.double(), f32, 1.0)
+    with pytest.raises(ValueError, match="not CUDA"):
+        _kernels.flash_bwd_cuda(f32.cpu(), f32, f32, f32, lse, f32, 1.0)
 
 
 @pytest.fixture(scope="module")

@@ -7,7 +7,18 @@ attention) and at ``lookback_window=1040, patch_length=16, stride=8``
 (P = 129: the reference runs its Pallas kernel in interpret mode, the port
 its kernel's plain version). Tolerance atol 5e-5, the reference's own
 flash-vs-dense bound for this module.
+
+In bf16 compute, the outputs are held to 8 bf16 units in the last place of
+the largest output (as ``tests/test_torch_zoo.py`` holds the zoo): every
+Dense rounds its product and then its bias add, as flax's does, and flax's
+gelu, XLA's tanh-form polynomial rounded after each operation, differs
+from PyTorch's by an ulp here and there. One Dense alone must match flax's
+at all but a few outputs, and a lone bf16 request must equal the same
+request fused with another machine's in one stacked dispatch.
 """
+
+import math
+
 
 import jax
 import numpy as np
@@ -79,3 +90,97 @@ def test_params_from_flax_rejects_mismatched_tree():
         params_from_flax(spec.module, tree)
     with pytest.raises(ValueError, match="unexpected"):
         params_from_flax(spec.module, {**params, "Dense_1": params["Dense_1"], "extra": {}})
+
+
+BF16_ULPS = 8
+
+
+def _bf16_ulp_bound(ref):
+    return BF16_ULPS * math.ldexp(1.0, math.frexp(float(np.abs(ref).max()))[1] - 8)
+
+
+@pytest.mark.parametrize(
+    "lookback,extra",
+    [(64, {}), (64, {"n_features_out": 2, "out_func": "tanh"}), (1040, {"n_layers": 1})],
+    ids=["one-tile", "target-head", "P129-kernel"],
+)
+def test_bf16_forward_matches_flax(lookback, extra):
+    kw = _kwargs(lookback, compute_dtype="bfloat16", **extra)
+    x = np.random.default_rng(2).normal(size=(2, lookback, 3)).astype(np.float32)
+    init_spec = ref_factory("patchtst")(**{**kw, "attention_impl": "dense"})
+    params = init_spec.module.init(jax.random.PRNGKey(1), x, deterministic=True)["params"]
+    ref = np.asarray(
+        ref_factory("patchtst")(**kw).module.apply({"params": params}, x, deterministic=True))
+    module = params_from_flax(get_factory("patchtst")(**kw).module,
+                              jax.tree_util.tree_map(np.asarray, params))
+    with torch.no_grad():
+        ours = module(torch.from_numpy(x)).numpy()
+    assert ours.dtype == np.float32
+    np.testing.assert_allclose(ours, ref, atol=_bf16_ulp_bound(ref), rtol=0)
+
+
+def test_bf16_dense_rounds_like_flax():
+    """A bf16 Dense of the PatchTST module (product rounded, then the bias
+    add rounded) against flax's ``nn.Dense(dtype=bfloat16)`` on 256 x 512
+    inputs: equal at all but a handful of 131,072 outputs (a fused bias
+    rounds once and differs at about a quarter of them), never by more
+    than one ulp."""
+    import flax.linen as fnn
+    import jax.numpy as jnp
+
+    from gordo_components_tpu_torch.models.factories import transformer
+
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(256, 512)).astype(np.float32)
+    layer = fnn.Dense(256, dtype=jnp.bfloat16)
+    params = layer.init(jax.random.PRNGKey(0), x)["params"]
+    params = {"kernel": params["kernel"],
+              "bias": jnp.asarray(rng.normal(size=256).astype(np.float32))}
+    ref = np.asarray(layer.apply({"params": params}, jnp.asarray(x, jnp.bfloat16)), np.float32)
+    linear = torch.nn.Linear(512, 256)
+    with torch.no_grad():
+        linear.weight.copy_(torch.from_numpy(np.array(params["kernel"]).T))
+        linear.bias.copy_(torch.from_numpy(np.array(params["bias"])))
+        ours = transformer.linear(torch.from_numpy(x).to(torch.bfloat16), linear).float().numpy()
+    differ = ours != ref
+    assert differ.sum() <= 64, differ.sum()
+    ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(ref), 1e-30))) - 7)
+    assert (np.abs(ours - ref) <= ulp)[differ].all()
+
+
+def test_bf16_lone_request_equals_fused_dispatch(tmp_path):
+    """Two bf16 PatchTST machines of one architecture, trained and dumped by
+    the port, in one engine bucket: machine a's request alone (one
+    unbatched dispatch) equals the same request fused with machine b's in
+    one stacked dispatch, to the bit."""
+    from gordo_components_tpu_torch.builder import build_model
+    from gordo_components_tpu_torch.serializer import dump, load
+    from gordo_components_tpu_torch.server.engine import ServingEngine, _Item
+
+    config = {"DiffBasedAnomalyDetector": {"base_estimator": {"TransformedTargetRegressor": {
+        "regressor": {"Pipeline": {"steps": ["MinMaxScaler", {"PatchTSTAutoEncoder": dict(
+            lookback_window=24, patch_length=8, stride=4, d_model=16, n_heads=2, n_layers=1,
+            compute_dtype="bfloat16", batch_size=16)}]}},
+        "transformer": "MinMaxScaler"}}}}
+    models = {}
+    for seed, name in enumerate(("a", "b")):
+        X = (np.random.default_rng(seed).normal(size=(120, 3)) * 2 + 4).astype(np.float32)
+        model, _ = build_model(name, config, X, device="cpu",
+                               evaluation_config={"cv_mode": "build_only"})
+        model.scaler.fit(np.abs(X[23:] - model.predict(X)))
+        dump(model, str(tmp_path / name), metadata={"dataset": {"tag_list": ["x", "y", "z"]}})
+        models[name] = load(str(tmp_path / name), device="cpu")
+    engine = ServingEngine(models, device="cpu")
+    X = (np.random.default_rng(7).normal(size=(60, 3)) * 2 + 4).astype(np.float32)
+    lone = engine.anomaly("a", X)
+    bucket, _ = engine._by_name["a"]
+    assert sorted(bucket.names) == ["a", "b"]
+    items = []
+    for name in ("a", "b"):
+        x, m_valid = engine._prepare(bucket, X)
+        items.append(_Item(engine._by_name[name][1], x, m_valid))
+    bucket._dispatch(items[0].x.shape[0], items, defer=False)
+    assert items[0].done.wait(30) and items[0].error is None and bucket.max_batch_seen == 2
+    for field, a, b in zip(("output", "tag", "total"), lone[1:], items[0].result[1:]):
+        np.testing.assert_array_equal(a, b, err_msg=field)
+    engine.close()
