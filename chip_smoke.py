@@ -14,10 +14,12 @@ Phases; any failure exits non-zero before the result line:
    at the slice shape, its time, the plain version's time and one PyTorch
    library call's time as a yardstick: SDPA on the 4-D view with its fused
    backend forced and named (timed only; the port never calls it). The
-   backward (``csrc/flash_bwd.cu``, both dtypes) against
-   ``flash_bwd_reference`` at ``CHECK_SHAPES`` and the training shape
-   (16384, 179, 64), with and without an lse cotangent (max |Δ| of dq, dk,
-   dv each against ``bwd_atol``); then its time, the plain version's, the
+   backward (``csrc/flash_bwd_f32.cu`` and ``csrc/flash_bwd_bf16.cu``)
+   against ``flash_bwd_reference`` at ``CHECK_SHAPES``, the training shape
+   (16384, 179, 64) and ``LONG_SHAPES`` (the walk past the resident
+   length), with and without an lse cotangent (max |Δ| of dq, dk, dv each
+   against ``bwd_atol``), two launches at the training shape bit-identical;
+   then its time, the plain version's, the
    library backward's (``torch.autograd.grad`` of that SDPA call, the
    backward alone) and its bound, at the slice and the training shapes;
 3. the main path: a full-width long-window PatchTST anomaly machine
@@ -296,8 +298,8 @@ CHECK_SHAPES = [SLICE_SHAPE, FUSED_SHAPE, (12, 129, 16), (3, 37, 8), (4, 64, 64)
 KERNELS = {  # kernel name -> (dtype, source)
     "flash_fwd_f32": ("float32", "gordo_components_tpu_torch/csrc/flash_fwd_f32.cu"),
     "flash_fwd_bf16": ("bfloat16", "gordo_components_tpu_torch/csrc/flash_fwd_bf16.cu"),
-    "flash_bwd_f32": ("float32", "gordo_components_tpu_torch/csrc/flash_bwd.cu"),
-    "flash_bwd_bf16": ("bfloat16", "gordo_components_tpu_torch/csrc/flash_bwd.cu"),
+    "flash_bwd_f32": ("float32", "gordo_components_tpu_torch/csrc/flash_bwd_f32.cu"),
+    "flash_bwd_bf16": ("bfloat16", "gordo_components_tpu_torch/csrc/flash_bwd_bf16.cu"),
 }
 FWD_KERNELS = ("flash_fwd_f32", "flash_fwd_bf16")
 BWD_KERNELS = ("flash_bwd_f32", "flash_bwd_bf16")
@@ -308,6 +310,10 @@ REPLACES = {  # the TPU kernel each replaces
 NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
 # the backward at the training step's shape (batch 32 x 64 tags x 8 heads)
 TRAIN_SHAPE = (32 * N_TAGS * SLICE["n_heads"], SLICE_SHAPE[1], SLICE_SHAPE[2])
+# sequences past what a backward block holds at once (192 rows at D <= 64,
+# 64 above in fp32; three key tiles at D <= 64, two above in bf16): the
+# block walks them in chunks, summing across chunks in memory only it writes
+LONG_SHAPES = [(64, 700, 64), (64, 700, 128)]
 
 
 def phase_kernels(torch, device) -> dict:
@@ -431,11 +437,13 @@ def time_library_bwd(torch, F, q, k, v, do, scale: float):
 
 
 def phase_kernels_bwd(torch, device) -> dict:
-    """The flash backward (csrc/flash_bwd.cu) against flash_bwd_reference on
-    the card, from the plain forward's saved out and lse, at CHECK_SHAPES and
-    the training shape, with and without an lse cotangent, in both dtypes;
-    then its time beside the plain version's, the library backward's and
-    the bound, at the slice and the training shapes."""
+    """The flash backward (csrc/flash_bwd_f32.cu, csrc/flash_bwd_bf16.cu)
+    against flash_bwd_reference on the card, from the plain forward's saved
+    out and lse, at CHECK_SHAPES, the training shape and LONG_SHAPES, with
+    and without an lse cotangent, in both dtypes; two launches at the
+    training shape bit-identical (no atomics, a fixed order of sums); then
+    its time beside the plain version's, the library backward's and the
+    bound, at the slice and the training shapes."""
     import torch.nn.functional as F
 
     from gordo_components_tpu_torch.ops import _kernels
@@ -456,7 +464,7 @@ def phase_kernels_bwd(torch, device) -> dict:
     for name in BWD_KERNELS:
         dtype = getattr(torch, KERNELS[name][0])
         worst = 0.0
-        for shape in CHECK_SHAPES + [TRAIN_SHAPE]:
+        for shape in CHECK_SHAPES + [TRAIN_SHAPE] + LONG_SHAPES:
             q, k, v, out, lse, do = inputs(shape, dtype)
             scale = shape[-1] ** -0.5
             for dlse in (None, torch.randn(shape[:2], generator=gen, device=device)):
@@ -473,6 +481,18 @@ def phase_kernels_bwd(torch, device) -> dict:
                 worst = max(worst, *errs)
                 del grads, plain
             del q, k, v, out, lse, do
+        torch.cuda.empty_cache()
+        q, k, v, out, lse, do = inputs(TRAIN_SHAPE, dtype)
+        dlse = torch.randn(TRAIN_SHAPE[:2], generator=gen, device=device)
+        scale = TRAIN_SHAPE[-1] ** -0.5
+        first = _kernels.flash_bwd_cuda(q, k, v, out, lse, do, scale, dlse)
+        second = _kernels.flash_bwd_cuda(q, k, v, out, lse, do, scale, dlse)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(first, second))
+        print(f"{name} {TRAIN_SHAPE}: two launches bit-identical: {same}")
+        if not same:
+            fail(f"{name} gives different grads from run to run at {TRAIN_SHAPE}")
+        del q, k, v, out, lse, do, dlse, first, second
         torch.cuda.empty_cache()
         record[name] = {"max_abs_err": worst}
         # times, in turns: kernel, plain, library, kernel; the training shape last

@@ -5,7 +5,9 @@ Each ``csrc/*.cu`` file exposes a plain C interface and is compiled by
 ``.gitignore``) at first use, for ``sm_90a``; the library is loaded with
 ``ctypes`` and every pointer and the stream cross as ``c_void_p``. The
 library's file name carries a hash of its source, so an edited kernel is
-rebuilt and a stale one is never loaded. Nothing here runs on import: the
+rebuilt and a stale one is never loaded; the hash covers the ``csrc/*.cuh``
+headers the source includes, so an edited header rebuilds every library
+that includes it. Nothing here runs on import: the
 CPU tests import this module on machines with no ``nvcc`` and no card.
 
 With ``CUDA_KERNEL_DEBUG=1`` in the environment of the build, the sources
@@ -25,6 +27,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -49,17 +52,18 @@ def nvcc_flags() -> List[str]:
     return NVCC_FLAGS + (["-DCUDA_KERNEL_DEBUG"] if debug else [])
 
 # library name -> CUDA source; one shared library per source. The flash
-# forward has one design per dtype: fp32 on CUDA cores, bf16 on wgmma + TMA;
-# the flash backward is one source with an entry per dtype.
+# forward and backward have one design per dtype each: fp32 on CUDA cores,
+# bf16 on wgmma + TMA (the bf16 sources share csrc/hopper.cuh).
 SOURCES: Dict[str, str] = {
     "flash_fwd_f32": "flash_fwd_f32.cu",
     "flash_fwd_bf16": "flash_fwd_bf16.cu",
-    "flash_bwd": "flash_bwd.cu",
+    "flash_bwd_f32": "flash_bwd_f32.cu",
+    "flash_bwd_bf16": "flash_bwd_bf16.cu",
 }
 
 # kernel name -> launches since the last reset (see reset_launches); a
-# kernel is one dtype's wrapper ("flash_bwd_f32" launches the three passes
-# of the backward once); "flash_fwd" and "flash_bwd" count both dtypes
+# kernel is one dtype's wrapper, one launch per call; "flash_fwd" and
+# "flash_bwd" count both dtypes
 KERNEL_NAMES = ("flash_fwd_f32", "flash_fwd_bf16", "flash_bwd_f32", "flash_bwd_bf16")
 LAUNCHES: Dict[str, int] = {
     "flash_fwd": 0, "flash_bwd": 0, **{name: 0 for name in KERNEL_NAMES}
@@ -91,10 +95,28 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built here")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _source_bytes(filename: str, seen: Optional[set] = None) -> bytes:
+    """A source's bytes followed by those of every ``csrc`` header it
+    includes (``#include "..."``), recursively, each once."""
+    seen = set() if seen is None else seen
+    seen.add(filename)
+    with open(os.path.join(SRC_DIR, filename), "rb") as fh:
+        text = fh.read()
+    parts = [text]
+    for header in _INCLUDE.findall(text):
+        header = header.decode()
+        if header not in seen:
+            parts.append(_source_bytes(header, seen))
+    return b"".join(parts)
+
+
 def library_path(name: str) -> str:
-    src = os.path.join(SRC_DIR, SOURCES[name])
-    with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(nvcc_flags()).encode())
+    """The library's path: its name, and a hash of its source, the headers
+    that source includes and the build flags."""
+    digest = hashlib.sha256(_source_bytes(SOURCES[name]) + " ".join(nvcc_flags()).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
@@ -150,9 +172,13 @@ def _library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(library_path(name))
             lib.gordo_cuda_error_string.argtypes = [ctypes.c_int]
             lib.gordo_cuda_error_string.restype = ctypes.c_char_p
+            backward = name in _BWD_FOR_DTYPE.values()
             for entry in _ENTRIES[name]:
-                bind = bind_flash_bwd_entry if name == "flash_bwd" else bind_flash_entry
-                bind(getattr(lib, entry))
+                (bind_flash_bwd_entry if backward else bind_flash_entry)(getattr(lib, entry))
+            if backward:
+                workspace = getattr(lib, f"gordo_{name}_workspace")
+                workspace.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+                workspace.restype = ctypes.c_longlong
             _LIBS[name] = lib
     return lib
 
@@ -162,7 +188,8 @@ def _library(name: str) -> ctypes.CDLL:
 _ENTRIES: Dict[str, Tuple[str, ...]] = {
     "flash_fwd_f32": ("gordo_flash_fwd_f32",),
     "flash_fwd_bf16": ("gordo_flash_fwd_bf16", "gordo_flash_fwd_bf16_single_stage"),
-    "flash_bwd": ("gordo_flash_bwd_f32", "gordo_flash_bwd_bf16"),
+    "flash_bwd_f32": ("gordo_flash_bwd_f32",),
+    "flash_bwd_bf16": ("gordo_flash_bwd_bf16",),
 }
 
 
@@ -184,7 +211,7 @@ def bind_flash_bwd_entry(entry) -> None:
     entry.argtypes = [
         ptr, ptr, ptr, ptr, ptr,  # q, k, v, out, dout
         ptr, ptr,  # lse, dlse (null when absent)
-        ptr, ptr, ptr, ptr,  # dq, dk, dv, delta scratch
+        ptr, ptr, ptr, ptr,  # dq, dk, dv, workspace (null when it needs none)
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # bh, seq, d
         ctypes.c_float,  # scale
         ptr,  # stream
@@ -277,10 +304,11 @@ def flash_bwd_cuda(
     scale: float,
     dlse: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the flash backward (``csrc/flash_bwd.cu``) of q's dtype on
-    ``(BH, S, D)`` CUDA tensors: the forward's q, k, v, out and lse, the
-    output cotangent ``dout`` and, when given, the lse cotangent ``dlse``
-    ``(BH, S)`` → ``(dq, dk, dv)`` in q's dtype."""
+    """Launch the flash backward of q's dtype (``csrc/flash_bwd_f32.cu`` or
+    ``csrc/flash_bwd_bf16.cu``, one kernel launch) on ``(BH, S, D)`` CUDA
+    tensors: the forward's q, k, v, out and lse, the output cotangent
+    ``dout`` and, when given, the lse cotangent ``dlse`` ``(BH, S)`` →
+    ``(dq, dk, dv)`` in q's dtype."""
     tensors = {"q": q3, "k": k3, "v": v3, "out": out, "dout": dout}
     for name, t in tensors.items():
         if t.device.type != "cuda":
@@ -296,13 +324,15 @@ def flash_bwd_cuda(
             raise ValueError(f"flash_bwd_cuda: {name} must be contiguous")
         if t.device != q3.device:
             raise ValueError("flash_bwd_cuda: all tensors must be on one device")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_bwd_cuda: {name} must start on a 16-byte boundary")
     if q3.dtype not in _BWD_FOR_DTYPE:
         raise ValueError(f"flash_bwd_cuda: q/k/v must be float32 or bfloat16, got {q3.dtype}")
     bh, seq, d = q3.shape
     if bh == 0 or seq == 0:
         raise ValueError(f"flash_bwd_cuda: empty input {tuple(q3.shape)}")
-    if d > 128:
-        raise ValueError(f"flash_bwd_cuda: head_dim must be at most 128, got {d}")
+    if d > 128 or d % 4 != 0:
+        raise ValueError(f"flash_bwd_cuda: head_dim must be a multiple of 4 up to 128, got {d}")
     for name, t in (("lse", lse), ("dlse", dlse)):
         if t is None:
             continue
@@ -313,15 +343,20 @@ def flash_bwd_cuda(
                 f"{q3.device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
             )
     name = _BWD_FOR_DTYPE[q3.dtype]
-    lib = _library("flash_bwd")
+    lib = _library(name)
     dq, dk, dv = torch.empty_like(q3), torch.empty_like(q3), torch.empty_like(q3)
-    delta = torch.empty((bh, seq), dtype=torch.float32, device=q3.device)
     with torch.cuda.device(q3.device):
+        nbytes = getattr(lib, f"gordo_{name}_workspace")(bh, seq, d)
+        if nbytes < 0:
+            raise RuntimeError(f"{name}: the card's SM count could not be read")
+        workspace = (torch.empty(nbytes, dtype=torch.uint8, device=q3.device)
+                     if nbytes else None)
         stream = torch.cuda.current_stream(q3.device).cuda_stream
         status = getattr(lib, f"gordo_{name}")(
             q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), None if dlse is None else dlse.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            None if workspace is None else workspace.data_ptr(),
             bh, seq, d, float(scale), stream,
         )
     _raise_on(lib, status, name)

@@ -30,7 +30,8 @@ the reference's ``vmap`` over its Pallas call does.
 The backward (the reference's ``_bwd_3d``, the ``custom_vjp`` rule of
 ``_flash_3d`` and ``flash_block_with_lse``) is a second operator,
 ``gordo::flash_bwd``, registered as ``gordo::flash_fwd``'s autograd rule:
-its CUDA implementation launches ``csrc/flash_bwd.cu``, its CPU
+its CUDA implementation launches the backward kernel of q's dtype
+(``csrc/flash_bwd_f32.cu``, ``csrc/flash_bwd_bf16.cu``), its CPU
 implementation is :func:`flash_bwd_reference`. The forward saves ``(q, k,
 v, out, lse)``, as the reference does, and both outputs are differentiable:
 an lse cotangent enters the score gradient and never ``dv``.

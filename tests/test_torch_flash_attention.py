@@ -124,11 +124,11 @@ def test_vmap_over_flash_attention_equals_the_per_item_loop(in_dims, monkeypatch
     assert _kernels.LAUNCHES == before  # CPU tensors never reach the kernel
 
 
-def test_gradient_through_the_operator_raises_and_no_grad_runs():
+def test_gradient_through_the_operator_is_the_plain_backward_and_no_grad_runs():
     """The operator is differentiable (its registered backward runs the
     plain ``flash_bwd_reference`` on CPU tensors, and no kernel), and it
-    still runs under ``no_grad``; a backward that is asked for a CPU
-    tensor's kernel raises instead."""
+    still runs under ``no_grad``; the backward kernel's wrapper, handed a
+    CPU tensor, refuses it."""
     from gordo_components_tpu_torch.ops.flash_attention import flash_bwd_reference, flash_fwd
 
     rng = np.random.default_rng(29)
@@ -163,5 +163,6 @@ def test_kernel_wrapper_validates_before_building():
     g = torch.zeros(2, 8, 8)
     with pytest.raises(ValueError, match="not CUDA"):
         _kernels.flash_bwd_cuda(g, g, g, g, torch.zeros(2, 8), g, 1.0)
-    assert set(_kernels.SOURCES) == {"flash_fwd_f32", "flash_fwd_bf16", "flash_bwd"}
+    assert set(_kernels.SOURCES) == {
+        "flash_fwd_f32", "flash_fwd_bf16", "flash_bwd_f32", "flash_bwd_bf16"}
     assert _kernels._LIBS == {} and _kernels.LAUNCHES == before

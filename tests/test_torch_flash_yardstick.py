@@ -62,7 +62,14 @@ def test_kernel_table_names_both_sources():
     assert _kernels.SOURCES == {
         "flash_fwd_f32": "flash_fwd_f32.cu",
         "flash_fwd_bf16": "flash_fwd_bf16.cu",
-        "flash_bwd": "flash_bwd.cu",
+        "flash_bwd_f32": "flash_bwd_f32.cu",
+        "flash_bwd_bf16": "flash_bwd_bf16.cu",
+    }
+    assert {name: _kernels._ENTRIES[name] for name in _kernels.SOURCES} == {
+        "flash_fwd_f32": ("gordo_flash_fwd_f32",),
+        "flash_fwd_bf16": ("gordo_flash_fwd_bf16", "gordo_flash_fwd_bf16_single_stage"),
+        "flash_bwd_f32": ("gordo_flash_bwd_f32",),
+        "flash_bwd_bf16": ("gordo_flash_bwd_bf16",),
     }
     for source in _kernels.SOURCES.values():
         assert os.path.exists(os.path.join(_kernels.SRC_DIR, source))
@@ -111,3 +118,24 @@ def test_debug_build_is_a_library_of_its_own(monkeypatch):
     assert _kernels.nvcc_flags() == [*_kernels.NVCC_FLAGS, "-DCUDA_KERNEL_DEBUG"]
     for name in _kernels.SOURCES:
         assert _kernels.library_path(name) != served[name]
+
+
+def test_an_edited_header_changes_every_library_that_includes_it(tmp_path, monkeypatch):
+    """A library's name hashes its source and the csrc headers that source
+    includes, so an edited header rebuilds every library that includes it
+    (the bf16 forward and backward share hopper.cuh) and no other."""
+    import shutil
+
+    src = tmp_path / "csrc"
+    shutil.copytree(_kernels.SRC_DIR, src)
+    monkeypatch.setattr(_kernels, "SRC_DIR", str(src))
+    includes = {name: '#include "hopper.cuh"' in (src / source).read_text()
+                for name, source in _kernels.SOURCES.items()}
+    assert includes == {"flash_fwd_f32": False, "flash_fwd_bf16": True,
+                        "flash_bwd_f32": False, "flash_bwd_bf16": True}
+    before = {name: _kernels.library_path(name) for name in _kernels.SOURCES}
+    header = src / "hopper.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    after = {name: _kernels.library_path(name) for name in _kernels.SOURCES}
+    for name in _kernels.SOURCES:
+        assert (after[name] != before[name]) == includes[name], name

@@ -7,9 +7,10 @@ run on a machine that has only PyTorch:
     python -m pytest tests/test_torch_kernels_gpu.py -m gpu -q --noconftest
 
 Each dtype has its own kernel (``csrc/flash_fwd_f32.cu``,
-``csrc/flash_fwd_bf16.cu``; the backward ``csrc/flash_bwd.cu`` has one
-entry per dtype) and launch count; a bf16 input never reaches the fp32
-kernel. The backward is held to ``chip_smoke.bwd_atol``; gradients and a
+``csrc/flash_fwd_bf16.cu``, and for the backward ``csrc/flash_bwd_f32.cu``,
+``csrc/flash_bwd_bf16.cu``) and launch count; a bf16 input never reaches
+the fp32 kernel. The backward is held to ``chip_smoke.bwd_atol``, makes one
+launch per call and gives the same bits from run to run; gradients and a
 small fit on the card are held to the same on the CPU. Tolerances: float32 atol 2e-5 (summation order only);
 bfloat16 compared in bfloat16 at ``chip_smoke.bf16_atol`` (4 units in the
 last place of the largest plain output, at most 2e-2); lse atol 1e-4,
@@ -142,10 +143,16 @@ def test_flash_attention_on_the_card_matches_the_cpu(cuda_device):
 
 
 # the backward at every S in {1, 37, 64, 65, 179, 300} with every D in
-# {8, 16, 64, 128} (D = 8 pads to the 16-column tile), then BH large enough
-# that the grid holds many blocks per SM, at the served width
+# {8, 16, 64, 128} (D below 64 pads to the 64-column tile), then BH large
+# enough that every persistent block walks many sequences, at the served
+# width; then sequences past what a block holds at once (fp32: 192 rows at
+# D <= 64, 64 above; bf16: three key tiles at D <= 64, two above), which
+# the block walks in chunks, summing across chunks in its own scratch; with
+# BH far above the card's blocks, a block walks sequences whose last round
+# of key tiles leaves a bf16 warpgroup idle (S = 300: five tiles)
 _BWD_SHAPES = [(3, seq, d) for seq in (1, 37, 64, 65, 179, 300) for d in (8, 16, 64, 128)]
 _BWD_SHAPES += [(2, 37, 12), (2, 65, 100), (2048, 179, 64), (512, 129, 16)]
+_BWD_SHAPES += [(64, 700, 64), (64, 700, 128), (4, 1000, 100), (1024, 300, 64), (1024, 300, 128)]
 
 
 @pytest.mark.gpu
@@ -153,10 +160,11 @@ _BWD_SHAPES += [(2, 37, 12), (2, 65, 100), (2048, 179, 64), (512, 129, 16)]
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", _BWD_SHAPES)
 def test_flash_bwd_matches_plain_version(shape, dtype, with_dlse, cuda_device):
-    """``csrc/flash_bwd.cu`` against flash_bwd_reference on the same saved
-    forward: float32 within chip_smoke.bwd_atol (2e-5 of the largest plain
-    grad, summation order only), bfloat16 grads within 4 ulps of the
-    largest one; the lse cotangent, when given, changes dq and dk only."""
+    """The backward kernel of the dtype against flash_bwd_reference on the
+    same saved forward: float32 within chip_smoke.bwd_atol (2e-5 of the
+    largest plain grad, summation order only), bfloat16 grads within 4 ulps
+    of the largest one; the lse cotangent, when given, changes dq and dk
+    only."""
     dt = getattr(torch, dtype)
     q, k, v = _qkv(shape, cuda_device, dt)
     do, _, _ = _qkv(shape, cuda_device, dt, seed=4)
@@ -177,6 +185,46 @@ def test_flash_bwd_matches_plain_version(shape, dtype, with_dlse, cuda_device):
     for got, ref in zip(grads, plain):
         assert got.dtype == dt and got.shape == ref.shape
         torch.testing.assert_close(got, ref, atol=chip_smoke.bwd_atol(ref), rtol=0)
+
+
+def _bwd_inputs(shape, device, dt):
+    q, k, v = _qkv(shape, device, dt)
+    do, _, _ = _qkv(shape, device, dt, seed=4)
+    scale = shape[-1] ** -0.5
+    out, lse = flash_fwd_reference(q, k, v, scale)
+    dlse = torch.from_numpy(
+        np.random.default_rng(5).normal(size=shape[:2]).astype(np.float32)).to(device)
+    return q, k, v, out, lse, do, scale, dlse
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2048, 179, 64), (64, 700, 64), (8, 300, 128)])
+def test_flash_bwd_is_bit_identical_from_run_to_run(shape, dtype, cuda_device):
+    """No atomics and a fixed order of sums: two launches on the same inputs
+    give the same bits, in the resident case and in the chunked walk."""
+    q, k, v, out, lse, do, scale, dlse = _bwd_inputs(shape, cuda_device, getattr(torch, dtype))
+    first = _kernels.flash_bwd_cuda(q, k, v, out, lse, do, scale, dlse)
+    second = _kernels.flash_bwd_cuda(q, k, v, out, lse, do, scale, dlse)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(3, 37, 64), (64, 700, 128)])
+def test_flash_bwd_call_is_one_launch_of_its_dtype(shape, dtype, cuda_device):
+    """One call adds exactly one to its dtype's entry of LAUNCHES (and to
+    "flash_bwd"), nothing to any other entry: delta is computed inside the
+    kernel, and the chunked walk is the same launch."""
+    q, k, v, out, lse, do, scale, dlse = _bwd_inputs(shape, cuda_device, getattr(torch, dtype))
+    own = "flash_bwd_f32" if dtype == "float32" else "flash_bwd_bf16"
+    before = dict(_kernels.LAUNCHES)
+    _kernels.flash_bwd_cuda(q, k, v, out, lse, do, scale, dlse)
+    torch.cuda.synchronize()
+    after = dict(_kernels.LAUNCHES)
+    assert after == {**before, own: before[own] + 1, "flash_bwd": before["flash_bwd"] + 1}
 
 
 @pytest.mark.gpu
@@ -265,8 +313,11 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     # the backward: head_dim up to 128, one dtype, float32 lse, no cast
     wide = torch.zeros(2, 8, 132, device=cuda_device)
     lse = torch.zeros(2, 8, device=cuda_device)
-    with pytest.raises(ValueError, match="at most 128"):
+    with pytest.raises(ValueError, match="up to 128"):
         _kernels.flash_bwd_cuda(wide, wide, wide, wide, lse, wide, 1.0)
+    odd = torch.zeros(2, 8, 6, device=cuda_device)  # the forward refuses it too
+    with pytest.raises(ValueError, match="multiple of 4"):
+        _kernels.flash_bwd_cuda(odd, odd, odd, odd, lse, odd, 1.0)
     with pytest.raises(ValueError, match="q is"):
         _kernels.flash_bwd_cuda(f32, f32, f32, f32, lse[:, :8], b16, 1.0)
     with pytest.raises(ValueError, match="lse"):

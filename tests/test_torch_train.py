@@ -64,7 +64,8 @@ def _normal(rng, shape, scale=0.5):
     return (scale * rng.normal(size=shape)).astype(np.float32)
 
 
-@pytest.mark.parametrize("bh,seq,d", [(3, 200, 8), (2, 129, 16), (2, 37, 4)])
+@pytest.mark.parametrize(
+    "bh,seq,d", [(3, 200, 8), (2, 129, 16), (2, 37, 4), (2, 179, 64), (2, 700, 64)])
 def test_flash_bwd_reference_matches_jax_grad(bh, seq, d):
     """``flash_bwd_reference`` on the reference's own saved forward equals
     ``jax.grad`` through ``flash_block_with_lse`` (out and lse cotangents)
