@@ -107,12 +107,25 @@ Phases; any failure exits non-zero before the result line:
    (``phase_train_bf16``): the same fit at ``compute_dtype="bfloat16"``,
    3 bf16 forward and backward launches per step, its loss within
    ``BF16_SERVE_RTOL`` of the same fit with dense attention in bf16;
-9. a build at the zoo's widths (``phase_build``): ``dense-ae-default`` and
-   ``lstm-ae-50tag`` as anomaly detectors through the port's
-   ``build_model`` on the card (``cross_validate`` over 3 folds, then
-   ``fit``) on 2016 seeded rows, dumped with the build metadata (the
-   reference's keys checked), served by one HTTP server, each 1008-row
-   response against the CPU plain path, no flash launch.
+9. builds from data configs, every one a ``TimeSeriesDataset`` of
+   ``RandomDataProvider`` series at 10 minutes: ``dense-ae-default`` and
+   ``lstm-ae-50tag`` through the port's ``build_model`` on the card
+   (``phase_build``: 2016 joined rows, ``cross_validate`` over 3 folds,
+   then ``fit``), dumped with the build metadata (the reference's keys and
+   phases checked), served by one HTTP server, each 1008-row response
+   against the CPU plain path, no flash launch; then ``phase_cli_build``:
+   ``python -m gordo_components_tpu_torch.cli build`` of the full-width
+   slice machine (64 tags, ``TRAIN_ROWS`` joined rows, ``build_only``: 8
+   Adam steps, 3 fp32 forward and backward launches each) into a
+   generation root with a registry; the same command again must be a cache
+   hit (no launch, no new generation), ``--precision int8`` must commit
+   ``gen-0002`` with the int8 sidecar under another key, ``rollback`` must
+   restore ``gen-0001`` and ``rollback --list`` report it, and the port's
+   server on the models directory must serve the machine from its root,
+   a W = 16 response within SERVE_RTOL of the CPU plain path. Printed: each
+   build's wall by phase, the joined rows, the build's peak device memory,
+   the cache hit's wall, the commit's wall, the generation's bytes, and
+   the flash launches.
 
 The line before last is ``nvidia-smi``'s name and power limit; the one
 before that the kernels' JSON record; the last line is the result.
@@ -2010,24 +2023,71 @@ def phase_train_bf16(torch, device) -> dict:
     return launches
 
 
-# phase 9: the model phase of a build at the zoo's widths (phase 4's
-# dense-ae-default and lstm-ae-50tag), cross-validated and fitted on the
-# card, over two weeks of 10-minute rows
+# phase 9: `gordo build` on the card from a data config. Every build reads
+# a TimeSeriesDataset of RandomDataProvider series at 10 minutes; with at
+# least two points per bin every bin survives the join, so a range of n bins
+# gives n rows. The zoo's machines (phase 4's dense-ae-default and
+# lstm-ae-50tag) through build_model over two weeks, cross-validated (3
+# folds) and fitted; the slice machine through the CLI over TRAIN_ROWS bins
+# (8 Adam steps of batch 32, build_only), then the CLI's build contract:
+# a cache hit, an int8 rebuild, a rollback, and the server on the root.
 BUILD = {name: ZOO[name] for name in ("dense-ae-default", "lstm-ae-50tag")}
 BUILD_ROWS = 2016
+BUILD_START = "2023-01-01T00:00:00+00:00"
 BUILD_METADATA_KEYS = {"name", "gordo_components_tpu_torch_version", "model", "dataset",
                        "build_duration_s", "build_phases", "user_defined"}
 BUILD_MODEL_KEYS = {"model_config", "model_builder_metadata", "cross_validation",
                     "model_training_duration_s", "model_creation_date"}
 BUILD_DETECTOR_KEYS = {"type", "base_estimator", "cross_validation", "tag_thresholds",
                        "total_threshold"}
+BUILD_PHASES = ("data_fetch", "cross_validation", "fit")
+SLICE_MACHINE = "slice-machine"
+# runs the CLI as ``python -m gordo_components_tpu_torch.cli`` does (runpy,
+# as __main__) and, at exit, writes the process's kernel launch counts and
+# peak device memory to the file named by its first argument
+CLI_RUNNER = """
+import atexit, json, runpy, sys
+import torch
+from gordo_components_tpu_torch.ops import _kernels
+record = sys.argv[1]
+def report():
+    peak = torch.cuda.max_memory_allocated() if torch.cuda.is_initialized() else 0
+    with open(record, "w") as fh:
+        json.dump({"launches": {n: _kernels.LAUNCHES[n] for n in _kernels.KERNEL_NAMES},
+                   "peak_bytes": peak}, fh)
+atexit.register(report)
+sys.argv = ["gordo_components_tpu_torch.cli", *sys.argv[2:]]
+runpy.run_module("gordo_components_tpu_torch.cli", run_name="__main__", alter_sys=True)
+"""
+
+
+def data_config(tags: int, rows: int, seed: int) -> dict:
+    """A TimeSeriesDataset of ``tags`` RandomDataProvider series over
+    ``rows`` 10-minute bins from BUILD_START, 2-3 points per bin."""
+    from datetime import datetime, timedelta
+
+    start = datetime.fromisoformat(BUILD_START)
+    return {
+        "type": "TimeSeriesDataset",
+        "train_start_date": BUILD_START,
+        "train_end_date": (start + timedelta(minutes=10 * rows)).isoformat(),
+        "tag_list": [f"TAG-{i:03d}" for i in range(tags)],
+        "resolution": "10min",
+        "data_provider": {"type": "RandomDataProvider", "min_size": 2 * rows,
+                          "max_size": 3 * rows, "seed": seed},
+    }
+
+
+def phase_walls(metadata: dict) -> str:
+    phases = metadata["build_phases"]
+    return ", ".join(f"{p} {phases[p]['total_s']:.2f} s" for p in BUILD_PHASES if p in phases)
 
 
 def phase_build(torch, device, tmp: str) -> None:
-    """The zoo's machines built on the card: the port's build_model (the
-    definition, cross_validate over 3 folds, fit), dumped with the build
-    metadata, served by one HTTP server; every response against the same
-    artifact on the CPU plain path, and no flash launch."""
+    """The zoo's machines built on the card from data configs: the port's
+    build_model (the dataset, cross_validate over 3 folds, fit), dumped
+    with the build metadata, served by one HTTP server; every response
+    against the same artifact on the CPU plain path, and no flash launch."""
     from gordo_components_tpu_torch import wire
     from gordo_components_tpu_torch.builder import build_model
     from gordo_components_tpu_torch.ops import _kernels
@@ -2038,29 +2098,33 @@ def phase_build(torch, device, tmp: str) -> None:
     models_dir = os.path.join(tmp, "built")
     rng = np.random.default_rng(SEED + 9)
     _kernels.reset_launches()
-    for name, (estimator, kwargs, tags) in BUILD.items():
+    for seed, (name, (estimator, kwargs, tags)) in enumerate(BUILD.items()):
         config = {"DiffBasedAnomalyDetector": {"base_estimator": {"TransformedTargetRegressor": {
             "regressor": {"Pipeline": {"steps": ["MinMaxScaler", {estimator: kwargs}]}},
             "transformer": "MinMaxScaler"}}}}
-        X = sensor_rows(rng, BUILD_ROWS, tags)
-        tag_list = [f"TAG-{i:03d}" for i in range(tags)]
         started = time.perf_counter()
-        model, metadata = build_model(name, config, X, device=device,
-                                      dataset_metadata={"tag_list": tag_list})
+        model, metadata = build_model(name, config, data_config(tags, BUILD_ROWS, SEED + seed),
+                                      device=device)
         dump(model, os.path.join(models_dir, name), metadata=metadata)
         written = load_metadata(os.path.join(models_dir, name))
         cv = written["model"]["cross_validation"]
-        print(f"build {name}: {time.perf_counter() - started:.2f} s (cv {cv['cv_duration_s']:.2f}"
-              f" s, fit {written['model']['model_training_duration_s']:.2f} s); fold scores "
+        rows = written["dataset"]["tag_loading_metadata"]["joined_length"]
+        print(f"build {name}: {time.perf_counter() - started:.2f} s ({phase_walls(written)}), "
+              f"{rows} joined rows of {tags} tags; fold scores "
               + json.dumps([{k: round(v, 4) for k, v in s["scores"].items()} for s in cv["splits"]])
               + f"; total threshold {model.total_threshold_:.4f}, tag thresholds "
               f"{np.round(model.tag_thresholds_[:5], 4).tolist()}...")
         detector_meta = written["model"]["model_builder_metadata"]
         if (not BUILD_METADATA_KEYS <= set(written) or set(written["model"]) != BUILD_MODEL_KEYS
                 or set(detector_meta) != BUILD_DETECTOR_KEYS or len(cv["splits"]) != 3
-                or len(detector_meta["tag_thresholds"]) != tags):
+                or len(detector_meta["tag_thresholds"]) != tags
+                or set(written["build_phases"]) != set(BUILD_PHASES)):
             fail(f"build {name}: the metadata lacks the reference's keys: {sorted(written)}, "
-                 f"{sorted(written['model'])}, {sorted(detector_meta)}")
+                 f"{sorted(written['model'])}, {sorted(detector_meta)}, "
+                 f"{sorted(written['build_phases'])}")
+        if rows < BUILD_ROWS or written["dataset"]["x_shape"] != [rows, tags]:
+            fail(f"build {name}: {rows} joined rows (want {BUILD_ROWS}), x_shape "
+                 f"{written['dataset']['x_shape']}")
     launches = {n: _kernels.LAUNCHES[n] for n in KERNELS}
     if any(launches.values()):
         fail(f"build: the zoo's fits launched flash kernels: {launches}")
@@ -2089,6 +2153,157 @@ def phase_build(torch, device, tmp: str) -> None:
         thread.join(timeout=30)
 
 
+def run_cli(tmp: str, *args: str) -> tuple:
+    """One ``python -m gordo_components_tpu_torch.cli`` process (through
+    CLI_RUNNER); returns (stdout lines, wall s, its launch counts, its peak
+    device bytes). Fails on a non-zero exit."""
+    record = os.path.join(tmp, "cli-record.json")
+    if os.path.exists(record):
+        os.remove(record)
+    root = os.path.dirname(os.path.abspath(__file__))
+    started = time.perf_counter()
+    result = subprocess.run(
+        [sys.executable, "-c", CLI_RUNNER, record, *args], cwd=root, capture_output=True,
+        text=True, timeout=900, env={**os.environ, "PYTHONPATH": root})
+    wall = time.perf_counter() - started
+    if result.returncode != 0:
+        fail(f"cli {' '.join(args[:2])}: exit {result.returncode}\n{result.stderr[-4000:]}")
+    with open(record) as fh:
+        counts = json.load(fh)
+    return result.stdout.strip().splitlines(), wall, counts["launches"], counts["peak_bytes"]
+
+
+def phase_cli_build(torch, device, tmp: str) -> dict:
+    """``python -m gordo_components_tpu_torch.cli build`` of the slice
+    machine at full width on the card from a RandomDataProvider data
+    config (build_only: 8 Adam steps through the fp32 flash kernels), then
+    the CLI's contract: the same build again is a cache hit (no launch, no
+    new generation), ``--precision int8`` commits gen-0002 with the int8
+    sidecar under another key, ``rollback`` restores gen-0001, ``rollback
+    --list`` reports it, and the port's server on the models directory
+    serves the machine from its generation root within SERVE_RTOL of the
+    CPU plain path. Returns the flash launches of the builds and the
+    request."""
+    from gordo_components_tpu_torch import wire
+    from gordo_components_tpu_torch.builder import calculate_model_key
+    from gordo_components_tpu_torch.ops import _kernels
+    from gordo_components_tpu_torch.precision import QUANT_INT8_FILE
+    from gordo_components_tpu_torch.serializer import load, load_metadata, write_artifact_files
+    from gordo_components_tpu_torch.server.engine import ServingEngine
+    from gordo_components_tpu_torch.server.server import make_server
+    from gordo_components_tpu_torch.store.generations import (
+        commit_generation, current_generation, list_generations)
+    from gordo_components_tpu_torch.store.manifest import verify_artifact
+
+    models_dir = os.path.join(tmp, "cli-models")
+    root = os.path.join(models_dir, SLICE_MACHINE)
+    registry = os.path.join(tmp, "cli-registry")
+    model_config = slice_definition("flash", **TRAIN_KWARGS)
+    data = data_config(N_TAGS, TRAIN_ROWS, SEED + 10)
+    build_args = ["build", SLICE_MACHINE, "--model-config", json.dumps(model_config),
+                  "--data-config", json.dumps(data), "--output-dir", root,
+                  "--model-register-dir", registry, "--cv-mode", "build_only"]
+    steps = -(-(TRAIN_ROWS - LOOKBACK + 1) // TRAIN_KWARGS["batch_size"]) * TRAIN_KWARGS["epochs"]
+    per_build = {**NO_LAUNCHES, "flash_fwd_f32": SLICE["n_layers"] * steps,
+                 "flash_bwd_f32": SLICE["n_layers"] * steps}
+
+    out, wall, built, peak = run_cli(tmp, *build_args)
+    meta = load_metadata(root)
+    rows = meta["dataset"]["tag_loading_metadata"]["joined_length"]
+    key = calculate_model_key(SLICE_MACHINE, model_config, data,
+                              evaluation_config={"cv_mode": "build_only", "n_splits": 3})
+    gen1 = os.path.join(root, "gen-0001")
+    verify_artifact(gen1)
+    gen_bytes = sum(e.stat().st_size for e in os.scandir(gen1) if e.is_file())
+    print(f"cli build {SLICE_MACHINE}: {wall:.2f} s in the process ({phase_walls(meta)}; "
+          f"build_duration_s {meta['build_duration_s']:.2f}), {rows} joined rows of {N_TAGS} "
+          f"tags, {steps} Adam steps, peak device memory {peak / 2**30:.2f} GiB, generation "
+          f"{gen_bytes} bytes, flash launches {built}")
+    if out != [root] or list_generations(root) != ["gen-0001"] or current_generation(root) != \
+            "gen-0001" or meta["model"]["cache_key"] != key or meta["precision"] != "f32":
+        fail(f"cli build: printed {out}, generations {list_generations(root)}, key "
+             f"{meta['model'].get('cache_key')} (want {key})")
+    with open(os.path.join(registry, f"{key}.md5")) as fh:
+        if fh.read() != root:
+            fail("cli build: the registry key does not name the generation root")
+    if rows < TRAIN_ROWS or meta["dataset"]["x_shape"] != [rows, N_TAGS]:
+        fail(f"cli build: {rows} joined rows, want at least {TRAIN_ROWS}")
+    if built != per_build:
+        fail(f"cli build: launches {built}, expected {per_build}")
+
+    out, hit_wall, hit, _ = run_cli(tmp, *build_args)
+    print(f"cli build again: a cache hit in {hit_wall:.2f} s (the build: {wall:.2f} s), "
+          f"printed {out}, generations {list_generations(root)}, launches {hit}")
+    if out != [root] or list_generations(root) != ["gen-0001"] or any(hit.values()) \
+            or hit_wall >= wall:
+        fail("cli build again: not a cache hit")
+
+    # the commit alone: the same artifact through commit_generation, timed here
+    model = load(root, device="cpu")
+    started = time.perf_counter()
+    commit_generation(os.path.join(tmp, "commit-probe"),
+                      lambda staging: write_artifact_files(model, staging, metadata=meta))
+    print(f"commit of the {gen_bytes}-byte generation (write, fsync, manifest, rename): "
+          f"{time.perf_counter() - started:.3f} s")
+    del model
+
+    trace_dir = os.path.join(tmp, "cli-trace")
+    out, int8_wall, int8_launches, _ = run_cli(tmp, *build_args, "--precision", "int8",
+                                               "--trace-dir", trace_dir)
+    int8_meta = load_metadata(root)
+    with open(os.path.join(trace_dir, "trace.json")) as fh:
+        traced = json.load(fh)["traceEvents"]
+    traced_kernels = {n: sum(1 for e in traced if e.get("cat") == "kernel"
+                             and n in e.get("name", "")) for n in ("flash_fwd_f32",
+                                                                    "flash_bwd_f32")}
+    print(f"cli build --precision int8: {int8_wall:.2f} s ({phase_walls(int8_meta)}), "
+          f"generations {list_generations(root)}, CURRENT {current_generation(root)}, launches "
+          f"{int8_launches}; flash kernels in its torch.profiler trace {traced_kernels}")
+    if (list_generations(root) != ["gen-0001", "gen-0002"] or current_generation(root) != "gen-0002"
+            or int8_meta["precision"] != "int8" or int8_meta["model"]["cache_key"] == key
+            or not os.path.isfile(os.path.join(root, "gen-0002", QUANT_INT8_FILE))
+            or len(os.listdir(registry)) != 2 or int8_launches != per_build
+            or traced_kernels != {n: per_build[n] for n in traced_kernels}):
+        fail("cli build --precision int8: no int8 generation gen-0002 under a new key")
+
+    out, _, _, _ = run_cli(tmp, "rollback", root)
+    listed, _, _, _ = run_cli(tmp, "rollback", "--list", root)
+    status = json.loads("\n".join(listed))
+    print(f"cli rollback: {out}; rollback --list: {json.dumps(status)}")
+    if out != [gen1] or current_generation(root) != "gen-0001" or status != {
+            "generation": "gen-0001", "generations": ["gen-0001", "gen-0002"],
+            "verified": True, "error": None}:
+        fail("cli rollback: CURRENT is not back on gen-0001")
+
+    httpd = make_server(models_dir, port=0, device=device)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}/gordo/v0/project/{SLICE_MACHINE}"
+    try:
+        _, _, raw, _ = http("GET", f"{base}/healthz")
+        generation = json.loads(raw).get("generation")
+        X = sensor_rows(np.random.default_rng(SEED + 10), LOOKBACK + 15)
+        _kernels.reset_launches()
+        status, payload, ms = post(f"{base}/anomaly/prediction", X)
+        served = {n: _kernels.LAUNCHES[n] for n in KERNELS}
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    if status != 200 or generation != "gen-0001":
+        fail(f"cli build served: HTTP {status}, generation {generation}")
+    cpu = ServingEngine({SLICE_MACHINE: load(root, device="cpu")}, device="cpu")
+    plain = dict(zip(wire.SCORE_FIELDS, cpu.anomaly(SLICE_MACHINE, X)))
+    cpu.close()
+    worst = compare_arrays("cli build served", 16, payload["data"], plain, SERVE_RTOL, N_TAGS)
+    print(f"cli build served from its generation root ({generation}): W=16 HTTP {status} in "
+          f"{ms:.1f} ms, launches {served}, vs the CPU plain path {worst:.3g} "
+          f"(limit {SERVE_RTOL})")
+    if served != {**NO_LAUNCHES, "flash_fwd_f32": SLICE["n_layers"]}:
+        fail(f"cli build served: launches {served}")
+    return {n: built[n] + int8_launches[n] + served[n] for n in KERNELS}
+
+
 def main() -> None:
     try:
         import torch
@@ -2112,9 +2327,10 @@ def main() -> None:
         phase_surface(torch, device, tmp)
         trained = phase_train(torch, device, tmp)["launches"]
         trained_bf16 = phase_train_bf16(torch, device)
-        for name in KERNELS:
-            launches[name] += trained[name] + trained_bf16[name]
         phase_build(torch, device, tmp)
+        built = phase_cli_build(torch, device, tmp)
+        for name in KERNELS:
+            launches[name] += trained[name] + trained_bf16[name] + built[name]
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -1,0 +1,275 @@
+"""The random, file and composite providers (the port's copy of
+``gordo_components_tpu/dataset/data_provider/providers.py:33-148,
+307-347``), in numpy.
+
+The influx, NCS, IROC, data-lake and flaky providers of the reference are
+not ported: a config naming one raises ``ValueError``.
+"""
+
+from __future__ import annotations
+
+import csv
+import hashlib
+import json
+import os
+import re
+from datetime import datetime
+from typing import Any, Dict, Iterable, List, Optional, Tuple
+
+import numpy as np
+
+from ..sensor_tag import SensorTag
+from .base import GordoBaseDataProvider, Series, datetime_to_ns
+
+
+def provider_from_dict(config: Dict[str, Any]) -> GordoBaseDataProvider:
+    return GordoBaseDataProvider.from_dict(config)
+
+
+class RandomDataProvider(GordoBaseDataProvider):
+    """Deterministic synthetic per-tag series: a seeded random walk plus a
+    sinusoid and an offset, keyed by the md5 of the tag's name xor
+    ``seed``. The same draws as the reference, and timestamps equal to
+    ``pd.date_range(start, end, periods=n + 1)[:-1]`` to the nanosecond
+    (``np.linspace`` over the span, in int64, as pandas computes it)."""
+
+    def __init__(self, min_size: int = 100, max_size: int = 300, seed: int = 0):
+        self._init_kwargs = {"min_size": min_size, "max_size": max_size, "seed": seed}
+        self.min_size = min_size
+        self.max_size = max_size
+        self.seed = seed
+
+    def can_handle_tag(self, tag: SensorTag) -> bool:
+        return True
+
+    def _tag_seed(self, tag: SensorTag) -> int:
+        digest = hashlib.md5(tag.name.encode()).digest()
+        return (int.from_bytes(digest[:4], "little") ^ self.seed) & 0x7FFFFFFF
+
+    def load_series(
+        self,
+        train_start_date: datetime,
+        train_end_date: datetime,
+        tag_list: List[SensorTag],
+        dry_run: bool = False,
+    ) -> Iterable[Series]:
+        if train_end_date <= train_start_date:
+            raise ValueError(f"train_end_date ({train_end_date}) must be after "
+                             f"train_start_date ({train_start_date})")
+        if dry_run:
+            return
+        start, end = datetime_to_ns(train_start_date), datetime_to_ns(train_end_date)
+        for tag in tag_list:
+            rng = np.random.default_rng(self._tag_seed(tag))
+            n = int(rng.integers(self.min_size, self.max_size + 1))
+            # n + 1 points, the last (== end) dropped: the range is half-open
+            timestamps = (np.linspace(0, end - start, n + 1, dtype="int64") + start)[:-1]
+            t = np.linspace(0.0, 8.0 * np.pi, n)
+            values = (
+                np.cumsum(rng.normal(scale=0.1, size=n))
+                + np.sin(t + rng.uniform(0, 2 * np.pi))
+                + rng.uniform(-5, 5)
+            ).astype(np.float64)
+            yield tag.name, timestamps, values
+
+
+_OFFSET_RE = re.compile(r"^(.*?)(?:(Z)|([+-])(\d{2}):?(\d{2}))$")
+_NA_STRINGS = {"", "nan", "NaN", "NAN", "NA", "N/A", "n/a", "null", "NULL", "None", "<NA>"}
+
+
+def parse_timestamps(strings: List[str]) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    """ISO 8601 strings → ``(wall-clock ns, UTC offset ns or None)``: the
+    offset array is ``None`` when every string is naive. A file mixing
+    naive and aware stamps raises ``ValueError``."""
+    walls, offsets = [], []
+    for text in strings:
+        text = text.strip()
+        match = _OFFSET_RE.match(text)
+        if match and (match.group(2) or match.group(3)):
+            walls.append(match.group(1))
+            if match.group(2):
+                offsets.append(0)
+            else:
+                sign = -1 if match.group(3) == "-" else 1
+                offsets.append(sign * (int(match.group(4)) * 3600 + int(match.group(5)) * 60)
+                               * 1_000_000_000)
+        else:
+            walls.append(text)
+            offsets.append(None)
+    try:
+        wall_ns = np.array(walls, dtype="datetime64[ns]").astype(np.int64)
+    except ValueError as exc:
+        raise ValueError(f"unparseable timestamp: {exc}") from exc
+    aware = [o is not None for o in offsets]
+    if any(aware) and not all(aware):
+        raise ValueError("timestamps mix naive and timezone-aware values")
+    if not any(aware):
+        return wall_ns, None
+    return wall_ns, np.array(offsets, dtype=np.int64)
+
+
+def _parse_values(strings: List[str]) -> np.ndarray:
+    return np.array([np.nan if s.strip() in _NA_STRINGS else float(s) for s in strings],
+                    dtype=np.float64)
+
+
+def _read_csv(path: str) -> Tuple[np.ndarray, Optional[np.ndarray], np.ndarray]:
+    """``(wall ns, offsets ns or None, values)`` of a ``timestamp,value``
+    CSV file (the value is the ``value`` column, else the first other)."""
+    with open(path, newline="") as fh:
+        rows = list(csv.reader(fh))
+    if not rows or "timestamp" not in rows[0]:
+        raise ValueError(f"{path}: a CSV file needs a 'timestamp' column")
+    header = rows[0]
+    t_col = header.index("timestamp")
+    others = [i for i in range(len(header)) if i != t_col]
+    if not others:
+        raise ValueError(f"{path}: no value column")
+    v_col = header.index("value") if "value" in header else others[0]
+    body = [row for row in rows[1:] if row]
+    try:
+        wall, offsets = parse_timestamps([row[t_col] for row in body])
+    except ValueError as exc:
+        raise ValueError(f"{path}: {exc}") from exc
+    return wall, offsets, _parse_values([row[v_col] for row in body])
+
+
+def _read_parquet(path: str, naive_start: bool) -> Tuple[np.ndarray, Optional[np.ndarray],
+                                                         np.ndarray]:
+    """The same triple from a parquet file, through pyarrow. A tz-aware
+    column gives UTC nanoseconds, or its wall clock when the requested
+    range is naive (as ``tz_localize(None)`` gives in the reference)."""
+    try:
+        import pyarrow as pa
+        import pyarrow.compute as pc
+        import pyarrow.parquet as pq
+    except ImportError as exc:
+        raise ImportError(f"reading {path} needs the 'pyarrow' package, which is not "
+                          "installed") from exc
+    table = pq.read_table(path)
+    names = table.column_names
+    index_cols = []
+    if table.schema.metadata and b"pandas" in table.schema.metadata:
+        index_cols = [c for c in json.loads(table.schema.metadata[b"pandas"]).get(
+            "index_columns", []) if isinstance(c, str)]
+    t_name = "timestamp" if "timestamp" in names else next(iter(index_cols), None)
+    if t_name is None:
+        raise ValueError(f"{path}: a parquet file needs a 'timestamp' column or index")
+    others = [n for n in names if n != t_name and n not in index_cols]
+    if not others:
+        raise ValueError(f"{path}: no value column")
+    v_name = "value" if "value" in others else others[0]
+    column = table.column(t_name)
+    if pa.types.is_timestamp(column.type):
+        aware = column.type.tz is not None
+        if aware and naive_start:
+            column = pc.local_timestamp(column)
+        ns = column.cast(pa.timestamp("ns", tz=column.type.tz)).cast(pa.int64())
+        ns = ns.to_numpy().astype(np.int64)
+        offsets = np.zeros_like(ns) if aware and not naive_start else None
+    else:
+        ns, offsets = parse_timestamps([str(s) for s in column.to_pylist()])
+    values = table.column(v_name).cast(pa.float64()).to_numpy().astype(np.float64)
+    return ns, offsets, values
+
+
+class FileDataProvider(GordoBaseDataProvider):
+    """Per-tag files under ``<base_dir>/[<asset>/]<tag_name>.{parquet|csv}``,
+    CSV with columns ``(timestamp, value)``. Naive file timestamps read as
+    UTC against an aware range; aware ones against a naive range read as
+    their wall clock, as in the reference."""
+
+    def __init__(self, base_dir: str, assets: Optional[List[str]] = None):
+        self._init_kwargs = {"base_dir": base_dir, "assets": assets}
+        self.base_dir = base_dir
+        self.assets = assets
+
+    def _candidate_paths(self, tag: SensorTag) -> List[str]:
+        stems = []
+        if tag.asset:
+            stems.append(os.path.join(self.base_dir, tag.asset, tag.name))
+        stems.append(os.path.join(self.base_dir, tag.name))
+        return [stem + ext for stem in stems for ext in (".parquet", ".csv")]
+
+    def can_handle_tag(self, tag: SensorTag) -> bool:
+        if self.assets and tag.asset not in self.assets:
+            return False
+        return any(os.path.exists(p) for p in self._candidate_paths(tag))
+
+    def load_series(
+        self,
+        train_start_date: datetime,
+        train_end_date: datetime,
+        tag_list: List[SensorTag],
+        dry_run: bool = False,
+    ) -> Iterable[Series]:
+        naive_start = train_start_date.tzinfo is None
+        start, end = datetime_to_ns(train_start_date), datetime_to_ns(train_end_date)
+        for tag in tag_list:
+            path = next((p for p in self._candidate_paths(tag) if os.path.exists(p)), None)
+            if path is None:
+                raise FileNotFoundError(f"No file for tag {tag.name!r} under {self.base_dir!r}")
+            if dry_run:
+                continue
+            if path.endswith(".parquet"):
+                wall, offsets, values = _read_parquet(path, naive_start)
+            else:
+                wall, offsets, values = _read_csv(path)
+            # aware stamps: UTC against an aware range, their wall clock
+            # against a naive one
+            ns = wall if offsets is None or naive_start else wall - offsets
+            keep = (ns >= start) & (ns < end)
+            yield tag.name, ns[keep], values[keep]
+
+
+class CompositeDataProvider(GordoBaseDataProvider):
+    """Each tag from the first sub-provider that can handle it; runs of
+    consecutive tags that share a provider go in one ``load_series``."""
+
+    def __init__(self, providers: List[Any]):
+        self.providers = [
+            p if isinstance(p, GordoBaseDataProvider) else GordoBaseDataProvider.from_dict(p)
+            for p in providers
+        ]
+        self._init_kwargs = {"providers": [p.to_dict() for p in self.providers]}
+
+    def can_handle_tag(self, tag: SensorTag) -> bool:
+        return any(p.can_handle_tag(tag) for p in self.providers)
+
+    def load_series(
+        self,
+        train_start_date: datetime,
+        train_end_date: datetime,
+        tag_list: List[SensorTag],
+        dry_run: bool = False,
+    ) -> Iterable[Series]:
+        assignments: List[GordoBaseDataProvider] = []
+        for tag in tag_list:
+            provider = next((p for p in self.providers if p.can_handle_tag(tag)), None)
+            if provider is None:
+                raise ValueError(f"No provider can handle tag {tag!r}")
+            assignments.append(provider)
+        i = 0
+        while i < len(tag_list):
+            provider = assignments[i]
+            j = i
+            while j < len(tag_list) and assignments[j] is provider:
+                j += 1
+            yield from provider.load_series(
+                train_start_date, train_end_date, tag_list[i:j], dry_run=dry_run)
+            i = j
+
+
+# the closed table ``GordoBaseDataProvider.from_dict`` resolves through
+PROVIDERS = {
+    cls.__name__: cls for cls in (RandomDataProvider, FileDataProvider, CompositeDataProvider)
+}
+NOT_PORTED = ("InfluxDataProvider", "FlakyDataProvider", "NcsReader", "IrocReader",
+              "DataLakeProvider")
+PROVIDER_MODULES = (
+    "gordo_components_tpu.dataset.data_provider",
+    "gordo_components_tpu.dataset.data_provider.providers",
+    "gordo_components_tpu.dataset.data_provider.ncs_iroc",
+    "gordo_components_tpu_torch.dataset.data_provider",
+    __name__,
+)

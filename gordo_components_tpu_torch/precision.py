@@ -1,5 +1,5 @@
 """The per-machine precision ladder: f32 / bf16 / int8 (the port's copy of
-``gordo_components_tpu/precision.py:43-211``).
+``gordo_components_tpu/precision.py:43-247``).
 
 A machine's precision is chosen at build time and recorded in its build
 metadata (``"precision"``); the server validates it on load and the
@@ -60,6 +60,15 @@ def validate(value: Optional[str]) -> str:
     if normalized not in PRECISIONS:
         raise ValueError(f"unknown precision {value!r} (expected one of {PRECISIONS})")
     return normalized
+
+
+def resolve_default(explicit: Optional[str] = None) -> str:
+    """The build-time precision: an explicit flag, else
+    ``GORDO_PRECISION_DEFAULT``, else f32. A bad environment value fails
+    here, at build time, rather than label a fleet of artifacts wrongly."""
+    if explicit:
+        return validate(explicit)
+    return validate(os.environ.get("GORDO_PRECISION_DEFAULT"))
 
 
 def of_metadata(metadata: Dict[str, Any]) -> str:
@@ -161,3 +170,39 @@ def load_quantized(artifact_dir: str) -> Optional[Tuple[Any, Any]]:
     if q_tree is None or scale_tree is None:
         raise ValueError(f"{path}: malformed quantized sidecar (missing q/ or s/ trees)")
     return q_tree, scale_tree
+
+
+def parse_precision_map(spec: Optional[str]) -> Dict[str, str]:
+    """``--precision-map``: ``name=precision`` pairs (comma- or
+    semicolon-separated), or the path of a YAML file mapping names to
+    precisions (read through ``yaml``, imported here only). Every value is
+    validated, so a typo fails the command, not a fleet of artifacts."""
+    if not spec:
+        return {}
+    mapping: Dict[str, str] = {}
+    if os.path.exists(spec):
+        try:
+            import yaml
+        except ImportError as exc:
+            raise ImportError(f"reading the --precision-map file {spec!r} needs the 'yaml' "
+                              "package (PyYAML), which is not installed") from exc
+        with open(spec) as fh:
+            loaded = yaml.safe_load(fh)
+        if not isinstance(loaded, dict):
+            raise ValueError(f"--precision-map file {spec!r} must parse to a mapping")
+        items = list(loaded.items())
+    else:
+        items = []
+        for pair in spec.replace(";", ",").split(","):
+            pair = pair.strip()
+            if not pair:
+                continue
+            if "=" not in pair:
+                raise ValueError(f"--precision-map entry {pair!r} is not name=precision")
+            name, _, value = pair.partition("=")
+            items.append((name.strip(), value.strip()))
+    for name, value in items:
+        if not name:
+            raise ValueError("--precision-map entry has an empty name")
+        mapping[str(name)] = validate(str(value))
+    return mapping

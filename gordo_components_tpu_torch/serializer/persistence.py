@@ -14,9 +14,9 @@ The reference's pickle-free format, unchanged::
 ``load`` verifies the manifest before it reads anything else, follows a
 generation root's ``CURRENT`` pointer, builds the port's classes from the
 definition and loads the state; every estimator lands on ``device``
-(``cuda`` unless the caller says ``"cpu"``). ``dump`` stages the files in a
-hidden sibling directory, writes the manifest and renames into place, so a
-crash never leaves a half-written artifact under the final name.
+(``cuda`` unless the caller says ``"cpu"``). ``dump`` commits the files
+atomically (``store/atomic.py``), so a crash never leaves a half-written
+artifact under the final name.
 """
 
 from __future__ import annotations
@@ -24,8 +24,6 @@ from __future__ import annotations
 import io
 import json
 import os
-import shutil
-import uuid
 import zipfile
 from typing import Any, Dict, Iterator, Optional, Tuple
 
@@ -35,7 +33,9 @@ from .. import precision as precision_mod
 from ..models.anomaly.diff import DiffBasedAnomalyDetector
 from ..models.models import BaseTorchEstimator
 from ..models.pipeline import Pipeline, TransformedTargetRegressor
-from ..store.manifest import resolve_artifact_dir, verify_artifact, write_manifest
+from ..store.atomic import atomic_commit
+from ..store.generations import resolve_artifact_dir
+from ..store.manifest import verify_artifact
 from ..utils.backend import DeviceLike, resolve_device
 from .from_definition import pipeline_from_definition
 from .into_definition import pipeline_into_definition
@@ -170,22 +170,9 @@ def dump(
     precision: Optional[str] = None,
 ) -> str:
     """Persist a fitted pipeline to ``dest_dir`` (replacing it whole)
-    through :func:`write_artifact_files`, so the manifest hashes an int8
-    sidecar like every other file."""
+    through :func:`write_artifact_files` inside an atomic commit, so the
+    manifest hashes an int8 sidecar like every other file."""
     dest_dir = os.path.abspath(dest_dir)
-    parent = os.path.dirname(dest_dir)
-    os.makedirs(parent, exist_ok=True)
-    staging = os.path.join(
-        parent, f".staging-{os.path.basename(dest_dir)}.{uuid.uuid4().hex[:8]}"
-    )
-    os.makedirs(staging)
-    try:
+    with atomic_commit(dest_dir) as staging:
         write_artifact_files(obj, staging, metadata, precision)
-        write_manifest(staging)
-        if os.path.isdir(dest_dir):
-            shutil.rmtree(dest_dir)
-        os.replace(staging, dest_dir)
-    finally:
-        if os.path.isdir(staging):
-            shutil.rmtree(staging)
     return dest_dir

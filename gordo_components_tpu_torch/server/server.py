@@ -68,9 +68,8 @@ from ..resilience import deadline
 from ..resilience.admission import DRAINING_HEADER, AdmissionController, AdmissionRejected
 from ..resilience.deadline import DeadlineExceeded
 from ..resilience.quarantine import Quarantine
-from ..serializer.persistence import DEFINITION_FILE, load, load_metadata
-from ..store.generations import current_generation
-from ..store.manifest import CURRENT_FILE, resolve_artifact_dir
+from ..serializer.persistence import load, load_metadata
+from ..store.generations import current_generation, is_artifact_dir, resolve_artifact_dir
 from ..utils.backend import DeviceLike, resolve_device
 from .engine import ServingEngine
 
@@ -211,10 +210,6 @@ class _Machine:
             return None
 
 
-def _is_artifact(path: str) -> bool:
-    return any(os.path.isfile(os.path.join(path, f)) for f in (DEFINITION_FILE, CURRENT_FILE))
-
-
 def scan_models_dir(models_dir: str) -> Dict[str, str]:
     """``{name: path}`` for each immediate artifact subdirectory (flat or
     generation root) of ``models_dir``; hidden directories never count."""
@@ -223,7 +218,7 @@ def scan_models_dir(models_dir: str) -> Dict[str, str]:
         for entry in sorted(os.listdir(models_dir))
         if not entry.startswith(".")
         and os.path.isdir(os.path.join(models_dir, entry))
-        and _is_artifact(os.path.join(models_dir, entry))
+        and is_artifact_dir(os.path.join(models_dir, entry))
     }
 
 
@@ -315,7 +310,7 @@ class ModelServer:
         # at every reload
         self._quarantined_dirs: Dict[str, str] = {}
         self._reload_lock = threading.Lock()
-        if _is_artifact(models_dir):
+        if is_artifact_dir(models_dir):
             self.models_root: Optional[str] = None
             name = os.path.basename(os.path.normpath(models_dir))
             machines = {name: _Machine(name, models_dir)}

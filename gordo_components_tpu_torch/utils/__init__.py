@@ -1,1 +1,2 @@
-"""Small shared helpers of the port (device resolution)."""
+"""Small shared helpers of the port: device resolution, config classes,
+the build registry, phase timing."""

@@ -1,0 +1,613 @@
+"""The port's numpy dataset layer against the JAX package's pandas one, on
+the same seeded inputs, on the CPU.
+
+Tolerances:
+
+- ``RandomDataProvider``: timestamps equal to the nanosecond, values
+  bitwise (the same draws in the same order);
+- ``join_timeseries`` and ``TimeSeriesDataset.get_data``: every value
+  within 1 float32 ulp after the float32 cast (the port adds in bin order
+  with Kahan compensation and runs Welford's update as pandas does, so the
+  values are expected equal; the ulp allows another order of the same
+  float64 sums), the index equal to the nanosecond, column names and
+  metadata dicts equal (the ``type`` module paths name each package's own
+  classes);
+- ``row_filter``: the same rows as ``DataFrame.query``.
+"""
+
+import csv
+import json
+from datetime import datetime, timedelta, timezone
+
+import numpy as np
+import pandas as pd
+import pytest
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
+from gordo_components_tpu.dataset.base import GordoBaseDataset as RefBaseDataset
+from gordo_components_tpu.dataset.data_provider.providers import (
+    RandomDataProvider as RefRandomProvider,
+)
+from gordo_components_tpu.dataset.dataset import (
+    InsufficientDataError as RefInsufficientDataError,
+    TimeSeriesDataset as RefTimeSeriesDataset,
+    join_timeseries as ref_join_timeseries,
+)
+from gordo_components_tpu.dataset.sensor_tag import (
+    SensorTag as RefSensorTag,
+    normalize_sensor_tags as ref_normalize_sensor_tags,
+)
+
+from gordo_components_tpu_torch.dataset import GordoBaseDataset
+from gordo_components_tpu_torch.dataset import query
+from gordo_components_tpu_torch.dataset.data_provider import (
+    CompositeDataProvider,
+    FileDataProvider,
+    GordoBaseDataProvider,
+    RandomDataProvider,
+)
+from gordo_components_tpu_torch.dataset.dataset import (
+    InsufficientDataError,
+    RandomDataset,
+    TimeSeriesDataset,
+    _ffill,
+    _interpolate,
+    _parse_date,
+    join_timeseries,
+)
+from gordo_components_tpu_torch.dataset.sensor_tag import (
+    SensorTag,
+    normalize_sensor_tags,
+    to_list_of_strings,
+)
+
+UTC = timezone.utc
+START = datetime(2023, 1, 1, tzinfo=UTC)
+
+
+def _ref_series(series):
+    """The port's (name, ns, values) triples as the reference's pd.Series."""
+    return [pd.Series(v, index=pd.DatetimeIndex(pd.to_datetime(ts, utc=True)), name=n)
+            for n, ts, v in series]
+
+
+def _ported_types(tree):
+    """A metadata tree with every ``type`` path of the port spelled as the
+    reference's (the one intended difference)."""
+    if isinstance(tree, dict):
+        return {k: (v.replace("gordo_components_tpu_torch.", "gordo_components_tpu.")
+                    if k == "type" and isinstance(v, str) else _ported_types(v))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_ported_types(v) for v in tree]
+    return tree
+
+
+def _assert_f32_close(ref, ours):
+    ref = np.asarray(ref, np.float64).astype(np.float32)
+    ours = np.asarray(ours, np.float64).astype(np.float32)
+    assert ref.shape == ours.shape
+    np.testing.assert_array_equal(np.isnan(ref), np.isnan(ours))
+    finite = ~np.isnan(ref)
+    np.testing.assert_array_max_ulp(ref[finite], ours[finite], maxulp=1)
+
+
+def _assert_frames(ref_frame, ref_meta, frame, meta):
+    assert meta == ref_meta
+    assert frame.columns == list(ref_frame.columns)
+    np.testing.assert_array_equal(frame.index, ref_frame.index.as_unit("ns").asi8)
+    _assert_f32_close(ref_frame.to_numpy(np.float64), frame.values)
+
+
+# -- RandomDataProvider ---------------------------------------------------------
+@pytest.mark.parametrize("sizes,seed,span", [
+    ((100, 300), 0, timedelta(days=31)),
+    ((700, 700), 0, timedelta(days=31)),
+    ((600, 900), 7, timedelta(days=7)),
+    ((1, 5), 123, timedelta(hours=1)),
+    ((2000, 4000), 2**20, timedelta(days=14, minutes=7)),
+])
+def test_random_provider_equals_the_reference(sizes, seed, span):
+    tags = [f"tag-{i}" for i in range(4)] + ["GRA-TE-223", "1901.A-1"]
+    end = START + span
+    ref = list(RefRandomProvider(*sizes, seed=seed).load_series(
+        START, end, [RefSensorTag(t) for t in tags]))
+    ours = list(RandomDataProvider(*sizes, seed=seed).load_series(
+        START, end, [SensorTag(t) for t in tags]))
+    assert len(ours) == len(ref)
+    for r, (name, ts, values) in zip(ref, ours):
+        assert name == r.name
+        assert ts.dtype == np.int64 and values.dtype == np.float64
+        np.testing.assert_array_equal(ts, r.index.asi8)
+        np.testing.assert_array_equal(values, r.values)
+
+
+def test_random_provider_steps_are_not_uniform():
+    """Over a month at n = 700 pandas' linspace steps differ by 1 ns here
+    and there; the port reproduces each one."""
+    [(_, ts, _)] = RandomDataProvider(700, 700).load_series(
+        START, START + timedelta(days=31), [SensorTag("tag-0")])
+    steps = set(np.diff(ts).tolist())
+    assert steps == {3826285714285, 3826285714286}
+    naive = list(RandomDataProvider(700, 700).load_series(
+        START.replace(tzinfo=None), (START + timedelta(days=31)).replace(tzinfo=None),
+        [SensorTag("tag-0")]))
+    np.testing.assert_array_equal(naive[0][1], ts)
+
+
+def test_random_provider_rejects_an_empty_range_and_dry_run_yields_nothing():
+    with pytest.raises(ValueError, match="must be after"):
+        list(RandomDataProvider().load_series(START, START, [SensorTag("a")]))
+    assert list(RandomDataProvider().load_series(
+        START, START + timedelta(days=1), [SensorTag("a")], dry_run=True)) == []
+
+
+# -- join_timeseries -------------------------------------------------------------
+AGGREGATIONS = ["mean", "sum", "count", "min", "max", "std", "var", "median", "first", "last"]
+
+
+@st.composite
+def series_sets(draw):
+    """1-3 series of irregular, duplicated and clustered timestamps (gaps
+    shorter and longer than the limit, points before the origin, leading
+    and trailing gaps) with some NaN values."""
+    series = []
+    for i in range(draw(st.integers(1, 3))):
+        n = draw(st.integers(1, 40))
+        # seconds from the origin; clusters leave long gaps between them
+        centres = draw(st.lists(st.integers(-1200, 6 * 3600), min_size=1, max_size=4))
+        offsets = [draw(st.sampled_from(centres)) + draw(st.integers(0, 1800))
+                   for _ in range(n)]
+        if draw(st.booleans()) and n > 1:  # duplicated timestamps
+            offsets[-1] = offsets[0]
+        values = [draw(st.one_of(st.floats(-1e3, 1e3), st.just(float("nan"))))
+                  if draw(st.integers(0, 9)) == 0 else draw(st.floats(-1e3, 1e3))
+                  for _ in range(n)]
+        ts = np.datetime64("2023-01-01T00:00:00", "ns").astype(np.int64) + \
+            np.asarray(offsets, np.int64) * 1_000_000_000
+        series.append((f"t{i}", ts, np.asarray(values, np.float64)))
+    return series
+
+
+@settings(max_examples=80, deadline=None)
+@given(
+    series=series_sets(),
+    aggregation=st.one_of(st.sampled_from(AGGREGATIONS),
+                          st.lists(st.sampled_from(AGGREGATIONS), min_size=1, max_size=3,
+                                   unique=True)),
+    interpolation=st.sampled_from(["linear_interpolation", "ffill", "none"]),
+    limit=st.sampled_from([None, "10min", "30T", "1H", "8H", "45s"]),
+    resolution=st.sampled_from(["10T", "10min", "5min", "1H", "1h", "30S", "7min", "90s",
+                                "1D", "2D"]),
+    hours=st.integers(1, 8),
+)
+def test_join_timeseries_equals_the_reference(series, aggregation, interpolation, limit,
+                                              resolution, hours):
+    end = START + timedelta(hours=hours)
+    try:
+        ref_frame, ref_meta = ref_join_timeseries(
+            iter(_ref_series(series)), START, end, resolution, aggregation, interpolation, limit)
+    except RefInsufficientDataError:
+        with pytest.raises(InsufficientDataError):
+            join_timeseries(iter(series), START, end, resolution, aggregation, interpolation,
+                            limit)
+        return
+    frame, meta = join_timeseries(iter(series), START, end, resolution, aggregation,
+                                  interpolation, limit)
+    _assert_frames(ref_frame, ref_meta, frame, meta)
+
+
+def test_interpolate_fills_the_first_limit_nans_of_a_longer_gap():
+    """[1.5, NaN, NaN, NaN, 5] at limit 2: the first two NaNs from the
+    line across the whole gap, the third left for dropna."""
+    column = np.array([1.5, np.nan, np.nan, np.nan, 5.0])
+    expected = np.array([1.5, 2.375, 3.25, np.nan, 5.0])
+    np.testing.assert_array_equal(_interpolate(column, 2), expected)
+    np.testing.assert_array_equal(
+        pd.Series(column).interpolate(method="linear", limit=2).to_numpy(), expected)
+
+
+def test_leading_nans_stay_and_trailing_nans_take_the_last_value():
+    column = np.array([np.nan, 1.0, 2.0, 5.0, np.nan, np.nan, np.nan])
+    for limit, expected in ((2, [np.nan, 1, 2, 5, 5, 5, np.nan]),
+                            (None, [np.nan, 1, 2, 5, 5, 5, 5])):
+        np.testing.assert_array_equal(_interpolate(column, limit), expected)
+        np.testing.assert_array_equal(
+            pd.Series(column).interpolate(method="linear", limit=limit).to_numpy(), expected)
+        np.testing.assert_array_equal(_ffill(column, limit), expected)
+        np.testing.assert_array_equal(pd.Series(column).ffill(limit=limit).to_numpy(),
+                                      expected)
+    gap = np.array([1.0, np.nan, np.nan, np.nan, 4.0])
+    np.testing.assert_array_equal(_ffill(gap, 2), [1, 1, 1, np.nan, 4])
+
+
+def test_empty_bins_give_nan_except_sum_and_count():
+    """Points in bins 0, 2 and 3 (one point in bin 3): the empty bin 1 is
+    NaN for mean, max and std and 0 for sum and count; a lone point's std
+    is NaN (ddof 1)."""
+    minutes = np.array([1, 2, 21, 33])
+    ts = START.timestamp() * 1e9 + minutes * 60e9
+    series = [("a", ts.astype(np.int64), np.array([1.0, 3.0, 4.0, 7.0]))]
+    methods = ["mean", "max", "std", "sum", "count"]
+    frame, meta = join_timeseries(iter(series), START, START + timedelta(hours=1), "10min",
+                                  methods, "none", None)
+    ref_frame, ref_meta = ref_join_timeseries(iter(_ref_series(series)), START,
+                                              START + timedelta(hours=1), "10min", methods,
+                                              "none", None)
+    # bin 0 alone has every aggregation; the others hold a NaN
+    _assert_frames(ref_frame, ref_meta, frame, meta)
+    assert frame.values.shape == (1, 5)
+    for method, expected in (("mean", [2, np.nan, 4, 7]), ("max", [3, np.nan, 4, 7]),
+                             ("std", [np.sqrt(2), np.nan, np.nan, np.nan]),
+                             ("sum", [4, 0, 4, 7]), ("count", [2, 0, 1, 1])):
+        raw = pd.Series(series[0][2], index=pd.to_datetime(series[0][1], utc=True)).resample(
+            "10min", origin=pd.Timestamp(START)).agg(method).to_numpy(np.float64)
+        np.testing.assert_array_equal(raw, expected)
+        ours = join_timeseries(iter(series), START, START + timedelta(hours=1), "10min",
+                               method, "none", None)[0]
+        kept = ~np.isnan(np.asarray(expected, np.float64))
+        np.testing.assert_array_equal(ours.values[:, 0], np.asarray(expected)[kept])
+
+
+@pytest.mark.parametrize("start", [START + timedelta(hours=5), START.replace(tzinfo=None)])
+@pytest.mark.parametrize("resolution", ["1D", "2D", "3d"])
+def test_day_resolutions_bin_from_midnight_as_pandas_does(start, resolution):
+    """pandas ignores ``origin`` for whole days and bins from the first
+    point's midnight; so does the port."""
+    series = list(RandomDataProvider(3, 300, seed=2).load_series(
+        start, start + timedelta(days=9, hours=3), [SensorTag("a"), SensorTag("b")]))
+    ref_series = [pd.Series(v, index=pd.to_datetime(t, utc=start.tzinfo is not None), name=n)
+                  for n, t, v in series]
+    end = start + timedelta(days=9, hours=3)
+    with pytest.warns(RuntimeWarning, match="origin"):
+        ref_frame, ref_meta = ref_join_timeseries(iter(ref_series), start, end, resolution,
+                                                  ["mean", "std", "count"],
+                                                  "linear_interpolation", "3D")
+    frame, meta = join_timeseries(iter(series), start, end, resolution, ["mean", "std", "count"],
+                                  "linear_interpolation", "3D")
+    _assert_frames(ref_frame, ref_meta, frame, meta)
+    assert len(frame.index) > 0
+
+
+def test_bins_start_at_the_origin_not_the_epoch():
+    start = START + timedelta(minutes=3)
+    ts = np.array([start.timestamp() + 60 * m for m in (0, 9, 10, 25)]) * 1e9
+    frame, _ = join_timeseries(iter([("a", ts.astype(np.int64), np.ones(4))]), start,
+                               start + timedelta(hours=1), "10min")
+    labels = [datetime.fromtimestamp(t / 1e9, UTC).strftime("%H:%M") for t in frame.index]
+    assert labels == ["00:03", "00:13", "00:23"]
+
+
+def test_sums_and_means_are_pandas_kahan_sums():
+    """A bin of 1000 values whose naive sum differs from pandas' compensated
+    one: the port gives pandas' float64 mean and variance to the bit."""
+    rng = np.random.default_rng(0)
+    values = rng.normal(size=1000) * 1e3
+    ts = (START.timestamp() * 1e9 + np.arange(1000) * 1e9).astype(np.int64)
+    ref_series = pd.Series(values, index=pd.to_datetime(ts, utc=True))
+    for method in ("mean", "sum", "var", "std"):
+        ref = ref_series.resample("1h", origin=pd.Timestamp(START)).agg(method).iloc[0]
+        frame, _ = join_timeseries(iter([("a", ts, values)]), START,
+                                   START + timedelta(hours=1), "1h", method)
+        assert frame.values[0, 0] == ref, method
+    assert values.sum() / 1000 != ref_series.resample("1h").mean().iloc[0]
+
+
+@pytest.mark.parametrize("legacy,modern", [("10T", "10min"), ("1H", "1h"), ("30S", "30s"),
+                                           ("500L", "500ms"), ("100U", "100us"), ("T", "min")])
+def test_legacy_resolutions(legacy, modern):
+    """Legacy spellings normalize as the reference's; a span is read as
+    ``pd.Timedelta`` reads it, which refuses a bare unit ("min") and a
+    calendar offset ("1W"), as the reference's join then does."""
+    from gordo_components_tpu.dataset.dataset import _normalize_resolution as ref_normalize
+
+    from gordo_components_tpu_torch.dataset.dataset import _normalize_resolution, _span_ns
+
+    assert _normalize_resolution(legacy) == ref_normalize(legacy) == modern
+    if legacy == "T":
+        with pytest.raises(ValueError):
+            pd.Timedelta(modern)
+        with pytest.raises(ValueError, match="unsupported"):
+            _span_ns(legacy)
+    else:
+        assert _span_ns(legacy) == pd.Timedelta(modern).value
+    for span in ("1.5h", "2D", "90s"):
+        assert _span_ns(span) == pd.Timedelta(span).value
+    with pytest.raises(ValueError, match="unsupported"):
+        _span_ns("1W")
+
+
+@pytest.mark.parametrize("text", ["2023-01-01T00:00:00+00:00", "2023-01-01T00:00:00Z",
+                                  "2023-01-01", "2023-03-04T05:06:07.123456+01:30",
+                                  "2023-01-01 12:00:00"])
+def test_parse_date_gives_the_reference_isoformat(text):
+    from gordo_components_tpu.dataset.dataset import _parse_date as ref_parse_date
+
+    assert _parse_date(text).isoformat() == ref_parse_date(text).isoformat()
+    assert _parse_date(text) == ref_parse_date(text)
+
+
+# -- row_filter ----------------------------------------------------------------
+FILTER_COLUMNS = ["a", "b", "GRA-TE-223", "c_mean"]
+FILTERS = [
+    "a > 0",
+    "a > 0 & b < 1",
+    "a > 0 | b < 1 & c_mean > 0.5",
+    "(a > 0 | b < 1) & c_mean > 0.5",
+    "a > 0 and b < 1",
+    "a > 0 or not b < 1",
+    "~(a > 0)",
+    "0 < a < 2.5",
+    "-1 <= b <= 1 & a != 0",
+    "`GRA-TE-223` > 0",
+    "`GRA-TE-223` > 0 & `a` < 1.5",
+    "a + b * 2 > c_mean - 1",
+    "a ** 2 > 1",
+    "a / 2 >= -0.25",
+    "-a > 0.1",
+    "a == a",
+    "b != 0.0",
+    "a > 1e-1",
+]
+
+
+@pytest.mark.parametrize("expression", FILTERS)
+def test_row_filter_matches_dataframe_query(expression):
+    rng = np.random.default_rng(4)
+    frame = pd.DataFrame(rng.normal(size=(200, 4)), columns=FILTER_COLUMNS)
+    ours = query.evaluate(expression, {c: frame[c].to_numpy() for c in FILTER_COLUMNS})
+    expected = frame.index.isin(frame.query(expression).index)
+    np.testing.assert_array_equal(ours, expected)
+    if expression not in ("a == a", "b != 0.0"):
+        assert 0 < ours.sum() < 200
+
+
+@pytest.mark.parametrize("expression", [
+    "a > 0 &", "a.b > 0", "a in [1, 2]", "@x > 0", "a", "a > 'x'", "f(a) > 0", "missing > 0",
+    "a[0] > 0", "a > 0 if b else c", "lambda: 1", "~a > 0",
+])
+def test_row_filter_outside_the_grammar_raises_naming_the_expression(expression):
+    columns = {c: np.arange(5.0) for c in FILTER_COLUMNS}
+    with pytest.raises(ValueError, match="row_filter"):
+        query.evaluate(expression, columns)
+
+
+def test_row_filter_precedence_differs_from_python():
+    """pandas reads ``a > 0 & b < 1`` as ``(a > 0) & (b < 1)``; Python's own
+    grammar would read ``a > (0 & b) < 1``."""
+    a = np.array([1.0, 1.0, -1.0])
+    b = np.array([0.0, 2.0, 0.0])
+    np.testing.assert_array_equal(query.evaluate("a > 0 & b < 1", {"a": a, "b": b}),
+                                  [True, False, False])
+
+
+# -- TimeSeriesDataset -----------------------------------------------------------
+def _dataset_pair(**config):
+    ref = RefTimeSeriesDataset(**{**config, "data_provider": {
+        **config["data_provider"],
+        "type": config["data_provider"]["type"].replace("gordo_components_tpu_torch.",
+                                                        "gordo_components_tpu.")}})
+    return ref, TimeSeriesDataset(**config)
+
+
+def _assert_datasets(ref, ours):
+    rX, ry = ref.get_data()
+    X, y = ours.get_data()
+    assert X.dtype == y.dtype == np.float32
+    assert ours.x_columns == list(rX.columns) and ours.y_columns == list(ry.columns)
+    np.testing.assert_array_equal(ours.index, rX.index.as_unit("ns").asi8)
+    _assert_f32_close(rX.to_numpy(), X)
+    _assert_f32_close(ry.to_numpy(), y)
+    assert _ported_types(ours.get_metadata()) == ref.get_metadata()
+    assert _ported_types(ours.to_dict()) == ref.to_dict()
+    return X
+
+
+@pytest.mark.parametrize("case", [
+    dict(),
+    dict(resolution="30T", aggregation_methods=["mean", "max", "count"],
+         row_filter="`tag-0_mean` > -10 & `tag-1_max` < 10"),
+    dict(interpolation_method="ffill", interpolation_limit="20min", resolution="7min"),
+    dict(interpolation_method="none", interpolation_limit=None,
+         target_tag_list=["tag-2", "extra"], row_threshold=10),
+    dict(train_start_date="2023-01-01", train_end_date="2023-01-05 12:00:00"),
+])
+def test_time_series_dataset_equals_the_reference(case):
+    config = dict(train_start_date="2023-01-01T00:00:00+00:00",
+                  train_end_date="2023-01-08T06:00:00+00:00",
+                  tag_list=["tag-0", "tag-1", {"name": "tag-2", "asset": "plant"}],
+                  data_provider={"type": "RandomDataProvider", "min_size": 300,
+                                 "max_size": 1200, "seed": 5})
+    config.update(case)
+    _assert_datasets(*_dataset_pair(**config))
+
+
+def _write_csv(path, stamps, values):
+    with open(path, "w", newline="") as fh:
+        writer = csv.writer(fh)
+        writer.writerow(["timestamp", "value"])
+        for stamp, value in zip(stamps, values):
+            writer.writerow([stamp, "" if np.isnan(value) else repr(float(value))])
+
+
+@pytest.mark.parametrize("zone,start", [
+    ("", "2023-01-01T00:00:00+00:00"),       # naive file, aware range: UTC
+    ("+00:00", "2023-01-01T00:00:00+00:00"),  # aware both
+    ("+01:00", "2023-01-01T00:00:00+00:00"),  # another offset: the same instants
+    ("", "2023-01-01T00:00:00"),              # naive both
+    ("+01:00", "2023-01-01T00:00:00"),        # aware file, naive range: its wall clock
+])
+def test_file_provider_csv_equals_the_reference(tmp_path, zone, start):
+    rng = np.random.default_rng(11)
+    base = np.datetime64("2022-12-31T22:00:00")
+    for name in ("TAG-A", "TAG-B"):
+        seconds = np.sort(rng.integers(0, 3 * 86400, size=500))
+        stamps = [str(base + np.timedelta64(int(s), "s")).replace("T", " ") + zone
+                  for s in seconds]
+        values = rng.normal(size=500)
+        values[rng.integers(0, 500, size=10)] = np.nan
+        _write_csv(tmp_path / f"{name}.csv", stamps, values)
+    end = "2023-01-02T12:00:00" + ("+00:00" if start.endswith("+00:00") else "")
+    provider = {"type": "FileDataProvider", "base_dir": str(tmp_path)}
+    ref, ours = _dataset_pair(train_start_date=start, train_end_date=end,
+                              tag_list=["TAG-A", "TAG-B"], data_provider=provider)
+    X = _assert_datasets(ref, ours)
+    assert len(X) > 100
+
+
+def test_file_provider_parquet_equals_the_reference(tmp_path):
+    pytest.importorskip("pyarrow")
+    rng = np.random.default_rng(12)
+    (tmp_path / "site").mkdir()
+    for name, tz in (("P-1", "UTC"), ("P-2", None)):
+        index = pd.date_range("2023-01-01", periods=700, freq="7min", tz=tz, name="timestamp")
+        frame = pd.DataFrame({"value": rng.normal(size=700)}, index=index)
+        frame.to_parquet(tmp_path / "site" / f"{name}.parquet")
+    ref, ours = _dataset_pair(
+        train_start_date="2023-01-01T01:00:00+00:00", train_end_date="2023-01-03T00:00:00+00:00",
+        tag_list=[{"name": "P-1", "asset": "site"}, ["P-2", "site"]],
+        data_provider={"type": "FileDataProvider", "base_dir": str(tmp_path)})
+    _assert_datasets(ref, ours)
+
+
+def test_file_provider_missing_file_and_can_handle_tag(tmp_path):
+    _write_csv(tmp_path / "X.csv", ["2023-01-01T00:00:00"], [1.0])
+    provider = FileDataProvider(str(tmp_path), assets=["a"])
+    assert not provider.can_handle_tag(SensorTag("X", "b"))
+    assert provider.can_handle_tag(SensorTag("X", "a"))
+    with pytest.raises(FileNotFoundError, match="Y"):
+        list(provider.load_series(START, START + timedelta(days=1), [SensorTag("Y", "a")]))
+
+
+def test_composite_provider_dispatches_by_tag(tmp_path):
+    _write_csv(tmp_path / "FILE-1.csv", [f"2023-01-01T00:{m:02d}:00" for m in range(50)],
+               np.arange(50.0))
+    composite = CompositeDataProvider([
+        {"type": "FileDataProvider", "base_dir": str(tmp_path)},
+        {"type": "gordo_components_tpu.dataset.data_provider.providers.RandomDataProvider"},
+    ])
+    names = [s[0] for s in composite.load_series(
+        START, START + timedelta(hours=1),
+        [SensorTag("FILE-1"), SensorTag("r-1"), SensorTag("r-2")])]
+    assert names == ["FILE-1", "r-1", "r-2"]
+    assert composite.to_dict()["providers"][1]["type"] == (
+        "gordo_components_tpu_torch.dataset.data_provider.providers.RandomDataProvider")
+
+
+def test_tag_dedup_keeps_the_first_spelling(caplog):
+    dataset = TimeSeriesDataset(
+        "2023-01-01T00:00:00+00:00", "2023-01-03T00:00:00+00:00",
+        tag_list=[["tag-1", "plant-a"], "tag-2"], target_tag_list=[["tag-1", "plant-b"]],
+        data_provider=RandomDataProvider(400, 500))
+    seen = []
+
+    class Recording(RandomDataProvider):
+        def load_series(self, start, end, tags, dry_run=False):
+            seen.extend(tags)
+            return super().load_series(start, end, tags, dry_run)
+
+    dataset.data_provider = Recording(400, 500)
+    X, y = dataset.get_data()
+    assert seen == [SensorTag("tag-1", "plant-a"), SensorTag("tag-2", None)]
+    assert X.shape[1] == 2 and y.shape[1] == 1
+    np.testing.assert_array_equal(X[:, 0], y[:, 0])
+    assert "conflicting assets" in caplog.text
+
+
+def test_insufficient_data_is_raised_as_the_reference_raises():
+    config = dict(train_start_date="2023-01-01T00:00:00+00:00",
+                  train_end_date="2023-01-02T00:00:00+00:00", tag_list=["a", "b"],
+                  data_provider={"type": "RandomDataProvider"}, row_threshold=10_000)
+    ref, ours = _dataset_pair(**config)
+    with pytest.raises(RefInsufficientDataError, match="threshold 10000"):
+        ref.get_data()
+    with pytest.raises(InsufficientDataError, match="threshold 10000"):
+        ours.get_data()
+    assert issubclass(InsufficientDataError, ValueError)
+    with pytest.raises(InsufficientDataError, match="no data"):
+        join_timeseries(iter([("a", np.zeros(0, np.int64), np.zeros(0))]), START,
+                        START + timedelta(days=1), "10min")
+    with pytest.raises(InsufficientDataError, match="No series"):
+        join_timeseries(iter([]), START, START + timedelta(days=1), "10min")
+
+
+# -- config types and tags -------------------------------------------------------
+@pytest.mark.parametrize("type_name", [
+    None, "TimeSeriesDataset", "gordo_components_tpu.dataset.dataset.TimeSeriesDataset",
+    "gordo_components_tpu.dataset.TimeSeriesDataset",
+    "gordo_components_tpu_torch.dataset.dataset.TimeSeriesDataset",
+    "RandomDataset", "gordo_components_tpu.dataset.dataset.RandomDataset",
+])
+def test_from_dict_takes_every_spelling_of_the_type(type_name):
+    config = {"train_start_date": "2023-01-01T00:00:00+00:00",
+              "train_end_date": "2023-01-02T00:00:00+00:00", "tag_list": ["a"],
+              "data_provider": {"type": "gordo_components_tpu.dataset.data_provider."
+                                        "RandomDataProvider", "min_size": 200}}
+    if type_name is not None:
+        config["type"] = type_name
+    ours = GordoBaseDataset.from_dict(config)
+    ref = RefBaseDataset.from_dict(_ported_types(config))
+    assert type(ours).__name__ == type(ref).__name__
+    assert type(ours).__module__ == "gordo_components_tpu_torch.dataset.dataset"
+    assert isinstance(ours.data_provider, RandomDataProvider)
+    assert _ported_types(ours.to_dict()) == ref.to_dict()
+    again = GordoBaseDataset.from_dict(ours.to_dict())
+    assert again.to_dict() == ours.to_dict()
+
+
+@pytest.mark.parametrize("type_name,match", [
+    ("InfluxDataProvider", "not ported"),
+    ("gordo_components_tpu.dataset.data_provider.ncs_iroc.NcsReader", "not ported"),
+    ("gordo_components_tpu.dataset.data_provider.providers.FlakyDataProvider", "not ported"),
+    ("DataLakeProvider", "not ported"),
+    ("IrocReader", "not ported"),
+    ("os.path.join", "resolves"),
+    ("gordo_components_tpu.dataset.dataset.TimeSeriesDataset", "resolves"),
+    ("NoSuchProvider", "Unknown"),
+])
+def test_provider_from_dict_refuses_what_it_does_not_have(type_name, match):
+    with pytest.raises(ValueError, match=match):
+        GordoBaseDataProvider.from_dict({"type": type_name})
+    with pytest.raises(ValueError, match="'type'"):
+        GordoBaseDataProvider.from_dict({})
+
+
+def test_dataset_from_dict_refuses_other_modules():
+    with pytest.raises(ValueError, match="resolves"):
+        GordoBaseDataset.from_dict({"type": "collections.OrderedDict"})
+    with pytest.raises(ValueError, match="Unknown"):
+        GordoBaseDataset.from_dict({"type": "GordoBaseDataset"})
+
+
+def test_random_dataset_defaults_equal_the_reference():
+    from gordo_components_tpu.dataset.dataset import RandomDataset as RefRandomDataset
+
+    ours, ref = RandomDataset(), RefRandomDataset()
+    X = _assert_datasets(ref, ours)
+    assert X.shape[1] == 4
+
+
+TAG_SPECS = ["GRA-TE-223", "1901.A-1", "ASGBTAG", "GRADIENT.01", "plain", ["x", "site"],
+             ["y", None], ["z"], {"name": "w", "asset": "a"}, {"name": "1125-V"},
+             SensorTag("s", "t")]
+
+
+def test_sensor_tags_normalize_as_the_reference():
+    ref = ref_normalize_sensor_tags(
+        [RefSensorTag(*t) if isinstance(t, SensorTag) else t for t in TAG_SPECS])
+    ours = normalize_sensor_tags(TAG_SPECS)
+    assert [tuple(t) for t in ours] == [tuple(t) for t in ref]
+    assert to_list_of_strings(ours) == [t.name for t in ref]
+    assert normalize_sensor_tags(["q"], asset="given") == [SensorTag("q", "given")]
+    for bad in ([1, 2, 3], {"asset": "a"}, 3.5):
+        with pytest.raises(ValueError):
+            normalize_sensor_tags([bad])
+
+
+def test_dataset_config_round_trips_through_json():
+    dataset = RandomDataset(tag_list=["a", "b"], train_end_date="2023-01-03T00:00:00+00:00")
+    dataset.get_data()
+    config = json.loads(json.dumps(dataset.get_metadata()["dataset_config"]))
+    again = GordoBaseDataset.from_dict(config)
+    np.testing.assert_array_equal(again.get_data()[0], dataset.get_data()[0])

@@ -1,7 +1,9 @@
 """The PyTorch port stands alone: no module of ``gordo_components_tpu_torch``,
-and not ``chip_smoke.py``, imports jax, flax, optax, sklearn, pandas or the
-JAX package; and every entry point runs on CUDA unless ``device="cpu"`` is
-passed — without a card it raises instead of quietly running on the CPU."""
+and not ``chip_smoke.py``, imports jax, flax, optax, sklearn, pandas, click
+or the JAX package; ``yaml`` and ``pyarrow`` are imported only inside the
+function that needs them, which names the package when it is missing; and
+every entry point runs on CUDA unless ``device="cpu"`` is passed — without
+a card it raises instead of quietly running on the CPU."""
 
 import ast
 import os
@@ -16,7 +18,10 @@ torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "gordo_components_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "gordo_components_tpu", "sklearn", "pandas")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "gordo_components_tpu", "sklearn", "pandas",
+             "click")
+# packages the card's machine may lack: imported lazily, where they are needed
+LAZY_ONLY = ("yaml", "pyarrow")
 
 
 def _sources():
@@ -38,9 +43,32 @@ def test_no_forbidden_imports(path):
             assert name.split(".")[0] not in FORBIDDEN, f"{path}:{node.lineno} imports {name}"
 
 
-def test_package_imports_with_jax_blocked():
+def _module_level_imports(tree):
+    """Import statements that run when the module is imported: everything
+    but the bodies of functions."""
+    stack = list(tree.body)
+    while stack:
+        node = stack.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+            continue
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            yield node
+        stack.extend(ast.iter_child_nodes(node))
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_yaml_and_pyarrow_are_imported_only_lazily(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in _module_level_imports(tree):
+        names = ([alias.name for alias in node.names] if isinstance(node, ast.Import)
+                 else [node.module or ""] if node.level == 0 else [])
+        for name in names:
+            assert name.split(".")[0] not in LAZY_ONLY, f"{path}:{node.lineno} imports {name}"
+
+
+def _import_everything(blocked, extra=""):
     """Import every module of the port in a fresh interpreter in which
-    importing any forbidden name fails."""
+    importing any of ``blocked`` fails, then run ``extra``."""
     modules = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
         for p in PORT.rglob("*.py")
@@ -48,11 +76,12 @@ def test_package_imports_with_jax_blocked():
     )
     script = (
         "import sys\n"
-        f"for name in {FORBIDDEN!r}:\n"
+        f"for name in {tuple(blocked)!r}:\n"
         "    sys.modules[name] = None\n"
         "import importlib\n"
         f"for module in {modules!r}:\n"
         "    importlib.import_module(module)\n"
+        + extra +
         "print('ok')\n"
     )
     result = subprocess.run(
@@ -60,7 +89,34 @@ def test_package_imports_with_jax_blocked():
         timeout=120, env={**os.environ, "PYTHONPATH": str(ROOT)},
     )
     assert result.returncode == 0, result.stderr
-    assert result.stdout.strip() == "ok"
+    assert result.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_package_imports_with_jax_blocked():
+    _import_everything(FORBIDDEN)
+
+
+def test_package_imports_with_pandas_pyarrow_yaml_and_click_blocked(tmp_path):
+    """What the card's machine lacks: every module imports without it, a
+    JSON config still loads, and the places that need yaml or pyarrow
+    raise naming the package."""
+    (tmp_path / "map.yaml").write_text("m: int8\n")
+    (tmp_path / "T.parquet").write_bytes(b"")
+    extra = f"""
+import pytest
+from gordo_components_tpu_torch.cli import cli
+from gordo_components_tpu_torch import precision
+from gordo_components_tpu_torch.dataset.data_provider.providers import _read_parquet
+assert cli._load_config('{{"a": 1}}', "X") == {{"a": 1}}
+assert precision.parse_precision_map("m=int8") == {{"m": "int8"}}
+with pytest.raises(ValueError, match="'yaml'"):
+    cli._load_config("a: 1", "X")
+with pytest.raises(ImportError, match="'yaml'"):
+    precision.parse_precision_map({str(tmp_path / "map.yaml")!r})
+with pytest.raises(ImportError, match="'pyarrow'"):
+    _read_parquet({str(tmp_path / "T.parquet")!r}, False)
+"""
+    _import_everything(FORBIDDEN + ("pyarrow", "yaml"), extra)
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(tmp_path, monkeypatch):

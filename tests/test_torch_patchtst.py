@@ -153,7 +153,7 @@ def test_bf16_lone_request_equals_fused_dispatch(tmp_path):
     the port, in one engine bucket: machine a's request alone (one
     unbatched dispatch) equals the same request fused with machine b's in
     one stacked dispatch, to the bit."""
-    from gordo_components_tpu_torch.builder import build_model
+    from gordo_components_tpu_torch.builder.build_model import _build_from_rows
     from gordo_components_tpu_torch.serializer import dump, load
     from gordo_components_tpu_torch.server.engine import ServingEngine, _Item
 
@@ -165,8 +165,8 @@ def test_bf16_lone_request_equals_fused_dispatch(tmp_path):
     models = {}
     for seed, name in enumerate(("a", "b")):
         X = (np.random.default_rng(seed).normal(size=(120, 3)) * 2 + 4).astype(np.float32)
-        model, _ = build_model(name, config, X, device="cpu",
-                               evaluation_config={"cv_mode": "build_only"})
+        model, _ = _build_from_rows(name, config, X, device="cpu",
+                                    evaluation_config={"cv_mode": "build_only"})
         model.scaler.fit(np.abs(X[23:] - model.predict(X)))
         dump(model, str(tmp_path / name), metadata={"dataset": {"tag_list": ["x", "y", "z"]}})
         models[name] = load(str(tmp_path / name), device="cpu")

@@ -38,7 +38,7 @@ from gordo_components_tpu.serializer import (  # noqa: E402
     pipeline_from_definition as ref_from_definition,
 )
 
-from gordo_components_tpu_torch.builder import build_model  # noqa: E402
+from gordo_components_tpu_torch.builder.build_model import _build_from_rows  # noqa: E402
 from gordo_components_tpu_torch.models import (  # noqa: E402
     DenseAutoEncoder,
     LSTMAutoEncoder,
@@ -158,8 +158,8 @@ def test_port_trained_artifact_loads_in_the_reference(name, tmp_path):
     rng = np.random.default_rng(6)
     X = (rng.normal(size=(160, 5)) * 3 + 5).astype(np.float32)
     config = _detector_config(estimator, kwargs)
-    model, metadata = build_model(name, config, X, device="cpu",
-                                  dataset_metadata={"tag_list": [f"t{i}" for i in range(5)]})
+    model, metadata = _build_from_rows(name, config, X, device="cpu",
+                                       dataset_metadata={"tag_list": [f"t{i}" for i in range(5)]})
     path = dump(model, str(tmp_path / name), metadata=metadata)
     ours = model.predict(X)
     np.testing.assert_allclose(ref_load(path).predict(X), ours,
@@ -167,7 +167,7 @@ def test_port_trained_artifact_loads_in_the_reference(name, tmp_path):
     np.testing.assert_array_equal(load(path, device="cpu").predict(X), ours)
 
     ref_model = ref_from_definition(config)
-    ref_model.cross_validate(X, n_splits=3)["cv_duration_s"] = 0.0  # as build_model adds it
+    ref_model.cross_validate(X, n_splits=3)["cv_duration_s"] = 0.0  # as the build adds it
     ref_model.fit(X)
     assert set(metadata["model"]) == {"model_config", "model_builder_metadata",
                                       "cross_validation", "model_training_duration_s",
