@@ -10,18 +10,22 @@ Phases; any failure exits non-zero before the result line:
    (one ``nvcc`` per source, all started together);
 2. each kernel (the fp32 one of ``csrc/flash_fwd_f32.cu`` and the bf16 one
    of ``csrc/flash_fwd_bf16.cu``) against its plain PyTorch version on the
-   card, at the slice shape and the edge shapes of ``CHECK_SHAPES``; then,
+   card, at the slice shape and the edge shapes of ``CHECK_SHAPES``, the
+   fp32 one also at the training step's and the fleet build's shapes
+   (``FWD_F32_PATH_SHAPES``; each plain version runs over BH slices); then,
    at the slice shape, its time, the plain version's time and one PyTorch
    library call's time as a yardstick: SDPA on the 4-D view with its fused
    backend forced and named (timed only; the port never calls it). The
    backward (``csrc/flash_bwd_f32.cu`` and ``csrc/flash_bwd_bf16.cu``)
    against ``flash_bwd_reference`` at ``CHECK_SHAPES``, the training shape
-   (16384, 179, 64) and ``LONG_SHAPES`` (the walk past the resident
+   (16384, 179, 64), the fleet build's stacked step (32768, 179, 64) and
+   ``LONG_SHAPES`` (the walk past the resident
    length), with and without an lse cotangent (max |Δ| of dq, dk, dv each
    against ``bwd_atol``), two launches at the training shape bit-identical;
    then its time, the plain version's, the
    library backward's (``torch.autograd.grad`` of that SDPA call, the
-   backward alone) and its bound, at the slice and the training shapes;
+   backward alone) and its bound, at the slice shape, the fleet build's
+   stacked step (32768, 179, 64) and the training shape;
 3. the main path: a full-width long-window PatchTST anomaly machine
    (d_model 512, 8 heads, 3 layers, 64 tags, lookback 1440 = 179 patches,
    random weights from a seed in the flax layout, scalers fitted on seeded
@@ -125,7 +129,24 @@ Phases; any failure exits non-zero before the result line:
    a W = 16 response within SERVE_RTOL of the CPU plain path. Printed: each
    build's wall by phase, the joined rows, the build's peak device memory,
    the cache hit's wall, the commit's wall, the generation's bytes, and
-   the flash launches.
+   the flash launches;
+10. the fleet build (``phase_fleet_build``): ``python -m
+   gordo_components_tpu_torch.cli fleet-build`` of one fleet config
+   (``FLEET_BUILD``: 100 dense AEs at 10 tags, 864 rows, 3 folds in one
+   stack of 400 fits; 32 LSTM AEs at 50 tags, 432 rows, 2 folds; the slice
+   machine twice, ``TRAIN_ROWS`` rows, 1 fold, ``cv_parallel`` false, so
+   two sequential stacks of two) in a fresh process: 134 machines
+   committed with registry keys and journal records, the PatchTST bucket
+   through the fp32 flash kernels once per layer per step for both
+   machines (``fleet_flash_launches``); the same command again resolves
+   every machine cached with no launch; the port's server on the output
+   root answers two machines of each bucket within SERVE_RTOL of each
+   one's own predict on the card; the PatchTST machines fitted alone at
+   M = 1 from the same initial parameters and permutations match the
+   stacked build (losses within TRAIN_RTOL, thresholds within
+   ``FLEET_THRESHOLD_RTOL``). Printed: the process wall, machines per
+   hour, each bucket's slice wall, the peak device memory, the launches,
+   the generations, the cache hit's wall.
 
 The line before last is ``nvidia-smi``'s name and power limit; the one
 before that the kernels' JSON record; the last line is the result.
@@ -323,10 +344,35 @@ REPLACES = {  # the TPU kernel each replaces
 NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
 # the backward at the training step's shape (batch 32 x 64 tags x 8 heads)
 TRAIN_SHAPE = (32 * N_TAGS * SLICE["n_heads"], SLICE_SHAPE[1], SLICE_SHAPE[2])
+# the fleet build's PatchTST step (phase 10): two machines stacked, BH = 2 x 16384
+# (the same shape as FUSED_SHAPE)
+FLEET_TRAIN_SHAPE = (2 * TRAIN_SHAPE[0], *TRAIN_SHAPE[1:])
+# the fleet build's PatchTST predict chunks (phase 10): 128 windows (four
+# batches of 32) per machine, the two machines stacked, and one machine
+# alone (the M = 1 fits that phase 10 holds the stack to)
+FLEET_PREDICT_SHAPE = (2 * 128 * N_TAGS * SLICE["n_heads"], *TRAIN_SHAPE[1:])
+ALONE_PREDICT_SHAPE = (FLEET_PREDICT_SHAPE[0] // 2, *TRAIN_SHAPE[1:])
+# the fp32 forward is also held at its training and fleet shapes: a step of
+# one machine (phases 8, 9 and the M = 1 fits), of the stacked two and the
+# predict chunks; bf16 runs at none of them
+FWD_F32_PATH_SHAPES = [TRAIN_SHAPE, FLEET_TRAIN_SHAPE, ALONE_PREDICT_SHAPE, FLEET_PREDICT_SHAPE]
+# the plain versions run over BH slices of this many sequences, so that their
+# float32 S x S matrices stay near 2 GiB each at S = 179 (sequences are
+# independent: the slices compute the same numbers)
+PLAIN_BH = 16384
 # sequences past what a backward block holds at once (192 rows at D <= 64,
 # 64 above in fp32; three key tiles at D <= 64, two above in bf16): the
 # block walks them in chunks, summing across chunks in memory only it writes
 LONG_SHAPES = [(64, 700, 64), (64, 700, 128)]
+
+
+def plain_in_slices(torch, fn, *tensors) -> tuple:
+    """``fn`` over PLAIN_BH slices of the ``(BH, ...)`` tensors (None passes
+    through), its outputs concatenated along BH."""
+    bh = tensors[0].shape[0]
+    parts = [fn(*(None if t is None else t[i:i + PLAIN_BH] for t in tensors))
+             for i in range(0, bh, PLAIN_BH)]
+    return tuple(torch.cat(p) for p in zip(*parts))
 
 
 def phase_kernels(torch, device) -> dict:
@@ -350,7 +396,8 @@ def phase_kernels(torch, device) -> dict:
         q, k, v = qkv(shape, dtype)
         scale = shape[-1] ** -0.5
         out, lse = launch(q, k, v, scale)
-        ref_out, ref_lse = flash_fwd_reference(q, k, v, scale)
+        ref_out, ref_lse = plain_in_slices(
+            torch, lambda *t: flash_fwd_reference(*t, scale), q, k, v)
         torch.cuda.synchronize()
         atol = FP32_ATOL if dtype == torch.float32 else bf16_atol(ref_out)
         err = (out.float() - ref_out.float()).abs().max().item()
@@ -364,8 +411,11 @@ def phase_kernels(torch, device) -> dict:
     record = {}
     for name in FWD_KERNELS:
         dtype = getattr(torch, KERNELS[name][0])
-        errs = [check(name, _kernels.flash_fwd_cuda, shape, dtype) for shape in CHECK_SHAPES]
+        shapes = CHECK_SHAPES + (FWD_F32_PATH_SHAPES if name == "flash_fwd_f32" else [])
+        errs = [check(name, _kernels.flash_fwd_cuda, shape, dtype)
+                for shape in dict.fromkeys(shapes)]
         record[name] = {"max_abs_err": max(errs)}
+        torch.cuda.empty_cache()
     # the bf16 kernel's first build-up step (one warpgroup, one stage)
     for shape in (SLICE_SHAPE, (5, 300, 128)):
         check("flash_fwd_bf16 single-stage step", _kernels.flash_fwd_bf16_single_stage,
@@ -399,14 +449,22 @@ def phase_kernels(torch, device) -> dict:
         record[name].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, library=library,
                             **bound)
         del q, k, v
-        q, k, v = qkv(FUSED_SHAPE, dtype)
-        fused_ms = timed_ms(lambda: _kernels.flash_fwd_cuda(q, k, v, scale))
-        fused_bound = attention_bound(*FUSED_SHAPE, dtype)
-        print(f"{name} {FUSED_SHAPE}: kernel {fused_ms:.4f} ms, bound "
-              f"{fused_bound['bound_ms']:.4f} ms ({fused_bound['bound_by']}), "
-              f"{100 * fused_bound['bound_ms'] / fused_ms:.1f} % of bound")
-        del q, k, v
-    torch.cuda.empty_cache()
+        # the fused dispatch and fleet step; the fp32 predict chunks, with the
+        # library beside them (the plain version would need ~70 GiB there)
+        for shape in [FUSED_SHAPE] + ([ALONE_PREDICT_SHAPE, FLEET_PREDICT_SHAPE]
+                                      if name == "flash_fwd_f32" else []):
+            q, k, v = qkv(shape, dtype)
+            shape_ms = timed_ms(lambda: _kernels.flash_fwd_cuda(q, k, v, scale))
+            library_text = ""
+            if shape != FUSED_SHAPE:
+                library, shape_library_ms = time_library(torch, F, q, k, v, scale)
+                library_text = f", sdpa {library} {shape_library_ms:.4f} ms"
+            shape_bound = attention_bound(*shape, dtype)
+            print(f"{name} {shape}: kernel {shape_ms:.4f} ms{library_text}, bound "
+                  f"{shape_bound['bound_ms']:.4f} ms ({shape_bound['bound_by']}), "
+                  f"{100 * shape_bound['bound_ms'] / shape_ms:.1f} % of bound")
+            del q, k, v
+            torch.cuda.empty_cache()
     record.update(phase_kernels_bwd(torch, device))
     return record
 
@@ -452,7 +510,8 @@ def time_library_bwd(torch, F, q, k, v, do, scale: float):
 def phase_kernels_bwd(torch, device) -> dict:
     """The flash backward (csrc/flash_bwd_f32.cu, csrc/flash_bwd_bf16.cu)
     against flash_bwd_reference on the card, from the plain forward's saved
-    out and lse, at CHECK_SHAPES, the training shape and LONG_SHAPES, with
+    out and lse, at CHECK_SHAPES, the training and fleet step shapes and
+    LONG_SHAPES (the plain version over PLAIN_BH slices), with
     and without an lse cotangent, in both dtypes; two launches at the
     training shape bit-identical (no atomics, a fixed order of sums); then
     its time beside the plain version's, the library backward's and the
@@ -470,19 +529,22 @@ def phase_kernels_bwd(torch, device) -> dict:
     def inputs(shape, dtype):
         q, k, v, do = [(0.5 * torch.randn(shape, generator=gen, device=device)).to(dtype)
                        for _ in range(4)]
-        out, lse = flash_fwd_reference(q, k, v, shape[-1] ** -0.5)
+        out, lse = plain_in_slices(
+            torch, lambda *t: flash_fwd_reference(*t, shape[-1] ** -0.5), q, k, v)
         return q, k, v, out, lse, do
 
     record = {}
     for name in BWD_KERNELS:
         dtype = getattr(torch, KERNELS[name][0])
         worst = 0.0
-        for shape in CHECK_SHAPES + [TRAIN_SHAPE] + LONG_SHAPES:
+        for shape in dict.fromkeys(CHECK_SHAPES + [TRAIN_SHAPE, FLEET_TRAIN_SHAPE] + LONG_SHAPES):
             q, k, v, out, lse, do = inputs(shape, dtype)
             scale = shape[-1] ** -0.5
             for dlse in (None, torch.randn(shape[:2], generator=gen, device=device)):
                 grads = _kernels.flash_bwd_cuda(q, k, v, out, lse, do, scale, dlse)
-                plain = flash_bwd_reference(q, k, v, out, lse, do, scale, dlse)
+                plain = plain_in_slices(
+                    torch, lambda *t: flash_bwd_reference(*t[:6], scale, t[6]),
+                    q, k, v, out, lse, do, dlse)
                 torch.cuda.synchronize()
                 errs = [(g.float() - r.float()).abs().max().item() for g, r in zip(grads, plain)]
                 atols = [bwd_atol(r) for r in plain]
@@ -508,8 +570,9 @@ def phase_kernels_bwd(torch, device) -> dict:
         del q, k, v, out, lse, do, dlse, first, second
         torch.cuda.empty_cache()
         record[name] = {"max_abs_err": worst}
-        # times, in turns: kernel, plain, library, kernel; the training shape last
-        for shape in (SLICE_SHAPE, TRAIN_SHAPE):
+        # times, in turns: kernel, plain, library, kernel; the training shape
+        # last (its numbers are the kernels line's), the fleet step's before it
+        for shape in (SLICE_SHAPE, FLEET_TRAIN_SHAPE, TRAIN_SHAPE):
             q, k, v, out, lse, do = inputs(shape, dtype)
             scale = shape[-1] ** -0.5
             ms_first = timed_ms(lambda: _kernels.flash_bwd_cuda(q, k, v, out, lse, do, scale))
@@ -2304,6 +2367,276 @@ def phase_cli_build(torch, device, tmp: str) -> dict:
     return {n: built[n] + int8_launches[n] + served[n] for n in KERNELS}
 
 
+# phase 10: one fleet config, three buckets at the widths of bench.py's
+# configs and the slice machine: name -> (machines, estimator, kwargs, tags,
+# joined rows, evaluation)
+FLEET_BUILD = {
+    "dense": (100, "DenseAutoEncoder", dict(kind="feedforward_hourglass", batch_size=64,
+                                            epochs=2), 10, 864, {"n_splits": 3}),
+    "lstm": (32, "LSTMAutoEncoder", dict(kind="lstm_symmetric", dims=[32], lookback_window=24,
+                                         batch_size=64, epochs=2), 50, 432, {"n_splits": 2}),
+    "patchtst": (2, "PatchTSTAutoEncoder", dict(kind="patchtst", lookback_window=LOOKBACK,
+                                                attention_impl="flash", batch_size=32, epochs=1,
+                                                **SLICE),
+                 N_TAGS, TRAIN_ROWS, {"n_splits": 1, "cv_parallel": False}),
+}
+FLEET_BUILD_SERVED = 2  # machines per bucket asked over HTTP
+# stacked vs one machine at a time on the card: the same arithmetic but for
+# the order of the batched GEMMs' sums; thresholds are 99th percentiles of
+# residuals scaled by the same fits
+FLEET_THRESHOLD_RTOL = 1e-4
+
+
+def fleet_build_config() -> dict:
+    """The phase's fleet config: every machine a TimeSeriesDataset of
+    RandomDataProvider series at 10 minutes (``data_config``), its own
+    seed, in the reference's canonical detector config."""
+    machines = []
+    for bucket, (count, estimator, kwargs, tags, rows, evaluation) in FLEET_BUILD.items():
+        for i in range(count):
+            machines.append({
+                "name": f"{bucket}-{i:03d}",
+                "model": {"DiffBasedAnomalyDetector": {"base_estimator": {
+                    "TransformedTargetRegressor": {
+                        "regressor": {"Pipeline": {"steps": ["MinMaxScaler",
+                                                             {estimator: kwargs}]}},
+                        "transformer": "MinMaxScaler"}}}},
+                "dataset": data_config(tags, rows, SEED + 100 + len(machines)),
+                "evaluation": dict(evaluation),
+            })
+    return {"project-name": "chip-smoke-fleet", "machines": machines}
+
+
+def fleet_flash_launches(rows: int) -> dict:
+    """The PatchTST bucket's flash launches: (K+1) = 2 sequential stacked
+    fits, 3 forward and 3 backward launches per step, then 3 forward per
+    predict chunk (4 batches of windows per chunk when the step count
+    allows, as the program widens them)."""
+    batch = FLEET_BUILD["patchtst"][2]["batch_size"]
+    steps = -(-(rows - LOOKBACK + 1) // batch)
+    chunks = steps // next(k for k in range(min(4, steps), 0, -1) if steps % k == 0)
+    fits, layers = 2, SLICE["n_layers"]
+    return {**NO_LAUNCHES, "flash_fwd_f32": fits * layers * (steps + chunks),
+            "flash_bwd_f32": fits * layers * steps}
+
+
+def stacking_check(torch, device, out: str, config: dict) -> None:
+    """Stacking is not an approximation: the PatchTST bucket's two machines
+    fitted one at a time at M = 1 on the card, through the same program,
+    from the initial parameters and permutations their keys drew in the
+    stacked build (injected), against the committed artifacts."""
+    import importlib
+
+    from gordo_components_tpu_torch.models.analysis import analyze_model
+    from gordo_components_tpu_torch.parallel import FleetMachineConfig, fleet
+    from gordo_components_tpu_torch.serializer import load, load_metadata, pipeline_from_definition
+
+    builder = importlib.import_module("gordo_components_tpu_torch.parallel.build_fleet")
+    entries = [m for m in config["machines"] if m["name"].startswith("patchtst-")]
+    meta = load_metadata(os.path.join(out, entries[0]["name"]))
+    bucket, slice_index = meta["model"]["fleet"]["bucket"], meta["model"]["fleet"]["slice"]
+    items = [{"machine": FleetMachineConfig(name=m["name"], model_config=m["model"],
+                                            data_config=m["dataset"]),
+              "dataset": builder._dataset_from_config(m["dataset"])} for m in entries]
+    X, y, w, n_rows, _ = builder._prepare_slice(items, len(items), N_TAGS, N_TAGS, False)
+    keys = builder.machine_seeds(0, bucket, slice_index, len(items))
+    spec = builder._spec_for(analyze_model(pipeline_from_definition(entries[0]["model"])),
+                             N_TAGS, N_TAGS, 1, cv_parallel=False)
+    params0 = fleet.initial_params(spec.module, keys)
+    batch = spec.batch_size
+    padded = -(-(n_rows - LOOKBACK + 1) // batch) * batch
+
+    def timed_fit(m: slice, perms) -> tuple:
+        """One train_fleet_arrays call over machines ``m``: (result, wall s,
+        peak GiB, the allocator's retries: cudaFree-and-retry rounds)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+        started = time.perf_counter()
+        result = fleet.train_fleet_arrays(
+            spec, fleet.MachineBatch(X[m], y[m], w[m], keys[m]), device=device,
+            params0={n: v[m] for n, v in params0.items()}, perms=perms)
+        torch.cuda.synchronize()
+        return (result, time.perf_counter() - started, torch.cuda.max_memory_allocated() / 2**30,
+                torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries)
+
+    def drawn_perms(key: int) -> list:
+        return [[torch.randperm(padded, generator=gen) for _ in range(spec.epochs)]
+                for gen in (fleet.fit_generator(key, 2), fleet.fit_generator(key, 1))]
+
+    for m, entry in enumerate(entries):
+        alone, wall, peak, retries = timed_fit(slice(m, m + 1), [drawn_perms(int(keys[m]))])
+        built = load(os.path.join(out, entry["name"]), device="cpu")
+        history = analyze_model(built).estimator.history_
+        ref_history = alone.loss_history[0].cpu().numpy()
+        loss_rel = np.abs(np.asarray(history) - ref_history).max() / np.abs(ref_history).max()
+        thresholds = np.append(built.tag_thresholds_, built.total_threshold_)
+        ref_thresholds = np.append(alone.tag_thresholds[0].cpu().numpy(),
+                                   alone.total_threshold[0].item())
+        thr_rel = (np.abs(thresholds - ref_thresholds)
+                   / np.maximum(np.abs(ref_thresholds), 1e-6)).max()
+        print(f"fleet build stacking: {entry['name']} alone at M=1 in {wall:.2f} s, peak "
+              f"{peak:.2f} GiB, allocator retries {retries}, loss {ref_history.tolist()} vs "
+              f"stacked {history}: {loss_rel:.3g} (limit {TRAIN_RTOL}); thresholds "
+              f"{thr_rel:.3g} (limit {FLEET_THRESHOLD_RTOL})")
+        if not np.isfinite(ref_history).all() or loss_rel > TRAIN_RTOL \
+                or thr_rel > FLEET_THRESHOLD_RTOL:
+            fail(f"fleet build: {entry['name']} stacked departs from the M=1 fit "
+                 f"(loss {loss_rel:.3g}, thresholds {thr_rel:.3g})")
+        del alone, built
+        torch.cuda.empty_cache()
+
+
+def probe_stacked_gradients(torch, device) -> None:
+    """The fleet program's design probe on this card's torch:
+    ``torch.func.grad`` of a function through ``gordo::flash_fwd``
+    (reported either way), and the design itself: the forward mapped with
+    ``torch.func.vmap`` over two stacked machines, one ``autograd.grad`` of
+    the summed losses, against each machine's own gradient (must agree:
+    the stack folds into one launch at twice the BH, each sequence computed
+    as alone)."""
+    from gordo_components_tpu_torch.ops.flash_attention import flash_fwd
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 12)
+    q, k, v = (torch.randn(2, 4, 200, 16, generator=gen, device=device) for _ in range(3))
+
+    def loss(q, k, v):
+        return flash_fwd(q, k, v, 0.25)[0].square().sum()
+
+    try:
+        torch.func.grad(loss)(q[0], k[0], v[0])
+        answer = "works"
+    except Exception as exc:  # the answer is the finding
+        answer = f"fails: {type(exc).__name__}: {str(exc).splitlines()[0][:160]}"
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    grads = torch.autograd.grad(torch.func.vmap(loss)(*leaves).sum(), leaves)
+    worst, scale = 0.0, max(g.abs().max().item() for g in grads)
+    for m in range(2):
+        own = [t[m].clone().requires_grad_() for t in (q, k, v)]
+        for a, b in zip(grads, torch.autograd.grad(loss(*own), own)):
+            worst = max(worst, (a[m] - b).abs().max().item())
+    print(f"fleet probe (torch {torch.__version__}): torch.func.grad through gordo::flash_fwd "
+          f"{answer}; vmapped forward + one autograd.grad vs per-machine grads: max |diff| "
+          f"{worst:.3g} of max |grad| {scale:.3g}")
+    if worst > 1e-6 * scale:
+        fail(f"fleet probe: stacked gradients differ from per-machine ones by {worst:.3g}")
+
+
+def phase_fleet_build(torch, device, tmp: str) -> dict:
+    """``python -m gordo_components_tpu_torch.cli fleet-build`` of
+    FLEET_BUILD's 134 machines on the card in one fresh process: every
+    machine committed (a generation, a registry key, a journal record), the
+    PatchTST bucket through both fp32 flash kernels once per layer per step
+    for its two machines together; the same command again resolves every
+    machine cached with no launch; the port's server on the output root
+    answers two machines of each bucket within SERVE_RTOL of each one's own
+    predict on the card; the PatchTST machines fitted alone match the
+    stacked build. Returns the launches of the build and the requests."""
+    from gordo_components_tpu_torch.ops import _kernels
+    from gordo_components_tpu_torch.serializer import load, load_metadata
+    from gordo_components_tpu_torch.server.server import make_server
+    from gordo_components_tpu_torch.store.generations import list_generations
+
+    probe_stacked_gradients(torch, device)
+    # the CLI process needs ~71 GiB of the card: this one must hold nothing
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"fleet build: this process holds {torch.cuda.memory_reserved() / 2**30:.2f} GiB "
+          f"of the card before the build")
+    out = os.path.join(tmp, "fleet-out")
+    registry = os.path.join(tmp, "fleet-registry")
+    config = fleet_build_config()
+    config_path = os.path.join(tmp, "fleet.json")
+    with open(config_path, "w") as fh:
+        json.dump(config, fh)
+    names = [m["name"] for m in config["machines"]]
+    args = ["fleet-build", "--machine-config", config_path, "--output-dir", out,
+            "--model-register-dir", registry]
+
+    lines, wall, built, peak = run_cli(tmp, *args)
+    results = json.loads("\n".join(lines))
+    with open(os.path.join(out, "fleet_manifest.json")) as fh:
+        manifest = json.load(fh)
+    generations = sum(len(list_generations(os.path.join(out, n))) for n in names)
+    metas = {n: load_metadata(os.path.join(out, n)) for n in names}
+    walls = {}
+    for bucket in FLEET_BUILD:
+        fleet_meta = metas[f"{bucket}-000"]["model"]["fleet"]
+        walls[bucket] = (fleet_meta["bucket"], fleet_meta["slice_duration_s"],
+                         fleet_meta["cv_parallel"])
+    rows = max(metas[n]["dataset"]["x_shape"][0] for n in names if n.startswith("patchtst"))
+    expected = fleet_flash_launches(rows)
+    print(f"fleet build: {len(results)} machines in {wall:.2f} s in the process "
+          f"({3600 * len(results) / wall:.0f} machines per hour), peak device memory "
+          f"{peak / 2**30:.2f} GiB, {generations} generations, flash launches {built} "
+          f"(expected {expected}); per bucket (index, slice wall s with its fetch, cv_parallel): "
+          f"{json.dumps(walls)}; manifest journal {manifest.get('journal')}")
+    if (sorted(results) != sorted(names) or generations != len(names)
+            or manifest.get("journal") != {"resumed": 0, "torn": 0, "rebuilt": len(names)}
+            or len(os.listdir(registry)) != len(names)):
+        fail(f"fleet build: {len(results)} results, {generations} generations, manifest "
+             f"{manifest.get('journal')}, {len(os.listdir(registry))} registry keys")
+    if built != expected:
+        fail(f"fleet build: launches {built}, expected {expected}")
+    for name in names:
+        detector = metas[name]["model"]["model_builder_metadata"]
+        history = re.findall(r'"loss": \[([^\]]*)\]', json.dumps(detector))
+        losses = [float(v) for v in history[0].split(",")] if history else []
+        if (not np.isfinite(detector["tag_thresholds"]).all() or not losses
+                or not np.isfinite(losses).all()):
+            fail(f"fleet build: {name} has no finite thresholds or loss history")
+
+    lines, hit_wall, hit, _ = run_cli(tmp, *args)
+    with open(os.path.join(out, "fleet_manifest.json")) as fh:
+        hit_manifest = json.load(fh)
+    print(f"fleet build again: {hit_wall:.2f} s, journal {hit_manifest.get('journal')}, "
+          f"launches {hit}")
+    if json.loads("\n".join(lines)) != results or any(hit.values()) or hit_manifest.get(
+            "journal") != {"resumed": len(names), "torn": 0, "rebuilt": 0} or any(
+            len(list_generations(os.path.join(out, n))) != 1 for n in names):
+        fail("fleet build again: not every machine resolved cached")
+
+    rng = np.random.default_rng(SEED + 10)
+    httpd = make_server(out, port=0, device=device)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}/gordo/v0/project"
+    served = dict(NO_LAUNCHES)
+    try:
+        for bucket, (_, _, kwargs, tags, _, _) in FLEET_BUILD.items():
+            n_rows = kwargs.get("lookback_window", 1) + 143
+            for i in range(FLEET_BUILD_SERVED):
+                name = f"{bucket}-{i:03d}"
+                X = sensor_rows(rng, n_rows, tags)
+                _kernels.reset_launches()
+                status, payload, ms = post(f"{base}/{name}/anomaly/prediction", X)
+                for kernel in KERNELS:
+                    served[kernel] += _kernels.LAUNCHES[kernel]
+                if status != 200:
+                    fail(f"fleet build served {name}: HTTP {status}")
+                got = np.asarray(payload["data"]["model-output"], np.float64)
+                own = load(os.path.join(out, name), device=device)
+                ref = np.asarray(own.predict(X), np.float64)
+                del own
+                worst = np.abs(got - ref).max() / max(1.0, np.abs(ref).max())
+                total = np.asarray(payload["data"]["total-anomaly-score"])
+                print(f"fleet build served {name}: {n_rows} rows in {ms:.1f} ms, vs its own "
+                      f"predict on the card {worst:.3g} (limit {SERVE_RTOL})")
+                if got.shape != ref.shape or worst > SERVE_RTOL or not np.isfinite(total).all():
+                    fail(f"fleet build served {name}: output {got.shape} vs {ref.shape}, "
+                         f"{worst:.3g}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    per_request = {**NO_LAUNCHES, "flash_fwd_f32": SLICE["n_layers"] * FLEET_BUILD_SERVED}
+    if served != per_request:
+        fail(f"fleet build served: launches {served}, expected {per_request}")
+    torch.cuda.empty_cache()
+    stacking_check(torch, device, out, config)
+    return {n: built[n] + served[n] for n in KERNELS}
+
+
 def main() -> None:
     try:
         import torch
@@ -2329,8 +2662,9 @@ def main() -> None:
         trained_bf16 = phase_train_bf16(torch, device)
         phase_build(torch, device, tmp)
         built = phase_cli_build(torch, device, tmp)
+        fleet_built = phase_fleet_build(torch, device, tmp)
         for name in KERNELS:
-            launches[name] += trained[name] + trained_bf16[name] + built[name]
+            launches[name] += trained[name] + trained_bf16[name] + built[name] + fleet_built[name]
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -1,9 +1,9 @@
-"""The random, file and composite providers (the port's copy of
+"""The random, file, flaky and composite providers (the port's copy of
 ``gordo_components_tpu/dataset/data_provider/providers.py:33-148,
-307-347``), in numpy.
+252-347``), in numpy.
 
-The influx, NCS, IROC, data-lake and flaky providers of the reference are
-not ported: a config naming one raises ``ValueError``.
+The influx, NCS, IROC and data-lake providers of the reference are not
+ported: a config naming one raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -222,6 +222,47 @@ class FileDataProvider(GordoBaseDataProvider):
             yield tag.name, ns[keep], values[keep]
 
 
+class FlakyDataProvider(GordoBaseDataProvider):
+    """Fault injection for tests: delegates to ``provider`` (a
+    :class:`RandomDataProvider` of ``provider_kwargs`` by default) but
+    raises ``IOError`` after ``fail_after`` yielded series, on each of its
+    first ``fail_times`` calls; it exercises the builders' retries and
+    resume without a real outage."""
+
+    def __init__(self, provider: Any = None, fail_after: int = 1, fail_times: int = 1,
+                 **provider_kwargs: Any):
+        if provider is None:
+            provider = RandomDataProvider(**provider_kwargs)
+        elif isinstance(provider, dict):
+            provider = GordoBaseDataProvider.from_dict(provider)
+        self.provider = provider
+        self.fail_after = fail_after
+        self.fail_times = fail_times
+        self._failures = 0
+        self._init_kwargs = {"provider": provider.to_dict(), "fail_after": fail_after,
+                             "fail_times": fail_times}
+
+    def can_handle_tag(self, tag: SensorTag) -> bool:
+        return self.provider.can_handle_tag(tag)
+
+    def load_series(
+        self,
+        train_start_date: datetime,
+        train_end_date: datetime,
+        tag_list: List[SensorTag],
+        dry_run: bool = False,
+    ) -> Iterable[Series]:
+        yielded = 0
+        for series in self.provider.load_series(train_start_date, train_end_date, tag_list,
+                                                dry_run=dry_run):
+            if self._failures < self.fail_times and yielded >= self.fail_after:
+                self._failures += 1
+                raise IOError(f"Injected provider failure after {yielded} series "
+                              f"(failure {self._failures}/{self.fail_times})")
+            yielded += 1
+            yield series
+
+
 class CompositeDataProvider(GordoBaseDataProvider):
     """Each tag from the first sub-provider that can handle it; runs of
     consecutive tags that share a provider go in one ``load_series``."""
@@ -262,10 +303,10 @@ class CompositeDataProvider(GordoBaseDataProvider):
 
 # the closed table ``GordoBaseDataProvider.from_dict`` resolves through
 PROVIDERS = {
-    cls.__name__: cls for cls in (RandomDataProvider, FileDataProvider, CompositeDataProvider)
+    cls.__name__: cls for cls in (RandomDataProvider, FileDataProvider, FlakyDataProvider,
+                                  CompositeDataProvider)
 }
-NOT_PORTED = ("InfluxDataProvider", "FlakyDataProvider", "NcsReader", "IrocReader",
-              "DataLakeProvider")
+NOT_PORTED = ("InfluxDataProvider", "NcsReader", "IrocReader", "DataLakeProvider")
 PROVIDER_MODULES = (
     "gordo_components_tpu.dataset.data_provider",
     "gordo_components_tpu.dataset.data_provider.providers",

@@ -45,7 +45,8 @@ from torch import nn
 
 from ...ops.attention import dense_attention
 from ...ops.flash_attention import flash_attention
-from ..modules import activation, dropout, dropout_generator, linear, resolve_dtype
+from ..modules import (KeyStream, activation, dropout, dropout_generator, linear,
+                       replay_generator, resolve_dtype)
 from ..register import register_model_factory
 from .spec import ModelSpec, make_optimizer
 
@@ -84,7 +85,7 @@ class MultiHeadSelfAttention(nn.Module):
         self.out = nn.Linear(d_model, d_model)
 
     def forward(
-        self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+        self, x: torch.Tensor, generator: Optional[KeyStream] = None
     ) -> torch.Tensor:
         qkv = linear(x, self.qkv).unflatten(-1, (3, self.n_heads, self.head_dim))
         q, k, v = qkv.unbind(dim=-3)  # each (..., seq, heads, head_dim)
@@ -114,7 +115,7 @@ class TransformerEncoderLayer(nn.Module):
         self.ff2 = nn.Linear(ff_dim, d_model)
 
     def forward(
-        self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+        self, x: torch.Tensor, generator: Optional[KeyStream] = None
     ) -> torch.Tensor:
         h = self.attn(_layer_norm(x, self.norm1), generator)
         x = x + dropout(h, self.dropout_rate, generator)
@@ -169,7 +170,7 @@ class PatchTSTModule(nn.Module):
         )
 
     def forward(
-        self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+        self, x: torch.Tensor, generator: Optional[KeyStream] = None
     ) -> torch.Tensor:
         batch, window, n_features = x.shape
         if window != self.lookback_window or n_features != self.n_features:
@@ -201,8 +202,7 @@ class PatchTSTModule(nn.Module):
 
     @staticmethod
     def _run_layer(layer, h, generator):
-        if generator is not None:  # a recompute starts from the layer's own seed
-            generator = torch.Generator().manual_seed(generator.initial_seed())
+        generator = replay_generator(generator)  # a recompute starts from the layer's own seed
         return layer(h, generator)
 
 

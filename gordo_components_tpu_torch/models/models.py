@@ -14,8 +14,9 @@ one shuffled pass over the (padded) rows per epoch; windowed models train
 on window START indices and gather each batch's windows from the ``(n, F)``
 rows, never building the L×-larger window tensor. The draws differ: the
 port cannot draw ``jax.random``, so one ``torch.Generator(seed)`` on the
-CPU draws the initial parameters, every permutation and every dropout
-seed, the same on the card and the CPU. A port-trained model at seed s is
+CPU draws the initial parameters, every permutation and every step's
+dropout key, the same on the card and the CPU, and the masks hashed from
+a key are the same on both. A port-trained model at seed s is
 not the reference's model at seed s; it is one of the same distribution.
 
 An estimator has no device until :meth:`BaseTorchEstimator.to` is called;

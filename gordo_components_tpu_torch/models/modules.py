@@ -15,6 +15,7 @@ float32 under a bfloat16 compute dtype, as flax's does.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Optional, Sequence
 
 import torch
@@ -65,33 +66,80 @@ def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
     return F.linear(x, layer.weight.to(x.dtype)) + layer.bias.to(x.dtype)
 
 
-def _seed(generator: torch.Generator) -> int:
-    return int(torch.randint(0, 2**62, (), generator=generator))
+_MASK32 = 0xFFFFFFFF
 
 
-def dropout_generator(generator: Optional[torch.Generator]) -> Optional[torch.Generator]:
-    """A fresh CPU generator seeded from ``generator`` (None stays None): a
-    block that must draw the same masks again (an encoder layer recomputed
-    under ``remat``) takes one of these and never ``generator`` itself."""
-    return None if generator is None else torch.Generator().manual_seed(_seed(generator))
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer hash (``lowbias32``) of int64 tensors holding
+    32-bit values; products are cut back to 32 bits, so int64 wrap-around
+    never changes the result."""
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _MASK32
+    x = x ^ (x >> 15)
+    x = (x * 0x846CA68B) & _MASK32
+    return x ^ (x >> 16)
 
 
-def dropout(
-    x: torch.Tensor, rate: float, generator: Optional[torch.Generator]
-) -> torch.Tensor:
+class KeyStream:
+    """Dropout masks as a pure function of an integer ``key`` tensor: the
+    ``generator`` every model takes. A fit draws one key per step from its
+    ``torch.Generator`` (``models/train.py``); under ``torch.func.vmap``
+    over a stack of fits (``parallel/fleet.py``) the key is a per-fit
+    tensor, where a ``torch.Generator`` could not be drawn from. Each mask
+    hashes (key, draw counter, element index), so every fit of a stack,
+    whose key differs, draws its own mask; the same key draws the same
+    masks again, on the card and on the CPU alike. Neither gives flax's
+    bits: only the distribution is the reference's."""
+
+    def __init__(self, key: torch.Tensor, counter: int = 0):
+        self.key = key
+        self.start = counter
+        self.counter = counter
+
+    def _next(self) -> torch.Tensor:
+        stream = _mix32((self.key + self.counter * 0x9E3779B9) & _MASK32)
+        self.counter += 1
+        return stream
+
+    def keep(self, shape: Sequence[int], rate: float, device: torch.device) -> torch.Tensor:
+        """A boolean mask of ``shape``, each element True with probability
+        ``1 - rate``."""
+        stream = self._next()
+        index = torch.arange(math.prod(shape), device=device, dtype=torch.int64).reshape(shape)
+        bits = _mix32((index * 0x85EBCA6B + stream) & _MASK32)
+        return bits < int(round((1.0 - rate) * 2**32))
+
+    def fork(self) -> "KeyStream":
+        """A child stream, keyed by this stream's next draw."""
+        return KeyStream(self._next())
+
+    def replay(self) -> "KeyStream":
+        """The stream again from its start: the same masks in the same order."""
+        return KeyStream(self.key, self.start)
+
+
+def dropout_generator(generator: Optional[KeyStream]) -> Optional[KeyStream]:
+    """A child stream of ``generator`` (None stays None): a block that must
+    draw the same masks again (an encoder layer recomputed under ``remat``)
+    takes one of these and never ``generator`` itself."""
+    return None if generator is None else generator.fork()
+
+
+def replay_generator(generator: Optional[KeyStream]) -> Optional[KeyStream]:
+    """``generator`` restarted from its start (see :func:`dropout_generator`)."""
+    return None if generator is None else generator.replay()
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[KeyStream]) -> torch.Tensor:
     """flax ``nn.Dropout``: keep each element with probability ``1 - rate``
     and scale the kept ones by ``1 / (1 - rate)``; the identity when
     ``generator`` is None (flax's ``deterministic=True``) or ``rate`` is 0.
-    The mask is drawn on ``x``'s device by a generator seeded from the CPU
-    ``generator``: a fit draws the same seeds on the card and the CPU, but
-    the two devices' generators turn them into other masks, and neither
-    gives flax's bits: only the distribution is the reference's."""
+    The mask is hashed from ``generator`` on ``x``'s device."""
     if generator is None or rate <= 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
-    device_gen = torch.Generator(device=x.device).manual_seed(_seed(generator))
-    keep = torch.rand(x.shape, generator=device_gen, device=x.device) < 1.0 - rate
+    keep = generator.keep(x.shape, rate, x.device)
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -124,7 +172,7 @@ class DenseAutoencoderModule(nn.Module):
         self.dtype = resolve_dtype(compute_dtype)
 
     def forward(
-        self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+        self, x: torch.Tensor, generator: Optional[KeyStream] = None
     ) -> torch.Tensor:
         h = x.to(self.dtype)  # no dropout here (the reference has none)
         for layer, act in zip(self.layers, self.activations):
@@ -213,7 +261,7 @@ class LSTMModule(nn.Module):
         self.dtype = resolve_dtype(compute_dtype)
 
     def forward(
-        self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+        self, x: torch.Tensor, generator: Optional[KeyStream] = None
     ) -> torch.Tensor:
         h = x.to(self.dtype)
         for cell in self.cells:

@@ -12,7 +12,8 @@ optimizer step per mini-batch, with the reference's contract:
 - ``fit(params, X, y, w, generator, perms=None)`` takes the parameters as
   a dict of leaf tensors and updates them in place (optax returns new
   ones). ``generator`` is a CPU ``torch.Generator``: it draws each epoch's
-  permutation and every dropout seed. The port cannot draw ``jax.random``,
+  permutation and, with dropout, each step's mask key (a
+  :class:`.modules.KeyStream`). The port cannot draw ``jax.random``,
   so ``perms`` (one permutation per epoch) lets a caller give the
   reference's order instead.
 
@@ -31,10 +32,11 @@ import numpy as np
 import torch
 
 from .factories.spec import GradientTransformation, apply_updates
+from .modules import KeyStream
 
 Params = Dict[str, torch.Tensor]
-# apply_fn(params, x, dropout generator or None) -> predictions
-ApplyFn = Callable[[Params, torch.Tensor, Optional[torch.Generator]], torch.Tensor]
+# apply_fn(params, x, dropout KeyStream or None) -> predictions
+ApplyFn = Callable[[Params, torch.Tensor, Optional[KeyStream]], torch.Tensor]
 
 
 def _huber(diff: torch.Tensor, delta: float = 1.0) -> torch.Tensor:
@@ -138,8 +140,12 @@ def make_fit_fn(
             losses, wsums = [], []
             for start in range(0, n, batch_size):
                 idx = perm[start:start + batch_size]
+                masks = None
+                if use_dropout:
+                    key = torch.randint(0, 2**31, (), generator=generator)
+                    masks = KeyStream(key.to(X.device))
                 opt_state, batch_loss, wsum = batch_step(
-                    params, opt_state, (X[idx], y[idx], w[idx], generator)
+                    params, opt_state, (X[idx], y[idx], w[idx], masks)
                 )
                 losses.append(batch_loss)
                 wsums.append(wsum)

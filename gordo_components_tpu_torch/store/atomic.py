@@ -13,7 +13,9 @@ The commit sequence:
 A crash before step 5 leaves the destination untouched; a leftover
 ``.staging-*`` dir is inert debris for :func:`sweep_leftovers`. The
 ``name=`` parameter of :func:`atomic_commit` names the commit for the
-reference's ``store-commit`` fault seam, which the port does not have yet.
+``store-commit`` fault seam (:mod:`..resilience.faults`): an ``error`` fault
+fires before the manifest exists, ``truncate``/``bitflip`` damage a staged
+file after its hash was recorded.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from contextlib import contextmanager
 from typing import Iterator, Optional
 
 from ..observability.registry import REGISTRY
+from ..resilience import faults
 from .manifest import fsync_enabled, write_manifest
 
 logger = logging.getLogger(__name__)
@@ -88,30 +91,40 @@ def atomic_commit(
 ) -> Iterator[str]:
     """Yield a hidden staging dir; on a clean exit, manifest + fsync +
     rename it into ``dest_dir`` (replacing any existing dir). On an
-    exception the destination is untouched and the staging dir removed.
+    exception the destination is untouched and the staging dir removed,
+    except for an injected :class:`~..resilience.faults.FaultInjected`,
+    which stands for a kill and leaves the staging dir as a crash would.
 
-    ``name`` names the commit (the reference's fault-seam target;
-    defaults to the destination's basename). ``manifest``: a precomputed
+    ``name`` names the commit: the ``store-commit`` fault seam's target
+    (defaults to the destination's basename). ``manifest``: a precomputed
     payload, checked structurally against the staged files before it is
     written (see :func:`~.manifest.write_manifest`)."""
     dest_dir = os.path.abspath(dest_dir)
     parent = os.path.dirname(dest_dir)
     os.makedirs(parent, exist_ok=True)
+    target = name if name is not None else os.path.basename(dest_dir)
     staging = os.path.join(
         parent, f"{STAGING_PREFIX}{os.path.basename(dest_dir)}.{uuid.uuid4().hex[:8]}")
     os.makedirs(staging)
     try:
         yield staging
+        # a kill between "files written" and "commit": no manifest yet
+        faults.inject("store-commit", target)
         for entry in os.scandir(staging):
             if entry.is_file():
                 fsync_file(entry.path)
         write_manifest(staging, fsync=True, payload=manifest)
+        # damage a staged file after its hash was recorded: provably torn
+        faults.damage_artifact("store-commit", target, staging)
         fsync_dir(staging)
         commit_dir(staging, dest_dir)
         _M_COMMITS.labels("committed").inc()
+    except faults.FaultInjected:
+        _M_COMMITS.labels("aborted").inc()
+        raise  # a simulated kill: the staging dir stays, as after a crash
     except BaseException:
         _M_COMMITS.labels("aborted").inc()
-        logger.debug("Commit %s aborted", name or os.path.basename(dest_dir))
+        logger.debug("Commit %s aborted", target)
         shutil.rmtree(staging, ignore_errors=True)
         raise
 

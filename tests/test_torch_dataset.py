@@ -559,7 +559,7 @@ def test_from_dict_takes_every_spelling_of_the_type(type_name):
 @pytest.mark.parametrize("type_name,match", [
     ("InfluxDataProvider", "not ported"),
     ("gordo_components_tpu.dataset.data_provider.ncs_iroc.NcsReader", "not ported"),
-    ("gordo_components_tpu.dataset.data_provider.providers.FlakyDataProvider", "not ported"),
+    ("gordo_components_tpu.dataset.data_provider.providers.InfluxDataProvider", "not ported"),
     ("DataLakeProvider", "not ported"),
     ("IrocReader", "not ported"),
     ("os.path.join", "resolves"),

@@ -139,3 +139,40 @@ def test_an_edited_header_changes_every_library_that_includes_it(tmp_path, monke
     after = {name: _kernels.library_path(name) for name in _kernels.SOURCES}
     for name in _kernels.SOURCES:
         assert (after[name] != before[name]) == includes[name], name
+
+
+def test_fleet_shapes_are_the_fleet_builds():
+    """The fleet build's PatchTST bucket (two slice machines, batch 32,
+    predict chunks of four batches): its step's BH, its stacked and lone
+    predict chunks' BH, all held in phase 2."""
+    assert chip_smoke.FLEET_TRAIN_SHAPE == chip_smoke.FUSED_SHAPE == (32768, 179, 64)
+    assert chip_smoke.FLEET_PREDICT_SHAPE == (131072, 179, 64)
+    assert chip_smoke.ALONE_PREDICT_SHAPE == (65536, 179, 64)
+    assert chip_smoke.TRAIN_SHAPE in chip_smoke.FWD_F32_PATH_SHAPES
+
+
+@pytest.mark.parametrize("dlse", [False, True])
+def test_plain_in_slices_computes_the_whole_plain_version(monkeypatch, dlse):
+    """The plain forward and backward over BH slices give the unsliced
+    numbers (float32 on both sides, one sequence at a time either way),
+    with a slice that does not divide BH and an lse cotangent or none."""
+    from gordo_components_tpu_torch.ops.flash_attention import (
+        flash_bwd_reference,
+        flash_fwd_reference,
+    )
+
+    monkeypatch.setattr(chip_smoke, "PLAIN_BH", 3)
+    gen = torch.Generator().manual_seed(chip_smoke.SEED)
+    q, k, v, do = (torch.randn(7, 37, 8, generator=gen) for _ in range(4))
+    cot = torch.randn(7, 37, generator=gen) if dlse else None
+    scale = 8 ** -0.5
+    whole = flash_fwd_reference(q, k, v, scale)
+    sliced = chip_smoke.plain_in_slices(torch, lambda *t: flash_fwd_reference(*t, scale), q, k, v)
+    for a, b in zip(sliced, whole):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    out, lse = whole
+    whole = flash_bwd_reference(q, k, v, out, lse, do, scale, cot)
+    sliced = chip_smoke.plain_in_slices(
+        torch, lambda *t: flash_bwd_reference(*t[:6], scale, t[6]), q, k, v, out, lse, do, cot)
+    for a, b in zip(sliced, whole):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: no module of ``gordo_components_tpu_torch``,
-and not ``chip_smoke.py``, imports jax, flax, optax, sklearn, pandas, click
-or the JAX package; ``yaml`` and ``pyarrow`` are imported only inside the
+and not ``chip_smoke.py``, imports jax, flax, optax, orbax, sklearn, pandas,
+click or the JAX package; ``yaml`` and ``pyarrow`` are imported only inside the
 function that needs them, which names the package when it is missing; and
 every entry point runs on CUDA unless ``device="cpu"`` is passed — without
 a card it raises instead of quietly running on the CPU."""
@@ -18,8 +18,8 @@ torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "gordo_components_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "gordo_components_tpu", "sklearn", "pandas",
-             "click")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gordo_components_tpu", "sklearn",
+             "pandas", "click")
 # packages the card's machine may lack: imported lazily, where they are needed
 LAZY_ONLY = ("yaml", "pyarrow")
 
@@ -162,3 +162,45 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
     )
     assert result.returncode != 0
     assert '"ok": true' not in result.stdout
+
+
+def test_fleet_yaml_is_read_lazily_and_names_yaml_when_missing():
+    """Without yaml a fleet config given as a mapping or JSON still
+    normalizes; one given as YAML text raises naming the package."""
+    extra = """
+import pytest
+from gordo_components_tpu_torch.workflow import NormalizedConfig
+config = {"machines": [{"name": "m", "model": {"X": {}}, "dataset": {"tag_list": ["t"]}}]}
+assert NormalizedConfig(config).machines[0].name == "m"
+with pytest.raises(ValueError, match="'yaml'"):
+    NormalizedConfig("machines: []")
+"""
+    _import_everything(FORBIDDEN + ("pyarrow", "yaml"), extra)
+
+
+def test_fleet_entry_points_need_cuda_unless_cpu_is_asked(tmp_path, monkeypatch):
+    from gordo_components_tpu_torch.parallel import (
+        FleetMachineConfig,
+        MachineBatch,
+        build_fleet,
+        fleet_devices,
+        train_fleet_arrays,
+    )
+    from gordo_components_tpu_torch.cli import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fleet_devices()
+    assert fleet_devices("cpu") == [torch.device("cpu")]
+    machine = FleetMachineConfig(name="m", model_config={}, data_config={})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_fleet([machine], str(tmp_path))
+    batch = MachineBatch(np.zeros((1, 4, 2)), np.zeros((1, 4, 2)), np.ones((1, 4)), [0])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_fleet_arrays(None, batch)
+    fleet_file = tmp_path / "fleet.json"
+    fleet_file.write_text('{"machines": [{"name": "m", "model": {"DenseAutoEncoder": {}}, '
+                          '"dataset": {"tag_list": ["t"]}}]}')
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["fleet-build", "--machine-config", str(fleet_file), "--output-dir",
+                  str(tmp_path / "out")])

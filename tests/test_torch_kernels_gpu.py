@@ -16,7 +16,10 @@ bfloat16 compared in bfloat16 at ``chip_smoke.bf16_atol`` (4 units in the
 last place of the largest plain output, at most 2e-2); lse atol 1e-4,
 float32 on both sides from the same inputs. The kernels are built with
 ``CUDA_KERNEL_DEBUG=1``, so a pipeline fault fails its launch rather than
-hanging the card. The last two tests serve an int8 PatchTST machine on the
+hanging the card. A stacked fit of two tiny flash PatchTST machines (the
+fleet program) launches each flash kernel once per layer per step for both
+and equals each machine fitted alone (losses within 1e-5 relative,
+thresholds within 1e-4). The last two tests serve an int8 PatchTST machine on the
 card: one fp32 launch per layer, the CPU's int8 scores within
 ``chip_smoke.SERVE_RTOL``, and npz responses equal to JSON's in float32.
 """
@@ -293,6 +296,54 @@ def test_fit_on_the_card_matches_the_cpu(name, cuda_device):
     np.testing.assert_allclose(card.history_, cpu.history_, rtol=1e-4)
     got, ref = card.predict(X), cpu.predict(X)
     assert np.abs(got - ref).max() <= 1e-4 * max(1.0, np.abs(ref).max())
+
+
+@pytest.mark.gpu
+def test_stacked_flash_fleet_fit_on_the_card_equals_each_machine_alone(cuda_device):
+    """The fleet program on the card: two tiny PatchTST machines at 129
+    patches stacked (one flash forward and one flash backward launch per
+    layer per step for both, at BH = 2·B·tags·heads) against each machine
+    fitted alone at M = 1 from the same initial parameters and
+    permutations."""
+    import importlib
+
+    from gordo_components_tpu_torch.models.analysis import analyze_model
+    from gordo_components_tpu_torch.parallel import fleet
+    from gordo_components_tpu_torch.serializer import pipeline_from_definition
+
+    builder = importlib.import_module("gordo_components_tpu_torch.parallel.build_fleet")
+    config = {"DiffBasedAnomalyDetector": {"base_estimator": {"TransformedTargetRegressor": {
+        "regressor": {"Pipeline": {"steps": ["MinMaxScaler", {"PatchTSTAutoEncoder": {
+            "lookback_window": 1040, "patch_length": 16, "stride": 8, "d_model": 16,
+            "n_heads": 2, "n_layers": 1, "attention_impl": "flash", "epochs": 1,
+            "batch_size": 8}}]}},
+        "transformer": "MinMaxScaler"}}}}
+    spec = builder._spec_for(analyze_model(pipeline_from_definition(config)), 3, 3, 1,
+                             cv_parallel=False)
+    rng = np.random.default_rng(17)
+    X = rng.normal(size=(2, 1071, 3)).astype(np.float32)
+    w = np.ones((2, 1071), np.float32)
+    w[1, :5] = 0
+    keys = np.array([3, 4])
+    params0 = fleet.initial_params(spec.module, keys)
+    before = dict(_kernels.LAUNCHES)
+    stacked = fleet.train_fleet_arrays(spec, fleet.MachineBatch(X, X, w, keys),
+                                       device=cuda_device, params0=params0)
+    torch.cuda.synchronize()
+    steps = 2 * -(-(1071 - 1040 + 1) // 8)  # a fold fit and the final fit
+    chunks = 2 * 1  # one predict chunk of 4 batches per fit
+    assert _kernels.LAUNCHES["flash_bwd_f32"] == before["flash_bwd_f32"] + steps
+    assert _kernels.LAUNCHES["flash_fwd_f32"] == before["flash_fwd_f32"] + steps + chunks
+    for m in range(2):
+        alone = fleet.train_fleet_arrays(
+            spec, fleet.MachineBatch(X[m:m + 1], X[m:m + 1], w[m:m + 1], keys[m:m + 1]),
+            device=cuda_device, params0={n: v[m:m + 1] for n, v in params0.items()})
+        np.testing.assert_allclose(stacked.loss_history[m:m + 1].cpu().numpy(),
+                                   alone.loss_history.cpu().numpy(), rtol=1e-5)
+        for field in ("tag_thresholds", "total_threshold"):
+            np.testing.assert_allclose(getattr(stacked, field)[m:m + 1].cpu().numpy(),
+                                       getattr(alone, field).cpu().numpy(), rtol=1e-4,
+                                       atol=1e-6)
 
 
 @pytest.mark.gpu
