@@ -146,7 +146,35 @@ Phases; any failure exits non-zero before the result line:
    stacked build (losses within TRAIN_RTOL, thresholds within
    ``FLEET_THRESHOLD_RTOL``). Printed: the process wall, machines per
    hour, each bucket's slice wall, the peak device memory, the launches,
-   the generations, the cache hit's wall.
+   the generations, the cache hit's wall;
+11. the request seams (``phase_seams``): one server on 24 ``dense_ae_10tag``
+   machines and 2 full-width PatchTST machines, under
+   ``GORDO_TENANTS=ops:interactive;batch:bulk;metered:standard:5:5``, with
+   a ``model-load`` error fault on one dense machine (quarantined at boot,
+   the fleet serving) and a 50 ms ``engine-dispatch`` latency fault on
+   another. The traffic of ``SEAMS_TRAFFIC`` (8 ``batch`` clients on
+   ``/bulk/anomaly/prediction``, an ``ops`` client on dense machines, one
+   on the PatchTST machines, a ``metered`` burst of 20) runs with the flight
+   recorder holding every request, then the identical request list with
+   the recorder off, then each distinct request alone with the recorder
+   off and on. Checked: every response equal to the CPU plain path within
+   SERVE_RTOL; recorder on and off give the same bytes wherever a request
+   dispatches alone (every PatchTST request, the serial replay) and, for a
+   dense request fused with other batch mates in the two runs, agree within
+   FUSED_RTOL; every
+   answered trace in ``/debug/requests``; a PatchTST timeline holds
+   ``SEAMS_STAGES``, admission + score + encode within its wall, and
+   dispatch + device_execute + fetch at least 3 x phase 2's
+   ``flash_fwd_f32`` ms, device_execute + fetch alone in the median;
+   ``?format=chrome`` parses; the ``gordo_stage_seconds`` exemplars of the
+   run name recorded traces; ``metered`` alone gets 429 + ``Retry-After``;
+   a fused dispatch of both PatchTST machines under ``torch.profiler`` has
+   the same kernels (3 ``flash_fwd_f32``) and synchronizes with the
+   recorder on and off; the slow machine's ``dispatch`` stage is at least
+   50 ms; the ledger directory holds the fault plan and the quarantine,
+   each valid. Printed with the card's name and power limit: req/s, p50
+   and p99 per class, the median stage breakdown of a dense and a PatchTST
+   request, recorder on against off.
 
 The line before last is ``nvidia-smi``'s name and power limit; the one
 before that the kernels' JSON record; the last line is the result.
@@ -2637,6 +2665,438 @@ def phase_fleet_build(torch, device, tmp: str) -> dict:
     return {n: built[n] + served[n] for n in KERNELS}
 
 
+# phase 11: the request seams. One server: 24 dense_ae_10tag machines (one
+# refused at load by a fault, one slowed at dispatch) and two full-width
+# PatchTST machines, under three tenants of three classes
+SEAMS_DENSE = [f"seam-dense-{i:03d}" for i in range(24)]
+SEAMS_PATCHTST = ["seam-patchtst-0", "seam-patchtst-1"]
+SEAMS_BROKEN = SEAMS_DENSE[-1]  # model-load:…:error
+SEAMS_SLOW = SEAMS_DENSE[-2]  # engine-dispatch:…:latency:0.05
+SEAMS_LATENCY = 0.05  # seconds
+SEAMS_TENANTS = "ops:interactive;batch:bulk;metered:standard:5:5"
+SEAMS_ROWS = 144  # a day of a dense machine at 10-minute resolution
+SEAMS_WINDOWS = 16  # windows of a PatchTST request
+# the traffic, (clients, requests each): 8 bulk clients, an interactive
+# client on dense machines, one on the PatchTST machines (its requests
+# dispatch alone), and a metered burst of 20 requests sent at once
+SEAMS_TRAFFIC = {"batch": (8, 160), "ops-dense": (1, 120), "ops-patchtst": (1, 60),
+                 "metered": (20, 1)}
+SEAMS_STAGES = ("admission", "queue_wait", "dispatch", "device_execute", "fetch", "score",
+                "encode")
+SEAMS_TOP_STAGES = ("admission", "score", "encode")  # they partition a request
+
+
+def seams_plan(rng) -> list:
+    """(plan, bodies, encoded): the plan lists each client's requests as
+    (tenant, class, path, machine, body key); the bodies (dense: 48
+    distinct 144-row bodies; PatchTST: one W = 16 body per machine) are
+    encoded once and shared by both runs."""
+    served = [m for m in SEAMS_DENSE if m != SEAMS_BROKEN]
+    bodies = {}
+    for i in range(48):
+        bodies[("dense", i)] = sensor_rows(rng, SEAMS_ROWS, ZOO["dense-ae-10tag"][2])
+    for name in SEAMS_PATCHTST:
+        bodies[(name, 0)] = sensor_rows(rng, LOOKBACK + SEAMS_WINDOWS - 1)
+    encoded = {key: json.dumps({"X": X.tolist()}).encode() for key, X in bodies.items()}
+    plan = []
+    threads, n = SEAMS_TRAFFIC["batch"]
+    for t in range(threads):
+        plan.append([("batch", "bulk", "bulk/anomaly/prediction", served[(t * n + i) % len(served)],
+                      ("dense", (t * n + i) % 48)) for i in range(n)])
+    plan.append([("ops", "interactive", "anomaly/prediction", served[(7 * i) % len(served)],
+                  ("dense", (5 * i) % 48)) for i in range(SEAMS_TRAFFIC["ops-dense"][1])])
+    plan.append([("ops", "interactive", "anomaly/prediction", SEAMS_PATCHTST[i % 2],
+                  (SEAMS_PATCHTST[i % 2], 0)) for i in range(SEAMS_TRAFFIC["ops-patchtst"][1])])
+    plan += [[("metered", "standard", "anomaly/prediction", served[i % len(served)],
+               ("dense", i))] for i in range(SEAMS_TRAFFIC["metered"][0])]
+    return plan, bodies, encoded
+
+
+def seams_run(base: str, plan: list, encoded: dict, run: str) -> dict:
+    """Every client of ``plan`` from its own thread, started together; each
+    request carries its own trace id (``<run><client><index>``, zero-padded).
+    Returns ({trace id: (client, index, status, headers, body, wall ms,
+    perf_counter at the answer)}, perf_counter at the start, the wall)."""
+    out, errors = {}, []
+    start = threading.Barrier(len(plan) + 1)
+
+    def client(c):
+        try:
+            start.wait(timeout=60)
+            for i, (tenant, _, path, machine, key) in enumerate(plan[c]):
+                trace_id = f"{run}{c:02d}{i:04d}".ljust(16, "0")
+                status, reply, raw, ms = http(
+                    "POST", f"{base}/gordo/v0/project/{machine}/{path}", encoded[key],
+                    {"X-Gordo-Tenant": tenant, "X-Gordo-Trace-Id": trace_id})
+                out[trace_id] = (c, i, status, reply, raw, ms, time.perf_counter())
+        except Exception as exc:  # noqa: BLE001 - reported below, fails the phase
+            errors.append(exc)
+
+    workers = [threading.Thread(target=client, args=(c,)) for c in range(len(plan))]
+    for w in workers:
+        w.start()
+    start.wait(timeout=60)
+    started = time.perf_counter()
+    for w in workers:
+        w.join(timeout=900)
+    wall = time.perf_counter() - started
+    if errors or any(w.is_alive() for w in workers):
+        fail(f"seams {run}: {errors[:3] or 'a client did not finish'}")
+    return out, started, wall
+
+
+def seams_classes(plan, results, started) -> dict:
+    """req/s (over the class's own span), p50 and p99 ms per class."""
+    by_class = {}
+    for trace_id, (c, i, status, _, _, ms, done) in results.items():
+        by_class.setdefault(plan[c][i][1], []).append((ms, done))
+    view = {}
+    for klass, rows in sorted(by_class.items()):
+        lat = np.asarray([ms for ms, _ in rows])
+        span = max(done for _, done in rows) - started
+        view[klass] = {"requests": len(rows), "req_per_s": len(rows) / span,
+                       "p50_ms": float(np.percentile(lat, 50)),
+                       "p99_ms": float(np.percentile(lat, 99))}
+    return view
+
+
+def profile_seams_dispatch(torch, engine, Xs: list, recorded: bool) -> tuple:
+    """One fused dispatch of both PatchTST machines under torch.profiler,
+    its requests' span contexts bound to a timeline (``recorded``) or to
+    none: (kernels by name with counts, synchronize calls, flash launches,
+    the outputs)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gordo_components_tpu_torch.observability import spans
+    from gordo_components_tpu_torch.ops import _kernels
+    from gordo_components_tpu_torch.server.engine import _Item
+
+    bucket, _ = engine._by_name[SEAMS_PATCHTST[0]]
+
+    def dispatch():
+        timeline = token = None
+        if recorded:
+            timeline, token = spans.begin("5eam5000profile0")
+        try:
+            items = []
+            for name, X in zip(SEAMS_PATCHTST, Xs):
+                x, m_valid = engine._prepare(bucket, X)
+                items.append(_Item(engine._by_name[name][1], x, m_valid))
+        finally:
+            if token is not None:
+                spans.end(token)
+        bucket._dispatch(items[0].x.shape[0], items, defer=False)
+        for it in items:
+            if not it.done.wait(600) or it.error is not None:
+                fail(f"seams: the profiled dispatch failed: {it.error}")
+        if recorded and {"dispatch", "device_execute", "fetch"} - set(timeline.stage_seconds()):
+            fail(f"seams: the profiled dispatch recorded {timeline.stage_seconds()}")
+        return [it.result for it in items]
+
+    dispatch()  # warm at this batch size
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        results = dispatch()
+    launches = {n: _kernels.LAUNCHES[n] for n in KERNELS}
+    averages = prof.key_averages()
+    kernels = sorted((kernel_label(evt.key), evt.count) for evt in averages
+                     if evt.device_type == DeviceType.CUDA and evt.self_device_time_total)
+    syncs = sum(evt.count for evt in averages if "ynchronize" in evt.key
+                and evt.device_type != DeviceType.CUDA)
+    return kernels, syncs, launches, results
+
+
+def phase_seams(torch, device, tmp: str, kernels: dict, card: str) -> dict:
+    """The serving path's request seams on the card: tenants and quotas,
+    the weighted-fair drain, span timelines and the flight recorder,
+    exemplars, fault points and the control ledger, under the traffic of
+    SEAMS_TRAFFIC, once with the recorder on and once off. The summary
+    lines name ``card`` (nvidia-smi's name and power limit). Returns the
+    phase's flash launches (the recorder-on run's)."""
+    from gordo_components_tpu_torch import wire
+    from gordo_components_tpu_torch.observability import flightrec
+    from gordo_components_tpu_torch.observability import ledger as control_ledger
+    from gordo_components_tpu_torch.observability.exposition import parse_prometheus_text
+    from gordo_components_tpu_torch.ops import _kernels
+    from gordo_components_tpu_torch.resilience import faults
+    from gordo_components_tpu_torch.serializer import load
+    from gordo_components_tpu_torch.server.engine import ServingEngine
+    from gordo_components_tpu_torch.server.server import make_server
+
+    models_dir = os.path.join(tmp, "seams")
+    ledger_root = os.path.join(tmp, "seams-ledger")
+    started = time.perf_counter()
+    estimator, kwargs, tags = ZOO["dense-ae-10tag"]
+    for i, name in enumerate(SEAMS_DENSE):
+        build_zoo_artifact(os.path.join(models_dir, name), estimator, kwargs, tags, device,
+                           np.random.default_rng(SEED + 11000 + i))
+    for i, name in enumerate(SEAMS_PATCHTST):
+        build_artifact(os.path.join(models_dir, name), device, seed=SEED + 11100 + i)
+    print(f"seams: {len(SEAMS_DENSE) + len(SEAMS_PATCHTST)} artifacts written in "
+          f"{time.perf_counter() - started:.1f} s")
+    # as run-server does it: the plan is parsed (and ledgered in memory)
+    # before the server points the ledger at its directory, which adopts it
+    os.environ.update(GORDO_TENANTS=SEAMS_TENANTS, GORDO_LEDGER_DIR=ledger_root)
+    control_ledger.configure(None)
+    faults.configure(f"model-load:{SEAMS_BROKEN}:error;"
+                     f"engine-dispatch:{SEAMS_SLOW}:latency:{SEAMS_LATENCY}")
+    # a recorder that holds every request of a run
+    total = sum(n * per for n, per in SEAMS_TRAFFIC.values())
+    saved_recorder = flightrec.RECORDER
+    flightrec.RECORDER = flightrec.FlightRecorder(keep=total + 64, enabled=True)
+    rng = np.random.default_rng(SEED + 11200)
+    plan, bodies, encoded = seams_plan(rng)
+    started = time.perf_counter()
+    httpd = make_server(models_dir, port=0, device=device)
+    print(f"seams: server loaded, stacked and warmed up in {time.perf_counter() - started:.1f} s")
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    engine = httpd.model_server.engine
+    patchtst_bucket, _ = engine._by_name[SEAMS_PATCHTST[0]]
+    try:
+        # 7. the broken machine is quarantined at load; the fleet serves
+        health = json.loads(http("GET", base + "/healthz")[2])
+        if list(health["quarantined"]) != [SEAMS_BROKEN] or \
+                health["quarantined"][SEAMS_BROKEN]["phase"] != "load" or \
+                len(health["machines"]) != len(SEAMS_DENSE) + len(SEAMS_PATCHTST) - 1:
+            fail(f"seams: /healthz after a model-load fault: {health}")
+        refused = http("POST", f"{base}/gordo/v0/project/{SEAMS_BROKEN}/anomaly/prediction",
+                       encoded[("dense", 0)])
+        if refused[0] != 503:
+            fail(f"seams: the quarantined machine answered HTTP {refused[0]}")
+        tenants = json.loads(http("GET", base + "/tenants")[2])
+        print(f"seams: /tenants {json.dumps(tenants)}")
+        flightrec.RECORDER.clear()
+        _kernels.reset_launches()
+        dispatches = patchtst_bucket.dispatch_count
+        on_t0 = time.time()
+        on, on_started, on_wall = seams_run(base, plan, encoded, "a")
+        engine.quiesce()
+        launches = {n: _kernels.LAUNCHES[n] for n in KERNELS}
+        patchtst_dispatches = patchtst_bucket.dispatch_count - dispatches
+        recorded = flightrec.RECORDER.summaries(limit=0)["recorded"]
+        metrics_text = http("GET", base + "/metrics?format=prometheus&exemplars=1")[2].decode()
+        debug = {trace_id: http("GET", f"{base}/debug/requests/{trace_id}")
+                 for trace_id in on}
+        chrome_id = next(t for t, r in on.items() if plan[r[0]][r[1]][3] in SEAMS_PATCHTST)
+        chrome = http("GET", f"{base}/debug/requests/{chrome_id}?format=chrome")
+        flightrec.RECORDER.set_enabled(False)  # what GORDO_FLIGHTREC=0 sets at boot
+        off, off_started, off_wall = seams_run(base, plan, encoded, "b")
+        engine.quiesce()
+        print(f"seams: runs of {len(on)} requests, recorder on {on_wall:.2f} s, "
+              f"off {off_wall:.2f} s")
+        # the distinct requests again, one at a time (each its own dispatch)
+        replay = {}
+        served = sorted(set(SEAMS_DENSE) - {SEAMS_BROKEN})
+        for enabled in (False, True):
+            flightrec.RECORDER.set_enabled(enabled)
+            for j, machine in enumerate(served):
+                key = ("dense", j % 48)
+                replay.setdefault((machine, key), []).append(http(
+                    "POST", f"{base}/gordo/v0/project/{machine}/anomaly/prediction",
+                    encoded[key], {"X-Gordo-Tenant": "ops"})[:3:2])
+            for machine in SEAMS_PATCHTST:
+                replay.setdefault((machine, (machine, 0)), []).append(http(
+                    "POST", f"{base}/gordo/v0/project/{machine}/anomaly/prediction",
+                    encoded[(machine, 0)], {"X-Gordo-Tenant": "ops"})[:3:2])
+        Xs = [bodies[(name, 0)] for name in SEAMS_PATCHTST]
+        trace_on = profile_seams_dispatch(torch, engine, Xs, recorded=True)
+        trace_off = profile_seams_dispatch(torch, engine, Xs, recorded=False)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+        faults.clear()
+        flightrec.RECORDER = saved_recorder
+        for key in ("GORDO_TENANTS", "GORDO_LEDGER_DIR"):
+            os.environ.pop(key, None)
+        control_ledger.configure(None)
+
+    # 5. metered is refused past its burst; batch and ops never
+    statuses = {}
+    for trace_id, (c, i, status, reply, raw, ms, _) in {**on, **off}.items():
+        tenant = plan[c][i][0]
+        statuses.setdefault(tenant, []).append(status)
+        if status == 429 and (tenant != "metered" or int(reply.get("Retry-After", 0)) < 1):
+            fail(f"seams: {tenant} answered 429 with Retry-After {reply.get('Retry-After')}")
+        if status not in (200, 429):
+            fail(f"seams: {trace_id} ({tenant}) answered HTTP {status}: {raw[:200]}")
+    burst = statuses["metered"][:SEAMS_TRAFFIC["metered"][0]]  # the recorder-on run's
+    if burst.count(200) < 5 or 429 not in burst:
+        fail(f"seams: metered statuses {statuses['metered']}")
+    print("seams: statuses by tenant " + json.dumps(
+        {t: {str(code): s.count(code) for code in sorted(set(s))} for t, s in statuses.items()}))
+
+    # 1. the recorder changes no byte. A request that dispatches alone gives
+    # the same bytes on and off: the PatchTST client's (never fused) and the
+    # serial replay's. A dense request of the concurrent runs fuses with
+    # other batch mates in each run, and a fused GEMM sums in another order
+    # than a lone one: those pairs are held to FUSED_RTOL
+    bad_replay = [key for key, answers in replay.items()
+                  if [a[0] for a in answers] != [200, 200] or answers[0][1] != answers[1][1]]
+    if bad_replay:
+        fail(f"seams: serial replay, recorder off vs on, differs for {bad_replay[:3]}")
+    pairs = [(t, on[t], off["b" + t[1:]]) for t in on
+             if on[t][2] == 200 and off["b" + t[1:]][2] == 200]
+    differ = {}
+    for t, a, b in pairs:
+        if a[4] == b[4]:
+            continue
+        machine = plan[a[0]][a[1]][3]
+        da, db = (decode(r[3], r[4])["data"] for r in (a, b))
+        differ[t] = max(float(np.abs(np.asarray(da[k], np.float64) - np.asarray(db[k], np.float64))
+                              .max() / max(1.0, np.abs(np.asarray(db[k], np.float64)).max()))
+                        for k in db)
+        if machine in SEAMS_PATCHTST or differ[t] > FUSED_RTOL:
+            fail(f"seams: {t} ({machine}) differs with the recorder off by {differ[t]:.3g}")
+    print(f"seams: recorder on vs off: {len(pairs)} response pairs, {len(pairs) - len(differ)} "
+          f"equal to the bit (every PatchTST pair among them), {len(differ)} dense pairs with "
+          f"other batch mates within {max(differ.values(), default=0.0):.3g} (limit "
+          f"{FUSED_RTOL}); serial replay of {len(replay)} distinct requests: on = off to the bit")
+    cpu_models = {name: load(os.path.join(models_dir, name), device="cpu")
+                  for name in SEAMS_DENSE[:-1] + SEAMS_PATCHTST}
+    cpu = ServingEngine(cpu_models, device="cpu")
+    plain, worst = {}, {"dense": 0.0, "patchtst": 0.0}
+    for trace_id, (c, i, status, reply, raw, _, _) in {**on, **off}.items():
+        if status != 200:
+            continue
+        _, _, _, machine, key = plan[c][i]
+        if (machine, key) not in plain:
+            plain[(machine, key)] = dict(zip(wire.SCORE_FIELDS, cpu.anomaly(machine, bodies[key])))
+        ref = plain[(machine, key)]
+        kind = "patchtst" if machine in SEAMS_PATCHTST else "dense"
+        worst[kind] = max(worst[kind], compare_scores(
+            f"seams {trace_id} {machine}", len(ref["model-output"]), decode(reply, raw), ref,
+            SERVE_RTOL, tags=bodies[key].shape[1]))
+    cpu.close()
+    print(f"seams: {sum(r[2] == 200 for r in on.values())} + "
+          f"{sum(r[2] == 200 for r in off.values())} responses vs the CPU plain path "
+          f"({len(plain)} distinct requests), worst relative difference {json.dumps(worst)} "
+          f"(limit {SERVE_RTOL})")
+
+    # 2. every answered scoring trace is in the recorder (it holds the run)
+    scoring = [t for t, r in on.items() if r[2] in (200, 429)]
+    missing = [t for t in scoring if debug[t][0] != 200]
+    if missing or recorded != len(on):
+        fail(f"seams: {len(missing)} answered traces not in the recorder (e.g. {missing[:3]}); "
+             f"recorded {recorded} of {len(on)}")
+    timelines = {t: json.loads(debug[t][2]) for t in scoring}
+
+    # 3. a PatchTST request's stages
+    breakdown = {}
+    for kind, names in (("dense", SEAMS_DENSE), ("patchtst", SEAMS_PATCHTST)):
+        chosen = [timelines[t] for t, r in on.items()
+                  if r[2] == 200 and plan[r[0]][r[1]][3] in names
+                  and plan[r[0]][r[1]][3] != SEAMS_SLOW]
+        stages = sorted({s for tl in chosen for s in tl["stages_ms"]})
+        breakdown[kind] = {"requests": len(chosen), "duration_ms": float(np.median(
+            [tl["duration_ms"] for tl in chosen])), **{s: float(np.median(
+                [tl["stages_ms"].get(s, 0.0) for tl in chosen])) for s in stages}}
+    print(f"seams [{card}]: median stage breakdown (ms) {json.dumps(breakdown)}")
+    # A request's kernels run between the start of its dispatch (their
+    # launches) and the end of its fetch, so dispatch + device_execute +
+    # fetch holds the flash kernels' time. Mostly they run after the
+    # enqueue returns, but not always: the device runs each kernel as it is
+    # launched, and a launch of the program slowed by the other threads can
+    # end after the device has caught up (tools/torch_enqueue_probe.py).
+    # So the device stages alone hold it in the median request
+    flash_ms = kernels["flash_fwd_f32"]["ms"]
+    need = SLICE["n_layers"] * flash_ms
+    device_stages = []
+    for t, r in on.items():
+        if r[2] != 200 or plan[r[0]][r[1]][3] not in SEAMS_PATCHTST:
+            continue
+        tl = timelines[t]
+        if set(SEAMS_STAGES) - set(tl["stages_ms"]):
+            fail(f"seams: PatchTST timeline {t} holds {sorted(tl['stages_ms'])}")
+        top = sum(tl["stages_ms"][s] for s in SEAMS_TOP_STAGES)
+        device_ms = tl["stages_ms"]["device_execute"] + tl["stages_ms"]["fetch"]
+        device_stages.append(device_ms)
+        if top > tl["duration_ms"] or tl["stages_ms"]["dispatch"] + device_ms < need:
+            fail(f"seams: PatchTST timeline {t}: admission + score + encode {top:.3f} ms of "
+                 f"{tl['duration_ms']:.3f}; dispatch {tl['stages_ms']['dispatch']:.3f} + "
+                 f"device_execute + fetch {device_ms:.3f} ms for {SLICE['n_layers']} x "
+                 f"{flash_ms:.4f} ms of flash_fwd_f32")
+    median = float(np.median(device_stages)) if device_stages else 0.0
+    if median < need:
+        fail(f"seams: PatchTST device_execute + fetch, median {median:.3f} ms for "
+             f"{SLICE['n_layers']} x {flash_ms:.4f} ms of flash_fwd_f32")
+    print(f"seams: {len(device_stages)} PatchTST timelines, device_execute + fetch median "
+          f"{median:.3f} ms, least {min(device_stages):.3f} ms ({SLICE['n_layers']} x "
+          f"flash_fwd_f32 {flash_ms:.4f} ms)")
+    events = json.loads(chrome[2])["traceEvents"]
+    if chrome[0] != 200 or not set(SEAMS_STAGES) <= {e["name"] for e in events if e["ph"] == "X"}:
+        fail(f"seams: ?format=chrome of {chrome_id}: HTTP {chrome[0]}")
+
+    # 4. gordo_stage_seconds exemplars name traces the recorder holds
+    _, exemplars = parse_prometheus_text(metrics_text, return_exemplars=True)
+    # (exemplars older than the run are earlier phases' requests)
+    named = {e["labels"]["trace_id"] for _, e in exemplars.get("gordo_stage_seconds_bucket", [])
+             if e["timestamp"] >= on_t0}
+    stray = named - set(timelines)
+    if not named or stray:
+        fail(f"seams: {len(named)} stage exemplars, not in the recorder: {sorted(stray)[:5]}")
+    print(f"seams: {len(named)} gordo_stage_seconds exemplars, each a recorded trace")
+
+    # 8. the dispatch latency fault shows in the slow machine's timelines
+    slow = [min(s["duration_ms"] for s in timelines[t]["spans"] if s["name"] == "dispatch"
+                and s.get("machine") == SEAMS_SLOW)
+            for t, r in on.items() if r[2] == 200 and plan[r[0]][r[1]][3] == SEAMS_SLOW]
+    if not slow or min(slow) < SEAMS_LATENCY * 1e3:
+        fail(f"seams: {SEAMS_SLOW}'s dispatch stage {min(slow, default=None)} ms "
+             f"(fault {SEAMS_LATENCY * 1e3} ms)")
+    print(f"seams: {SEAMS_SLOW}: {len(slow)} timelines, dispatch stage >= {min(slow):.1f} ms")
+
+    # 6. the recorder adds no device work: the same kernels and synchronizes
+    (k_on, sync_on, l_on, r_on), (k_off, sync_off, l_off, r_off) = trace_on, trace_off
+    fused = {**NO_LAUNCHES, "flash_fwd_f32": SLICE["n_layers"]}
+    if k_on != k_off or sync_on != sync_off or l_on != fused or l_off != fused:
+        fail(f"seams: fused PatchTST dispatch, recorder on: {len(k_on)} kernels, {sync_on} "
+             f"synchronizes, launches {l_on}; off: {len(k_off)}, {sync_off}, {l_off}")
+    for a, b in zip(r_on, r_off):
+        for field_a, field_b in zip(a, b):
+            if not np.array_equal(field_a, field_b):
+                fail("seams: the profiled fused dispatch changed with the recorder off")
+    print(f"seams: fused PatchTST dispatch of 2 under torch.profiler, recorder on and off: "
+          f"{sum(n for _, n in k_on)} kernel launches of {len(k_on)} kernels each, "
+          f"{sync_on} synchronizes each, launches {l_on}")
+
+    # the flash kernel on the recorder-on run: once per layer per dispatch
+    expected = {**NO_LAUNCHES, "flash_fwd_f32": SLICE["n_layers"] * patchtst_dispatches}
+    if launches != expected or not patchtst_dispatches:
+        fail(f"seams: launches {launches} for {patchtst_dispatches} PatchTST dispatches")
+
+    # 9. the ledger holds the fault plan and the quarantine, each valid
+    directory = os.path.join(ledger_root, "worker-0")
+    records = [json.loads(line) for name in sorted(os.listdir(directory))
+               if name.startswith("seg-") for line in open(os.path.join(directory, name))
+               if line.strip()]
+    kinds = {(e["actor"], e["action"], e["target"]) for e in records}
+    want = {("faults", "inject-plan", f"model-load:{SEAMS_BROKEN}"),
+            ("faults", "inject-plan", f"engine-dispatch:{SEAMS_SLOW}"),
+            ("quarantine", "quarantine", SEAMS_BROKEN)}
+    bad = [problems for problems in map(control_ledger.validate_event, records) if problems]
+    if want - kinds or bad:
+        fail(f"seams: ledger holds {sorted(kinds)}; invalid: {bad[:3]}")
+    print(f"seams: ledger {directory}: {len(records)} valid records {sorted(kinds)}")
+
+    classes_on = seams_classes(plan, on, on_started)
+    classes_off = seams_classes(plan, off, off_started)
+    print(f"seams [{card}]: per class, recorder on " + json.dumps(classes_on))
+    print(f"seams [{card}]: per class, recorder off " + json.dumps(classes_off))
+    ok = lambda run: [r[5] for r in run.values() if r[2] == 200]  # noqa: E731
+    print(f"seams [{card}]: recorder on vs off " + json.dumps({
+        "on": {"wall_s": on_wall, "req_per_s": len(on) / on_wall,
+               "p50_ms": float(np.percentile(ok(on), 50))},
+        "off": {"wall_s": off_wall, "req_per_s": len(off) / off_wall,
+                "p50_ms": float(np.percentile(ok(off), 50))},
+        "patchtst_dispatches": patchtst_dispatches, "launches": launches}))
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -2663,8 +3123,10 @@ def main() -> None:
         phase_build(torch, device, tmp)
         built = phase_cli_build(torch, device, tmp)
         fleet_built = phase_fleet_build(torch, device, tmp)
+        seams = phase_seams(torch, device, tmp, kernels, card)
         for name in KERNELS:
-            launches[name] += trained[name] + trained_bf16[name] + built[name] + fleet_built[name]
+            launches[name] += (trained[name] + trained_bf16[name] + built[name]
+                               + fleet_built[name] + seams[name])
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

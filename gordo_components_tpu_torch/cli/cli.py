@@ -1,15 +1,22 @@
 """``python -m gordo_components_tpu_torch.cli``: the ``build``,
-``fleet-build`` and ``rollback`` commands of the reference's CLI
-(``gordo_components_tpu/cli/cli.py:164-401, 404-430``), on ``argparse``.
+``fleet-build``, ``rollback``, ``run-server``, ``trace`` and ``tenants``
+commands of the reference's CLI (``gordo_components_tpu/cli/cli.py:164-430,
+519-692, 894-963, 990-1040``), on ``argparse``.
 
 The arguments, environment variables (``MODEL_CONFIG``, ``DATA_CONFIG``,
 ``OUTPUT_DIR``, ``MODEL_REGISTER_DIR``, ``METADATA``, ``GORDO_TRACE_DIR``,
-``GORDO_LOG_LEVEL``) and exit codes are the reference's: 0 ok, 64 a bad
-config (permanent), 66 data unavailable or short (retryable), 70 a
-deterministic device failure (an out-of-memory on the card), 75 another
-device failure (retryable), 1 anything else. Configs are JSON, or YAML
-read through ``yaml`` (imported only there). ``--device`` picks the card
-(default) or the CPU; there is no silent fallback.
+``GORDO_LOG_LEVEL``, ``GORDO_LOG_FORMAT``, ``MODEL_LOCATION``,
+``GORDO_MAX_INFLIGHT``, ``GORDO_TENANTS``, ``GORDO_FAULTS``) and exit codes
+are the reference's: 0 ok, 2 a bad command line, 64 a bad config
+(permanent), 66 data unavailable or short (retryable), 70 a deterministic
+device failure (an out-of-memory on the card), 75 another device failure
+(retryable), 1 anything else. Configs are JSON, or YAML read through
+``yaml`` (imported only there). ``--device`` picks the card (default) or
+the CPU; there is no silent fallback. ``run-server`` offers the flags
+whose machinery the port has; the reference's shard mode, compile cache,
+megabatch residency, lazy boot, mesh and worker flags are not offered
+(ROADMAP.md). ``trace`` and ``tenants`` read a running server over HTTP
+(``urllib``).
 
     python -m gordo_components_tpu_torch.cli build NAME --model-config M \\
         --data-config D --output-dir OUT [--model-register-dir REG] \\
@@ -19,6 +26,13 @@ read through ``yaml`` (imported only there). ``--device`` picks the card
         [--slice-size 256] [--precision int8] [--precision-map a=f32,b=int8] \\
         [--device cpu]
     python -m gordo_components_tpu_torch.cli rollback [--list] MODEL_DIR
+    python -m gordo_components_tpu_torch.cli run-server (--model-dir DIR ... |
+        --models-dir DIR) [--host H] [--port N] [--project P] [--max-inflight N]
+        [--tenants SPEC] [--faults SPEC] [--device cpu]
+    python -m gordo_components_tpu_torch.cli trace list --base-url URL [--limit N]
+    python -m gordo_components_tpu_torch.cli trace dump TRACE_ID --base-url URL
+        [--format chrome|json] [-o FILE]
+    python -m gordo_components_tpu_torch.cli tenants --base-url URL
 """
 
 from __future__ import annotations
@@ -32,6 +46,7 @@ from typing import Any, List, Optional
 
 from ..precision import PRECISIONS
 
+EXIT_USAGE = 2
 EXIT_CONFIG = 64
 EXIT_DATA = 66
 # EX_SOFTWARE: a deterministic device failure (an out-of-memory on the
@@ -175,13 +190,153 @@ def rollback(args: argparse.Namespace) -> int:
     return 0
 
 
+def run_server(args: argparse.Namespace) -> int:
+    """Serve built model(s) over HTTP until SIGTERM or an interrupt; on
+    either the admission gate closes, in-flight requests drain and the
+    engine stops."""
+    import signal
+    import threading
+
+    from ..resilience import faults, qos
+    from ..serializer import load_metadata
+    from ..server.server import make_server
+
+    if args.tenants is not None:
+        try:
+            # a typo'd table fails the command instead of serving everyone
+            # as 'default'
+            qos.parse_tenants(args.tenants)
+        except ValueError as exc:
+            logger.error("Bad --tenants spec: %s", exc)
+            return EXIT_USAGE
+        os.environ["GORDO_TENANTS"] = args.tenants
+    if args.faults is not None:
+        try:
+            faults.configure(args.faults)
+        except ValueError as exc:
+            logger.error("Bad --faults spec: %s", exc)
+            return EXIT_USAGE
+    model_dirs = args.model_dirs or (
+        [os.environ["MODEL_LOCATION"]] if os.environ.get("MODEL_LOCATION") else [])
+    resolved = {}
+    for model_dir in model_dirs:
+        name = load_metadata(model_dir).get("name") or os.path.basename(model_dir.rstrip("/"))
+        resolved[name] = model_dir
+    if not resolved and not args.models_dir:
+        logger.error("Provide --model-dir (or MODEL_LOCATION) or --models-dir")
+        return EXIT_USAGE
+    options = {"project": args.project, "max_inflight": args.max_inflight}
+    if not resolved:
+        target = args.models_dir  # a fleet: reload rescans it
+    elif len(resolved) == 1 and not args.models_dir:
+        target = next(iter(resolved.values()))  # a server of one machine
+    else:
+        target, options["models_root"] = resolved, args.models_dir
+    httpd = make_server(target, args.host, args.port, device=args.device, **options)
+    host, port = httpd.server_address[:2]
+    logger.info("Serving %s on http://%s:%d", sorted(httpd.model_server.machines), host, port)
+
+    def _on_sigterm(signum, frame) -> None:
+        # shutdown() waits for serve_forever, which this (main) thread runs
+        threading.Thread(target=httpd.shutdown, name="gordo-drain", daemon=True).start()
+
+    try:
+        signal.signal(signal.SIGTERM, _on_sigterm)
+    except ValueError:  # not the main thread: stopping is the embedder's job
+        logger.debug("SIGTERM handler not installed (not the main thread)")
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        httpd.server_close()  # closes admission, drains, stops the engine
+    logger.info("Server stopped")
+    return 0
+
+
+def _get_json(url: str) -> Any:
+    """GET ``url`` and parse its JSON body; an HTTP error status raises
+    ``urllib.error.HTTPError``."""
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=10) as response:
+        return json.loads(response.read().decode())
+
+
+def _read_server(url: str, what: str) -> Optional[Any]:
+    """``_get_json`` that logs a failure and returns None."""
+    import urllib.error
+
+    try:
+        return _get_json(url)
+    except (urllib.error.URLError, OSError, ValueError) as exc:
+        logger.error("Could not read %s from %s: %s", what, url, exc)
+        return None
+
+
+def trace_list(args: argparse.Namespace) -> int:
+    """List the flight recorder's timelines (recent, slowest, errored)."""
+    body = _read_server(f"{args.base_url.rstrip('/')}/debug/requests?limit={args.limit}",
+                        "the flight recorder")
+    if body is None:
+        return 1
+    print(json.dumps(body, indent=2))
+    return 0
+
+
+def trace_dump(args: argparse.Namespace) -> int:
+    """Dump ONE trace's stage timeline: Chrome trace-event JSON (open it at
+    https://ui.perfetto.dev or chrome://tracing) or the raw timeline with
+    its stage totals."""
+    import urllib.error
+
+    url = f"{args.base_url.rstrip('/')}/debug/requests/{args.trace_id}"
+    if args.format == "chrome":
+        url += "?format=chrome"
+    try:
+        body = _get_json(url)
+    except urllib.error.HTTPError as exc:
+        if exc.code == 404:
+            logger.error("Trace %s is not in the flight recorder (rotated out, or never seen "
+                         "by this server)", args.trace_id)
+        else:
+            logger.error("Trace fetch failed: %s", exc)
+        return 1
+    except (urllib.error.URLError, OSError, ValueError) as exc:
+        logger.error("Could not fetch the trace from %s: %s", args.base_url, exc)
+        return 1
+    text = json.dumps(body, indent=2)
+    if args.output:
+        with open(args.output, "w") as fh:
+            fh.write(text)
+        print(args.output)
+    else:
+        print(text)
+    return 0
+
+
+def tenants(args: argparse.Namespace) -> int:
+    """The QoS surface of a running server: the tenant table, bucket
+    levels, the admission gate's class limits and the raw header values
+    seen."""
+    body = _read_server(f"{args.base_url.rstrip('/')}/tenants", "/tenants")
+    if body is None:
+        return 1
+    print(json.dumps(body, indent=2))
+    return 0
+
+
 def parser() -> argparse.ArgumentParser:
     env = os.environ.get
     root = argparse.ArgumentParser(
         prog="python -m gordo_components_tpu_torch.cli",
-        description="gordo-components-tpu on PyTorch: build fleets and machines, and roll "
-                    "them back.")
+        description="gordo-components-tpu on PyTorch: build fleets and machines, roll "
+                    "them back, and serve them.")
     root.add_argument("--log-level", default=env("GORDO_LOG_LEVEL", "INFO"))
+    root.add_argument("--log-format", default=env("GORDO_LOG_FORMAT", "text"),
+                      choices=["text", "json"],
+                      help="'json' emits one JSON object per record, trace and span ids as "
+                           "fields; 'text' the plain line format")
     commands = root.add_subparsers(dest="command", required=True)
 
     b = commands.add_parser("build", help="build one machine's model (idempotent via the "
@@ -246,13 +401,61 @@ def parser() -> argparse.ArgumentParser:
     r.add_argument("--list", dest="list_only", action="store_true",
                    help="print the generation status as JSON without changing anything")
     r.set_defaults(run=rollback)
+
+    s = commands.add_parser("run-server", help="serve built model(s) over HTTP")
+    s.add_argument("--model-dir", dest="model_dirs", action="append", default=None,
+                   help="a model dir; repeat for several machines (default: MODEL_LOCATION)")
+    s.add_argument("--models-dir", default=None,
+                   help="a directory whose immediate subdirectories are model dirs; "
+                        "POST /reload rescans it")
+    s.add_argument("--host", default="0.0.0.0")
+    s.add_argument("--port", type=int, default=5555)
+    s.add_argument("--project", default="project")
+    s.add_argument("--max-inflight", type=int, default=None,
+                   help="admission-gate bound on concurrently scoring requests; past it "
+                        "(and a small queue) requests shed with 503 + Retry-After (default: "
+                        "GORDO_MAX_INFLIGHT, else 64)")
+    s.add_argument("--tenants", default=env("GORDO_TENANTS"),
+                   help="the tenant table: 'name:class[:rate[:burst[:key]]]' entries separated "
+                        "by ';', class interactive/standard/bulk, rate in requests/s (0 = no "
+                        "quota), key an optional API key. Requests name their tenant in "
+                        "X-Gordo-Tenant; unknown names fold into 'default'")
+    s.add_argument("--faults", default=env("GORDO_FAULTS"),
+                   help="fault-injection spec 'point:target:kind[:param][;...]' (points "
+                        "model-load, engine-dispatch; kinds error, latency, corrupt); never in "
+                        "production")
+    s.add_argument("--device", default=None,
+                   help="cuda (default) or cpu; there is no silent fallback")
+    s.set_defaults(run=run_server)
+
+    t = commands.add_parser("trace", help="flight-recorder timelines of a running server")
+    trace_commands = t.add_subparsers(dest="trace_command", required=True)
+    tl = trace_commands.add_parser("list", help="list recorded request timelines (recent, "
+                                                "slowest, errored)")
+    tl.add_argument("--base-url", required=True, help="the server's base URL")
+    tl.add_argument("--limit", type=int, default=20)
+    tl.set_defaults(run=trace_list)
+    td = trace_commands.add_parser("dump", help="dump one trace's stage timeline")
+    td.add_argument("trace_id", help="an X-Gordo-Trace-Id a response echoed")
+    td.add_argument("--base-url", required=True, help="the server's base URL")
+    td.add_argument("--output", "-o", default=None, help="write here instead of stdout")
+    td.add_argument("--format", default="chrome", choices=["chrome", "json"],
+                    help="chrome = trace-event JSON (Perfetto); json = the timeline with its "
+                         "stage totals")
+    td.set_defaults(run=trace_dump)
+
+    tn = commands.add_parser("tenants", help="the tenant table, quota levels and class "
+                                             "limits of a running server")
+    tn.add_argument("--base-url", required=True, help="the server's base URL")
+    tn.set_defaults(run=tenants)
     return root
 
 
 def main(argv: Optional[List[str]] = None) -> int:
+    from ..observability.logsetup import configure_logging
+
     args = parser().parse_args(argv)
-    logging.basicConfig(level=args.log_level.upper(),
-                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    configure_logging(args.log_level, args.log_format)
     return args.run(args)
 
 

@@ -1,22 +1,126 @@
 """Process-wide labeled metrics: Counter, Gauge, Histogram (the port's copy
-of ``gordo_components_tpu/observability/registry.py``, without the
-machine-label cardinality bound and exemplars, which serve paths the port
-does not have yet).
+of ``gordo_components_tpu/observability/registry.py``; the reference's hook
+by which its traffic sketch nominates the machines a scrape keeps waits
+for traffic accounting, ROADMAP.md).
 
 One ``threading.Lock`` per metric, held only for dict/list mutation. A
-histogram keeps cumulative buckets (the Prometheus exposition) and a
-bounded rolling sample window (the JSON p50/p99 view). Registration is
+histogram keeps cumulative buckets (the Prometheus exposition), a bounded
+rolling sample window (the JSON p50/p99 view) and, per bucket, the last
+observation made under a bound trace id: its exemplar, which links the
+bucket to a request timeline in the flight recorder. Registration is
 get-or-create: a second ``counter(name, ...)`` returns the existing
 metric, and a kind, label or bucket mismatch raises.
+
+Families labeled by ``machine`` render (JSON snapshot and exposition) as
+the top ``GORDO_METRICS_MACHINE_CARDINALITY`` machines by traffic plus one
+``machine="other"`` aggregate; the series in memory stay exact.
 """
 
 from __future__ import annotations
 
 import bisect
+import os
 import threading
+import time
 from typing import Any, Dict, List, Sequence, Tuple
 
 INF = float("inf")
+
+MACHINE_LABEL = "machine"
+MACHINE_OTHER = "other"
+
+
+def machine_cardinality_cap() -> int:
+    """``GORDO_METRICS_MACHINE_CARDINALITY``: distinct machine label values
+    rendered per family before the top-K + ``other`` collapse (default 64;
+    ``0`` disables the bound)."""
+    try:
+        return int(os.environ.get("GORDO_METRICS_MACHINE_CARDINALITY", "64"))
+    except ValueError:
+        return 64
+
+
+def _merge_histogram_data(into: Dict[str, Any], data: Dict[str, Any]) -> None:
+    """Bucket-wise merge (and sum, count, samples, exemplars) of two
+    ``Histogram.collect`` series of one metric."""
+    into["buckets"] = [
+        (le, acc + other_acc)
+        for (le, acc), (_, other_acc) in zip(into["buckets"], data["buckets"])
+    ]
+    into["sum"] += data["sum"]
+    into["count"] += data["count"]
+    into["samples"] = (into["samples"] + data["samples"])[-1000:]
+    for i, exemplar in (data.get("exemplars") or {}).items():
+        current = into["exemplars"].get(i)
+        if current is None or exemplar[2] >= current[2]:  # the newest wins
+            into["exemplars"][i] = exemplar
+
+
+def bound_machine_cardinality(
+    metric: "_Metric", collected: Dict[Tuple[str, ...], Any]
+) -> Dict[Tuple[str, ...], Any]:
+    """Collapse ``collected`` (a ``metric.collect()`` mapping) so that at
+    most the cap's distinct machine label values survive, ranked by traffic
+    (counter or gauge value, histogram count); the rest aggregate into
+    ``machine="other"``: counters sum, gauges take the max, histograms
+    merge bucket-wise. A real machine named ``other`` folds into the
+    aggregate."""
+    if MACHINE_LABEL not in metric.labelnames:
+        return collected
+    cap = machine_cardinality_cap()
+    if cap <= 0:
+        return collected
+    idx = metric.labelnames.index(MACHINE_LABEL)
+    is_hist = isinstance(metric, Histogram)
+
+    def weight(data: Any) -> float:
+        return float(data["count"]) if is_hist else float(data)
+
+    totals: Dict[str, float] = {}
+    for key, data in collected.items():
+        totals[key[idx]] = totals.get(key[idx], 0.0) + weight(data)
+    if len(totals) <= cap:
+        return collected
+    keep = set(sorted(totals, key=lambda m: (-totals[m], m))[:cap])
+    keep.discard(MACHINE_OTHER)
+    out: Dict[Tuple[str, ...], Any] = {}
+    for key, data in collected.items():
+        if key[idx] in keep:
+            out[key] = data
+            continue
+        okey = key[:idx] + (MACHINE_OTHER,) + key[idx + 1:]
+        current = out.get(okey)
+        if current is None:
+            if is_hist:
+                data = {
+                    "buckets": list(data["buckets"]),
+                    "sum": data["sum"],
+                    "count": data["count"],
+                    "samples": list(data["samples"]),
+                    "exemplars": dict(data.get("exemplars") or {}),
+                }
+            out[okey] = data
+        elif is_hist:
+            _merge_histogram_data(current, data)
+        elif isinstance(metric, Counter):
+            out[okey] = current + data
+        else:
+            out[okey] = max(current, data)
+    return out
+
+
+_get_trace_id = None
+
+
+def _current_trace_id() -> str:
+    # bound lazily: tracing imports this module inside span(), so a
+    # module-level import here would be circular
+    global _get_trace_id
+    if _get_trace_id is None:
+        from .tracing import get_trace_id
+
+        _get_trace_id = get_trace_id
+    return _get_trace_id()
 
 # latency-oriented default buckets (seconds)
 DEFAULT_BUCKETS = (
@@ -115,13 +219,16 @@ def _percentile(samples: Sequence[float], q: float) -> float:
 
 
 class _HistSeries:
-    __slots__ = ("bucket_counts", "sum", "count", "samples")
+    __slots__ = ("bucket_counts", "sum", "count", "samples", "exemplars")
 
     def __init__(self, n_buckets: int):
         self.bucket_counts = [0] * n_buckets  # per bucket, not cumulative
         self.sum = 0.0
         self.count = 0
         self.samples: List[float] = []  # bounded rolling window
+        # bucket index -> (trace_id, value, unix ts) of the last traced
+        # observation in that bucket: at most one per bucket
+        self.exemplars: Dict[int, Tuple[str, float, float]] = {}
 
 
 class Histogram(_Metric):
@@ -149,6 +256,9 @@ class Histogram(_Metric):
     def _observe(self, values: Tuple[str, ...], value: float) -> None:
         value = float(value)
         i = bisect.bisect_left(self.buckets, value)
+        # one context-variable read; the wall clock only under a trace
+        trace_id = _current_trace_id()
+        exemplar = (trace_id, value, time.time()) if trace_id else None
         with self._lock:
             series = self._series.get(values)
             if series is None:
@@ -159,23 +269,27 @@ class Histogram(_Metric):
             series.samples.append(value)
             if len(series.samples) > self.keep:
                 del series.samples[: -self.keep]
+            if exemplar is not None:
+                series.exemplars[i] = exemplar
 
     def collect(self) -> Dict[Tuple[str, ...], Dict[str, Any]]:
         """``{labelvalues: {"buckets": [(le, cumulative)], "sum", "count",
-        "samples"}}``, copied under the lock."""
+        "samples", "exemplars": {bucket_index: (trace_id, value, ts)}}}``,
+        copied under the lock."""
         with self._lock:
             copied = {
-                values: (list(s.bucket_counts), s.sum, s.count, list(s.samples))
+                values: (list(s.bucket_counts), s.sum, s.count, list(s.samples),
+                         dict(s.exemplars))
                 for values, s in self._series.items()
             }
         out: Dict[Tuple[str, ...], Dict[str, Any]] = {}
-        for values, (counts, total, count, samples) in copied.items():
+        for values, (counts, total, count, samples, exemplars) in copied.items():
             cumulative, acc = [], 0
             for le, n in zip(self.buckets, counts):
                 acc += n
                 cumulative.append((le, acc))
             out[values] = {"buckets": cumulative, "sum": total, "count": count,
-                           "samples": samples}
+                           "samples": samples, "exemplars": exemplars}
         return out
 
     def stats(self) -> Dict[Tuple[str, ...], Dict[str, float]]:
@@ -271,12 +385,14 @@ class Registry:
                         "p50": _percentile(data["samples"], 0.50),
                         "p99": _percentile(data["samples"], 0.99),
                     }
-                    for values, data in metric.collect().items()
+                    for values, data in bound_machine_cardinality(
+                        metric, metric.collect()).items()
                 }
             else:
                 series = {
                     _label_key(metric.labelnames, values): value
-                    for values, value in metric.collect().items()
+                    for values, value in bound_machine_cardinality(
+                        metric, metric.collect()).items()
                 }
             out[metric.name] = {"kind": metric.kind, "help": metric.help, "series": series}
         return out

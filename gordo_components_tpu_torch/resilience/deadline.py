@@ -17,6 +17,7 @@ import time
 from contextvars import ContextVar
 from typing import Iterator, Optional
 
+from ..observability import spans
 from ..observability.registry import REGISTRY
 
 DEADLINE_HEADER = "X-Gordo-Deadline"
@@ -76,6 +77,8 @@ def check(where: str) -> None:
     left = remaining()
     if left is not None and left <= 0.0:
         _M_EXPIRED.labels(where).inc()
+        # the expiry lands on the request's timeline, naming the boundary
+        spans.event("deadline_expired", where=where, overdue_s=round(-left, 3))
         raise DeadlineExceeded(f"deadline exceeded {-left:.3f}s ago (checked at {where})")
 
 

@@ -1,8 +1,8 @@
 """Fault injection at the system's seams (the port's copy of
-``gordo_components_tpu/resilience/faults.py:1-284``).
+``gordo_components_tpu/resilience/faults.py``).
 
-Production code calls :func:`inject` / :func:`damage_artifact` /
-:func:`tear_tail` at its boundaries; they are no-ops unless faults are
+Production code calls :func:`inject` / :func:`corrupt` /
+:func:`damage_artifact` / :func:`tear_tail` at its boundaries; they are no-ops unless faults are
 configured, by :func:`configure` or the ``GORDO_FAULTS`` environment
 variable (read once, lazily). The grammar is the reference's::
 
@@ -10,20 +10,22 @@ variable (read once, lazily). The grammar is the reference's::
 
 - ``point``: ``model-load``, ``engine-dispatch``, ``probe``, ``data-fetch``,
   ``store-commit``, ``spec-commit``, ``reconcile-apply``. Every one parses,
-  so a reference spec is accepted whole; the port wires ``data-fetch``
-  (the fleet build's per-machine fetch) and ``store-commit`` (the atomic
-  commit), and the others never fire yet;
+  so a reference spec is accepted whole; the port wires ``model-load``
+  (the server's machine load), ``engine-dispatch`` (the engine's
+  pre-dispatch seam), ``data-fetch`` (the fleet build's per-machine fetch)
+  and ``store-commit`` (the atomic commit); ``probe``, ``spec-commit`` and
+  ``reconcile-apply`` belong to parts not ported yet and never fire;
 - ``target``: a machine or endpoint name, or ``*`` for any;
 - ``kind``: ``error`` (raise :class:`FaultInjected`; param = message),
-  ``latency`` (sleep; param = seconds, default 0.05), ``corrupt``,
+  ``latency`` (sleep; param = seconds, default 0.05), ``corrupt``
+  (NaN-poison the payload's first column),
   ``truncate`` / ``bitflip`` (damage a staged artifact file after its
   manifest hash was recorded; param = file name, default ``state.npz``),
   ``torn-write`` (cut a journal's final line in half).
 
-Fired faults count into ``gordo_resilience_faults_injected_total``. The
-reference also records each activated plan in its control ledger
-(``_emit_plan``, ``faults.py:148-159``); the port has no control ledger,
-so that record is skipped, as the quarantine copy skips its own.
+Fired faults count into ``gordo_resilience_faults_injected_total``, and
+each rule of a plan that becomes active is a control-ledger record
+(``faults/inject-plan``).
 """
 
 from __future__ import annotations
@@ -32,8 +34,9 @@ import logging
 import os
 import threading
 import time
-from typing import List, Optional
+from typing import Any, List, Optional
 
+from ..observability import ledger as control_ledger
 from ..observability.registry import REGISTRY
 
 logger = logging.getLogger(__name__)
@@ -112,6 +115,7 @@ def configure(spec: str) -> int:
     if rules:
         logger.warning("FAULT INJECTION ACTIVE: %d rule(s) [%s]", len(rules),
                        "; ".join(f"{r.point}:{r.target}:{r.kind}" for r in rules))
+    _emit_plan(rules)
     return len(rules)
 
 
@@ -119,8 +123,20 @@ def clear() -> None:
     configure("")
 
 
+def _emit_plan(rules: List[_Rule]) -> None:
+    """Each rule of a plan that becomes active is a control event (called
+    outside the lock: the ledger fsyncs)."""
+    for rule in rules:
+        control_ledger.emit(
+            actor="faults", action="inject-plan",
+            target=f"{rule.point}:{rule.target}",
+            reason=rule.kind + (f":{rule.param}" if rule.param else ""),
+        )
+
+
 def _active_rules() -> List[_Rule]:
     global _configured
+    fresh: List[_Rule] = []
     with _lock:
         if not _configured:
             # lazy env pickup; a malformed env spec logs and injects nothing
@@ -133,7 +149,11 @@ def _active_rules() -> List[_Rule]:
             _configured = True
             if _rules:
                 logger.warning("FAULT INJECTION ACTIVE from %s: %d rule(s)", ENV_VAR, len(_rules))
-        return list(_rules)
+                fresh = list(_rules)
+        rules = list(_rules)
+    if fresh:
+        _emit_plan(fresh)
+    return rules
 
 
 def active() -> bool:
@@ -197,3 +217,21 @@ def tear_tail(point: str, target: Optional[str], path: str) -> None:
             continue
         _M_INJECTED.labels(point, "torn-write").inc()
         logger.warning("FAULT: torn-write %s at %s (target %r)", path, point, target)
+
+
+def corrupt(point: str, target: Optional[str], payload: Any) -> Any:
+    """Apply any matching ``corrupt`` fault: NaN-poison a float array
+    payload's first column and return the copy; a payload that is no
+    array passes through. ``X = faults.corrupt("engine-dispatch", name, X)``."""
+    for rule in _active_rules():
+        if rule.kind == "corrupt" and rule.matches(point, target):
+            try:
+                import numpy as np
+
+                poisoned = np.array(payload, dtype=np.float32, copy=True)
+                poisoned[..., 0] = np.nan
+            except (TypeError, ValueError, IndexError):
+                return payload
+            _M_INJECTED.labels(point, "corrupt").inc()
+            return poisoned
+    return payload

@@ -1,6 +1,8 @@
 """Per-machine quarantine: one broken machine costs ONE machine (the port's
-copy of ``gordo_components_tpu/resilience/quarantine.py``, without the
-control-ledger records).
+copy of ``gordo_components_tpu/resilience/quarantine.py``).
+
+Every quarantine and recovery is also a control-ledger record
+(``observability/ledger.py``), emitted after the lock is released.
 
 One process serves the whole fleet, so a machine that fails to load, or
 throws a non-client error while scoring, is QUARANTINED: its requests
@@ -20,6 +22,7 @@ import threading
 import time
 from typing import Any, Dict, Optional
 
+from ..observability import ledger as control_ledger
 from ..observability.registry import REGISTRY
 
 _M_EVENTS = REGISTRY.counter(
@@ -58,6 +61,12 @@ class Quarantine:
             entry["_since"] = self._clock()
             _M_EVENTS.labels("quarantine").inc()
             _M_QUARANTINED.set(len(self._hard))
+        # after releasing the lock: the ledger's fsync must not lengthen a
+        # request path's critical section
+        control_ledger.emit(
+            actor="quarantine", action="quarantine", target=name,
+            reason=f"{phase}: {error}",
+        )
 
     def is_quarantined(self, name: str) -> bool:
         with self._lock:
@@ -101,6 +110,8 @@ class Quarantine:
             if entry is not None:
                 _M_EVENTS.labels("recover").inc()
                 _M_QUARANTINED.set(len(self._hard))
+        if entry is not None:
+            control_ledger.emit(actor="quarantine", action="recover", target=name)
         return entry is not None
 
     # -- soft (suspect) tier -------------------------------------------------

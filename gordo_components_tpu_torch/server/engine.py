@@ -2,9 +2,10 @@
 ``gordo_components_tpu/server/engine.py``: the knobs at 273-349,
 ``ScoreResult`` … ``_make_machine_score`` at 210-253 and 352-523, the
 pipeline at 611-748, ``_Bucket`` at 761-2499 and ``ServingEngine`` at
-2501-3220 and its metrics at 95-190, without the mesh, hot cache, compile
-cache, spill tier, spans, traffic accounting, fault injection and QoS —
-ROADMAP.md lists them).
+2501-3220 and its metrics at 95-190, with the request seams: span
+timelines, the weighted-fair drain and the ``engine-dispatch`` fault
+point; without the mesh, hot cache, compile cache, spill tier and traffic
+accounting — ROADMAP.md lists them).
 
 Every machine that shares an architecture (the reference's signature:
 config, loss, widths, lookback, lookahead and precision) is stacked into
@@ -61,6 +62,22 @@ Every request checks its deadline (``resilience/deadline.py``) before it
 is queued and before each chunk, so expired work never reaches the
 device. Dispatches, requests per rung and megabatch events record into
 the port's metrics registry under the reference's series names.
+
+Request seams, as the reference's: each request's priority class
+(``resilience/qos.py``) and span context (``observability/spans.py``) are
+captured when it is submitted, since the leader and the collector that
+serve it run on other threads. The leader orders each row bucket's
+pending requests by ``qos.weighted_interleave`` before slicing it into
+dispatches, so a bulk flood fills the tail of a drain, not every slot of
+its first dispatch; scores are per request under ``vmap``, so the order
+changes no byte. The stages ``queue_wait``, ``megabatch``, ``dispatch``,
+``device_execute`` and ``fetch`` are recorded into each request's own
+timeline from host clocks read around waits that exist anyway: no
+synchronize, no event and no device work is added for them. The
+collector binds the context of a dispatch's first request, so its log
+records carry that trace id. ``ServingEngine.anomaly`` stages its
+pre-dispatch seams (deadline, ``faults.inject`` and ``faults.corrupt`` at
+``engine-dispatch``) as ``dispatch``.
 """
 
 from __future__ import annotations
@@ -83,10 +100,11 @@ from .. import precision as precision_mod
 from ..models.analysis import analyze_model
 from ..models.convert import quantized_params_from_flax
 from ..models.transformers import MinMaxScaler, StandardScaler
+from ..observability import spans
 from ..observability.registry import REGISTRY
 from ..ops import windowing
 from ..ops.scaling import ScalerParams
-from ..resilience import deadline
+from ..resilience import deadline, faults, qos
 from ..utils.backend import DeviceLike, resolve_device
 
 logger = logging.getLogger(__name__)
@@ -410,14 +428,21 @@ def _to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
     return tensor.pin_memory().to(device, non_blocking=True)
 
 
-# -- the pipeline (the reference's, without spans and QoS) --------------------
+# -- the pipeline (the reference's) -------------------------------------------
 class _Item:
-    __slots__ = ("idx", "x", "m_valid", "in_flight", "done", "result", "error")
+    __slots__ = ("idx", "x", "m_valid", "in_flight", "done", "result", "error",
+                 "ctx", "klass")
 
     def __init__(self, idx: int, x: np.ndarray, m_valid: int):
         self.idx = idx
         self.x = x
         self.m_valid = m_valid
+        # captured on the submitting thread: the leader that dispatches this
+        # item and the collector that fetches it know nothing of its
+        # request's context variables. The class orders the drain, the
+        # context routes the stages and the collector's log records.
+        self.klass = qos.current_class()
+        self.ctx = spans.capture()
         # set (under the bucket condition) when a leader pops this item off
         # the pending queue: a woken waiter whose item is in flight must
         # wait for the collector, not elect itself leader
@@ -431,12 +456,15 @@ class _Dispatch:
     """One in-flight dispatch: its enqueued (not yet fetched) outputs and
     what the fetch stage needs to fan them out."""
 
-    __slots__ = ("rows", "items", "outputs")
+    __slots__ = ("rows", "items", "outputs", "enqueued")
 
-    def __init__(self, rows: int, items: List[_Item], outputs):
+    def __init__(self, rows: int, items: List[_Item], outputs, enqueued: float):
         self.rows = rows
         self.items = items
         self.outputs = outputs  # (host tensors, CUDA event or None)
+        # perf_counter when the enqueue returned: the device_execute span
+        # runs from here to the start of the fetch
+        self.enqueued = enqueued
 
 
 class _Stop:
@@ -607,8 +635,13 @@ class _Bucket:
         the dispatch depth), and releases the latch once the queue is
         drained or its own item completed."""
         item = _Item(idx, x, m_valid)
+        if self.precision != "f32":
+            # a request served on a lower rung says so in its own timeline
+            spans.event_into(item.ctx, "precision_downgraded",
+                             precision=self.precision, machine=self.names[idx])
         rows = x.shape[0]
         is_leader = False
+        queued = time.perf_counter()
         with self._cond:
             self._pending.setdefault(rows, []).append(item)
             if self._filling:
@@ -621,6 +654,9 @@ class _Bucket:
                     is_leader = True
                     break
                 self._cond.wait(timeout=1.0)  # predicate-looped hang guard
+        # queue_wait: from joining the queue until a leader took this item,
+        # this thread became the leader, or a racing leader completed it
+        spans.record_into(item.ctx, "queue_wait", queued, time.perf_counter() - queued)
         if is_leader:
             try:
                 self._fill_window(item)
@@ -636,9 +672,13 @@ class _Bucket:
                             self._cond.notify_all()
                     if not pending:
                         break
+                    # weighted-fair order within each row bucket: a bulk flood
+                    # fills the tail dispatches of a drain, not every slot
+                    # of the first; a single-class round keeps its order
                     batches = [
-                        (batch_rows, items[start : start + self.max_batch])
+                        (batch_rows, fair[start : start + self.max_batch])
                         for batch_rows, items in pending.items()
+                        for fair in (qos.weighted_interleave(items, lambda it: it.klass),)
                         for start in range(0, len(items), self.max_batch)
                     ]
                     for i, (batch_rows, batch_items) in enumerate(batches):
@@ -665,8 +705,10 @@ class _Bucket:
         window = self._fill_s
         if not window or item.done.is_set():
             return
-        deadline_at = time.perf_counter() + window
+        started = time.perf_counter()
+        deadline_at = started + window
         size_triggered = False
+        largest = 0
         with self._cond:
             total = sum(len(v) for v in self._pending.values())
             if total <= 1 and self._fetch_queue.unfinished_tasks == 0:
@@ -686,11 +728,15 @@ class _Bucket:
                     self._cond.wait(remaining)
             finally:
                 self._filling = False
+        trigger = "size" if size_triggered else "timeout"
         if size_triggered:
             self.fill_size_count += 1
         else:
             self.fill_timeout_count += 1
-        _M_FILL_TRIGGER.labels("size" if size_triggered else "timeout").inc()
+        _M_FILL_TRIGGER.labels(trigger).inc()
+        # how long THIS request's leader held the window, and what it saw
+        spans.record_into(item.ctx, "megabatch", started, time.perf_counter() - started,
+                          trigger=trigger, collected=largest)
 
     def _should_pipeline(self) -> bool:
         """Pipeline the fetch when the collector already has work or new
@@ -738,11 +784,13 @@ class _Bucket:
             xs = self._batch_inputs(items)
             self._inflight_slots.acquire()  # backpressure: bounded depth
             acquired = True
+            started = time.perf_counter()
             outputs = self._enqueue([it.idx for it in items], xs)
         except Exception as exc:
             if acquired:
                 self._inflight_slots.release()
             if len(items) == 1:
+                spans.event_into(items[0].ctx, "dispatch_error", error=type(exc).__name__)
                 self._fail(items, exc)
                 return
             # one request's failure must not fail the batch's other
@@ -754,6 +802,7 @@ class _Bucket:
             self.fallback_cold_count += 1
             _M_MEGA_EVENTS.labels("fallback_cold").inc()
             for it in items:
+                spans.event_into(it.ctx, "megabatch_fallback_cold", error=type(exc).__name__)
                 self._dispatch(rows, [it], defer)
             return
         except BaseException as exc:  # interrupt/exit: surface, don't retry
@@ -761,7 +810,14 @@ class _Bucket:
                 self._inflight_slots.release()
             self._fail(items, exc)
             return
-        self._finish(_Dispatch(rows, items, outputs), defer)
+        enqueued = time.perf_counter()
+        machines = len({it.idx for it in items})
+        for it in items:
+            # the leader may be another request's thread: each item's own
+            # timeline gets the span
+            spans.record_into(it.ctx, "dispatch", started, enqueued - started,
+                              batch=len(items), machines=machines)
+        self._finish(_Dispatch(rows, items, outputs, enqueued), defer)
 
     def _finish(self, job: _Dispatch, defer: bool) -> None:
         """Route one enqueued dispatch to its fetch stage: the collector when
@@ -837,7 +893,19 @@ class _Bucket:
 
     def _complete(self, job: _Dispatch) -> None:
         """Fetch one dispatch and fan out, errors included: an execution
-        failure surfaces here, on exactly this job's waiters."""
+        failure surfaces here, on exactly this job's waiters. Runs bound to
+        the first item's span context: this thread inherits none of the
+        request's, and its log records then carry that trace id (spans go
+        to each item's own timeline)."""
+        with spans.bind(job.items[0].ctx if job.items else spans.EMPTY_CONTEXT):
+            self._complete_bound(job)
+
+    def _complete_bound(self, job: _Dispatch) -> None:
+        fetch_started = time.perf_counter()
+        for it in job.items:
+            # enqueue to fetch start: the window the device computes in
+            spans.record_into(it.ctx, "device_execute", job.enqueued,
+                              fetch_started - job.enqueued)
         try:
             x_tail, pred, scaled, total = self._fetch(job)
         except Exception as exc:
@@ -851,13 +919,22 @@ class _Bucket:
                 )
                 self.retry_isolated_count += 1
                 _M_MEGA_EVENTS.labels("retry_isolated").inc()
+                for it in job.items:
+                    spans.event_into(it.ctx, "megabatch_fetch_failed_retry_isolated",
+                                     error=type(exc).__name__)
                 self._retry_isolated_sync(job.items)
                 return
+            for it in job.items:
+                spans.event_into(it.ctx, "fetch_error", error=type(exc).__name__)
             self._fail(job.items, exc)
             return
         except BaseException as exc:
             self._fail(job.items, exc)
             return
+        fetched = time.perf_counter()
+        for it in job.items:
+            spans.record_into(it.ctx, "fetch", fetch_started, fetched - fetch_started,
+                              batch=len(job.items))
         try:
             # results are filled before any accounting: a fill failure
             # errors the waiters without counting them as served
@@ -877,8 +954,15 @@ class _Bucket:
         ends the loop: nothing is retried twice."""
         for item in items:
             try:
+                started = time.perf_counter()
                 outputs = self._enqueue([item.idx], self._batch_inputs([item]))
+                enqueued = time.perf_counter()
                 x_tail, pred, scaled, total = self._host(outputs)
+                fetched = time.perf_counter()
+                spans.record_into(item.ctx, "dispatch", started, enqueued - started,
+                                  retry="megabatch-fetch-failure")
+                spans.record_into(item.ctx, "fetch", enqueued, fetched - enqueued,
+                                  retry="megabatch-fetch-failure")
                 self._fill_results([item], x_tail, pred, scaled, total)
                 self._account(1)
             except BaseException as exc:
@@ -1075,8 +1159,15 @@ class ServingEngine:
         if resolved is None:
             raise KeyError(name)
         bucket, idx = resolved
-        # expired work must not queue behind the bucket's leader latch
-        deadline.check("engine.dispatch")
+        # the resilience seams, no-ops in the common case: expired work must
+        # not queue behind the bucket's leader latch (the 504 path), and the
+        # fault harness injects latency, errors or corruption here, the
+        # boundary a real device hang would hit; staged as "dispatch" so a
+        # stall here shows in the request's timeline
+        with spans.stage("dispatch", machine=name):
+            deadline.check("engine.dispatch")
+            faults.inject("engine-dispatch", name)
+            X = faults.corrupt("engine-dispatch", name, X)
         return self._chunked_score(
             bucket, X, lambda x_padded, m_valid: bucket.submit(idx, x_padded, m_valid)
         )

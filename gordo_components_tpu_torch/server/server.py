@@ -1,7 +1,9 @@
 """HTTP front of the port (port of ``gordo_components_tpu/server/server.py``:
 the routes at 108-160, ``_ServerState`` at 275-420, ``reload`` at 796-1040,
-the request wrapper at 1253-1335, the handlers at 1470-1840 and the scoring
-path at 1868-2248).
+the request wrapper at 1253-1432, the handlers at 1470-1840 and the scoring
+path at 1868-2248; the reference's routes of parts not ported yet —
+``/slo``, ``/telemetry``, ``/incidents``, ``/autopilot``, ``/layout``,
+``/prefetch``, ``/download-model`` — are listed in ROADMAP.md).
 
 Built on the standard library's ``ThreadingHTTPServer``: no web framework.
 Routes, each also under ``/gordo/v0/<project>/<machine>/`` where marked:
@@ -13,15 +15,31 @@ Routes, each also under ``/gordo/v0/<project>/<machine>/`` where marked:
 - ``GET  /metadata`` (and machine-scoped): the machine's build metadata;
 - ``GET  /models``; ``POST /reload``;
 - ``GET  /metrics``: JSON (``latency``, ``engine``, ``resilience``,
-  ``registry``), or Prometheus text with ``?format=prometheus``;
-- ``POST /prediction`` and ``POST /anomaly/prediction`` (and
-  machine-scoped): the scoring endpoints. The bare paths serve a server
-  of one machine.
+  ``registry``), or Prometheus text with ``?format=prometheus`` (and
+  ``&exemplars=1`` for OpenMetrics exemplars naming trace ids);
+- ``GET  /tenants``: the tenant table (keys redacted), live quota bucket
+  levels, the raw header values seen, and the admission gate's stats;
+- ``GET  /debug/requests`` (``?limit=N``): the flight recorder's recent,
+  slowest and errored request timelines; ``GET
+  /debug/requests/<trace_id>`` one timeline (``?format=chrome``: Chrome
+  trace-event JSON, which Perfetto loads);
+- ``POST /prediction``, ``POST /anomaly/prediction`` and ``POST
+  /bulk/anomaly/prediction`` (and machine-scoped): the scoring endpoints;
+  the bulk one scores as ``/anomaly/prediction`` does, in the bulk class.
+  The bare paths serve a server of one machine.
 
-A scoring request passes the machine's quarantine gate (a quarantined
-machine answers 503 until its cooldown lets one request through as a
-probe), then the admission gate (``GORDO_MAX_INFLIGHT``, default 64;
-``GORDO_MAX_QUEUE``, default 32), then the handler. The body is JSON
+Every request resolves its tenant from ``X-Gordo-Tenant`` (a name or a
+declared API key of ``GORDO_TENANTS``; anything else is ``default``) and,
+while the flight recorder is on (``GORDO_FLIGHTREC``, default on), records
+a span timeline: ``admission``, ``queue_wait``, ``megabatch``,
+``dispatch``, ``device_execute``, ``fetch``, ``score`` and ``encode``. A
+caller that sends ``X-Gordo-Timeline: 1`` gets the timeline back in that
+header (``observability/stitch.py``). A scoring request passes the
+machine's quarantine gate (a quarantined machine answers 503 until its
+cooldown lets one request through as a probe), then the class-aware
+admission gate (``GORDO_MAX_INFLIGHT``, default 64; ``GORDO_MAX_QUEUE``,
+default 32; a tenant past its quota answers 429 + ``Retry-After``), then
+the handler. The body is JSON
 ``{"X": rows}`` (nested lists, or records keyed by the tag list); the
 answer is JSON, or the npz wire format when ``Accept`` lists
 ``application/x-gordo-npz``. Failures map as in the reference: bad input
@@ -34,14 +52,19 @@ cannot lift answers 503 on the scoring endpoints: the port has no host
 path, so nothing is scored on the CPU in its place. Parquet bodies and
 ``?start&end`` data fetches are not served (415, 422).
 
-Machines load to the host; the stacked engine places one copy of each
-bucket's weights on the device and is warmed up before the server binds
-its port and before a reload publishes a new engine. ``POST /reload``
+Machines load to the host (a ``model-load`` fault, ``GORDO_FAULTS``,
+stands in for a broken artifact and quarantines the machine); the stacked
+engine places one copy of each bucket's weights on the device and is
+warmed up before the server binds its port and before a reload publishes
+a new engine. Control events (quarantine, recovery, fault plans, shed
+levels) go to the control ledger under ``GORDO_LEDGER_DIR/worker-0``, or
+``<models-dir>/.telemetry/ledger-worker-0``, or memory only. ``POST /reload``
 rescans a models directory and swaps machines and engine as ONE state;
 the old state's in-flight requests drain before its engine closes.
 
-Run: ``python -m gordo_components_tpu_torch.server --models-dir DIR
-[--port N] [--device cpu]``.
+Run: ``python -m gordo_components_tpu_torch.cli run-server --models-dir DIR
+[--port N] [--device cpu]`` (or ``python -m
+gordo_components_tpu_torch.server``, the same command).
 """
 
 from __future__ import annotations
@@ -55,17 +78,23 @@ import threading
 import time
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Callable, Dict, List, Mapping, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, Mapping, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 
 from .. import precision as precision_mod
 from .. import wire
 from ..models.anomaly.diff import DiffBasedAnomalyDetector
-from ..observability import exposition, tracing
+from ..observability import exposition, flightrec, spans, stitch, tracing
+from ..observability import ledger as control_ledger
 from ..observability.registry import REGISTRY
-from ..resilience import deadline
-from ..resilience.admission import DRAINING_HEADER, AdmissionController, AdmissionRejected
+from ..resilience import deadline, faults, qos
+from ..resilience.admission import (
+    DRAINING_HEADER,
+    AdmissionController,
+    AdmissionRejected,
+    QuotaExceeded,
+)
 from ..resilience.deadline import DeadlineExceeded
 from ..resilience.quarantine import Quarantine
 from ..serializer.persistence import load, load_metadata
@@ -98,6 +127,7 @@ _MACHINE_ENDPOINTS = {
     "metadata": "metadata",
     "prediction": "prediction",
     "anomaly/prediction": "anomaly",
+    "bulk/anomaly/prediction": "bulk-anomaly",
 }
 _ROOT_ENDPOINTS = {
     "/healthz": "healthz",
@@ -105,14 +135,22 @@ _ROOT_ENDPOINTS = {
     "/metrics": "metrics",
     "/models": "models",
     "/reload": "reload",
+    "/tenants": "tenants",
     "/prediction": "prediction",
     "/anomaly/prediction": "anomaly",
+    "/bulk/anomaly/prediction": "bulk-anomaly",
+    "/debug/requests": "debug-requests",
 }
 _MACHINE_ROUTE = re.compile(
     r"^/gordo/v0/(?P<project>[^/]+)/(?P<machine>[^/]+)/(?P<endpoint>"
     + "|".join(re.escape(e) for e in _MACHINE_ENDPOINTS)
     + ")$"
 )
+_DEBUG_REQUEST_ROUTE = re.compile(r"^/debug/requests/(?P<trace_id>[^/]+)$")
+_SCORING_ENDPOINTS = ("prediction", "anomaly", "bulk-anomaly")
+# probe and scrape endpoints stay out of the flight recorder: a watchman
+# polling N machines would flush every scoring trace out of the ring
+_UNRECORDED_ENDPOINTS = ("healthz", "metrics", "tenants", "debug-requests", "debug-request")
 _PARQUET_TYPES = (
     "application/octet-stream",
     "application/x-parquet",
@@ -176,6 +214,8 @@ def _artifact_mtime(model_dir: str) -> float:
 
 class _Machine:
     def __init__(self, name: str, model_dir: str):
+        # a `model-load:<name>:error` fault stands in for a broken artifact
+        faults.inject("model-load", name)
         self.name = name
         self.model_dir = model_dir
         # mtime first: a rebuild landing during the load then reads as
@@ -278,9 +318,12 @@ class ModelServer:
     path, headers, body) -> Response``.
 
     ``models_dir``: one artifact (a server of one machine, named by the
-    directory; reload then has nothing to rescan) or a directory of them
-    (a fleet: a machine that fails to load is quarantined and the rest
-    serve; ``POST /reload`` rescans it). ``max_inflight`` defaults to
+    directory; reload then has nothing to rescan), a directory of them (a
+    fleet: a machine that fails to load is quarantined and the rest serve;
+    ``POST /reload`` rescans it), or a mapping ``{name: artifact dir}``
+    (a fleet of those machines, kept through every reload; ``models_root``
+    adds the artifacts under that directory and is what reload rescans).
+    The tenant table is ``GORDO_TENANTS``. ``max_inflight`` defaults to
     ``GORDO_MAX_INFLIGHT`` (64), the admission queue to ``GORDO_MAX_QUEUE``
     (32); ``quarantine_cooldown``: seconds before a quarantined machine may
     be probed; ``drain_timeout``: how long a reload or a shutdown waits for
@@ -289,35 +332,55 @@ class ModelServer:
 
     def __init__(
         self,
-        models_dir: str,
+        models_dir: Union[str, Mapping[str, str]],
         project: str = "project",
         device: DeviceLike = None,
         max_inflight: Optional[int] = None,
         quarantine_cooldown: float = 30.0,
         drain_timeout: float = 10.0,
+        models_root: Optional[str] = None,
     ):
         self.device = resolve_device(device)
         self.project = project
+        tracing.install_log_record_factory()
         if max_inflight is None:
             max_inflight = int(os.environ.get("GORDO_MAX_INFLIGHT", "64"))
+        self.tenants = qos.TenantTable.from_env()
         self.admission = AdmissionController(
             max_inflight=max_inflight,
             max_queue=int(os.environ.get("GORDO_MAX_QUEUE", "32")),
+            tenants=self.tenants,
         )
         self.quarantine = Quarantine(cooldown=quarantine_cooldown)
         self.drain_timeout = drain_timeout
         # machines that failed to load, name -> dir: quarantined, retried
         # at every reload
         self._quarantined_dirs: Dict[str, str] = {}
+        # machines named explicitly: reload keeps them, wherever they live
+        self._pinned: Dict[str, str] = {}
         self._reload_lock = threading.Lock()
-        if is_artifact_dir(models_dir):
-            self.models_root: Optional[str] = None
+        if isinstance(models_dir, Mapping):
+            self.models_root = models_root
+            self._pinned = dict(models_dir)
+        elif is_artifact_dir(models_dir):
+            self.models_root = None
+        else:
+            self.models_root = models_dir
+        # before the machines load, so their quarantine events land there
+        ledger_dir = os.environ.get("GORDO_LEDGER_DIR")
+        if ledger_dir:
+            ledger_dir = os.path.join(ledger_dir, "worker-0")
+        elif self.models_root:
+            ledger_dir = os.path.join(self.models_root, ".telemetry", "ledger-worker-0")
+        control_ledger.configure(ledger_dir or None)
+        # a server of one artifact answers the bare paths
+        self._single = not isinstance(models_dir, Mapping) and self.models_root is None
+        if self._single:
             name = os.path.basename(os.path.normpath(models_dir))
             machines = {name: _Machine(name, models_dir)}
         else:
-            self.models_root = models_dir
             machines = {}
-            for name, path in scan_models_dir(models_dir).items():
+            for name, path in self._scan().items():
                 try:
                     machines[name] = _Machine(name, path)
                 except Exception as exc:  # noqa: BLE001 - one bad artifact must not stop the fleet
@@ -326,17 +389,25 @@ class ModelServer:
                     self._quarantined_dirs[name] = path
             if not machines:
                 raise ValueError(
-                    f"no model artifact under {models_dir} loaded; quarantined: "
-                    f"{sorted(self._quarantined_dirs)}"
+                    f"no model artifact under {self.models_root or sorted(self._pinned)} "
+                    f"loaded; quarantined: {sorted(self._quarantined_dirs)}"
                 )
         self._state = self._new_state(machines)
-        tracing.install_log_record_factory()
         logger.info("ModelServer serving %d model(s): %s", len(machines), sorted(machines))
+
+    def _scan(self) -> Dict[str, str]:
+        """``{name: artifact dir}``: the pinned machines, then every artifact
+        under ``models_root`` that is not one of them."""
+        found = dict(self._pinned)
+        if self.models_root:
+            for name, path in scan_models_dir(self.models_root).items():
+                found.setdefault(name, path)
+        return found
 
     def _new_state(self, machines: Dict[str, _Machine]) -> _ServerState:
         """A state for ``machines`` with its engine warmed up (kernel
         libraries built, cuBLAS handles made) before it takes traffic."""
-        state = _ServerState(machines, single=self.models_root is None, device=self.device)
+        state = _ServerState(machines, single=self._single, device=self.device)
         state.engine.warmup()
         return state
 
@@ -370,7 +441,7 @@ class ModelServer:
             )
         with self._reload_lock:
             state = self._state
-            seen = scan_models_dir(self.models_root)
+            seen = self._scan()
             added: List[str] = []
             refreshed: List[str] = []
             errors: Dict[str, str] = {}
@@ -423,9 +494,10 @@ class ModelServer:
     # -- dispatch --------------------------------------------------------------
     def handle(self, method: str, raw_path: str, headers: Mapping[str, str],
                body: bytes) -> Response:
-        """Answer one request: adopt or mint its trace id, bind its
-        deadline, route it, map the resilience exceptions to 503/504, and
-        record its latency and status."""
+        """Answer one request: adopt or mint its trace id, bind its deadline
+        and tenant, begin its timeline, route it, map the resilience
+        exceptions to 429/503/504, record its latency, status and tenant
+        outcome, and finish and keep its timeline."""
         started = time.perf_counter()
         headers = {key.lower(): value for key, value in headers.items()}
         path, _, query = raw_path.partition("?")
@@ -434,6 +506,16 @@ class ModelServer:
         token = tracing.set_trace_id(trace_id)
         budget = deadline.parse_header(headers.get(deadline.DEADLINE_HEADER.lower()))
         deadline_token = deadline.set_deadline(budget) if budget is not None else None
+        # the tenant (a declared name or API key, else "default"), bound for
+        # the admission gate's quota and watermark and the engine's submit
+        tenant_spec = self.tenants.resolve(headers.get(qos.TENANT_HEADER.lower()))
+        qos_token = qos.set_current(tenant_spec)
+        shed = False
+        # the request's timeline; the engine's leader and collector get it
+        # through each item's captured span context
+        timeline = timeline_token = None
+        if flightrec.RECORDER.enabled:
+            timeline, timeline_token = spans.begin(trace_id, method=method, path=path)
         # ONE state per request: a reload may swap it meanwhile
         state = self._state
         endpoint = "error"
@@ -441,7 +523,16 @@ class ModelServer:
             try:
                 endpoint, args = self._match(path)
                 response = self._dispatch(method, endpoint, args, params, headers, body, state)
+            except QuotaExceeded as exc:
+                # this tenant's quota, not overload: 429 with the bucket's
+                # refill time
+                spans.event("quota_exceeded", tenant=exc.tenant, retry_after=exc.retry_after)
+                response = _json({"error": f"quota exhausted: {exc}", "tenant": exc.tenant}, 429,
+                                 {"Retry-After": _retry_after(exc.retry_after)})
             except AdmissionRejected as exc:
+                shed = True
+                spans.event("admission_rejected", reason=str(exc), retry_after=exc.retry_after,
+                            tenant=tenant_spec.name)
                 response = _json({"error": f"overloaded: {exc}"}, 503,
                                  {"Retry-After": _retry_after(exc.retry_after)})
             except DeadlineExceeded as exc:
@@ -460,12 +551,37 @@ class ModelServer:
             elapsed = time.perf_counter() - started
             _M_REQUEST_SECONDS.labels(endpoint).observe(elapsed)
             _M_REQUESTS.labels(endpoint, str(response.status)).inc()
+            status = response.status
+            if endpoint in _SCORING_ENDPOINTS:
+                qos.note_request(
+                    tenant_spec.name,
+                    "bulk" if endpoint == "bulk-anomaly" else tenant_spec.klass,
+                    "quota" if status == 429 else "shed" if shed
+                    else "ok" if status < 400 else "error",
+                )
+            if timeline is not None:
+                timeline.meta["endpoint"] = endpoint
+                timeline.meta["tenant"] = tenant_spec.name
+                timeline.finish(status=str(status), error=f"HTTP {status}" if status >= 500 else "")
+                # only when the caller negotiated it; past the size cap the
+                # truncation marker says to pull /debug/requests/<trace_id>
+                if headers.get(stitch.TIMELINE_HEADER.lower()):
+                    encoded, truncated = stitch.encode_timeline(timeline)
+                    if encoded is not None:
+                        response.headers[stitch.TIMELINE_HEADER] = encoded
+                    else:
+                        response.headers[stitch.TIMELINE_TRUNCATED_HEADER] = str(truncated)
+                if endpoint not in _UNRECORDED_ENDPOINTS:
+                    flightrec.RECORDER.record(timeline)
             logger.log(
                 logging.DEBUG if endpoint in ("healthz", "metrics") else logging.INFO,
                 "%s %s -> %d in %.1f ms [trace=%s]",
-                method, path, response.status, elapsed * 1000, trace_id,
+                method, path, status, elapsed * 1000, trace_id,
             )
         finally:
+            if timeline_token is not None:
+                spans.end(timeline_token)
+            qos.reset(qos_token)
             if deadline_token is not None:
                 deadline.reset(deadline_token)
             tracing.reset_trace_id(token)
@@ -475,6 +591,9 @@ class ModelServer:
     def _match(path: str) -> Tuple[str, Dict[str, str]]:
         if path in _ROOT_ENDPOINTS:
             return _ROOT_ENDPOINTS[path], {}
+        match = _DEBUG_REQUEST_ROUTE.match(path)
+        if match is not None:
+            return "debug-request", {"trace_id": match["trace_id"]}
         match = _MACHINE_ROUTE.match(path)
         if match is None:
             raise HTTPError(404, f"No route {path!r}")
@@ -511,8 +630,11 @@ class ModelServer:
             return self._healthz(args, state)
         if endpoint == "metrics":
             if params.get("format") == "prometheus":
-                return Response(200, exposition.render_prometheus(REGISTRY).encode(),
-                                exposition.CONTENT_TYPE, {})
+                # &exemplars=1 opts into OpenMetrics exemplars; the bare
+                # scrape stays strict v0.0.4, whose parsers reject them
+                text = exposition.render_prometheus(
+                    REGISTRY, exemplars=params.get("exemplars") in ("1", "true"))
+                return Response(200, text.encode(), exposition.CONTENT_TYPE, {})
             return _json({
                 "latency": _latency_view(),
                 "engine": state.engine.stats(),
@@ -523,6 +645,24 @@ class ModelServer:
                 },
                 "registry": REGISTRY.snapshot(),
             })
+        if endpoint == "tenants":
+            snapshot = self.tenants.snapshot()
+            snapshot["admission"] = self.admission.stats()
+            return _json(snapshot)
+        if endpoint == "debug-requests":
+            try:
+                limit = int(params.get("limit", ""))
+            except ValueError:
+                limit = 0
+            return _json(flightrec.RECORDER.summaries(limit=limit or 50))
+        if endpoint == "debug-request":
+            recorded = flightrec.RECORDER.get(args["trace_id"])
+            if recorded is None:
+                raise HTTPError(404, f"no recorded timeline for trace {args['trace_id']!r} "
+                                     "(rotated out of the flight recorder, or never seen)")
+            if params.get("format") == "chrome":
+                return _json(recorded.to_chrome_trace())
+            return _json(recorded.to_dict())
         if endpoint == "models":
             return _json({"project": self.project, "models": sorted(state.machines)})
         if endpoint == "reload":
@@ -588,7 +728,10 @@ class ModelServer:
                         params: Dict[str, str], headers: Dict[str, str], body: bytes,
                         state: _ServerState) -> Response:
         """The quarantine gate (with probe recovery), then admission, then
-        the handler. Success clears the machine's health marks."""
+        the handler. Success clears the machine's health marks. The bulk
+        endpoint scores in the bulk class whatever the tenant's class (its
+        quota stays the tenant's own), rebound here so the engine reads it
+        at submit."""
         name = machine.name
         probing = False
         if self.quarantine.is_quarantined(name):
@@ -596,8 +739,16 @@ class ModelServer:
                 self._abort_quarantined(name)
             probing = True  # cooldown elapsed: this request is the probe
             logger.info("Quarantine recovery probe for machine %r", name)
+        bulk_token = None
+        if endpoint == "bulk-anomaly":
+            spec = qos.current() or self.tenants.default
+            if spec.klass != "bulk":
+                bulk_token = qos.set_current(qos.as_class(spec, "bulk"))
         try:
-            with self.admission.admit():
+            # the gate wait itself, so a queued request's timeline shows it
+            with spans.stage("admission"):
+                admitted = self.admission.admit()
+            with admitted:
                 if endpoint == "prediction":
                     response = self._predict(method, machine, headers, body, state)
                 else:
@@ -610,6 +761,9 @@ class ModelServer:
             if probing and exc.status < 500:  # a client error proves nothing
                 self.quarantine.release_probe(name)
             raise
+        finally:
+            if bulk_token is not None:
+                qos.reset(bulk_token)
         if probing:
             self.quarantine.recover(name)
             logger.info("Machine %r recovered from quarantine", name)
@@ -714,18 +868,22 @@ class ModelServer:
         arrays = {name: np.asarray(arr) for name, arr in arrays.items()}
         if wire.wants_npz(headers.get("accept")):
             _M_WIRE_FORMAT.labels("npz").inc()
-            return Response(200, wire.encode_npz(arrays, dict(extras or {})),
-                            wire.NPZ_CONTENT_TYPE, {})
+            with spans.stage("encode", format="npz"):
+                body = wire.encode_npz(arrays, dict(extras or {}))
+            return Response(200, body, wire.NPZ_CONTENT_TYPE, {})
         _M_WIRE_FORMAT.labels("fast_json").inc()
-        return Response(200, wire.encode_scored_json(arrays, None, extras).encode(),
-                        "application/json", {})
+        with spans.stage("encode", format="fast_json"):
+            body = wire.encode_scored_json(arrays, None, extras).encode()
+        return Response(200, body, "application/json", {})
 
     def _guarded(self, machine: _Machine, fn: Callable[[], Any], error_prefix: str) -> Any:
         """One failure taxonomy for scoring: bad input 400, an expired
         deadline 504 with the machine marked suspect, anything else
-        quarantines the machine (503) — never a 500 from the engine."""
+        quarantines the machine (503) — never a 500 from the engine. The
+        call is the request's ``score`` stage."""
         try:
-            return fn()
+            with spans.stage("score", machine=machine.name):
+                return fn()
         except ValueError as exc:
             raise HTTPError(400, f"{error_prefix}: {exc}") from None
         except DeadlineExceeded:

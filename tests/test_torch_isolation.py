@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of ``gordo_components_tpu_torch``,
 and not ``chip_smoke.py``, imports jax, flax, optax, orbax, sklearn, pandas,
-click or the JAX package; ``yaml`` and ``pyarrow`` are imported only inside the
+click, requests, werkzeug or the JAX package (the card's machine has none of
+them); ``yaml`` and ``pyarrow`` are imported only inside the
 function that needs them, which names the package when it is missing; and
 every entry point runs on CUDA unless ``device="cpu"`` is passed — without
 a card it raises instead of quietly running on the CPU."""
@@ -19,7 +20,7 @@ torch = pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "gordo_components_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gordo_components_tpu", "sklearn",
-             "pandas", "click")
+             "pandas", "click", "requests", "werkzeug")
 # packages the card's machine may lack: imported lazily, where they are needed
 LAZY_ONLY = ("yaml", "pyarrow")
 
@@ -131,8 +132,12 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
+    from gordo_components_tpu_torch.cli import cli
+    from gordo_components_tpu_torch.server.server import make_server
+
     for entry in (lambda: load(str(tmp_path)), lambda: ServingEngine({}),
-                  lambda: ModelServer(str(tmp_path))):
+                  lambda: ModelServer(str(tmp_path)), lambda: make_server(str(tmp_path), port=0),
+                  lambda: cli.main(["run-server", "--models-dir", str(tmp_path), "--port", "0"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             entry()
     # an estimator given weights without a device: set_state, then predict
