@@ -12,7 +12,8 @@ Phases; any failure exits non-zero before the result line:
    of ``csrc/flash_fwd_bf16.cu``) against its plain PyTorch version on the
    card, at the slice shape and the edge shapes of ``CHECK_SHAPES``, the
    fp32 one also at the training step's and the fleet build's shapes
-   (``FWD_F32_PATH_SHAPES``; each plain version runs over BH slices); then,
+   (``FWD_F32_PATH_SHAPES``, phase 12's chunks among them; each plain
+   version runs over BH slices); then,
    at the slice shape, its time, the plain version's time and one PyTorch
    library call's time as a yardstick: SDPA on the 4-D view with its fused
    backend forced and named (timed only; the port never calls it). The
@@ -174,7 +175,33 @@ Phases; any failure exits non-zero before the result line:
    50 ms; the ledger directory holds the fault plan and the quarantine,
    each valid. Printed with the card's name and power limit: req/s, p50
    and p99 per class, the median stage breakdown of a dense and a PatchTST
-   request, recorder on against off.
+   request, recorder on against off;
+12. the bulk client (``phase_client``): the in-repo InfluxDB 1.x double
+   (``tests/influx_double.py``, loaded by path, its points indexed by tag so
+   that a query scans one tag's points) filled through the port's
+   ``MinimalInfluxClient`` with seeded one-minute series of ``N_TAGS`` tags
+   for each of ``CLIENT_MACHINES``, each machine in a measurement of its own,
+   ``CLIENT_CHUNKS`` x (LOOKBACK + CLIENT_WINDOWS - 1) rows; both slice
+   machines built by ``python -m gordo_components_tpu_torch.cli build`` from
+   an ``InfluxDataProvider`` data config, one process after the other, the
+   next machine's points written while a build runs (8 Adam steps each
+   through the fp32 flash kernels); served by the port's server
+   in this process and scored by the port's ``Client`` (parallelism
+   ``CLIENT_PARALLELISM``, one ``max_interval`` per chunk, the Influx and
+   CSV forwarders). Checked: every chunk answers, scores its last
+   ``CLIENT_WINDOWS`` rows (the reference's tail alignment) at their
+   timestamps, and equals the same rows POSTed alone as npz within
+   FUSED_RTOL; each chunk's timeline holds ``data_fetch`` and dispatch +
+   device_execute + fetch at least 3 x phase 2's ``flash_fwd_f32`` time at
+   its dispatch's BH; the forwarded points read back from the double; ``cli
+   client predict`` in a subprocess prints the same row counts and writes a
+   CSV per machine; ``GET /download-model`` loads (``serializer.loads``) and,
+   lifted on the card, scores a chunk within SERVE_RTOL of the served one; a
+   parquet body equals the npz answer where pyarrow is installed (else a
+   415); fp32 flash launches = 3 x PatchTST dispatches in the serving
+   window. Printed with the card: the builds' walls, per chunk wall,
+   ``data_fetch`` and device ms, the client's wall and rows per second, the
+   forwarders' walls.
 
 The line before last is ``nvidia-smi``'s name and power limit; the one
 before that the kernels' JSON record; the last line is the result.
@@ -380,10 +407,17 @@ FLEET_TRAIN_SHAPE = (2 * TRAIN_SHAPE[0], *TRAIN_SHAPE[1:])
 # alone (the M = 1 fits that phase 10 holds the stack to)
 FLEET_PREDICT_SHAPE = (2 * 128 * N_TAGS * SLICE["n_heads"], *TRAIN_SHAPE[1:])
 ALONE_PREDICT_SHAPE = (FLEET_PREDICT_SHAPE[0] // 2, *TRAIN_SHAPE[1:])
+# phase 12's client chunks: CLIENT_WINDOWS windows a chunk, up to
+# CLIENT_PARALLELISM chunks of the two machines in one fused dispatch
+CLIENT_WINDOWS = 32
+CLIENT_PARALLELISM = 4
+CLIENT_SHAPES = [(k * CLIENT_WINDOWS * N_TAGS * SLICE["n_heads"], *SLICE_SHAPE[1:])
+                 for k in range(1, CLIENT_PARALLELISM + 1)]
 # the fp32 forward is also held at its training and fleet shapes: a step of
 # one machine (phases 8, 9 and the M = 1 fits), of the stacked two and the
-# predict chunks; bf16 runs at none of them
-FWD_F32_PATH_SHAPES = [TRAIN_SHAPE, FLEET_TRAIN_SHAPE, ALONE_PREDICT_SHAPE, FLEET_PREDICT_SHAPE]
+# predict chunks, and at the client's chunks; bf16 runs at none of them
+FWD_F32_PATH_SHAPES = list(dict.fromkeys([TRAIN_SHAPE, FLEET_TRAIN_SHAPE, ALONE_PREDICT_SHAPE,
+                                          FLEET_PREDICT_SHAPE, *CLIENT_SHAPES]))
 # the plain versions run over BH slices of this many sequences, so that their
 # float32 S x S matrices stay near 2 GiB each at S = 179 (sequences are
 # independent: the slices compute the same numbers)
@@ -475,16 +509,19 @@ def phase_kernels(torch, device) -> dict:
               f"{bound['gbytes']:.3f} GB); achieved {bound['gflop'] / ms:.1f} TFLOP/s, "
               f"{bound['gbytes'] / ms:.3f} TB/s, {100 * bound['bound_ms'] / ms:.1f} % of bound")
         record[name].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, library=library,
-                            **bound)
+                            shape_ms={SLICE_SHAPE[0]: ms}, **bound)
         del q, k, v
         # the fused dispatch and fleet step; the fp32 predict chunks, with the
-        # library beside them (the plain version would need ~70 GiB there)
-        for shape in [FUSED_SHAPE] + ([ALONE_PREDICT_SHAPE, FLEET_PREDICT_SHAPE]
-                                      if name == "flash_fwd_f32" else []):
+        # library beside them (the plain version would need ~70 GiB there),
+        # and the client's chunks (phase 12 reads these times)
+        for shape in dict.fromkeys([FUSED_SHAPE] + ([ALONE_PREDICT_SHAPE, FLEET_PREDICT_SHAPE,
+                                                     *CLIENT_SHAPES]
+                                                    if name == "flash_fwd_f32" else [])):
             q, k, v = qkv(shape, dtype)
             shape_ms = timed_ms(lambda: _kernels.flash_fwd_cuda(q, k, v, scale))
+            record[name]["shape_ms"][shape[0]] = shape_ms
             library_text = ""
-            if shape != FUSED_SHAPE:
+            if shape in (ALONE_PREDICT_SHAPE, FLEET_PREDICT_SHAPE):
                 library, shape_library_ms = time_library(torch, F, q, k, v, scale)
                 library_text = f", sdpa {library} {shape_library_ms:.4f} ms"
             shape_bound = attention_bound(*shape, dtype)
@@ -2244,11 +2281,12 @@ def phase_build(torch, device, tmp: str) -> None:
         thread.join(timeout=30)
 
 
-def run_cli(tmp: str, *args: str) -> tuple:
+def run_cli(tmp: str, *args: str, record_name: str = "cli-record.json") -> tuple:
     """One ``python -m gordo_components_tpu_torch.cli`` process (through
-    CLI_RUNNER); returns (stdout lines, wall s, its launch counts, its peak
-    device bytes). Fails on a non-zero exit."""
-    record = os.path.join(tmp, "cli-record.json")
+    CLI_RUNNER, which writes its counts to ``record_name`` under ``tmp``);
+    returns (stdout lines, wall s, its launch counts, its peak device
+    bytes). Fails on a non-zero exit."""
+    record = os.path.join(tmp, record_name)
     if os.path.exists(record):
         os.remove(record)
     root = os.path.dirname(os.path.abspath(__file__))
@@ -3097,6 +3135,322 @@ def phase_seams(torch, device, tmp: str, kernels: dict, card: str) -> dict:
     return launches
 
 
+# phase 12: the bulk client's path. Two slice machines built by ``cli build``
+# from InfluxDataProvider data configs at the in-repo Influx double (each
+# machine's tags in a measurement of its own, one point a minute), served
+# in this process, asked by the port's Client in CLIENT_CHUNKS chunks each
+CLIENT_MACHINES = ("client-patchtst-0", "client-patchtst-1")
+CLIENT_CHUNKS = 4
+CLIENT_START = "2023-03-01T00:00:00+00:00"
+
+
+def influx_double_module():
+    """``tests/influx_double.py`` (standard library only), loaded by path."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "influx_double.py")
+    spec = importlib.util.spec_from_file_location("influx_double", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def indexed_lake():
+    """The Influx double with its points indexed by their ``tag``: a query
+    naming one tag scans that tag's points, not every point of the
+    measurement (the double's own scan, 64 queries a chunk over ~377k
+    points, would be what the chunk's ``data_fetch`` measures). Parsing,
+    answers and errors are the double's own."""
+    import types
+
+    module = influx_double_module()
+    tag_filter = re.compile(r"\bWHERE\s+tag\s*=\s*'((?:[^'\\]|\\.)*)'", re.IGNORECASE)
+
+    class IndexedLake(module.InfluxDouble):
+        def __init__(self):
+            super().__init__()
+            self._index = {}  # (db, measurement) -> (points indexed, {tag: points})
+
+        def _select(self, db, q):
+            match = tag_filter.search(q)
+            if match is None:
+                return super()._select(db, q)
+            tag = re.sub(r"\\(.)", r"\1", match.group(1))
+            with self._lock:
+                narrowed = {}
+                for key, points in self._points.items():
+                    count, by_tag = self._index.get(key, (-1, None))
+                    if count != len(points):  # writes only append
+                        by_tag = {}
+                        for point in points:
+                            by_tag.setdefault(point[1].get("tag"), []).append(point)
+                        self._index[key] = (len(points), by_tag)
+                    narrowed[key] = by_tag.get(tag, [])
+            view = types.SimpleNamespace(_points=narrowed, _lock=threading.Lock())
+            return module.InfluxDouble._select(view, db, q)
+
+    return IndexedLake()
+
+
+def phase_client(torch, device, tmp: str, kernels: dict, card: str) -> dict:
+    """The bulk client's path on the card (see the module docstring, 12).
+    Returns the phase's flash launches: the builds' and those of the
+    serving window."""
+    from concurrent.futures import ThreadPoolExecutor
+    from datetime import datetime, timedelta
+
+    from gordo_components_tpu_torch import wire
+    from gordo_components_tpu_torch.client import (
+        Client,
+        CsvForwarder,
+        ForwardPredictionsIntoInflux,
+        PredictionForwarder,
+    )
+    from gordo_components_tpu_torch.dataset.data_provider.influx_client import (
+        MinimalInfluxClient,
+    )
+    from gordo_components_tpu_torch.observability import flightrec
+    from gordo_components_tpu_torch.ops import _kernels
+    from gordo_components_tpu_torch.serializer import loads
+    from gordo_components_tpu_torch.server.engine import ServingEngine
+    from gordo_components_tpu_torch.server.server import make_server
+
+    class TimedForwarder(PredictionForwarder):
+        def __init__(self, inner):
+            self.inner, self.wall = inner, 0.0
+
+        def forward(self, machine, predictions):
+            started = time.perf_counter()
+            self.inner.forward(machine, predictions)
+            self.wall += time.perf_counter() - started
+
+    tags = [f"TAG-{i:03d}" for i in range(N_TAGS)]
+    chunk_rows = LOOKBACK + CLIENT_WINDOWS - 1  # scores its last CLIENT_WINDOWS rows
+    rows = CLIENT_CHUNKS * chunk_rows
+    start = datetime.fromisoformat(CLIENT_START)
+    end = (start + timedelta(minutes=rows)).isoformat()
+    ns = int(start.timestamp()) * 10**9 + np.arange(rows, dtype=np.int64) * 60 * 10**9
+    series = {name: sensor_rows(np.random.default_rng(SEED + 12000 + i), rows)
+              for i, name in enumerate(CLIENT_MACHINES)}
+    with indexed_lake() as lake:
+        # 1-2. the lake, filled through the port's client, and one `cli
+        # build` process per machine. One build at a time (each peaks near
+        # 30 GiB beside what this process holds), the next machine's points
+        # written while the build before runs
+        influx = dict(host=lake.host, port=lake.port, database="lake")
+        writer = MinimalInfluxClient(**influx)
+        model_config = slice_definition("flash", **TRAIN_KWARGS)
+        dirs = {name: os.path.join(tmp, "client-models", name) for name in CLIENT_MACHINES}
+
+        def fill(i):
+            started = time.perf_counter()
+            for j, tag in enumerate(tags):
+                writer.write_points([series[CLIENT_MACHINES[i]][:, j].astype(np.float64)],
+                                    ["value"], ns, f"sensor_data_{i}", tags={"tag": tag})
+            return time.perf_counter() - started
+
+        def build(i):
+            data = {"type": "TimeSeriesDataset", "train_start_date": CLIENT_START,
+                    "train_end_date": (start + timedelta(minutes=TRAIN_ROWS)).isoformat(),
+                    "tag_list": tags, "resolution": "1min",
+                    "data_provider": {"type": "InfluxDataProvider",
+                                      "measurement": f"sensor_data_{i}", **influx}}
+            name = CLIENT_MACHINES[i]
+            return run_cli(tmp, "build", name, "--model-config", json.dumps(model_config),
+                           "--data-config", json.dumps(data), "--output-dir", dirs[name],
+                           "--cv-mode", "build_only", record_name=f"client-build-{i}.json")
+
+        steps = -(-(TRAIN_ROWS - LOOKBACK + 1) // TRAIN_KWARGS["batch_size"]) * \
+            TRAIN_KWARGS["epochs"]
+        per_build = {**NO_LAUNCHES, "flash_fwd_f32": SLICE["n_layers"] * steps,
+                     "flash_bwd_f32": SLICE["n_layers"] * steps}
+        torch.cuda.empty_cache()  # the earlier phases' cached blocks, for the builds
+        started = time.perf_counter()
+        fills, builds = [fill(0)], []
+        with ThreadPoolExecutor(1) as pool:
+            for i in range(len(CLIENT_MACHINES)):
+                pending = pool.submit(build, i)
+                if i + 1 < len(CLIENT_MACHINES):
+                    fills.append(fill(i + 1))
+                builds.append(pending.result())
+        print(f"client [{card}]: the Influx double filled with {len(CLIENT_MACHINES)} x "
+              f"{N_TAGS} tags x {rows} one-minute points ({', '.join(f'{f:.1f}' for f in fills)} "
+              f"s a machine) and {len(CLIENT_MACHINES)} machines built by cli build from it in "
+              f"{time.perf_counter() - started:.2f} s; " + json.dumps(
+                  {name: {"wall_s": b[1], "peak_gib": b[3] / 2**30, "launches": b[2]}
+                   for name, b in zip(CLIENT_MACHINES, builds)}))
+        for name, (out, _, launched, _) in zip(CLIENT_MACHINES, builds):
+            if out != [dirs[name]] or launched != per_build:
+                fail(f"client: cli build {name} printed {out}, launches {launched} "
+                     f"(want {per_build})")
+        launches = {n: sum(b[2][n] for b in builds) for n in KERNELS}
+
+        # 3. the client's predict against the port's server in this process
+        saved_recorder = flightrec.RECORDER
+        flightrec.RECORDER = flightrec.FlightRecorder(keep=256, enabled=True)
+        httpd = make_server(dirs, port=0, device=device)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        engine = httpd.model_server.engine
+        bucket, _ = engine._by_name[CLIENT_MACHINES[0]]
+        forwarders = [TimedForwarder(ForwardPredictionsIntoInflux("anomaly", **influx)),
+                      TimedForwarder(CsvForwarder(os.path.join(tmp, "client-csv")))]
+        client = Client(base, machines=list(CLIENT_MACHINES), max_interval=f"{chunk_rows}min",
+                        parallelism=CLIENT_PARALLELISM, forwarders=forwarders)
+        try:
+            _kernels.reset_launches()
+            dispatches = bucket.dispatch_count
+            started = time.perf_counter()
+            frames = client.predict(CLIENT_START, end)
+            client_wall = time.perf_counter() - started
+            engine.quiesce()
+            summaries = flightrec.RECORDER.summaries(limit=256)["requests"]
+            trace_id = next(r["trace_id"] for r in summaries if r.get("kind") == "client.predict")
+            timelines = [t.to_dict() for t in flightrec.RECORDER._all()
+                         if t.trace_id == trace_id and t.meta.get("endpoint") == "anomaly"]
+
+            # each chunk against the same rows POSTed alone as npz
+            lone = {}
+            worst = 0.0
+            for name in CLIENT_MACHINES:
+                frame = frames[name]
+                if frame is None or len(frame) != CLIENT_CHUNKS * CLIENT_WINDOWS:
+                    fail(f"client: {name} scored {None if frame is None else len(frame)} rows, "
+                         f"want {CLIENT_CHUNKS} x ({chunk_rows} - {LOOKBACK - 1})")
+                for c in range(CLIENT_CHUNKS):
+                    lo, part = c * chunk_rows, slice(c * CLIENT_WINDOWS, (c + 1) * CLIENT_WINDOWS)
+                    X = series[name][lo:lo + chunk_rows]
+                    chunk = dict(zip(wire.SCORE_FIELDS, (
+                        frame.model_input[part], frame.model_output[part],
+                        frame.tag_anomaly_scores[part], frame.total_anomaly_score[part])))
+                    if not np.array_equal(frame.timestamps[part],
+                                          ns[lo + chunk_rows - CLIENT_WINDOWS:lo + chunk_rows]) \
+                            or not np.array_equal(chunk["model-input"], X[-CLIENT_WINDOWS:]):
+                        fail(f"client: {name} chunk {c}: the timestamps or rows are not the "
+                             "last of the chunk")
+                    status, reply, raw, _ = http(
+                        "POST", f"{base}/gordo/v0/project/{name}/anomaly/prediction",
+                        json.dumps({"X": X.tolist()}).encode(), {"Accept": wire.NPZ_CONTENT_TYPE})
+                    if status != 200:
+                        fail(f"client: {name} chunk {c} POSTed alone: HTTP {status}")
+                    lone[(name, c)] = decode(reply, raw)["data"]
+                    worst = max(worst, compare_arrays(f"client {name} chunk {c}", CLIENT_WINDOWS,
+                                                      chunk, lone[(name, c)], FUSED_RTOL,
+                                                      len(tags)))
+
+            # the chunks' timelines: data_fetch, and the kernels inside
+            # dispatch + device_execute + fetch (phase 11's check 3)
+            if len(timelines) != len(CLIENT_MACHINES) * CLIENT_CHUNKS or any(
+                    t["status"] != "200" for t in timelines):
+                fail(f"client: {len(timelines)} chunk timelines for trace {trace_id}: "
+                     f"{[t['status'] for t in timelines]}")
+            per_chunk = []
+            for tl in timelines:
+                stages = tl["stages_ms"]
+                batch = max((s.get("batch", 0) for s in tl["spans"] if s["name"] == "dispatch"),
+                            default=0)
+                bh = batch * CLIENT_WINDOWS * N_TAGS * SLICE["n_heads"]
+                flash_ms = kernels["flash_fwd_f32"]["shape_ms"].get(bh)
+                device_ms = sum(stages.get(k, 0.0) for k in ("dispatch", "device_execute", "fetch"))
+                if "data_fetch" not in stages or flash_ms is None \
+                        or device_ms < SLICE["n_layers"] * flash_ms:
+                    fail(f"client: chunk timeline {json.dumps(stages)}, batch {batch}: no "
+                         f"data_fetch, or device stages under {SLICE['n_layers']} x "
+                         f"flash_fwd_f32 at BH {bh} ({flash_ms} ms)")
+                per_chunk.append({"wall_ms": tl["duration_ms"], "data_fetch_ms": stages["data_fetch"],
+                                  "device_ms": device_ms, "batch": batch, "bh": bh})
+
+            # 4. the CLI in a subprocess, against the same server
+            cli_csv = os.path.join(tmp, "client-cli-csv")
+            out, cli_wall, _, _ = run_cli(
+                tmp, "client", "predict", CLIENT_START, end, "--base-url", base,
+                *[arg for name in CLIENT_MACHINES for arg in ("--machine", name)],
+                "--max-interval", f"{chunk_rows}min", "--parallelism", str(CLIENT_PARALLELISM),
+                "--output-dir", cli_csv, record_name="client-cli.json")
+            counts = json.loads(out[-1])
+            if counts != {name: len(frames[name]) for name in CLIENT_MACHINES} or \
+                    sorted(os.listdir(cli_csv)) != sorted(f"{n}.csv" for n in CLIENT_MACHINES):
+                fail(f"client: cli client predict printed {out}, wrote {os.listdir(cli_csv)}")
+
+            # 5. the artifact: /download-model, loaded and lifted on the card
+            status, _, blob, _ = http("GET", f"{base}/gordo/v0/project/{CLIENT_MACHINES[0]}"
+                                             "/download-model")
+            if status != 200:
+                fail(f"client: /download-model answered HTTP {status}")
+            lifted = ServingEngine({"m": loads(blob, device=device)}, device=device)
+            first = frames[CLIENT_MACHINES[0]]
+            served = dict(zip(wire.SCORE_FIELDS, (
+                first.model_input[:CLIENT_WINDOWS], first.model_output[:CLIENT_WINDOWS],
+                first.tag_anomaly_scores[:CLIENT_WINDOWS],
+                first.total_anomaly_score[:CLIENT_WINDOWS])))
+            artifact_worst = compare_arrays(
+                "client /download-model", CLIENT_WINDOWS, dict(zip(wire.SCORE_FIELDS, lifted.anomaly(
+                    "m", series[CLIENT_MACHINES[0]][:chunk_rows]))), served, SERVE_RTOL,
+                len(tags))
+            lifted_dispatches = lifted.stats()["dispatches"]
+            lifted.close()
+
+            # 6. a parquet body, where pyarrow is installed
+            try:
+                import pyarrow  # noqa: F401
+            except ImportError:
+                status = http("POST", f"{base}/gordo/v0/project/{CLIENT_MACHINES[0]}"
+                                      "/anomaly/prediction", b"PAR1",
+                              {"Content-Type": "application/x-parquet"})[0]
+                if status != 415:
+                    fail(f"client: a parquet body without pyarrow answered HTTP {status}")
+                parquet_text = "pyarrow is absent here: a parquet body answers 415"
+            else:
+                scored = client.predict_frame(CLIENT_MACHINES[0], series[CLIENT_MACHINES[0]][
+                    :chunk_rows], columns=tags, timestamps=ns[:chunk_rows], fmt="parquet")
+                parquet_worst = compare_arrays("client parquet", CLIENT_WINDOWS, dict(zip(
+                    wire.SCORE_FIELDS, (scored.model_input, scored.model_output,
+                                        scored.tag_anomaly_scores, scored.total_anomaly_score))),
+                    lone[(CLIENT_MACHINES[0], 0)], FUSED_RTOL, len(tags))
+                if not np.array_equal(scored.timestamps,
+                                      ns[chunk_rows - CLIENT_WINDOWS:chunk_rows]):
+                    fail("client: the parquet answer's timestamps are not its rows'")
+                parquet_text = (f"a parquet body equals the npz answer within {parquet_worst:.3g} "
+                                f"(limit {FUSED_RTOL}), timestamps included")
+            engine.quiesce()
+            served_launches = {n: _kernels.LAUNCHES[n] for n in KERNELS}
+            dispatched = bucket.dispatch_count - dispatches + lifted_dispatches
+        finally:
+            client.close()
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=30)
+            flightrec.RECORDER = saved_recorder
+
+        # the forwarder's points, read back from the double
+        reader = MinimalInfluxClient(**influx)
+        for name in CLIENT_MACHINES:
+            frame = frames[name]
+            points = reader.query(f"SELECT * FROM \"anomaly\" WHERE machine = '{name}'")["anomaly"]
+            values = np.column_stack([points.columns.get(c, np.zeros(0)) for c in frame.columns])
+            if not np.array_equal(points.timestamps, frame.timestamps) or \
+                    not np.array_equal(values, frame.values):
+                fail(f"client: {name}'s forwarded points do not read back as its scores")
+            with open(os.path.join(tmp, "client-csv", f"{name}.csv")) as fh:
+                if len(fh.read().splitlines()) != 1 + len(frame):
+                    fail(f"client: {name}'s CSV does not hold its {len(frame)} rows")
+    expected = {**NO_LAUNCHES, "flash_fwd_f32": SLICE["n_layers"] * dispatched}
+    if served_launches != expected:
+        fail(f"client: launches {served_launches} for {dispatched} PatchTST dispatches")
+    total_rows = sum(len(f) for f in frames.values())
+    print(f"client: {len(timelines)} chunks, each vs its rows POSTed alone as npz within "
+          f"{worst:.3g} (limit {FUSED_RTOL}); the forwarded points read back; the CLI printed "
+          f"{json.dumps(counts)} in {cli_wall:.2f} s; /download-model lifted on the card vs the "
+          f"served chunk {artifact_worst:.3g} (limit {SERVE_RTOL}); {parquet_text}; launches "
+          f"{served_launches} in {dispatched} dispatches")
+    print(f"client [{card}]: " + json.dumps({
+        "client_wall_s": client_wall, "rows": total_rows, "rows_per_s": total_rows / client_wall,
+        "chunks": sorted(per_chunk, key=lambda c: c["wall_ms"]),
+        "forwarders_s": {type(f.inner).__name__: f.wall for f in forwarders}}))
+    return {n: launches[n] + served_launches[n] for n in KERNELS}
+
+
 def main() -> None:
     try:
         import torch
@@ -3124,9 +3478,10 @@ def main() -> None:
         built = phase_cli_build(torch, device, tmp)
         fleet_built = phase_fleet_build(torch, device, tmp)
         seams = phase_seams(torch, device, tmp, kernels, card)
+        client = phase_client(torch, device, tmp, kernels, card)
         for name in KERNELS:
             launches[name] += (trained[name] + trained_bf16[name] + built[name]
-                               + fleet_built[name] + seams[name])
+                               + fleet_built[name] + seams[name] + client[name])
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

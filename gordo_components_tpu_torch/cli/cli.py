@@ -1,7 +1,8 @@
 """``python -m gordo_components_tpu_torch.cli``: the ``build``,
-``fleet-build``, ``rollback``, ``run-server``, ``trace`` and ``tenants``
-commands of the reference's CLI (``gordo_components_tpu/cli/cli.py:164-430,
-519-692, 894-963, 990-1040``), on ``argparse``.
+``fleet-build``, ``rollback``, ``run-server``, ``trace``, ``tenants`` and
+``client predict`` commands of the reference's CLI
+(``gordo_components_tpu/cli/cli.py:164-430, 519-692, 894-963, 990-1040,
+1493-1530``), on ``argparse``.
 
 The arguments, environment variables (``MODEL_CONFIG``, ``DATA_CONFIG``,
 ``OUTPUT_DIR``, ``MODEL_REGISTER_DIR``, ``METADATA``, ``GORDO_TRACE_DIR``,
@@ -16,7 +17,10 @@ the CPU; there is no silent fallback. ``run-server`` offers the flags
 whose machinery the port has; the reference's shard mode, compile cache,
 megabatch residency, lazy boot, mesh and worker flags are not offered
 (ROADMAP.md). ``trace`` and ``tenants`` read a running server over HTTP
-(``urllib``).
+(``urllib``); ``client predict`` scores a range through
+:class:`~gordo_components_tpu_torch.client.Client`, prints ``{machine:
+rows}`` as JSON and exits 1 on a :class:`~gordo_components_tpu_torch.
+client.ClientError`.
 
     python -m gordo_components_tpu_torch.cli build NAME --model-config M \\
         --data-config D --output-dir OUT [--model-register-dir REG] \\
@@ -33,6 +37,9 @@ megabatch residency, lazy boot, mesh and worker flags are not offered
     python -m gordo_components_tpu_torch.cli trace dump TRACE_ID --base-url URL
         [--format chrome|json] [-o FILE]
     python -m gordo_components_tpu_torch.cli tenants --base-url URL
+    python -m gordo_components_tpu_torch.cli client predict START END --base-url URL
+        [--project P] [--machine M ...] [--max-interval 1D] [--parallelism 10]
+        [--output-dir DIR]
 """
 
 from __future__ import annotations
@@ -326,6 +333,27 @@ def tenants(args: argparse.Namespace) -> int:
     return 0
 
 
+def client_predict(args: argparse.Namespace) -> int:
+    """Score [START, END) for every machine (or ``--machine``) and print the
+    row counts; ``--output-dir`` writes one score CSV per machine."""
+    from ..client import Client, ClientError, CsvForwarder
+
+    forwarders = [CsvForwarder(args.output_dir)] if args.output_dir else []
+    client = Client(args.base_url, project=args.project, machines=args.machines or None,
+                    max_interval=args.max_interval, parallelism=args.parallelism,
+                    forwarders=forwarders)
+    try:
+        frames = client.predict(args.start, args.end)
+    except ClientError as exc:
+        logger.error("Prediction failed: %s", exc)
+        return 1
+    finally:
+        client.close()
+    print(json.dumps({machine: 0 if frame is None else len(frame)
+                      for machine, frame in frames.items()}))
+    return 0
+
+
 def parser() -> argparse.ArgumentParser:
     env = os.environ.get
     root = argparse.ArgumentParser(
@@ -422,8 +450,8 @@ def parser() -> argparse.ArgumentParser:
                         "X-Gordo-Tenant; unknown names fold into 'default'")
     s.add_argument("--faults", default=env("GORDO_FAULTS"),
                    help="fault-injection spec 'point:target:kind[:param][;...]' (points "
-                        "model-load, engine-dispatch; kinds error, latency, corrupt); never in "
-                        "production")
+                        "model-load, engine-dispatch, data-fetch; kinds error, latency, "
+                        "corrupt); never in production")
     s.add_argument("--device", default=None,
                    help="cuda (default) or cpu; there is no silent fallback")
     s.set_defaults(run=run_server)
@@ -448,6 +476,23 @@ def parser() -> argparse.ArgumentParser:
                                              "limits of a running server")
     tn.add_argument("--base-url", required=True, help="the server's base URL")
     tn.set_defaults(run=tenants)
+
+    c = commands.add_parser("client", help="bulk prediction against running servers")
+    client_commands = c.add_subparsers(dest="client_command", required=True)
+    cp = client_commands.add_parser("predict", help="score [START, END) for every machine and "
+                                                    "print row counts")
+    cp.add_argument("start")
+    cp.add_argument("end")
+    cp.add_argument("--base-url", required=True, help="the model server's base URL")
+    cp.add_argument("--project", default="project")
+    cp.add_argument("--machine", dest="machines", action="append", default=[],
+                    help="a machine to score; repeat for several (default: the server's "
+                         "/models)")
+    cp.add_argument("--max-interval", default="1D",
+                    help="the longest chunk of one request, e.g. 1D, 12h, 30min (default 1D)")
+    cp.add_argument("--parallelism", type=int, default=10)
+    cp.add_argument("--output-dir", default=None, help="write one score CSV per machine here")
+    cp.set_defaults(run=client_predict)
     return root
 
 

@@ -68,6 +68,5 @@ class GordoBaseDataProvider(abc.ABC):
         if type_path is None:
             raise ValueError("Provider config requires a 'type' key")
         provider_cls = resolve_config_class(
-            type_path, GordoBaseDataProvider, providers.PROVIDERS, providers.PROVIDER_MODULES,
-            not_ported=providers.NOT_PORTED)
+            type_path, GordoBaseDataProvider, providers.PROVIDERS, providers.PROVIDER_MODULES)
         return provider_cls(**config)

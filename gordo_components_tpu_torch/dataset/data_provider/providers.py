@@ -1,9 +1,7 @@
-"""The random, file, flaky and composite providers (the port's copy of
-``gordo_components_tpu/dataset/data_provider/providers.py:33-148,
-252-347``), in numpy.
-
-The influx, NCS, IROC and data-lake providers of the reference are not
-ported: a config naming one raises ``ValueError``.
+"""The random, file, Influx, flaky and composite providers (the port's
+copy of ``gordo_components_tpu/dataset/data_provider/providers.py:33-347``),
+in numpy. The NCS, IROC and data-lake readers are in :mod:`.ncs_iroc`;
+:data:`PROVIDERS` names them all.
 """
 
 from __future__ import annotations
@@ -20,6 +18,8 @@ import numpy as np
 
 from ..sensor_tag import SensorTag
 from .base import GordoBaseDataProvider, Series, datetime_to_ns
+# the lake readers import this module's helpers where they run, not here
+from .ncs_iroc import DataLakeProvider, IrocReader, NcsReader
 
 
 def provider_from_dict(config: Dict[str, Any]) -> GordoBaseDataProvider:
@@ -108,8 +108,66 @@ def parse_timestamps(strings: List[str]) -> Tuple[np.ndarray, Optional[np.ndarra
     return wall_ns, np.array(offsets, dtype=np.int64)
 
 
+def utc_ns(strings: List[str]) -> np.ndarray:
+    """ISO 8601 strings -> int64 UTC nanoseconds: aware ones converted,
+    naive ones read as UTC (``pd.to_datetime(..., utc=True)``)."""
+    wall, offsets = parse_timestamps(strings)
+    return wall if offsets is None else wall - offsets
+
+
+def pandas_index_columns(table) -> List[str]:
+    """The columns a parquet table's pandas metadata names as its index
+    (a RangeIndex is stored as metadata only, and is not one)."""
+    meta = table.schema.metadata or {}
+    if b"pandas" not in meta:
+        return []
+    return [c for c in json.loads(meta[b"pandas"]).get("index_columns", []) if isinstance(c, str)]
+
+
+_POW10 = [float(f"1e{i}") for i in range(309)]
+_DECIMAL = re.compile(r"^\s*([+-]?)(\d*)(?:\.(\d*))?(?:[eE]([+-]?\d+))?\s*$")
+
+
+def _csv_float(text: str) -> float:
+    """A CSV number as ``pd.read_csv`` reads it (its ``precise_xstrtod``):
+    at most 17 significant digits accumulated in a double, then scaled by
+    one power of ten. It can differ from Python's correctly rounded
+    ``float`` in the last bit, so it is copied step for step; ``inf`` and
+    the like go to ``float``."""
+    match = _DECIMAL.match(text)
+    if match is None or not (match.group(2) or match.group(3)):
+        return float(text)
+    sign, whole, frac, exp = match.groups()
+    number, digits, exponent = 0.0, 0, 0
+    for ch in whole:
+        if digits < 17:
+            number = number * 10.0 + (ord(ch) - 48)
+            digits += 1
+        else:
+            exponent += 1
+    for ch in frac or "":
+        if digits >= 17:
+            break
+        number = number * 10.0 + (ord(ch) - 48)
+        digits += 1
+        exponent -= 1
+    if sign == "-":
+        number = -number
+    if exp:
+        exponent += int(exp)
+    if exponent > 308:
+        return float("inf") if number > 0 else float("-inf")
+    if exponent > 0:
+        return number * _POW10[exponent]
+    if exponent < -616:
+        return 0.0
+    if exponent < -308:
+        return number / _POW10[-308 - exponent] / _POW10[308]
+    return number / _POW10[-exponent]
+
+
 def _parse_values(strings: List[str]) -> np.ndarray:
-    return np.array([np.nan if s.strip() in _NA_STRINGS else float(s) for s in strings],
+    return np.array([np.nan if s.strip() in _NA_STRINGS else _csv_float(s) for s in strings],
                     dtype=np.float64)
 
 
@@ -148,10 +206,7 @@ def _read_parquet(path: str, naive_start: bool) -> Tuple[np.ndarray, Optional[np
                           "installed") from exc
     table = pq.read_table(path)
     names = table.column_names
-    index_cols = []
-    if table.schema.metadata and b"pandas" in table.schema.metadata:
-        index_cols = [c for c in json.loads(table.schema.metadata[b"pandas"]).get(
-            "index_columns", []) if isinstance(c, str)]
+    index_cols = pandas_index_columns(table)
     t_name = "timestamp" if "timestamp" in names else next(iter(index_cols), None)
     if t_name is None:
         raise ValueError(f"{path}: a parquet file needs a 'timestamp' column or index")
@@ -220,6 +275,88 @@ class FileDataProvider(GordoBaseDataProvider):
             ns = wall if offsets is None or naive_start else wall - offsets
             keep = (ns >= start) & (ns < end)
             yield tag.name, ns[keep], values[keep]
+
+
+class InfluxDataProvider(GordoBaseDataProvider):
+    """InfluxQL reads, one query per tag: ``SELECT "<value_name>" FROM
+    "<measurement>" WHERE tag = '<tag>' AND time >= <start> AND time <
+    <end>``, with the names quoted and escaped (tag names come from fleet
+    configs, not code).
+
+    The client is the injected ``client`` (tests, pre-authenticated
+    sessions; never serialized), else :class:`~.influx_client.
+    MinimalInfluxClient` over ``influx_config`` (``host``, ``port``,
+    ``database``, ``username``, ``password``, ``ssl``, ...), with
+    ``api_key`` in the ``api_key_header`` header
+    (``Ocp-Apim-Subscription-Key`` by default). The reference prefers the
+    ``influxdb`` package's ``DataFrameClient`` when it is installed and
+    falls back to the same minimal client; the port always takes the
+    minimal client, since the other is built on pandas. The API key and
+    the password are never serialized: :meth:`to_dict` lands in served
+    build metadata. ``dry_run`` asks each tag's query with ``LIMIT 1``.
+    """
+
+    def __init__(
+        self,
+        measurement: str = "sensor_data",
+        value_name: str = "value",
+        api_key: Optional[str] = None,
+        api_key_header: Optional[str] = None,
+        client: Any = None,
+        **influx_config: Any,
+    ):
+        from .influx_client import MinimalInfluxClient
+
+        self._init_kwargs = {
+            "measurement": measurement,
+            "value_name": value_name,
+            **{k: v for k, v in influx_config.items() if k != "password"},
+        }
+        self.measurement = measurement
+        self.value_name = value_name
+        self.influx_config = influx_config
+        if client is None:
+            headers = ({api_key_header or "Ocp-Apim-Subscription-Key": api_key}
+                       if api_key else None)
+            client = MinimalInfluxClient(headers=headers, **influx_config)
+        self._client = client
+
+    def can_handle_tag(self, tag: SensorTag) -> bool:
+        return True
+
+    def load_series(
+        self,
+        train_start_date: datetime,
+        train_end_date: datetime,
+        tag_list: List[SensorTag],
+        dry_run: bool = False,
+    ) -> Iterable[Series]:
+        safe_measurement = self.measurement.replace('"', '\\"')
+        safe_value = self.value_name.replace('"', '\\"')
+        for tag in tag_list:
+            safe_tag = tag.name.replace("\\", "\\\\").replace("'", "\\'")
+            query = (
+                f'SELECT "{safe_value}" FROM "{safe_measurement}" '
+                f"WHERE tag = '{safe_tag}' "
+                f"AND time >= '{train_start_date.isoformat()}' "
+                f"AND time < '{train_end_date.isoformat()}'"
+            )
+            if dry_run:  # availability only: never the whole range
+                self._client.query(query + " LIMIT 1")
+                continue
+            series = self._client.query(query).get(self.measurement)
+            if series is None:
+                yield tag.name, np.zeros(0, np.int64), np.zeros(0, np.float64)
+                continue
+            if self.value_name not in series.columns:
+                raise ValueError(
+                    f"Influx result for tag {tag.name!r} has no {self.value_name!r} column "
+                    f"(columns: {list(series.columns)}); check value_name/measurement"
+                )
+            # the client's epoch=ns times are UTC; sorted as the reference sorts
+            order = np.argsort(series.timestamps, kind="stable")
+            values = np.asarray(series.columns[self.value_name], dtype=np.float64)
+            yield tag.name, series.timestamps[order], values[order]
 
 
 class FlakyDataProvider(GordoBaseDataProvider):
@@ -303,14 +440,15 @@ class CompositeDataProvider(GordoBaseDataProvider):
 
 # the closed table ``GordoBaseDataProvider.from_dict`` resolves through
 PROVIDERS = {
-    cls.__name__: cls for cls in (RandomDataProvider, FileDataProvider, FlakyDataProvider,
-                                  CompositeDataProvider)
+    cls.__name__: cls for cls in (RandomDataProvider, FileDataProvider, InfluxDataProvider,
+                                  FlakyDataProvider, CompositeDataProvider, NcsReader,
+                                  IrocReader, DataLakeProvider)
 }
-NOT_PORTED = ("InfluxDataProvider", "NcsReader", "IrocReader", "DataLakeProvider")
 PROVIDER_MODULES = (
     "gordo_components_tpu.dataset.data_provider",
     "gordo_components_tpu.dataset.data_provider.providers",
     "gordo_components_tpu.dataset.data_provider.ncs_iroc",
     "gordo_components_tpu_torch.dataset.data_provider",
+    "gordo_components_tpu_torch.dataset.data_provider.ncs_iroc",
     __name__,
 )

@@ -1,3 +1,3 @@
 """Anomaly detectors of the port."""
 
-from .diff import DiffBasedAnomalyDetector  # noqa: F401
+from .diff import AnomalyFrame, DiffBasedAnomalyDetector  # noqa: F401

@@ -7,15 +7,16 @@ indices, kept here in :func:`time_series_split` since the port does not
 import sklearn), a fresh clone of the base pipeline fitted per fold, the
 four metrics per fold, then the per-tag error scaler fitted on the pooled
 out-of-fold residuals ``|y - ŷ|`` and the thresholds at their 99th
-percentile. ``fit`` trains the final model. Scoring goes through
-:class:`gordo_components_tpu_torch.server.engine.ServingEngine`; the
-reference's pandas host path (``anomaly`` → DataFrame) is not ported.
+percentile. ``fit`` trains the final model. The server scores through
+:class:`gordo_components_tpu_torch.server.engine.ServingEngine`;
+:meth:`DiffBasedAnomalyDetector.anomaly` is the reference's host path, its
+DataFrame given as an :class:`AnomalyFrame` of arrays and column names.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -95,6 +96,31 @@ def fit_thresholds(scaler: Any, residuals: np.ndarray) -> Tuple[np.ndarray, floa
     return tag_thresholds, total_threshold
 
 
+class AnomalyFrame(NamedTuple):
+    """The reference's anomaly DataFrame without pandas: ``values`` (rows x
+    columns, float32), ``columns`` (its two-level names: ``("model-input",
+    tag)`` ..., ``("model-output", tag)`` ..., ``("tag-anomaly-scores",
+    tag)`` ..., ``("total-anomaly-score", "")``) and ``index`` (the rows'
+    timestamps, or ``None``)."""
+
+    values: np.ndarray
+    columns: List[Tuple[str, str]]
+    index: Optional[np.ndarray]
+
+    def __getitem__(self, key):
+        """A top-level column block by name (``frame["model-output"]``),
+        one column as a 1-D array (``frame["total-anomaly-score"]``, as
+        pandas gives it); an integer still indexes the tuple."""
+        if isinstance(key, str):
+            cols = [i for i, (top, _) in enumerate(self.columns) if top == key]
+            if not cols:
+                raise KeyError(key)
+            if [self.columns[i][1] for i in cols] == [""]:
+                return self.values[:, cols[0]]
+            return self.values[:, cols]
+        return tuple.__getitem__(self, key)
+
+
 class DiffBasedAnomalyDetector:
     def __init__(
         self,
@@ -134,6 +160,47 @@ class DiffBasedAnomalyDetector:
 
     def predict(self, X) -> np.ndarray:
         return self.base_estimator.predict(X)
+
+    def score(self, X, y=None) -> float:
+        return self.base_estimator.score(X, y)
+
+    def anomaly(
+        self,
+        X,
+        y=None,
+        x_columns: Optional[Sequence[str]] = None,
+        y_columns: Optional[Sequence[str]] = None,
+        index: Optional[np.ndarray] = None,
+    ) -> AnomalyFrame:
+        """Score ``X`` against the targets ``y`` (``X`` by default): the
+        inputs and predictions of the tail rows the model predicts, the
+        per-tag errors scaled by the fitted error scaler (raw while the
+        scaler is unfitted, unless ``require_thresholds``) and their row
+        norm. Columns are named by ``x_columns`` / ``y_columns`` (else
+        ``tag-i``), rows by the tail of ``index``."""
+        if self.scaler.params_ is None and self.require_thresholds:
+            raise ValueError("Anomaly scaler is not fitted; run cross_validate() first")
+        X_vals = np.asarray(X, dtype=np.float32)
+        y_vals = X_vals if y is None else np.asarray(y, dtype=np.float32)
+        pred = np.asarray(self.predict(X_vals))
+        y_aligned = _tail_align(y_vals, len(pred))
+        error = np.abs(y_aligned - pred)
+        scaled = error if self.scaler.params_ is None else np.asarray(self.scaler.transform(error))
+        total = np.linalg.norm(scaled, axis=1)
+        in_tags = list(x_columns) if x_columns else [f"tag-{i}" for i in range(X_vals.shape[1])]
+        if y_columns:
+            out_tags = list(y_columns)
+        elif y is None and x_columns:
+            out_tags = in_tags
+        else:
+            out_tags = [f"tag-{i}" for i in range(y_aligned.shape[1])]
+        columns = ([("model-input", t) for t in in_tags] + [("model-output", t) for t in out_tags]
+                   + [("tag-anomaly-scores", t) for t in out_tags]
+                   + [("total-anomaly-score", "")])
+        values = np.concatenate(
+            [_tail_align(X_vals, len(pred)), pred, scaled, total[:, None]], axis=1)
+        tail = None if index is None else np.asarray(index)[len(index) - len(pred):]
+        return AnomalyFrame(values, columns, tail)
 
     def cross_validate(
         self, X, y=None, n_splits: int = 3, metrics: Optional[List[str]] = None

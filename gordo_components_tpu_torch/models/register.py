@@ -8,7 +8,7 @@ name arbitrary importables.
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, List
 
 _REGISTRY: Dict[str, Callable] = {}
 
@@ -35,3 +35,10 @@ def get_factory(kind: str) -> Callable:
         f"Unknown model kind {kind!r}; the port has: {sorted(_REGISTRY)} "
         "(the other kinds are queued in ROADMAP.md)"
     )
+
+
+def list_kinds() -> List[str]:
+    """Every registered kind, sorted."""
+    from . import factories  # noqa: F401
+
+    return sorted(_REGISTRY)

@@ -1,2 +1,3 @@
-"""Deadlines, admission and per-machine quarantine of the port's server
-(copies of the JAX package's ``resilience/`` modules)."""
+"""Deadlines, admission, per-machine quarantine, fault points and the
+client's circuit breakers (copies of the JAX package's ``resilience/``
+modules)."""

@@ -71,6 +71,11 @@ def remaining() -> Optional[float]:
     return bound - time.monotonic()
 
 
+def expired() -> bool:
+    left = remaining()
+    return left is not None and left <= 0.0
+
+
 def check(where: str) -> None:
     """Raise :class:`DeadlineExceeded` if the bound deadline has passed; a
     no-op without one (warmup, direct engine calls)."""
@@ -80,6 +85,16 @@ def check(where: str) -> None:
         # the expiry lands on the request's timeline, naming the boundary
         spans.event("deadline_expired", where=where, overdue_s=round(-left, 3))
         raise DeadlineExceeded(f"deadline exceeded {-left:.3f}s ago (checked at {where})")
+
+
+def header_value() -> Optional[str]:
+    """The remaining budget as an outbound ``X-Gordo-Deadline`` value, or
+    ``None`` without a deadline: how a caller hands its own deadline on
+    (client to server)."""
+    left = remaining()
+    if left is None:
+        return None
+    return f"{max(0.0, left):.3f}"
 
 
 @contextlib.contextmanager

@@ -21,7 +21,7 @@ from ..models.models import (
     PatchTSTAutoEncoder,
     PatchTSTForecast,
 )
-from ..models.pipeline import Pipeline, TransformedTargetRegressor
+from ..models.pipeline import FeatureUnion, Pipeline, TransformedTargetRegressor
 from ..models.transformers import (
     FunctionTransformer,
     InfImputer,
@@ -36,6 +36,7 @@ _REF = "gordo_components_tpu.models"
 CLASS_PATHS: Dict[str, type] = {
     f"{_REF}.anomaly.diff.DiffBasedAnomalyDetector": DiffBasedAnomalyDetector,
     f"{_REF}.pipeline.Pipeline": Pipeline,
+    f"{_REF}.pipeline.FeatureUnion": FeatureUnion,
     f"{_REF}.pipeline.TransformedTargetRegressor": TransformedTargetRegressor,
     f"{_REF}.transformers.MinMaxScaler": MinMaxScaler,
     f"{_REF}.transformers.StandardScaler": StandardScaler,
@@ -51,6 +52,7 @@ CLASS_PATHS: Dict[str, type] = {
 
 _ALIASES: Dict[str, str] = {
     "sklearn.pipeline.Pipeline": f"{_REF}.pipeline.Pipeline",
+    "sklearn.pipeline.FeatureUnion": f"{_REF}.pipeline.FeatureUnion",
     "sklearn.compose.TransformedTargetRegressor": (
         f"{_REF}.pipeline.TransformedTargetRegressor"
     ),
@@ -71,6 +73,11 @@ _ALIASES.update({path.rsplit(".", 1)[1]: path for path in CLASS_PATHS})
 _ALIASES["KerasAutoEncoder"] = f"{_REF}.models.DenseAutoEncoder"
 _ALIASES["KerasLSTMAutoEncoder"] = f"{_REF}.models.LSTMAutoEncoder"
 _ALIASES["KerasLSTMForecast"] = f"{_REF}.models.LSTMForecast"
+
+
+# the kwargs that hold [name, definition] pairs: a pipeline's steps, a
+# union's transformers
+_STEP_LISTS = ("steps", "transformer_list")
 
 
 def resolve_class_path(path: str) -> type:
@@ -107,7 +114,7 @@ def _build(node: Any) -> Any:
     built = {
         key: (
             _build_steps(value)
-            if key == "steps" and isinstance(value, list)
+            if key in _STEP_LISTS and isinstance(value, list)
             else _build_value(value)
         )
         for key, value in kwargs.items()

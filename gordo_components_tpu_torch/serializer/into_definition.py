@@ -12,7 +12,7 @@ from typing import Any, Dict
 
 import numpy as np
 
-from .from_definition import CLASS_PATHS
+from .from_definition import _STEP_LISTS, CLASS_PATHS
 
 _PATH_OF = {cls: path for path, cls in CLASS_PATHS.items()}
 
@@ -38,8 +38,19 @@ def pipeline_into_definition(obj: Any) -> Dict[str, Any]:
         raise ValueError(f"{type(obj).__name__} has no definition path")
     kwargs: Dict[str, Any] = {}
     for key, value in obj.get_params(deep=False).items():
-        if key == "steps":
+        if key in _STEP_LISTS:
             kwargs[key] = [[name, pipeline_into_definition(step)] for name, step in value]
         else:
             kwargs[key] = _plain(value)
     return {_PATH_OF[type(obj)]: kwargs}
+
+
+def into_definition_yaml(obj: Any) -> str:
+    """:func:`pipeline_into_definition` as YAML text, keys in the
+    definition's order (``yaml`` is imported here)."""
+    try:
+        import yaml
+    except ImportError as exc:
+        raise ImportError("into_definition_yaml needs the 'yaml' package, which is not "
+                          "installed") from exc
+    return yaml.safe_dump(pipeline_into_definition(obj), sort_keys=False)

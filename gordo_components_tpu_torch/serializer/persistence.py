@@ -1,5 +1,5 @@
 """Artifact load and dump (port of
-``gordo_components_tpu/serializer/persistence.py:53-57, 71-207``).
+``gordo_components_tpu/serializer/persistence.py:53-65, 71-328``).
 
 The reference's pickle-free format, unchanged::
 
@@ -16,7 +16,13 @@ generation root's ``CURRENT`` pointer, builds the port's classes from the
 definition and loads the state; every estimator lands on ``device``
 (``cuda`` unless the caller says ``"cpu"``). ``dump`` commits the files
 atomically (``store/atomic.py``), so a crash never leaves a half-written
-artifact under the final name.
+artifact under the final name. ``dumps`` / ``loads`` carry an artifact as
+one gzip'd tar of those files (the body of ``GET /download-model``), with
+the reference's bytes: the same fitted model gives the same blob, and each
+package loads what the other dumps. ``loads`` checks the tar before it
+extracts anything: at most ``MAX_TAR_MEMBERS`` members, at most
+``GORDO_MAX_ARTIFACT_BYTES`` (2 GiB) declared bytes, no repeated name, and
+only plain files inside the target directory.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from __future__ import annotations
 import io
 import json
 import os
+import tarfile
 import zipfile
 from typing import Any, Dict, Iterator, Optional, Tuple
 
@@ -45,6 +52,12 @@ DEFINITION_FILE = "definition.json"
 STATE_FILE = "state.npz"
 STATE_META_FILE = "state_meta.json"
 _SEP = "/"
+
+# an artifact is a handful of files: a blob claiming hundreds of members or
+# gigabytes is an attack or corruption, not a model
+MAX_TAR_MEMBERS = 128
+MAX_TAR_TOTAL_BYTES_ENV = "GORDO_MAX_ARTIFACT_BYTES"
+DEFAULT_MAX_TAR_TOTAL_BYTES = 2 << 30  # 2 GiB
 _ZIP_EPOCH = (1980, 1, 1, 0, 0, 0)
 
 
@@ -176,3 +189,86 @@ def dump(
     with atomic_commit(dest_dir) as staging:
         write_artifact_files(obj, staging, metadata, precision)
     return dest_dir
+
+
+def dumps(obj: Any, metadata: Optional[Dict[str, Any]] = None) -> bytes:
+    """:func:`dump` as one in-memory gzip'd tar, byte for byte the
+    reference's: zeroed mtimes and owners in the tar headers and the gzip
+    wrapper, members sorted, ``state.npz`` at fixed zip timestamps."""
+    import gzip
+    import tempfile
+
+    buffer = io.BytesIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        dump(obj, tmp, metadata=metadata)
+        with gzip.GzipFile(fileobj=buffer, mode="wb", mtime=0) as gz:
+            with tarfile.open(fileobj=gz, mode="w") as tar:
+                for name in sorted(os.listdir(tmp)):
+                    path = os.path.join(tmp, name)
+                    info = tar.gettarinfo(path, arcname=name)
+                    info.mtime = 0
+                    info.uid = info.gid = 0
+                    info.uname = info.gname = ""
+                    info.mode = 0o644
+                    with open(path, "rb") as fh:
+                        tar.addfile(info, fh)
+    return buffer.getvalue()
+
+
+def _max_tar_total_bytes() -> int:
+    raw = os.environ.get(MAX_TAR_TOTAL_BYTES_ENV, "")
+    return int(raw) if raw else DEFAULT_MAX_TAR_TOTAL_BYTES
+
+
+def _check_tar_bounds(tar: tarfile.TarFile) -> None:
+    """Refuse a tar before extracting it: past ``MAX_TAR_MEMBERS``
+    members, past the byte ceiling in declared sizes (extraction writes
+    exactly those), or with a repeated member name. Headers are read one
+    at a time and the first violation stops the walk, so a blob declaring
+    millions of empty members cannot exhaust memory in the check itself."""
+    limit = _max_tar_total_bytes()
+    count = total = 0
+    seen = set()
+    while True:
+        member = tar.next()
+        if member is None:
+            break
+        count += 1
+        if count > MAX_TAR_MEMBERS:
+            raise ValueError(f"Artifact tar has over {MAX_TAR_MEMBERS} members; a model "
+                             "artifact has at most a handful — refusing to extract")
+        total += max(0, member.size)
+        if total > limit:
+            raise ValueError(f"Artifact tar declares over {limit} decompressed bytes "
+                             f"({MAX_TAR_TOTAL_BYTES_ENV} to raise) — refusing to extract")
+        name = os.path.normpath(member.name)
+        if name in seen:
+            raise ValueError(f"Artifact tar repeats member {member.name!r} — refusing to "
+                             "extract (duplicate names imply overwrite games)")
+        seen.add(name)
+
+
+def _safe_extract(tar: tarfile.TarFile, dest: str) -> None:
+    """Plain files and directories only, none outside ``dest``: no
+    absolute path, no ``..``, no link."""
+    dest_real = os.path.realpath(dest)
+    for member in tar.getmembers():
+        if not (member.isfile() or member.isdir()):
+            raise ValueError(f"Refusing to extract non-regular member {member.name!r}")
+        target = os.path.realpath(os.path.join(dest, member.name))
+        if not (target == dest_real or target.startswith(dest_real + os.sep)):
+            raise ValueError(f"Refusing to extract {member.name!r} outside target dir")
+    tar.extractall(dest, filter="data")
+
+
+def loads(blob: bytes, device: DeviceLike = None) -> Any:
+    """Inverse of :func:`dumps`: the tar checked, extracted to a temporary
+    directory and read by :func:`load` onto ``device``."""
+    import tempfile
+
+    device = resolve_device(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        with tarfile.open(fileobj=io.BytesIO(blob), mode="r:gz") as tar:
+            _check_tar_bounds(tar)
+            _safe_extract(tar, tmp)
+        return load(tmp, device=device)

@@ -3,7 +3,7 @@ the routes at 108-160, ``_ServerState`` at 275-420, ``reload`` at 796-1040,
 the request wrapper at 1253-1432, the handlers at 1470-1840 and the scoring
 path at 1868-2248; the reference's routes of parts not ported yet —
 ``/slo``, ``/telemetry``, ``/incidents``, ``/autopilot``, ``/layout``,
-``/prefetch``, ``/download-model`` — are listed in ROADMAP.md).
+``/prefetch`` — are listed in ROADMAP.md).
 
 Built on the standard library's ``ThreadingHTTPServer``: no web framework.
 Routes, each also under ``/gordo/v0/<project>/<machine>/`` where marked:
@@ -14,6 +14,8 @@ Routes, each also under ``/gordo/v0/<project>/<machine>/`` where marked:
   while it is quarantined);
 - ``GET  /metadata`` (and machine-scoped): the machine's build metadata;
 - ``GET  /models``; ``POST /reload``;
+- ``GET  /download-model`` (and machine-scoped): the machine's artifact as
+  one gzip'd tar (``serializer.dumps``), which either package ``loads``;
 - ``GET  /metrics``: JSON (``latency``, ``engine``, ``resilience``,
   ``registry``), or Prometheus text with ``?format=prometheus`` (and
   ``&exemplars=1`` for OpenMetrics exemplars naming trace ids);
@@ -26,7 +28,11 @@ Routes, each also under ``/gordo/v0/<project>/<machine>/`` where marked:
 - ``POST /prediction``, ``POST /anomaly/prediction`` and ``POST
   /bulk/anomaly/prediction`` (and machine-scoped): the scoring endpoints;
   the bulk one scores as ``/anomaly/prediction`` does, in the bulk class.
-  The bare paths serve a server of one machine.
+  The bare paths serve a server of one machine. ``/anomaly/prediction``
+  with ``?start=…&end=…`` fetches the rows itself: the machine's build
+  metadata names its ``dataset_config``, which is rebuilt with those
+  dates (the ``data_fetch`` stage, the ``data-fetch`` fault point) and
+  scored; the answer carries the scored rows' timestamps.
 
 Every request resolves its tenant from ``X-Gordo-Tenant`` (a name or a
 declared API key of ``GORDO_TENANTS``; anything else is ``default``) and,
@@ -84,6 +90,8 @@ import numpy as np
 
 from .. import precision as precision_mod
 from .. import wire
+from ..dataset import GordoBaseDataset
+from ..dataset.data_provider.providers import pandas_index_columns
 from ..models.anomaly.diff import DiffBasedAnomalyDetector
 from ..observability import exposition, flightrec, spans, stitch, tracing
 from ..observability import ledger as control_ledger
@@ -97,7 +105,7 @@ from ..resilience.admission import (
 )
 from ..resilience.deadline import DeadlineExceeded
 from ..resilience.quarantine import Quarantine
-from ..serializer.persistence import load, load_metadata
+from ..serializer.persistence import dumps, load, load_metadata
 from ..store.generations import current_generation, is_artifact_dir, resolve_artifact_dir
 from ..utils.backend import DeviceLike, resolve_device
 from .engine import ServingEngine
@@ -128,6 +136,7 @@ _MACHINE_ENDPOINTS = {
     "prediction": "prediction",
     "anomaly/prediction": "anomaly",
     "bulk/anomaly/prediction": "bulk-anomaly",
+    "download-model": "download-model",
 }
 _ROOT_ENDPOINTS = {
     "/healthz": "healthz",
@@ -140,6 +149,7 @@ _ROOT_ENDPOINTS = {
     "/anomaly/prediction": "anomaly",
     "/bulk/anomaly/prediction": "bulk-anomaly",
     "/debug/requests": "debug-requests",
+    "/download-model": "download-model",
 }
 _MACHINE_ROUTE = re.compile(
     r"^/gordo/v0/(?P<project>[^/]+)/(?P<machine>[^/]+)/(?P<endpoint>"
@@ -675,6 +685,8 @@ class ModelServer:
         machine = self._machine_for(args, state)
         if endpoint == "metadata":
             return _json({"name": machine.name, "metadata": machine.metadata})
+        if endpoint == "download-model":
+            return Response(200, dumps(machine.model), "application/octet-stream", {})
         # pin THIS state while scoring: a concurrent reload drains it
         # before closing its engine
         state.enter()
@@ -773,14 +785,18 @@ class ModelServer:
 
     @staticmethod
     def _parse_X(method: str, machine: _Machine, headers: Dict[str, str],
-                 body: bytes) -> np.ndarray:
+                 body: bytes) -> Tuple[np.ndarray, Optional[List[str]]]:
+        """The body's rows and, for a parquet table with a datetime index,
+        their timestamps."""
         if method != "POST":
             raise HTTPError(405, "POST required")
         content_type = wire.content_type_of(headers.get("content-type"))
+        # generic octet-stream is parquet only with the parquet magic: a
+        # client posting JSON under that type keeps working
         if content_type in _PARQUET_TYPES and (
             content_type != "application/octet-stream" or body[:4] == b"PAR1"
         ):
-            raise HTTPError(415, "parquet request bodies are not served here; send JSON")
+            return _parse_parquet(body, machine.tag_list)
         try:
             payload = json.loads(body.decode() or "{}")
         except (UnicodeDecodeError, json.JSONDecodeError):
@@ -802,7 +818,7 @@ class ModelServer:
             arr = arr[None, :]
         if arr.ndim != 2:
             raise HTTPError(400, f'"X" must be 2-D, got shape {list(arr.shape)}')
-        return arr
+        return arr, None
 
     @staticmethod
     def _validate_X(arr: np.ndarray, machine: _Machine) -> None:
@@ -824,7 +840,7 @@ class ModelServer:
 
     def _predict(self, method: str, machine: _Machine, headers: Dict[str, str], body: bytes,
                  state: _ServerState) -> Response:
-        X = self._parse_X(method, machine, headers, body)
+        X, _ = self._parse_X(method, machine, headers, body)
         self._validate_X(X, machine)
         self._servable(machine, state)
         output = self._guarded(machine, lambda: state.engine.predict(machine.name, X),
@@ -837,21 +853,52 @@ class ModelServer:
         if not isinstance(model, DiffBasedAnomalyDetector):
             raise HTTPError(422, f"Model for machine {machine.name!r} is not an anomaly "
                                  "detector; use /prediction")
-        if params.get("start") or params.get("end"):
-            raise HTTPError(422, "?start&end data fetches are not served here; "
-                                 "POST the rows explicitly")
-        X = self._parse_X(method, machine, headers, body)
-        self._validate_X(X, machine)
+        start, end = params.get("start"), params.get("end")
+        if start or end:
+            X, timestamps = self._fetch_range(machine, start, end)
+        else:
+            X, timestamps = self._parse_X(method, machine, headers, body)
+            self._validate_X(X, machine)
         self._servable(machine, state)
         scored = self._guarded(machine, lambda: state.engine.anomaly(machine.name, X),
                                "Anomaly scoring failed")
+        if timestamps is not None:
+            # the model scores the last rows: a window of L rows scores its
+            # last one (models/anomaly/diff.py:_tail_align)
+            timestamps = timestamps[len(timestamps) - len(scored.total_anomaly_score):]
         extras = {}
         if model.tag_thresholds_ is not None:
             extras = {
                 "tag-thresholds": [float(v) for v in model.tag_thresholds_],
                 "total-threshold": model.total_threshold_,
             }
-        return self._scored_response(headers, dict(zip(wire.SCORE_FIELDS, scored)), extras)
+        return self._scored_response(headers, dict(zip(wire.SCORE_FIELDS, scored)), extras,
+                                     timestamps)
+
+    @staticmethod
+    def _fetch_range(machine: _Machine, start: Optional[str],
+                     end: Optional[str]) -> Tuple[np.ndarray, List[str]]:
+        """The rows of ``[start, end)``: the build's ``dataset_config`` with
+        those dates, fetched in the ``data_fetch`` stage. The deadline is
+        checked before the provider: a lake read for an expired request is
+        waste."""
+        deadline.check("server.data_fetch")
+        config = machine.metadata.get("dataset", {}).get("dataset_config")
+        if not config:
+            raise HTTPError(422, "Build metadata carries no dataset_config; POST data "
+                                 "explicitly instead of using ?start&end")
+        if not (start and end):
+            raise HTTPError(400, "Both ?start and ?end are required")
+        config = {**config, "train_start_date": start, "train_end_date": end}
+        try:
+            with spans.stage("data_fetch", machine=machine.name):
+                faults.inject("data-fetch", machine.name)  # a dead lake
+                dataset = GordoBaseDataset.from_dict(config)
+                X, _ = dataset.get_data()
+        except Exception as exc:  # noqa: BLE001 - a provider or config error is the caller's
+            raise HTTPError(400, f"Data fetch failed: {exc}") from None
+        naive = dataset.train_start_date.tzinfo is None
+        return X, wire.iso_timestamps(dataset.index, None if naive else "UTC")
 
     @staticmethod
     def _servable(machine: _Machine, state: _ServerState) -> None:
@@ -863,17 +910,23 @@ class ModelServer:
 
     @staticmethod
     def _scored_response(headers: Dict[str, str], arrays: Dict[str, Any],
-                         extras: Optional[Dict[str, Any]] = None) -> Response:
-        """npz when ``Accept`` lists it, else the fast JSON body."""
+                         extras: Optional[Dict[str, Any]] = None,
+                         timestamps: Optional[List[str]] = None) -> Response:
+        """npz when ``Accept`` lists it, else the fast JSON body; the
+        timestamps, where there are any, ride in the npz header or beside
+        the arrays."""
         arrays = {name: np.asarray(arr) for name, arr in arrays.items()}
         if wire.wants_npz(headers.get("accept")):
+            header = dict(extras or {})
+            if timestamps is not None:
+                header["timestamps"] = timestamps
             _M_WIRE_FORMAT.labels("npz").inc()
             with spans.stage("encode", format="npz"):
-                body = wire.encode_npz(arrays, dict(extras or {}))
+                body = wire.encode_npz(arrays, header)
             return Response(200, body, wire.NPZ_CONTENT_TYPE, {})
         _M_WIRE_FORMAT.labels("fast_json").inc()
         with spans.stage("encode", format="fast_json"):
-            body = wire.encode_scored_json(arrays, None, extras).encode()
+            body = wire.encode_scored_json(arrays, timestamps, extras).encode()
         return Response(200, body, "application/json", {})
 
     def _guarded(self, machine: _Machine, fn: Callable[[], Any], error_prefix: str) -> Any:
@@ -893,6 +946,44 @@ class ModelServer:
             logger.exception("Scoring failed for machine %r; quarantining", machine.name)
             self.quarantine.quarantine(machine.name, f"{type(exc).__name__}: {exc}", "score")
             self._abort_quarantined(machine.name)
+
+
+def _parse_parquet(body: bytes, tags: Optional[List[str]]) -> Tuple[np.ndarray,
+                                                                   Optional[List[str]]]:
+    """A parquet body as the reference reads it with pandas: the data
+    columns in the build's tag order (else sorted), all numeric; a
+    datetime index gives the rows' timestamps."""
+    try:
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+    except ImportError:
+        raise HTTPError(415, "parquet request bodies need the 'pyarrow' package, which is "
+                             "not installed here; send JSON") from None
+    try:
+        table = pq.read_table(pa.BufferReader(body))
+    except Exception as exc:  # noqa: BLE001 - any unreadable body is the caller's
+        raise HTTPError(400, f"Request body is not a readable parquet table: {exc}") from None
+    index_cols = pandas_index_columns(table)
+    columns = [c for c in table.column_names if c not in index_cols]
+    tags = tags or sorted(columns)
+    missing = [t for t in tags if t not in columns]
+    if missing:
+        raise HTTPError(400, f"Parquet payload missing tag columns {missing}")
+    blocks = []
+    for tag in tags:
+        column = table.column(tag)
+        if not (pa.types.is_integer(column.type) or pa.types.is_floating(column.type)
+                or pa.types.is_boolean(column.type) or pa.types.is_decimal(column.type)):
+            raise HTTPError(400, "Parquet payload must be all-numeric")
+        blocks.append(np.asarray(column.cast(pa.float64()).to_numpy(zero_copy_only=False),
+                                 dtype=np.float32))
+    arr = np.stack(blocks, axis=1) if blocks else np.zeros((table.num_rows, 0), np.float32)
+    timestamps = None
+    if len(index_cols) == 1 and pa.types.is_timestamp(table.column(index_cols[0]).type):
+        index = table.column(index_cols[0])
+        ns = index.cast(pa.timestamp("ns", tz=index.type.tz)).cast(pa.int64())
+        timestamps = wire.iso_timestamps(ns.to_numpy(zero_copy_only=False), index.type.tz)
+    return arr, timestamps
 
 
 class _Handler(BaseHTTPRequestHandler):

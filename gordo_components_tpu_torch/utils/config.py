@@ -21,11 +21,9 @@ def resolve_config_class(
     base_cls: Type,
     classes: Dict[str, Type],
     modules: Iterable[str],
-    not_ported: Iterable[str] = (),
 ) -> Type:
     """The port's class for ``type_path``: a bare name, or one of
-    ``modules`` followed by a name. ``not_ported`` names classes of the
-    reference the port does not have yet; they raise with that reason."""
+    ``modules`` followed by a name."""
     if not isinstance(type_path, str) or not type_path:
         raise ValueError(f"{base_cls.__name__} type must be a non-empty string, not {type_path!r}")
     module, _, name = type_path.rpartition(".")
@@ -34,8 +32,6 @@ def resolve_config_class(
         raise ValueError(
             f"{type_path!r} is not a {base_cls.__name__} this package resolves: a config "
             f"names a bare class or one under {', '.join(modules)}")
-    if name in not_ported:
-        raise ValueError(f"{type_path!r}: {name} is not ported yet")
     resolved = classes.get(name)
     if resolved is None:
         raise ValueError(f"Unknown {base_cls.__name__} {type_path!r} "

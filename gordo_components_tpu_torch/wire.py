@@ -11,13 +11,18 @@ Negotiated per request, byte-compatible with the reference both ways:
   the ``{"data": {...}, <extras>}`` template; non-finite values fall back
   to the generic encoder. Decoded and cast to float32, the values equal
   the npz path's.
+
+Timestamps ride both formats as the reference writes them, pandas'
+``Timestamp.isoformat()`` strings (:func:`iso_timestamps`).
 """
 
 from __future__ import annotations
 
 import io
 import json
-from typing import Any, Dict, List, Optional, Tuple
+import re
+from datetime import datetime, timedelta, timezone, tzinfo
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -32,6 +37,43 @@ SCORE_FIELDS = (
 
 # npz member carrying the JSON header as utf-8 bytes
 _HEADER_MEMBER = "__header__"
+
+
+_EPOCH = datetime(1970, 1, 1)
+_FIXED_OFFSET = re.compile(r"^([+-])(\d{2}):?(\d{2})$")
+
+
+def _zone(tz: str) -> tzinfo:
+    if tz.upper() in ("UTC", "Z", "ETC/UTC"):
+        return timezone.utc
+    fixed = _FIXED_OFFSET.match(tz)
+    if fixed:
+        sign = -1 if fixed.group(1) == "-" else 1
+        return timezone(sign * timedelta(hours=int(fixed.group(2)), minutes=int(fixed.group(3))))
+    from zoneinfo import ZoneInfo
+
+    return ZoneInfo(tz)
+
+
+def iso_timestamps(ns: Sequence[int], tz: Optional[str] = "UTC") -> List[str]:
+    """int64 UTC nanoseconds as pandas' ``Timestamp.isoformat()`` gives
+    them in the zone ``tz`` (``None``: naive wall clock, no offset): six
+    fractional digits when the microseconds are not zero, nine when the
+    nanoseconds are not."""
+    zone = None if tz is None else _zone(tz)
+    out = []
+    for value in np.asarray(ns, dtype=np.int64).tolist():
+        micros, nanos = divmod(value, 1000)
+        stamp = _EPOCH + timedelta(microseconds=micros)
+        if zone is not None:
+            stamp = stamp.replace(tzinfo=timezone.utc).astimezone(zone)
+        wall = stamp.replace(tzinfo=None).isoformat()
+        offset = stamp.isoformat()[len(wall):]  # "" when naive, else "+HH:MM"
+        if nanos:  # pandas prints the nanoseconds after the microseconds
+            wall = (wall if "." in wall else wall + ".000000") + f"{nanos:03d}"
+        text = wall + offset
+        out.append(text)
+    return out
 
 
 def content_type_of(header: Optional[str]) -> str:

@@ -246,7 +246,7 @@ def test_cli_reads_the_environment_and_yaml(tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("change,code", [
     (dict(data={**DATA, "row_threshold": 100_000}), 66),
     (dict(data={**DATA, "train_end_date": "2023-01-01T00:00:00+00:00"}), 64),
-    (dict(data={**DATA, "data_provider": {"type": "InfluxDataProvider"}}), 64),
+    (dict(data={**DATA, "data_provider": {"type": "NoSuchProvider"}}), 64),
     (dict(model={"NoSuchEstimator": {}}), 64),
     (dict(model="[1, 2]"), 64),
     (dict(model=""), 64),

@@ -1,8 +1,10 @@
 """The PyTorch port stands alone: no module of ``gordo_components_tpu_torch``,
-and not ``chip_smoke.py``, imports jax, flax, optax, orbax, sklearn, pandas,
-click, requests, werkzeug or the JAX package (the card's machine has none of
-them); ``yaml`` and ``pyarrow`` are imported only inside the
-function that needs them, which names the package when it is missing; and
+and not ``chip_smoke.py`` or the Influx double it loads
+(``tests/influx_double.py``), imports jax, flax, optax, orbax, sklearn,
+pandas, click, requests, werkzeug, aiohttp, influxdb or the JAX package (the
+card's machine has none of them); ``yaml``, ``pyarrow`` and ``azure`` are
+imported only inside the function that needs them, which names the package
+when it is missing; and
 every entry point runs on CUDA unless ``device="cpu"`` is passed — without
 a card it raises instead of quietly running on the CPU."""
 
@@ -20,14 +22,15 @@ torch = pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "gordo_components_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gordo_components_tpu", "sklearn",
-             "pandas", "click", "requests", "werkzeug")
+             "pandas", "click", "requests", "werkzeug", "aiohttp", "influxdb")
 # packages the card's machine may lack: imported lazily, where they are needed
-LAZY_ONLY = ("yaml", "pyarrow")
+LAZY_ONLY = ("yaml", "pyarrow", "azure")
 
 
 def _sources():
     tools = [ROOT / "tools" / name for name in ("torch_slice_profile.py", "flash_kernel_sweep.py")]
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", *tools]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tests" /
+                                          "influx_double.py", *tools]
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -99,8 +102,8 @@ def test_package_imports_with_jax_blocked():
 
 def test_package_imports_with_pandas_pyarrow_yaml_and_click_blocked(tmp_path):
     """What the card's machine lacks: every module imports without it, a
-    JSON config still loads, and the places that need yaml or pyarrow
-    raise naming the package."""
+    JSON config still loads, and the places that need yaml, pyarrow or the
+    Azure SDK raise naming the package (a parquet request body is a 415)."""
     (tmp_path / "map.yaml").write_text("m: int8\n")
     (tmp_path / "T.parquet").write_bytes(b"")
     extra = f"""
@@ -116,8 +119,24 @@ with pytest.raises(ImportError, match="'yaml'"):
     precision.parse_precision_map({str(tmp_path / "map.yaml")!r})
 with pytest.raises(ImportError, match="'pyarrow'"):
     _read_parquet({str(tmp_path / "T.parquet")!r}, False)
+import numpy as np
+from gordo_components_tpu_torch.client import Client
+from gordo_components_tpu_torch.dataset.data_provider import DataLakeProvider
+from gordo_components_tpu_torch.dataset.sensor_tag import SensorTag
+from gordo_components_tpu_torch.models.transformers import MinMaxScaler
+from gordo_components_tpu_torch.serializer import into_definition_yaml
+from gordo_components_tpu_torch.server.server import HTTPError, _parse_parquet
+with pytest.raises(ImportError, match="'yaml'"):
+    into_definition_yaml(MinMaxScaler())
+with pytest.raises(HTTPError, match="'pyarrow'") as refused:
+    _parse_parquet(b"PAR1", ["a"])
+assert refused.value.status == 415
+with pytest.raises(ImportError, match="'pyarrow'"):
+    Client("http://127.0.0.1:1").predict_frame("m", np.zeros((1, 1)), columns=["a"])
+with pytest.raises(RuntimeError, match="azure-datalake-store"):
+    DataLakeProvider(storename="s", interactive=True).can_handle_tag(SensorTag("t", "a"))
 """
-    _import_everything(FORBIDDEN + ("pyarrow", "yaml"), extra)
+    _import_everything(FORBIDDEN + ("pyarrow", "yaml", "azure"), extra)
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(tmp_path, monkeypatch):
