@@ -201,7 +201,35 @@ Phases; any failure exits non-zero before the result line:
    415); fp32 flash launches = 3 x PatchTST dispatches in the serving
    window. Printed with the card: the builds' walls, per chunk wall,
    ``data_fetch`` and device ms, the client's wall and rows per second, the
-   forwarders' walls.
+   forwarders' walls;
+13. the control loops (``phase_control``): one server on 16
+   ``dense_ae_10tag`` machines and 2 full-width PatchTST machines, with the
+   knobs of ``CONTROL_ENV`` (a 100 ms latency objective on fast and slow
+   windows of 2 and 30 s, the autopilot on with a 1 s cooldown, the
+   warehouse ticking each second under a 128 KiB budget, 4 machines per
+   metric family); 5 lone requests; a skewed dense stage (machine i about
+   ``CONTROL_SKEW``/(i+1) requests, ``CONTROL_CLIENTS`` clients); a burn of
+   both PatchTST machines asked together, an ``engine-dispatch`` latency
+   fault over its first half; a light dense recovery with the autopilot
+   disabled; the 5 lone requests again; ``/metrics`` scraped every 0.5 s
+   meanwhile. Checked: the fast window crosses in the burn and only there,
+   once per edge, each edge an ``slo``/``breach`` ledger event, the budget
+   attributed to a device-side stage; the burn's incident report is on disk,
+   the fault plan ranked above any autopilot decision, ``/incidents/<id>``
+   and ``cli incidents show`` return it; the autopilot applied a decision
+   (``dispatch_depth`` down on ``burn_device`` or ``shed`` up on
+   ``sustained_burn``) that the engine or the gate reports, and none once
+   disabled; ``cli autopilot status|enable|disable`` exit 0; the lone
+   responses equal to the bit before and after; the traffic sketch's counts
+   what was sent, in the skew's order, the scrape keeping the 4 most
+   requested machines of a family that ranks them in reverse, the export
+   valid, ``cli telemetry traffic|costs|export`` exit 0 and the f32 rung's
+   ``device_bytes`` the stacked trees; the warehouse under its budget and a
+   second server on the same models dir reloading its history; fp32 flash
+   launches = 3 x PatchTST dispatches (the second server's warm-up
+   included). Printed with the card: each stage's requests and latency, the
+   skewed dense stage on fresh servers with the loops off and on (req/s,
+   p50, p99).
 
 The line before last is ``nvidia-smi``'s name and power limit; the one
 before that the kernels' JSON record; the last line is the result.
@@ -3451,6 +3479,449 @@ def phase_client(torch, device, tmp: str, kernels: dict, card: str) -> dict:
     return {n: launches[n] + served_launches[n] for n in KERNELS}
 
 
+
+# phase 13: the control loops of one server. 16 dense_ae_10tag machines and
+# two full-width PatchTST machines behind one server whose SLO evaluator,
+# autopilot, telemetry warehouse and incident correlator run on short
+# windows; traffic in three stages (skewed dense, a PatchTST burn under a
+# dispatch latency fault, light dense recovery) with scrapes between
+CONTROL_DENSE = [f"ctl-dense-{i:02d}" for i in range(16)]
+CONTROL_PATCHTST = ["ctl-patchtst-0", "ctl-patchtst-1"]
+CONTROL_SKEW = 60  # dense machine i gets round(CONTROL_SKEW / (i + 1)) requests
+CONTROL_CLIENTS = 4
+CONTROL_BURN = 10  # W = 16 requests per PatchTST machine, the two asked concurrently
+CONTROL_FAULT = 0.2  # seconds of engine-dispatch latency over the burn's first half
+CONTROL_RECOVER = 32  # dense requests of the recovery stage, spread evenly
+CONTROL_LONE = CONTROL_DENSE[:: 5] + CONTROL_PATCHTST[:1]  # asked alone before and after
+CONTROL_CARDINALITY = 4
+CONTROL_ENV = {
+    "GORDO_SLO_LATENCY_MS": "100",
+    "GORDO_SLO_FAST_WINDOW": "2", "GORDO_SLO_SLOW_WINDOW": "30",
+    "GORDO_SLO_EVAL_INTERVAL": "0",
+    "GORDO_AUTOPILOT": "1", "GORDO_AUTOPILOT_COOLDOWN": "1", "GORDO_AUTOPILOT_CONFIRM": "1",
+    "GORDO_AUTOPILOT_INTERVAL": "0",
+    "GORDO_TELEMETRY_INTERVAL": "1", "GORDO_TELEMETRY_MB": "0.125",
+    "GORDO_TELEMETRY_SEGMENT_KB": "16",
+    "GORDO_METRICS_MACHINE_CARDINALITY": str(CONTROL_CARDINALITY),
+    "GORDO_INCIDENT_COOLDOWN": "5",
+}
+CONTROL_OFF = {"GORDO_SLO": "0", "GORDO_TELEMETRY": "0", "GORDO_AUTOPILOT": "0"}
+
+
+def control_plan(rng) -> tuple:
+    """(requests, bodies): the skewed stage's (machine, body key) list in a
+    seeded order, and one 144-row body per dense machine and one W = 16
+    body per PatchTST machine, JSON-encoded."""
+    bodies = {name: sensor_rows(rng, SEAMS_ROWS, ZOO["dense-ae-10tag"][2])
+              for name in CONTROL_DENSE}
+    bodies.update({name: sensor_rows(rng, LOOKBACK + SEAMS_WINDOWS - 1)
+                   for name in CONTROL_PATCHTST})
+    skewed = [name for i, name in enumerate(CONTROL_DENSE)
+              for _ in range(int(round(CONTROL_SKEW / (i + 1))))]
+    order = rng.permutation(len(skewed))
+    return [skewed[i] for i in order], {k: json.dumps({"X": X.tolist()}).encode()
+                                        for k, X in bodies.items()}
+
+
+def control_drive(base: str, machines: list, encoded: dict, clients: int) -> list:
+    """``machines`` asked over ``clients`` threads (request j on client j mod
+    clients); every answer must be a 200. Returns the wall ms of each."""
+    walls, errors = [], []
+
+    def client(c):
+        try:
+            for machine in machines[c::clients]:
+                status, _, raw, ms = http(
+                    "POST", f"{base}/gordo/v0/project/{machine}/anomaly/prediction",
+                    encoded[machine])
+                if status != 200:
+                    errors.append(f"{machine}: HTTP {status} {raw[:200]}")
+                walls.append(ms)
+        except Exception as exc:  # noqa: BLE001 - reported below, fails the phase
+            errors.append(repr(exc))
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+    for thread in threads:
+        thread.start()
+    for thread in threads:
+        thread.join(timeout=600)
+    if errors or any(thread.is_alive() for thread in threads):
+        fail(f"control: {errors[:3] or 'a client did not finish'}")
+    return walls
+
+
+class Scraper:
+    """Scrape ``/metrics?format=prometheus`` every ``period`` s in a thread
+    while a stage runs: each scrape ticks the SLO evaluator, the autopilot
+    and the warehouse."""
+
+    def __init__(self, base: str, period: float = 0.5):
+        self.base, self.period, self.count = base, period, 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.wait(self.period):
+            if http("GET", self.base + "/metrics?format=prometheus")[0] == 200:
+                self.count += 1
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=60)
+
+
+def control_get(base: str, path: str, method: str = "GET") -> dict:
+    status, _, raw, _ = http(method, base + path, b"" if method == "POST" else None)
+    if status != 200:
+        fail(f"control: {method} {path} answered HTTP {status}: {raw[:300]}")
+    return json.loads(raw)
+
+
+def control_cli(base: str, *args: str) -> dict:
+    """``python -m gordo_components_tpu_torch.cli <args> --base-url base``;
+    fails unless it exits 0; returns its JSON output."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    result = subprocess.run(
+        [sys.executable, "-m", "gordo_components_tpu_torch.cli", *args, "--base-url", base],
+        cwd=root, capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": root})
+    if result.returncode != 0:
+        fail(f"control: cli {' '.join(args)} exit {result.returncode}: {result.stderr[-2000:]}")
+    return json.loads(result.stdout)
+
+
+def control_loop_cost(models_dir: str, skewed: list, encoded: dict, device, card: str) -> None:
+    """The skewed dense stage once with the loops off and once on, each on a
+    fresh server over the dense machines, scraped every 0.5 s: req/s, p50
+    and p99 of each."""
+    from gordo_components_tpu_torch.server.server import make_server
+
+    rows = {}
+    # on: the phase's knobs, so that every scrape ticks every loop
+    for label, env in (("off", CONTROL_OFF), ("on", CONTROL_ENV)):
+        os.environ.update(env)
+        httpd = make_server(models_dir, port=0, device=device)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        try:
+            model_server = httpd.model_server
+            loops = [model_server.slo, model_server.autopilot, model_server.telemetry]
+            if [loop is None for loop in loops] != [label == "off"] * 3:
+                fail(f"control: loops {label}: slo, autopilot, telemetry are {loops}")
+            started = time.perf_counter()
+            with Scraper(base):
+                walls = control_drive(base, skewed, encoded, CONTROL_CLIENTS)
+            wall = time.perf_counter() - started
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=30)
+            for key in env:
+                os.environ.pop(key, None)
+        rows[label] = {"requests": len(walls), "wall_s": wall, "req_per_s": len(walls) / wall,
+                       "p50_ms": float(np.percentile(walls, 50)),
+                       "p99_ms": float(np.percentile(walls, 99))}
+    print(f"control [{card}]: the skewed dense stage with the loops off and on "
+          + json.dumps(rows))
+
+
+def phase_control(torch, device, tmp: str, card: str) -> dict:
+    """The control loops of one server on the card (see the module
+    docstring, 13). Returns the phase's flash launches."""
+    from gordo_components_tpu_torch import wire
+    from gordo_components_tpu_torch.observability import flightrec, traffic
+    from gordo_components_tpu_torch.observability import ledger as control_ledger
+    from gordo_components_tpu_torch.observability import telemetry as telemetry_engine
+    from gordo_components_tpu_torch.observability.exposition import parse_prometheus_text
+    from gordo_components_tpu_torch.observability.registry import REGISTRY
+    from gordo_components_tpu_torch.ops import _kernels
+    from gordo_components_tpu_torch.resilience import faults
+    from gordo_components_tpu_torch.server.server import ModelServer, make_server
+
+    phase_started = time.perf_counter()
+    dense_dir = os.path.join(tmp, "control-dense")
+    models_dir = os.path.join(tmp, "control")
+    ledger_root = os.path.join(tmp, "control-ledger")
+    estimator, kwargs, tags = ZOO["dense-ae-10tag"]
+    for i, name in enumerate(CONTROL_DENSE):
+        build_zoo_artifact(os.path.join(dense_dir, name), estimator, kwargs, tags, device,
+                           np.random.default_rng(SEED + 13000 + i))
+    import shutil
+
+    shutil.copytree(dense_dir, models_dir)
+    for i, name in enumerate(CONTROL_PATCHTST):
+        build_artifact(os.path.join(models_dir, name), device, seed=SEED + 13100 + i)
+    rng = np.random.default_rng(SEED + 13200)
+    skewed, encoded = control_plan(rng)
+    recover = [CONTROL_DENSE[i % len(CONTROL_DENSE)] for i in range(CONTROL_RECOVER)]
+    sent = {}
+    for machine in skewed + recover + 2 * CONTROL_LONE + CONTROL_BURN * CONTROL_PATCHTST:
+        sent[machine] = sent.get(machine, 0) + 1
+
+    os.environ.update(CONTROL_ENV, GORDO_LEDGER_DIR=ledger_root)
+    control_ledger.configure(None)
+    faults.clear()
+    traffic.ACCOUNTANT.reset()  # process-wide: this phase counts its own traffic
+    flightrec.RECORDER.clear()
+    # a machine-labeled family that ranks the machines in the reverse of
+    # their traffic: the scrape keeps the machines the traffic sketch
+    # nominates, not this family's own top four
+    index = REGISTRY.gauge("gordo_smoke_control_machine_index",
+                           "chip_smoke phase 13: each served machine's index",
+                           labels=("machine",))
+    for i, name in enumerate(CONTROL_DENSE + CONTROL_PATCHTST):
+        index.labels(name).set(float(i))
+    httpd = make_server(models_dir, port=0, device=device)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    server = httpd.model_server
+    engine = server.engine
+    bucket, _ = engine._by_name[CONTROL_PATCHTST[0]]
+    stacked = sum(b.stacked_nbytes() for b in engine._buckets)
+    print(f"control: {len(CONTROL_DENSE) + len(CONTROL_PATCHTST)} machines served in "
+          f"{time.perf_counter() - phase_started:.1f} s (artifacts written, stacked, warmed)")
+    try:
+        _kernels.reset_launches()
+        dispatches = bucket.dispatch_count
+        # the lone PatchTST request misses the 100 ms objective itself: no
+        # scrape before the skewed stage, so the first window holds it among
+        # the stage's dense requests
+        lone_before = {m: http("POST", f"{base}/gordo/v0/project/{m}/anomaly/prediction",
+                               encoded[m])[2] for m in CONTROL_LONE}
+        stage_walls = {}
+
+        # 1. skewed dense traffic
+        started = time.perf_counter()
+        skew_walls = control_drive(base, skewed, encoded, CONTROL_CLIENTS)
+        stage_walls["skewed"] = time.perf_counter() - started
+        control_get(base, "/metrics")
+        before_burn = control_get(base, "/slo")
+
+        # 2. the burn: both PatchTST machines asked concurrently, a dispatch
+        # latency fault on both over the first half
+        started = time.perf_counter()
+        plan = ";".join(f"engine-dispatch:{m}:latency:{CONTROL_FAULT}" for m in CONTROL_PATCHTST)
+        fault_t0 = time.time()
+        with Scraper(base) as burn_scrapes:
+            faults.configure(plan)
+            half = CONTROL_BURN // 2 * CONTROL_PATCHTST
+            burn_walls = control_drive(base, half, encoded, len(CONTROL_PATCHTST))
+            faults.clear()
+            burn_walls += control_drive(base, (CONTROL_BURN - CONTROL_BURN // 2)
+                                        * CONTROL_PATCHTST, encoded, len(CONTROL_PATCHTST))
+            time.sleep(1.5)  # the last requests' ticks
+        stage_walls["burn"] = time.perf_counter() - started
+        slo = control_get(base, "/slo")
+        burn_end = time.time()
+        pilot = control_get(base, "/autopilot")
+        applied = [d for d in pilot["decisions"] if d["direction"] in ("up", "down")]
+        tuning = dict(engine.current_tuning(), shed_level=server.admission.shed_level,
+                      max_inflight=server.admission.max_inflight)
+
+        # 3. recovery, with the autopilot frozen
+        frozen = control_get(base, "/autopilot/disable", "POST")
+        started = time.perf_counter()
+        with Scraper(base):
+            recover_walls = control_drive(base, recover, encoded, 2)
+            time.sleep(1.5)
+        stage_walls["recover"] = time.perf_counter() - started
+        after_recovery = control_get(base, "/autopilot")
+        lone_after = {m: http("POST", f"{base}/gordo/v0/project/{m}/anomaly/prediction",
+                              encoded[m])[2] for m in CONTROL_LONE}
+        engine.quiesce()
+        launches = {n: _kernels.LAUNCHES[n] for n in KERNELS}
+        patchtst_dispatches = bucket.dispatch_count - dispatches
+
+        time.sleep(max(0.0, float(CONTROL_ENV["GORDO_TELEMETRY_INTERVAL"]) + 0.1))
+        control_get(base, "/metrics")  # a last warehouse tick over all of it
+        telemetry = control_get(base, "/telemetry?window=600")
+        export = control_get(base, "/telemetry?view=export&window=600")
+        prometheus = parse_prometheus_text(http("GET", base + "/metrics?format=prometheus")[2]
+                                           .decode())
+        incidents = control_get(base, "/incidents")
+        ledger_tail = control_get(base, "/incidents?view=ledger&limit=1000")["events"]
+        # newest first: the burn's is the oldest opened after the fault began
+        reports = incidents["incidents"]
+        burn_reports = [r for r in reversed(reports) if r["ts"] >= fault_t0 - 1.0]
+        report = (control_get(base, f"/incidents/{burn_reports[0]['id']}")
+                  if burn_reports else None)
+        cli = {
+            "autopilot": [control_cli(base, "autopilot", verb)["enabled"]
+                          for verb in ("status", "enable", "disable")],
+            "traffic": control_cli(base, "telemetry", "traffic", "--window", "600"),
+            "costs": control_cli(base, "telemetry", "costs", "--window", "600"),
+            "export": control_cli(base, "telemetry", "export", "--window", "10m"),
+            "incident": (control_cli(base, "incidents", "show", report["id"])
+                         if report else None),
+        }
+        warehouse = server.telemetry
+        warehouse_dir, budget = warehouse.directory, warehouse.budget
+        on_disk = sum(os.path.getsize(os.path.join(warehouse_dir, n))
+                      for n in os.listdir(warehouse_dir))
+        run_started_wall = time.time() - (time.perf_counter() - phase_started)
+    finally:
+        faults.clear()
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+
+    # 6. durability: a second server on the same models dir reloads the
+    # history (its warm-up is one PatchTST dispatch more)
+    second = ModelServer(models_dir, device=device)
+    try:
+        window = time.time() - run_started_wall + 60.0
+        reloaded = json.loads(second.handle("GET", f"/telemetry?window={window:.0f}", {}, b"")
+                              .body)
+        second_bucket, _ = second.engine._by_name[CONTROL_PATCHTST[0]]
+        second_dispatches = second_bucket.dispatch_count
+        launches_second = {n: _kernels.LAUNCHES[n] - launches[n] for n in KERNELS}
+    finally:
+        second.close()
+    phase_wall = time.perf_counter() - phase_started
+
+    # 1. the burn crossed the fast window, once per edge, each edge a
+    # slo/breach ledger event; the latency budget went to a device-side stage
+    # (the lone requests after the recovery stage may burn a short window
+    # again: their PatchTST request misses the objective among few others)
+    latency = next(o for o in slo["objectives"] if o["name"] == "scoring-latency")
+    breach_events = [e for e in ledger_tail if (e["actor"], e["action"], e["target"])
+                     == ("slo", "breach", "scoring-latency")]
+    fast_events = [e for e in breach_events if (e.get("after") or {}).get("window") == "fast"
+                   and e["ts"] <= burn_end]
+    fast_breaches = latency["windows"]["fast"]["breaches"]
+    before = next(o for o in before_burn["objectives"] if o["name"] == "scoring-latency")
+    attribution = slo["attribution"]["scoring-latency"]
+    print(f"control: scoring-latency burned {json.dumps(latency['windows'])}, attainment "
+          f"{latency['attainment']}; slo/breach ledger events (ts, after) "
+          f"{[(e['ts'], e['after']) for e in breach_events]}, the fault from {fault_t0:.3f} "
+          f"to the burn's end {burn_end:.3f}; attribution {json.dumps(attribution)}")
+    if before["windows"]["fast"]["breaches"] or fast_breaches < 1 or \
+            fast_breaches != len(fast_events) or \
+            any(e["ts"] < fault_t0 for e in fast_events):
+        fail(f"control: scoring-latency fast-window breaches before the burn "
+             f"{before['windows']['fast']['breaches']}, after it {fast_breaches} with "
+             f"{len(fast_events)} in the ledger")
+    if attribution["dominant_stage"] not in ("dispatch", "device_execute", "fetch"):
+        fail(f"control: the latency budget went to {attribution}")
+
+    # 2. one incident on disk, the fault plan ranked above any autopilot decision
+    incident_dir = os.path.join(ledger_root, "worker-0", "incidents")
+    on_disk_reports = sorted(n for n in os.listdir(incident_dir) if n.startswith("incident-"))
+    print(f"control: incidents {json.dumps(reports)}; on disk {on_disk_reports}")
+    if report is None or len(reports) != len(on_disk_reports) or cli["incident"] != report or \
+            f"incident-{report['id']}.json" not in on_disk_reports or \
+            any(r["ts"] < fault_t0 - 1.0 for r in reports):
+        fail("control: no incident of the burn on disk, or one before it")
+    ranked = [(c["actor"], c["action"]) for c in report["candidates"]]
+    fault_rank = ranked.index(("faults", "inject-plan")) if ("faults", "inject-plan") in \
+        ranked else None
+    decision_ranks = [i for i, c in enumerate(ranked) if c == ("autopilot", "decision")]
+    if fault_rank is None or (decision_ranks and min(decision_ranks) < fault_rank):
+        fail(f"control: incident {report['id']} ranks {ranked[:8]}")
+    print(f"control: incident {report['id']} ({report['trigger']}): {len(on_disk_reports)} on "
+          f"disk, candidates {json.dumps(report['candidates'][:3])}")
+
+    # 3. the autopilot applied a decision, the engine or the gate reports it,
+    # and nothing follows once disabled
+    knob = {"dispatch_depth": "dispatch_depth", "fill_window": "fill_window_us",
+            "max_inflight": "max_inflight", "shed": "shed_level"}
+    last = {}
+    for decision in applied:
+        last[decision["actuator"]] = decision["to"]
+    mismatched = {a: (v, tuning.get(knob.get(a))) for a, v in last.items()
+                  if a in knob and tuning.get(knob[a]) != v}
+    burn_decisions = {(d["actuator"], d["direction"], d["reason"]) for d in applied}
+    print(f"control: autopilot applied {json.dumps(applied)}; live {json.dumps(tuning)}; "
+          f"frozen for the recovery stage ({after_recovery['ticks']} ticks)")
+    if not burn_decisions & {("dispatch_depth", "down", "burn_device"),
+                             ("shed", "up", "sustained_burn")} or mismatched:
+        fail(f"control: autopilot decisions {sorted(burn_decisions)}; live values differ "
+             f"{mismatched}")
+    if frozen["enabled"] or after_recovery["decisions"] != pilot["decisions"] or \
+            cli["autopilot"] != [False, True, False]:
+        fail(f"control: after disable {len(after_recovery['decisions'])} decisions (had "
+             f"{len(pilot['decisions'])}); cli autopilot status|enable|disable {cli['autopilot']}")
+
+    # 4. the knobs moved no score: the lone requests, before and after
+    for machine in CONTROL_LONE:
+        if lone_before[machine] != lone_after[machine]:
+            fail(f"control: {machine}'s lone response changed across the autopilot's moves")
+    print(f"control: {len(CONTROL_LONE)} lone requests equal to the bit before and after")
+
+    # 5. traffic: the sketch holds what was sent, in the skew's order; the
+    # scrape keeps the most requested machines; the export validates
+    machines = telemetry["traffic"]["machines"]
+    counted = {m["machine"]: (m["count"], m["error"]) for m in machines}
+    bad = {m: (counted.get(m), n) for m, n in sent.items()
+           if m not in counted or not counted[m][0] - counted[m][1] <= n <= counted[m][0]}
+    dense_order = [m["machine"] for m in machines if m["machine"] in CONTROL_DENSE]
+    expected_order = sorted(CONTROL_DENSE, key=lambda m: (-sent[m], m))
+    top = sorted(sent, key=lambda m: (-sent[m], m))[:CONTROL_CARDINALITY]
+    kept = sorted(labels["machine"] for labels, _ in
+                  prometheus.get("gordo_smoke_control_machine_index", ())
+                  if labels["machine"] != "other")
+    problems = telemetry_engine.validate_layout_input(export) + \
+        telemetry_engine.validate_layout_input(cli["export"])
+    rung = telemetry["costs"]["engine"]["rungs"]["f32"]
+    top_k = [(m["machine"], m["count"], m["error"]) for m in machines]
+    print(f"control: traffic top-k {json.dumps(top_k)}; "
+          f"the scrape kept {kept}; costs f32 {json.dumps(rung)}; export of "
+          f"{len(export['machines'])} machines valid")
+    if bad or dense_order != expected_order or kept != sorted(top) or problems or \
+            rung["device_bytes"] != stacked or \
+            cli["costs"]["costs"]["engine"]["rungs"]["f32"]["device_bytes"] != stacked or \
+            [m["machine"] for m in cli["traffic"]["traffic"]["machines"]] != \
+            [m["machine"] for m in machines]:
+        fail(f"control: traffic counts off {bad}; dense order {dense_order} vs "
+             f"{expected_order}; the scrape kept {kept}, the most requested {top}; export "
+             f"{problems}; device bytes {rung['device_bytes']} vs stacked {stacked}")
+
+    # 6. the warehouse under its budget; the second server reloaded history
+    print(f"control: warehouse {json.dumps(telemetry['warehouse'])}, {on_disk} bytes on disk "
+          f"(budget {budget}); the second server reloaded {reloaded['warehouse']['records']} "
+          f"records, {reloaded['window']['records']} in its window")
+    if on_disk > budget or reloaded["warehouse"]["records"] < 1 or \
+            "gordo_server_requests_total" not in reloaded["window"]["rates"] or \
+            reloaded["window"]["records"] < 1:
+        fail(f"control: warehouse {on_disk} bytes of {budget}; reloaded "
+             f"{json.dumps(reloaded['warehouse'])}, window records "
+             f"{reloaded['window']['records']}")
+
+    # 7. the flash kernel: once per layer per PatchTST dispatch
+    expected = {**NO_LAUNCHES, "flash_fwd_f32": SLICE["n_layers"] * patchtst_dispatches}
+    expected_second = {**NO_LAUNCHES, "flash_fwd_f32": SLICE["n_layers"] * second_dispatches}
+    if launches != expected or launches_second != expected_second or not patchtst_dispatches:
+        fail(f"control: launches {launches} for {patchtst_dispatches} PatchTST dispatches, "
+             f"{launches_second} for the second server's {second_dispatches}")
+
+    # 8. what the loops cost, on the skewed dense stage
+    for key in CONTROL_ENV:
+        os.environ.pop(key, None)
+    os.environ.pop("GORDO_LEDGER_DIR", None)
+    control_ledger.configure(None)
+    control_loop_cost(dense_dir, skewed, encoded, device, card)
+    control_ledger.configure(None)
+    print(f"control [{card}]: " + json.dumps({
+        "phase_s": time.perf_counter() - phase_started, "stage_s": stage_walls,
+        "burn_scrapes": burn_scrapes.count,
+        "skewed": {"requests": len(skew_walls), "p50_ms": float(np.percentile(skew_walls, 50)),
+                   "p99_ms": float(np.percentile(skew_walls, 99))},
+        "burn": {"requests": len(burn_walls), "p50_ms": float(np.percentile(burn_walls, 50)),
+                 "p99_ms": float(np.percentile(burn_walls, 99))},
+        "recover": {"requests": len(recover_walls),
+                    "p50_ms": float(np.percentile(recover_walls, 50))},
+        "patchtst_dispatches": patchtst_dispatches, "launches": launches,
+        "second_server": {"dispatches": second_dispatches, "launches": launches_second},
+        "wall_to_reload_s": phase_wall}))
+    return {n: launches[n] + launches_second[n] for n in KERNELS}
+
+
 def main() -> None:
     try:
         import torch
@@ -3479,9 +3950,11 @@ def main() -> None:
         fleet_built = phase_fleet_build(torch, device, tmp)
         seams = phase_seams(torch, device, tmp, kernels, card)
         client = phase_client(torch, device, tmp, kernels, card)
+        control = phase_control(torch, device, tmp, card)
         for name in KERNELS:
             launches[name] += (trained[name] + trained_bf16[name] + built[name]
-                               + fleet_built[name] + seams[name] + client[name])
+                               + fleet_built[name] + seams[name] + client[name]
+                               + control[name])
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -1,8 +1,9 @@
 """``python -m gordo_components_tpu_torch.cli``: the ``build``,
-``fleet-build``, ``rollback``, ``run-server``, ``trace``, ``tenants`` and
-``client predict`` commands of the reference's CLI
-(``gordo_components_tpu/cli/cli.py:164-430, 519-692, 894-963, 990-1040,
-1493-1530``), on ``argparse``.
+``fleet-build``, ``rollback``, ``run-server``, ``trace``, ``slo``,
+``tenants``, ``autopilot``, ``telemetry``, ``incidents`` and ``client
+predict`` commands of the reference's CLI
+(``gordo_components_tpu/cli/cli.py:164-430, 519-692, 894-1071,
+1159-1357, 1493-1530``), on ``argparse``.
 
 The arguments, environment variables (``MODEL_CONFIG``, ``DATA_CONFIG``,
 ``OUTPUT_DIR``, ``MODEL_REGISTER_DIR``, ``METADATA``, ``GORDO_TRACE_DIR``,
@@ -16,8 +17,11 @@ device failure (an out-of-memory on the card), 75 another device failure
 the CPU; there is no silent fallback. ``run-server`` offers the flags
 whose machinery the port has; the reference's shard mode, compile cache,
 megabatch residency, lazy boot, mesh and worker flags are not offered
-(ROADMAP.md). ``trace`` and ``tenants`` read a running server over HTTP
-(``urllib``); ``client predict`` scores a range through
+(ROADMAP.md). ``trace``, ``slo``, ``tenants``, ``autopilot``, ``telemetry``
+and ``incidents`` read (or, ``autopilot enable|disable``, POST to) a running
+server over HTTP (``urllib``), print its JSON and exit 1 when it cannot be
+reached or answers an error (``telemetry export`` also when the document
+fails ``validate_layout_input``); ``client predict`` scores a range through
 :class:`~gordo_components_tpu_torch.client.Client`, prints ``{machine:
 rows}`` as JSON and exits 1 on a :class:`~gordo_components_tpu_torch.
 client.ClientError`.
@@ -36,7 +40,17 @@ client.ClientError`.
     python -m gordo_components_tpu_torch.cli trace list --base-url URL [--limit N]
     python -m gordo_components_tpu_torch.cli trace dump TRACE_ID --base-url URL
         [--format chrome|json] [-o FILE]
+    python -m gordo_components_tpu_torch.cli slo --base-url URL
     python -m gordo_components_tpu_torch.cli tenants --base-url URL
+    python -m gordo_components_tpu_torch.cli autopilot status|enable|disable --base-url URL
+    python -m gordo_components_tpu_torch.cli telemetry traffic|costs --base-url URL
+        [--window SECONDS]
+    python -m gordo_components_tpu_torch.cli telemetry export --base-url URL
+        [--window 5m] [-o FILE]
+    python -m gordo_components_tpu_torch.cli incidents list --base-url URL
+    python -m gordo_components_tpu_torch.cli incidents show ID --base-url URL
+    python -m gordo_components_tpu_torch.cli incidents ledger --base-url URL
+        [--window 10m] [--limit 200]
     python -m gordo_components_tpu_torch.cli client predict START END --base-url URL
         [--project P] [--machine M ...] [--max-interval 1D] [--parallelism 10]
         [--output-dir DIR]
@@ -333,6 +347,131 @@ def tenants(args: argparse.Namespace) -> int:
     return 0
 
 
+def _request_json(url: str, method: str = "GET") -> Optional[Any]:
+    """The JSON body of ``method url``, or None (logged) when the server
+    cannot be reached, answers no JSON or answers an error status."""
+    import urllib.error
+    import urllib.request
+
+    request = urllib.request.Request(url, method=method, data=b"" if method == "POST" else None)
+    try:
+        with urllib.request.urlopen(request, timeout=30) as response:
+            status, raw = response.status, response.read()
+    except urllib.error.HTTPError as exc:
+        status, raw = exc.code, exc.read()
+    except (urllib.error.URLError, OSError) as exc:
+        logger.error("Could not reach %s: %s", url, exc)
+        return None
+    try:
+        body = json.loads(raw.decode())
+    except ValueError:
+        logger.error("Non-JSON answer from %s (HTTP %d)", url, status)
+        return None
+    if status >= 400:
+        logger.error("%s answered HTTP %d: %s", url, status,
+                     body.get("error", body) if isinstance(body, dict) else body)
+        return None
+    return body
+
+
+def _print_from(url: str, method: str = "GET") -> int:
+    body = _request_json(url, method)
+    if body is None:
+        return 1
+    print(json.dumps(body, indent=2))
+    return 0
+
+
+def slo(args: argparse.Namespace) -> int:
+    """Objective attainment, fast and slow burn rates, breach counts and
+    the stages eating the budget, from a running server's ``/slo``."""
+    return _print_from(f"{args.base_url.rstrip('/')}/slo")
+
+
+def autopilot(args: argparse.Namespace) -> int:
+    """``status``: the ``/autopilot`` body (enablement, each actuator's
+    value, bounds and cooldown, the decision journal, the last
+    observation); ``enable``/``disable``: the runtime kill switch (``POST
+    /autopilot/<action>``; 409, so exit 1, under ``GORDO_AUTOPILOT=0``)."""
+    base = args.base_url.rstrip("/")
+    if args.autopilot_command == "status":
+        return _print_from(f"{base}/autopilot")
+    return _print_from(f"{base}/autopilot/{args.autopilot_command}", method="POST")
+
+
+def _telemetry(base_url: str, window: Optional[float], view: Optional[str] = None
+               ) -> Optional[Any]:
+    import urllib.parse
+
+    query = {key: value for key, value in (("window", window), ("view", view))
+             if value is not None}
+    url = f"{base_url.rstrip('/')}/telemetry"
+    if query:
+        url += "?" + urllib.parse.urlencode(query)
+    body = _request_json(url)
+    if body is not None and not body.get("enabled", True) and "schema" not in body:
+        logger.error("Telemetry is disabled on %s (GORDO_TELEMETRY=0)", base_url)
+        return None
+    return body
+
+
+def telemetry(args: argparse.Namespace) -> int:
+    """``traffic``: the top-k sketch with its 1m/10m/1h rates and the shape
+    x precision groups; ``costs``: the cost ledger and the warehouse's
+    state; ``export``: the ``gordo-layout-input/v1`` document
+    (``?view=export``), validated before it is printed."""
+    from ..observability import telemetry as telemetry_engine
+
+    if args.telemetry_command == "export":
+        seconds = telemetry_engine.parse_window(args.window)
+        if seconds is None:
+            logger.error("--window %r is not a duration (try 90, 10m, 1h)", args.window)
+            return 1
+        body = _telemetry(args.base_url, seconds, view="export")
+        if body is None:
+            return 1
+        problems = telemetry_engine.validate_layout_input(body)
+        for problem in problems:
+            logger.error("layout-input validation: %s", problem)
+        if problems:
+            return 1
+        text = json.dumps(body, indent=2)
+        if args.output:
+            with open(args.output, "w") as fh:
+                fh.write(text + "\n")
+            print(args.output)
+        else:
+            print(text)
+        return 0
+    body = _telemetry(args.base_url, args.window)
+    if body is None:
+        return 1
+    head = {"now": body.get("now"), "workers": body.get("workers", [body.get("worker")])}
+    if args.telemetry_command == "traffic":
+        view = {**head, "traffic": body.get("traffic"), "window": body.get("window")}
+    else:
+        view = {**head, "costs": body.get("costs"), "warehouse": body.get("warehouse")}
+    print(json.dumps(view, indent=2))
+    return 0
+
+
+def incidents(args: argparse.Namespace) -> int:
+    """``list``: newest-first incident summaries; ``show ID``: one report
+    (trigger, the lookback's ledger events, metric deltas, the ranked
+    candidates); ``ledger``: the control ledger's tail."""
+    import urllib.parse
+
+    base = args.base_url.rstrip("/")
+    if args.incidents_command == "list":
+        return _print_from(f"{base}/incidents")
+    if args.incidents_command == "show":
+        return _print_from(f"{base}/incidents/{urllib.parse.quote(args.incident_id)}")
+    query = {"view": "ledger", "limit": args.limit}
+    if args.window is not None:
+        query["window"] = args.window
+    return _print_from(f"{base}/incidents?{urllib.parse.urlencode(query)}")
+
+
 def client_predict(args: argparse.Namespace) -> int:
     """Score [START, END) for every machine (or ``--machine``) and print the
     row counts; ``--output-dir`` writes one score CSV per machine."""
@@ -472,10 +611,57 @@ def parser() -> argparse.ArgumentParser:
                          "stage totals")
     td.set_defaults(run=trace_dump)
 
+    so = commands.add_parser("slo", help="objective attainment and burn rates of a running "
+                                         "server")
+    so.add_argument("--base-url", required=True, help="the server's base URL")
+    so.set_defaults(run=slo)
+
     tn = commands.add_parser("tenants", help="the tenant table, quota levels and class "
                                              "limits of a running server")
     tn.add_argument("--base-url", required=True, help="the server's base URL")
     tn.set_defaults(run=tenants)
+
+    a = commands.add_parser("autopilot", help="the closed-loop controller of a running server")
+    autopilot_commands = a.add_subparsers(dest="autopilot_command", required=True)
+    for action, text in (("status", "the controller's status and decision journal"),
+                         ("enable", "start (or resume) adapting"),
+                         ("disable", "freeze all adaptation now (the runtime kill switch)")):
+        ap = autopilot_commands.add_parser(action, help=text)
+        ap.add_argument("--base-url", required=True, help="the server's base URL")
+        ap.set_defaults(run=autopilot)
+
+    te = commands.add_parser("telemetry", help="the telemetry warehouse of a running server")
+    telemetry_commands = te.add_subparsers(dest="telemetry_command", required=True)
+    for action, text in (("traffic", "the top-k traffic sketch with its EWMA rates"),
+                         ("costs", "the measured-cost ledger per rung")):
+        tp = telemetry_commands.add_parser(action, help=text)
+        tp.add_argument("--base-url", required=True, help="the server's base URL")
+        tp.add_argument("--window", type=float, default=300.0,
+                        help="history window in seconds (default 300)")
+        tp.set_defaults(run=telemetry)
+    tx = telemetry_commands.add_parser("export", help="the gordo-layout-input/v1 document")
+    tx.add_argument("--base-url", required=True, help="the server's base URL")
+    tx.add_argument("--window", default="5m", help="rate horizon: seconds or 1m/10m/1h forms "
+                                                   "(default 5m)")
+    tx.add_argument("--output", "-o", default=None, help="write here instead of stdout")
+    tx.set_defaults(run=telemetry)
+
+    i = commands.add_parser("incidents", help="incident reports and the control ledger of a "
+                                              "running server")
+    incident_commands = i.add_subparsers(dest="incidents_command", required=True)
+    il = incident_commands.add_parser("list", help="newest-first incident summaries")
+    il.add_argument("--base-url", required=True, help="the server's base URL")
+    il.set_defaults(run=incidents)
+    ish = incident_commands.add_parser("show", help="one full incident report")
+    ish.add_argument("incident_id")
+    ish.add_argument("--base-url", required=True, help="the server's base URL")
+    ish.set_defaults(run=incidents)
+    ile = incident_commands.add_parser("ledger", help="the control ledger's tail")
+    ile.add_argument("--base-url", required=True, help="the server's base URL")
+    ile.add_argument("--window", default=None, help="only events in this trailing window: "
+                                                    "seconds or 1m/10m/1h forms")
+    ile.add_argument("--limit", type=int, default=200, help="newest events kept (default 200)")
+    ile.set_defaults(run=incidents)
 
     c = commands.add_parser("client", help="bulk prediction against running servers")
     client_commands = c.add_subparsers(dest="client_command", required=True)

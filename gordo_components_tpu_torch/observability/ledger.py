@@ -3,8 +3,8 @@ control-plane decision (the port's copy of
 ``gordo_components_tpu/observability/ledger.py``).
 
 Every control-plane writer (quarantine and recovery, QoS shed-level moves,
-fault plans becoming active, and, as they are ported, the breaker, SLO
-edges and the autopilot) emits one ``gordo-control-event/v1`` record here:
+fault plans becoming active, the breaker, SLO breach edges and the
+autopilot's decisions) emits one ``gordo-control-event/v1`` record here:
 fsync'd JSONL segments, whole-segment deletion under a byte budget, a torn
 final line tolerated on reload.
 

@@ -1,7 +1,6 @@
 """Process-wide labeled metrics: Counter, Gauge, Histogram (the port's copy
-of ``gordo_components_tpu/observability/registry.py``; the reference's hook
-by which its traffic sketch nominates the machines a scrape keeps waits
-for traffic accounting, ROADMAP.md).
+of ``gordo_components_tpu/observability/registry.py``, with its hook by
+which the traffic sketch nominates the machines a scrape keeps).
 
 One ``threading.Lock`` per metric, held only for dict/list mutation. A
 histogram keeps cumulative buckets (the Prometheus exposition), a bounded
@@ -13,7 +12,10 @@ metric, and a kind, label or bucket mismatch raises.
 
 Families labeled by ``machine`` render (JSON snapshot and exposition) as
 the top ``GORDO_METRICS_MACHINE_CARDINALITY`` machines by traffic plus one
-``machine="other"`` aggregate; the series in memory stay exact.
+``machine="other"`` aggregate; the series in memory stay exact. While
+traffic accounting is on (``observability/traffic.py``), its sketch names
+the kept machines for every family, so one scrape shows one survivor set;
+otherwise each family ranks its own series.
 """
 
 from __future__ import annotations
@@ -22,12 +24,22 @@ import bisect
 import os
 import threading
 import time
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 INF = float("inf")
 
 MACHINE_LABEL = "machine"
 MACHINE_OTHER = "other"
+
+# the one top-K-by-traffic selection: observability.traffic installs a
+# callable (cap -> machine names, or None) at import, so the dependency
+# points from traffic to the registry and never back
+_traffic_topk_provider: Optional[Callable[[int], Optional[List[str]]]] = None
+
+
+def set_traffic_topk_provider(provider: Optional[Callable[[int], Optional[List[str]]]]) -> None:
+    global _traffic_topk_provider
+    _traffic_topk_provider = provider
 
 
 def machine_cardinality_cap() -> int:
@@ -60,11 +72,13 @@ def bound_machine_cardinality(
     metric: "_Metric", collected: Dict[Tuple[str, ...], Any]
 ) -> Dict[Tuple[str, ...], Any]:
     """Collapse ``collected`` (a ``metric.collect()`` mapping) so that at
-    most the cap's distinct machine label values survive, ranked by traffic
-    (counter or gauge value, histogram count); the rest aggregate into
-    ``machine="other"``: counters sum, gauges take the max, histograms
-    merge bucket-wise. A real machine named ``other`` folds into the
-    aggregate."""
+    most the cap's distinct machine label values survive; the rest
+    aggregate into ``machine="other"``: counters sum, gauges take the max,
+    histograms merge bucket-wise. The kept machines are those the traffic
+    provider nominates that this family has, the slots left filled by this
+    family's own ranking (counter or gauge value, histogram count); with
+    no provider, or one that nominates nothing, that ranking alone. A real
+    machine named ``other`` folds into the aggregate."""
     if MACHINE_LABEL not in metric.labelnames:
         return collected
     cap = machine_cardinality_cap()
@@ -81,7 +95,24 @@ def bound_machine_cardinality(
         totals[key[idx]] = totals.get(key[idx], 0.0) + weight(data)
     if len(totals) <= cap:
         return collected
-    keep = set(sorted(totals, key=lambda m: (-totals[m], m))[:cap])
+    ranked = sorted(totals, key=lambda m: (-totals[m], m))
+    nominated = None
+    if _traffic_topk_provider is not None:
+        try:
+            nominated = _traffic_topk_provider(cap)
+        except Exception:  # noqa: BLE001 - a broken sketch must not break rendering
+            nominated = None
+    if nominated:
+        # the sketch ranks by traffic over every family (at most ``cap``
+        # names); only machines of THIS family can be kept, and slots left
+        # go to its own ranking
+        keep = set(nominated) & set(totals)
+        for m in ranked:
+            if len(keep) >= cap:
+                break
+            keep.add(m)
+    else:
+        keep = set(ranked[:cap])
     keep.discard(MACHINE_OTHER)
     out: Dict[Tuple[str, ...], Any] = {}
     for key, data in collected.items():

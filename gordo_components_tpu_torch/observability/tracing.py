@@ -97,7 +97,9 @@ _factory_installed = False
 def install_log_record_factory() -> None:
     """Stamp ``record.trace_id`` and ``record.span_id`` onto every log
     record from the active context. Idempotent; wraps (never replaces)
-    whatever factory is installed."""
+    whatever factory is installed, and leaves a trace id that factory
+    stamped when this context has none (a process that also runs another
+    tracer, the reference's among them, keeps that tracer's ids)."""
     global _factory_installed
     if _factory_installed:
         return
@@ -106,8 +108,10 @@ def install_log_record_factory() -> None:
 
     def factory(*args, **kwargs):
         record = previous(*args, **kwargs)
-        record.trace_id = _trace_id.get()
-        record.span_id = _span_id.get()
+        trace_id = _trace_id.get()
+        if trace_id or not getattr(record, "trace_id", ""):
+            record.trace_id = trace_id
+            record.span_id = _span_id.get()
         return record
 
     logging.setLogRecordFactory(factory)

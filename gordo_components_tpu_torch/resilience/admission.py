@@ -1,7 +1,5 @@
 """Admission control: a bounded, class-aware gate that sheds load early
-(the port's copy of ``gordo_components_tpu/resilience/admission.py``; the
-autopilot's live resize of ``max_inflight`` waits for the autopilot,
-ROADMAP.md).
+(the port's copy of ``gordo_components_tpu/resilience/admission.py``).
 
 Without it every request the HTTP server accepts parks a thread on the
 engine: under a spike the server piles up threads, memory and latency. The
@@ -20,8 +18,10 @@ highest class waiting. Two rejections:
   release rate.
 
 A waiter never queues past its request's deadline. ``close``/``drain``
-serve a graceful shutdown; ``set_shed_level`` moves the shed ladder (bulk
-only) and records the move in the control ledger.
+serve a graceful shutdown. The autopilot's two admission actuators resize
+the gate live: ``set_max_inflight`` (journaled by the autopilot, not here)
+and ``set_shed_level``, which moves the shed ladder (bulk only) and records
+the move in the control ledger.
 """
 
 from __future__ import annotations
@@ -208,7 +208,7 @@ class AdmissionController:
 
     # -- live tuning ---------------------------------------------------------
     def set_shed_level(self, level: int) -> int:
-        """The shed actuator: each step tightens the
+        """The autopilot's shed actuator: each step tightens the
         BULK class's watermark by 1/``qos.SHED_MAX`` of its share —
         interactive and standard admission are never touched by the
         ladder. Raising wakes waiters so newly-over-limit bulk waiters
@@ -227,6 +227,17 @@ class AdmissionController:
                 before=previous, after=level,
             )
         return level
+
+    def set_max_inflight(self, max_inflight: int) -> int:
+        """Resize the gate live (the autopilot's admission actuator). A
+        raise wakes queued waiters so the new slots are taken at once; a
+        cut sheds no one already admitted: the gate admits again once
+        occupancy drains below the new bound. Returns the applied value."""
+        max_inflight = max(1, int(max_inflight))
+        with self._cond:
+            self.max_inflight = max_inflight
+            self._cond.notify_all()
+        return max_inflight
 
     # -- graceful shutdown ---------------------------------------------------
     @property

@@ -11,8 +11,9 @@ port's copy of ``gordo_components_tpu/resilience/qos.py``).
 - A context variable carries the resolved tenant through the request's
   thread, so the engine reads the class at submit time without a
   parameter through every layer.
-- The raw header values seen are counted in a Space-Saving sketch, so
-  ``/tenants`` shows the top unmapped principals in bounded memory.
+- The raw header values seen are counted in a Space-Saving sketch
+  (``observability/traffic.py``), so ``/tenants`` shows the top unmapped
+  principals in bounded memory.
 
 Token buckets take an injectable monotonic clock: quota tests run hours of
 refill arithmetic with no sleep.
@@ -21,7 +22,6 @@ refill arithmetic with no sleep.
 from __future__ import annotations
 
 import contextvars
-import heapq
 import math
 import os
 import threading
@@ -30,6 +30,7 @@ from dataclasses import dataclass, replace
 from typing import Callable, Dict, List, Optional, Tuple
 
 from ..observability.registry import REGISTRY
+from ..observability.traffic import SpaceSaving
 
 # priority classes, highest first; rank orders shedding (lowest class
 # sheds first) and the weighted fill interleave
@@ -97,58 +98,6 @@ def class_weights() -> Dict[str, float]:
         except ValueError:
             continue
     return weights
-
-
-# -- raw header sketch --------------------------------------------------------
-class _SpaceSaving:
-    """Space-Saving top-K sketch of the raw tenant header values seen:
-    bounded counts with a per-key error (the reference's
-    ``observability/traffic.py:SpaceSaving``, the part ``/tenants`` reads).
-    Not thread-safe: the owning :class:`TenantTable` serializes it.
-    ``_counts`` maps key -> [count, error]; ``_heap`` is a lazy min-heap of
-    (count, key) that finds the eviction victim, rebuilt from the live
-    counts when it outgrows 4x the capacity."""
-
-    def __init__(self, capacity: int):
-        self.capacity = max(1, int(capacity))
-        self._counts: Dict[str, List[float]] = {}
-        self._heap: List[Tuple[float, str]] = []
-
-    def _compact_heap(self) -> None:
-        self._heap = [(v[0], k) for k, v in self._counts.items()]
-        heapq.heapify(self._heap)
-
-    def offer(self, key: str, amount: float = 1.0) -> None:
-        if len(self._heap) > 4 * self.capacity:
-            self._compact_heap()
-        entry = self._counts.get(key)
-        if entry is not None:
-            entry[0] += amount
-            heapq.heappush(self._heap, (entry[0], key))
-            return
-        if len(self._counts) < self.capacity:
-            self._counts[key] = [amount, 0.0]
-            heapq.heappush(self._heap, (amount, key))
-            return
-        # evict the true minimum: skip heap tuples older than their key's
-        # current count
-        while self._heap:
-            count, victim = self._heap[0]
-            live = self._counts.get(victim)
-            if live is not None and live[0] == count:
-                break
-            heapq.heappop(self._heap)
-        count, victim = heapq.heappop(self._heap)
-        del self._counts[victim]
-        # the newcomer inherits the victim's count as its error bound
-        self._counts[key] = [count + amount, count]
-        heapq.heappush(self._heap, (count + amount, key))
-
-    def top(self, k: int) -> List[Tuple[str, float, float]]:
-        """(key, estimated count, error), heaviest first, then by name."""
-        rows = sorted(((key, v[0], v[1]) for key, v in self._counts.items()),
-                      key=lambda row: (-row[1], row[0]))
-        return rows[: max(0, int(k))]
 
 
 # -- token bucket -------------------------------------------------------------
@@ -303,7 +252,7 @@ class TenantTable:
             t.name: TokenBucket(t.rate, t.burst, clock)
             for t in self._by_name.values() if t.rate > 0
         }
-        self._header_sketch = _SpaceSaving(64)
+        self._header_sketch = SpaceSaving(64)
 
     @classmethod
     def from_env(

@@ -2,10 +2,11 @@
 ``gordo_components_tpu/server/engine.py``: the knobs at 273-349,
 ``ScoreResult`` … ``_make_machine_score`` at 210-253 and 352-523, the
 pipeline at 611-748, ``_Bucket`` at 761-2499 and ``ServingEngine`` at
-2501-3220 and its metrics at 95-190, with the request seams: span
+2501-3262 and its metrics at 95-190, with the request seams: span
 timelines, the weighted-fair drain and the ``engine-dispatch`` fault
-point; without the mesh, hot cache, compile cache, spill tier and traffic
-accounting — ROADMAP.md lists them).
+point; and the control loops' seams: traffic notes, ``cost_ledger``, live
+tuning; without the mesh, hot cache, compile cache and spill tier —
+ROADMAP.md lists them).
 
 Every machine that shares an architecture (the reference's signature:
 config, loss, widths, lookback, lookahead and precision) is stacked into
@@ -61,7 +62,12 @@ before the forward runs in float32.
 Every request checks its deadline (``resilience/deadline.py``) before it
 is queued and before each chunk, so expired work never reaches the
 device. Dispatches, requests per rung and megabatch events record into
-the port's metrics registry under the reference's series names.
+the port's metrics registry under the reference's series names. Each
+request (not each chunk or dispatch) is noted once in the traffic
+accountant (``observability/traffic.py``) under its bucket's
+``shape_key`` and rung, and each bucket sums the seconds its dispatches
+took from enqueue to fetched outputs: ``cost_ledger`` reports them per rung
+beside the stacked bytes, for the telemetry warehouse.
 
 Request seams, as the reference's: each request's priority class
 (``resilience/qos.py``) and span context (``observability/spans.py``) are
@@ -101,6 +107,7 @@ from ..models.analysis import analyze_model
 from ..models.convert import quantized_params_from_flax
 from ..models.transformers import MinMaxScaler, StandardScaler
 from ..observability import spans
+from ..observability import traffic as traffic_accounting
 from ..observability.registry import REGISTRY
 from ..ops import windowing
 from ..ops.scaling import ScalerParams
@@ -179,6 +186,14 @@ def _dispatch_depth() -> int:
     so hosts under 4 CPUs default to 1 (serial). Below 1 clamps to 1."""
     default = 2 if (os.cpu_count() or 1) >= 4 else 1
     return _env_int("GORDO_DISPATCH_DEPTH", default, minimum=1)
+
+
+# the reference's default GORDO_MEGABATCH_RESIDENCY: the resident cap a
+# fleet at or under it reports. On one card every machine is resident, so
+# the port's cap is the larger of this and its machine count, and nothing
+# moves it (``apply_tuning(megabatch_residency=...)`` answers None, as the
+# reference's fully resident engine does)
+_RESIDENCY_CAP = 128
 
 
 def _fill_window_us() -> int:
@@ -456,12 +471,14 @@ class _Dispatch:
     """One in-flight dispatch: its enqueued (not yet fetched) outputs and
     what the fetch stage needs to fan them out."""
 
-    __slots__ = ("rows", "items", "outputs", "enqueued")
+    __slots__ = ("rows", "items", "outputs", "started", "enqueued")
 
-    def __init__(self, rows: int, items: List[_Item], outputs, enqueued: float):
+    def __init__(self, rows: int, items: List[_Item], outputs, started: float,
+                 enqueued: float):
         self.rows = rows
         self.items = items
         self.outputs = outputs  # (host tensors, CUDA event or None)
+        self.started = started  # perf_counter when the enqueue began
         # perf_counter when the enqueue returned: the device_execute span
         # runs from here to the start of the fetch
         self.enqueued = enqueued
@@ -572,6 +589,12 @@ class _Bucket:
         self.max_batch = max_batch
         self.names = [e.name for e in entries]
         self.n_features = int(entries[0].sx.scale.shape[0])
+        # the bucket's shape in traffic accounting's groups (one value per
+        # bucket, so bounded by construction)
+        self.shape_key = (
+            f"L{lookback}" + (f"a{lookahead}" if lookahead is not None else "")
+            + f"f{self.n_features}"
+        )
         # stack on the host, place on the device once
         host = _tree_map(lambda *leaves: torch.stack(leaves), *[e.tree() for e in entries])
         self.stacked = _tree_map(lambda a: a.to(device), host)
@@ -600,6 +623,9 @@ class _Bucket:
         self.dispatch_count = 0
         self.request_count = 0
         self.max_batch_seen = 0
+        # seconds from each dispatch's enqueue to its fetched outputs, summed:
+        # the cost ledger's per-rung latency numerator
+        self.dispatch_seconds_total = 0.0
 
     def stacked_nbytes(self) -> int:
         """Device bytes held by this bucket's stacked tree (int8 weights
@@ -817,7 +843,7 @@ class _Bucket:
             # timeline gets the span
             spans.record_into(it.ctx, "dispatch", started, enqueued - started,
                               batch=len(items), machines=machines)
-        self._finish(_Dispatch(rows, items, outputs, enqueued), defer)
+        self._finish(_Dispatch(rows, items, outputs, started, enqueued), defer)
 
     def _finish(self, job: _Dispatch, defer: bool) -> None:
         """Route one enqueued dispatch to its fetch stage: the collector when
@@ -935,6 +961,7 @@ class _Bucket:
         for it in job.items:
             spans.record_into(it.ctx, "fetch", fetch_started, fetched - fetch_started,
                               batch=len(job.items))
+        self.dispatch_seconds_total += fetched - job.started
         try:
             # results are filled before any accounting: a fill failure
             # errors the waiters without counting them as served
@@ -963,6 +990,7 @@ class _Bucket:
                                   retry="megabatch-fetch-failure")
                 spans.record_into(item.ctx, "fetch", enqueued, fetched - enqueued,
                                   retry="megabatch-fetch-failure")
+                self.dispatch_seconds_total += fetched - started
                 self._fill_results([item], x_tail, pred, scaled, total)
                 self._account(1)
             except BaseException as exc:
@@ -1084,7 +1112,9 @@ class ServingEngine:
         for bucket in self._buckets:
             need = bucket.lookback + (bucket.lookahead or 0)
             n = max(rows or 0, need, 1)
-            self.anomaly(bucket.names[0], np.zeros((n, bucket.n_features), np.float32))
+            # not through anomaly(): a warm-up is no traffic to account
+            self._anomaly(bucket, 0, bucket.names[0],
+                          np.zeros((n, bucket.n_features), np.float32))
         return len(self._buckets)
 
     def close(self) -> None:
@@ -1096,21 +1126,28 @@ class ServingEngine:
         for bucket in self._buckets:
             bucket.quiesce()
 
+    @property
+    def residency_cap(self) -> int:
+        return max(_RESIDENCY_CAP, len(self._by_name))
+
     def current_tuning(self) -> Dict[str, int]:
         return {
             "dispatch_depth": (
                 self._buckets[0].dispatch_depth if self._buckets else _dispatch_depth()
             ),
             "fill_window_us": self.fill_window_us,
+            "megabatch_residency": self.residency_cap,
         }
 
     def apply_tuning(
         self,
         dispatch_depth: Optional[int] = None,
         fill_window_us: Optional[int] = None,
+        megabatch_residency: Optional[int] = None,
     ) -> Dict[str, Any]:
-        """Retarget the data-plane knobs of a running engine; returns what
-        was applied."""
+        """Retarget the data-plane knobs of a running engine (the autopilot's
+        seam); returns what was applied. Every machine is resident, so a
+        residency value changes nothing and answers None."""
         applied: Dict[str, Any] = {}
         if dispatch_depth is not None:
             depth = max(1, int(dispatch_depth))
@@ -1123,6 +1160,8 @@ class ServingEngine:
             for bucket in self._buckets:
                 bucket.set_fill_window(us / 1e6)
             applied["fill_window_us"] = us
+        if megabatch_residency is not None:
+            applied["megabatch_residency"] = None
         return applied
 
     def can_score(self, name: str) -> bool:
@@ -1159,6 +1198,12 @@ class ServingEngine:
         if resolved is None:
             raise KeyError(name)
         bucket, idx = resolved
+        # one note per request (not per chunk or dispatch), under the
+        # serving bucket's shape and rung
+        traffic_accounting.note(name, bucket=bucket.shape_key, precision=bucket.precision)
+        return self._anomaly(bucket, idx, name, X)
+
+    def _anomaly(self, bucket: _Bucket, idx: int, name: str, X) -> ScoreResult:
         # the resilience seams, no-ops in the common case: expired work must
         # not queue behind the bucket's leader latch (the 504 path), and the
         # fault harness injects latency, errors or corruption here, the
@@ -1230,7 +1275,12 @@ class ServingEngine:
             # counts are the engine's; the reference's block counts its
             # resident program's share
             "megabatch": {
+                # fusing happens whenever the fill window is open; every
+                # machine is resident under a cap of at least their count
+                "enabled": self.fill_window_us > 0,
                 "fill_window_us": self.fill_window_us,
+                "residency_cap": self.residency_cap,
+                "resident_machines": len(self._by_name),
                 "dispatches": dispatches,
                 "requests": requests,
                 "fusion_ratio": round(requests / dispatches, 3) if dispatches else None,
@@ -1243,4 +1293,34 @@ class ServingEngine:
                 "machines": dict(sorted(prec_machines.items())),
                 "requests": dict(sorted(prec_requests.items())),
             },
+        }
+
+    def cost_ledger(self) -> Dict[str, Any]:
+        """The measured-cost sample the telemetry warehouse takes each tick:
+        per rung, the machines, buckets, stacked device bytes, served
+        requests and summed dispatch seconds (the reference's ``rungs``
+        block). The reference's ``host_cache`` and ``spill`` blocks come
+        with the spill tier (ROADMAP.md); until then they hold what the
+        reference reports for a fleet with no lazy machine and no host
+        cache. O(buckets), never O(machines)."""
+        rungs: Dict[str, Dict[str, Any]] = {}
+        for b in self._buckets:
+            entry = rungs.setdefault(b.precision, {
+                "machines": 0, "buckets": 0, "device_bytes": 0, "requests": 0,
+                "dispatch_seconds_total": 0.0,
+            })
+            entry["machines"] += len(b.names)
+            entry["buckets"] += 1
+            entry["device_bytes"] += b.stacked_nbytes()
+            entry["requests"] += b.request_count
+            entry["dispatch_seconds_total"] += b.dispatch_seconds_total
+        return {
+            "rungs": {rung: rungs[rung] for rung in sorted(rungs)},
+            "host_cache": {
+                "enabled": False, "cap_bytes": 0, "bytes": 0, "entries": 0, "hits": 0,
+                "misses": 0, "evictions": 0, "loads": 0, "prefetches": 0,
+                "hit_latency_s": None, "load_latency_s": None,
+            },
+            "spill": {"lazy_machines": 0, "scorers": 0, "requests_total": 0},
+            "host_path_machines": len(self.skipped),
         }

@@ -1,9 +1,9 @@
 """HTTP front of the port (port of ``gordo_components_tpu/server/server.py``:
-the routes at 108-160, ``_ServerState`` at 275-420, ``reload`` at 796-1040,
-the request wrapper at 1253-1432, the handlers at 1470-1840 and the scoring
-path at 1868-2248; the reference's routes of parts not ported yet —
-``/slo``, ``/telemetry``, ``/incidents``, ``/autopilot``, ``/layout``,
-``/prefetch`` — are listed in ROADMAP.md).
+the routes at 108-160, ``_ServerState`` at 275-420, the control loops'
+wiring at 657-795, ``reload`` at 796-1040, the request wrapper at
+1253-1432, the handlers at 1470-1866 and the scoring path at 1868-2248; the
+reference's routes of parts not ported yet, ``/layout`` and ``/prefetch``,
+are listed in ROADMAP.md).
 
 Built on the standard library's ``ThreadingHTTPServer``: no web framework.
 Routes, each also under ``/gordo/v0/<project>/<machine>/`` where marked:
@@ -25,6 +25,20 @@ Routes, each also under ``/gordo/v0/<project>/<machine>/`` where marked:
   slowest and errored request timelines; ``GET
   /debug/requests/<trace_id>`` one timeline (``?format=chrome``: Chrome
   trace-event JSON, which Perfetto loads);
+- ``GET  /slo``: each objective's attainment, fast and slow burn rates and
+  breaches, and the stages that ate the latency budget
+  (``observability/slo.py``; ``{"enabled": false}`` under ``GORDO_SLO=0``);
+- ``GET  /telemetry`` (``?window=`` seconds or ``1m``/``10m``/``1h``;
+  ``?view=export`` for the ``gordo-layout-input/v1`` document): the
+  warehouse's windowed rates and percentiles, the traffic top-k and the
+  cost ledger (``observability/telemetry.py``; off under
+  ``GORDO_TELEMETRY=0``);
+- ``GET  /incidents`` (``?view=ledger&window=&limit=``: the control
+  ledger's tail) and ``GET /incidents/<id>``: the incident reports that SLO
+  breach edges open (``observability/incidents.py``);
+- ``GET  /autopilot``; ``POST /autopilot/enable|disable``: the controller's
+  status and runtime kill switch (``autopilot/``; 409 under
+  ``GORDO_AUTOPILOT=0``, where no controller exists);
 - ``POST /prediction``, ``POST /anomaly/prediction`` and ``POST
   /bulk/anomaly/prediction`` (and machine-scoped): the scoring endpoints;
   the bulk one scores as ``/anomaly/prediction`` does, in the bulk class.
@@ -55,8 +69,8 @@ detector 422 on ``/anomaly/prediction``, an expired ``X-Gordo-Deadline``
 exception quarantines the machine (503) while the rest of the fleet keeps
 serving. Every answer echoes ``X-Gordo-Trace-Id``. A machine the engine
 cannot lift answers 503 on the scoring endpoints: the port has no host
-path, so nothing is scored on the CPU in its place. Parquet bodies and
-``?start&end`` data fetches are not served (415, 422).
+path, so nothing is scored on the CPU in its place. A parquet body is
+read through pyarrow (415 where it is missing).
 
 Machines load to the host (a ``model-load`` fault, ``GORDO_FAULTS``,
 stands in for a broken artifact and quarantines the machine); the stacked
@@ -67,6 +81,22 @@ levels) go to the control ledger under ``GORDO_LEDGER_DIR/worker-0``, or
 ``<models-dir>/.telemetry/ledger-worker-0``, or memory only. ``POST /reload``
 rescans a models directory and swaps machines and engine as ONE state;
 the old state's in-flight requests drain before its engine closes.
+
+The control loops tick on reads, never on a thread: every ``/metrics``
+scrape ticks the SLO evaluator, then the autopilot, then the telemetry
+warehouse, each gated by its own minimum interval
+(``GORDO_SLO_EVAL_INTERVAL``, ``GORDO_AUTOPILOT_INTERVAL``,
+``GORDO_TELEMETRY_INTERVAL``);
+``/slo``, ``/autopilot``, ``/incidents`` and ``/telemetry`` tick what they
+read. The SLO evaluator (``GORDO_SLO``, default on) reads the scoring
+latency and availability and each tenant class's availability; a breach
+edge opens an incident report under the ledger directory's
+``incidents/``. The autopilot (built frozen unless ``GORDO_AUTOPILOT=1``;
+none at all under ``0``) moves the dispatch depth, the fill window, the
+in-flight bound and the shed ladder through :meth:`ModelServer.
+apply_tuning`, whose values a reload carries to the new engine. The
+warehouse (``GORDO_TELEMETRY``, default on) keeps its segments under
+``GORDO_TELEMETRY_DIR`` or ``<models-dir>/.telemetry/worker-0``.
 
 Run: ``python -m gordo_components_tpu_torch.cli run-server --models-dir DIR
 [--port N] [--device cpu]`` (or ``python -m
@@ -90,11 +120,15 @@ import numpy as np
 
 from .. import precision as precision_mod
 from .. import wire
+from ..autopilot import build_server_autopilot, disabled_snapshot
 from ..dataset import GordoBaseDataset
 from ..dataset.data_provider.providers import pandas_index_columns
 from ..models.anomaly.diff import DiffBasedAnomalyDetector
 from ..observability import exposition, flightrec, spans, stitch, tracing
+from ..observability import incidents as incidents_engine
 from ..observability import ledger as control_ledger
+from ..observability import slo as slo_engine
+from ..observability import telemetry as telemetry_engine
 from ..observability.registry import REGISTRY
 from ..resilience import deadline, faults, qos
 from ..resilience.admission import (
@@ -150,6 +184,10 @@ _ROOT_ENDPOINTS = {
     "/bulk/anomaly/prediction": "bulk-anomaly",
     "/debug/requests": "debug-requests",
     "/download-model": "download-model",
+    "/slo": "slo",
+    "/telemetry": "telemetry",
+    "/incidents": "incidents",
+    "/autopilot": "autopilot",
 }
 _MACHINE_ROUTE = re.compile(
     r"^/gordo/v0/(?P<project>[^/]+)/(?P<machine>[^/]+)/(?P<endpoint>"
@@ -157,10 +195,15 @@ _MACHINE_ROUTE = re.compile(
     + ")$"
 )
 _DEBUG_REQUEST_ROUTE = re.compile(r"^/debug/requests/(?P<trace_id>[^/]+)$")
+_INCIDENT_ROUTE = re.compile(r"^/incidents/(?P<incident_id>[^/]+)$")
+_AUTOPILOT_ROUTE = re.compile(r"^/autopilot/(?P<action>[^/]+)$")
 _SCORING_ENDPOINTS = ("prediction", "anomaly", "bulk-anomaly")
 # probe and scrape endpoints stay out of the flight recorder: a watchman
 # polling N machines would flush every scoring trace out of the ring
-_UNRECORDED_ENDPOINTS = ("healthz", "metrics", "tenants", "debug-requests", "debug-request")
+_UNRECORDED_ENDPOINTS = ("healthz", "metrics", "slo", "tenants", "autopilot", "autopilot-action",
+                         "debug-requests", "debug-request")
+# probe endpoints log at DEBUG: pollers would double the steady log volume
+_QUIET_ENDPOINTS = ("healthz", "metrics", "slo", "autopilot")
 _PARQUET_TYPES = (
     "application/octet-stream",
     "application/x-parquet",
@@ -363,6 +406,8 @@ class ModelServer:
         )
         self.quarantine = Quarantine(cooldown=quarantine_cooldown)
         self.drain_timeout = drain_timeout
+        # values the autopilot applied: a reload's new engine inherits them
+        self._tuning: Dict[str, int] = {}
         # machines that failed to load, name -> dir: quarantined, retried
         # at every reload
         self._quarantined_dirs: Dict[str, str] = {}
@@ -403,7 +448,39 @@ class ModelServer:
                     f"loaded; quarantined: {sorted(self._quarantined_dirs)}"
                 )
         self._state = self._new_state(machines)
+        self._start_control_loops(ledger_dir or None)
         logger.info("ModelServer serving %d model(s): %s", len(machines), sorted(machines))
+
+    def _start_control_loops(self, ledger_dir: Optional[str]) -> None:
+        """The SLO evaluator over the request series this server records
+        (scoring latency and availability, then each tenant class and
+        declared tenant), the autopilot over the engine's and the gate's
+        knobs, the telemetry warehouse, and the incident correlator beside
+        the ledger, fed by the evaluator's breach edges."""
+        self.slo = (
+            slo_engine.SLOEvaluator(
+                slo_engine.server_objectives()
+                + slo_engine.tenant_objectives(self.tenants.specs())
+            )
+            if slo_engine.enabled() else None
+        )
+        self.autopilot = build_server_autopilot(self)
+        self.telemetry: Optional[telemetry_engine.TelemetryWarehouse] = None
+        if telemetry_engine.enabled():
+            warehouse_dir = os.environ.get("GORDO_TELEMETRY_DIR")
+            if not warehouse_dir and self.models_root:
+                warehouse_dir = os.path.join(self.models_root, ".telemetry", "worker-0")
+            self.telemetry = telemetry_engine.TelemetryWarehouse(
+                directory=warehouse_dir or None,
+                cost_sampler=lambda: telemetry_engine.sample_costs(self._state.engine),
+            )
+        self.incidents = incidents_engine.IncidentCorrelator(
+            directory=os.path.join(ledger_dir, "incidents") if ledger_dir else None,
+            warehouse=self.telemetry,
+            role="worker-0",
+        )
+        if self.slo is not None:
+            self.slo.breach_hook = self.incidents.on_breach
 
     def _scan(self) -> Dict[str, str]:
         """``{name: artifact dir}``: the pinned machines, then every artifact
@@ -419,6 +496,12 @@ class ModelServer:
         libraries built, cuBLAS handles made) before it takes traffic."""
         state = _ServerState(machines, single=self._single, device=self.device)
         state.engine.warmup()
+        # the autopilot's applied values carry over: a new engine reads the
+        # environment's, which would revert every adaptation at a reload
+        engine_tuning = {key: value for key, value in self._tuning.items()
+                         if key not in ("max_inflight", "shed_level")}
+        if engine_tuning:
+            state.engine.apply_tuning(**engine_tuning)
         return state
 
     # the current state's parts
@@ -437,6 +520,43 @@ class ModelServer:
         if not self.admission.drain(self.drain_timeout):
             logger.warning("Shutdown: requests still in flight after %.1fs", self.drain_timeout)
         self._state.engine.close()
+        if self.telemetry is not None:
+            self.telemetry.close()
+
+    def apply_tuning(
+        self,
+        dispatch_depth: Optional[int] = None,
+        fill_window_us: Optional[int] = None,
+        max_inflight: Optional[int] = None,
+        megabatch_residency: Optional[int] = None,
+        shed_level: Optional[int] = None,
+    ) -> Dict[str, Any]:
+        """The autopilot's actuation seam: land knob values on the live
+        serving state without a reload. The gate resizes under its own
+        condition; engine values go through the engine's setters. Applied
+        values are remembered, so a reload's new engine inherits them."""
+        applied: Dict[str, Any] = {}
+        if max_inflight is not None:
+            applied["max_inflight"] = self.admission.set_max_inflight(max_inflight)
+            self._tuning["max_inflight"] = applied["max_inflight"]
+        if shed_level is not None:
+            # the shed ladder tightens only the bulk class's watermark
+            applied["shed_level"] = self.admission.set_shed_level(shed_level)
+            self._tuning["shed_level"] = applied["shed_level"]
+        engine_values = {
+            key: value for key, value in (
+                ("dispatch_depth", dispatch_depth),
+                ("fill_window_us", fill_window_us),
+                ("megabatch_residency", megabatch_residency),
+            ) if value is not None
+        }
+        if engine_values:
+            engine_applied = self._state.engine.apply_tuning(**engine_values)
+            applied.update(engine_applied)
+            for key, value in engine_applied.items():
+                if value is not None:
+                    self._tuning[key] = value
+        return applied
 
     # -- reload ----------------------------------------------------------------
     def reload(self) -> Dict[str, Any]:
@@ -584,7 +704,7 @@ class ModelServer:
                 if endpoint not in _UNRECORDED_ENDPOINTS:
                     flightrec.RECORDER.record(timeline)
             logger.log(
-                logging.DEBUG if endpoint in ("healthz", "metrics") else logging.INFO,
+                logging.DEBUG if endpoint in _QUIET_ENDPOINTS else logging.INFO,
                 "%s %s -> %d in %.1f ms [trace=%s]",
                 method, path, status, elapsed * 1000, trace_id,
             )
@@ -604,6 +724,12 @@ class ModelServer:
         match = _DEBUG_REQUEST_ROUTE.match(path)
         if match is not None:
             return "debug-request", {"trace_id": match["trace_id"]}
+        match = _INCIDENT_ROUTE.match(path)
+        if match is not None:
+            return "incident", {"incident_id": match["incident_id"]}
+        match = _AUTOPILOT_ROUTE.match(path)
+        if match is not None:
+            return "autopilot-action", {"action": match["action"]}
         match = _MACHINE_ROUTE.match(path)
         if match is None:
             raise HTTPError(404, f"No route {path!r}")
@@ -639,6 +765,14 @@ class ModelServer:
         if endpoint == "healthz":
             return self._healthz(args, state)
         if endpoint == "metrics":
+            # a scrape ticks the loops: SLO first, so the autopilot reads
+            # fresh burn rates, then the warehouse
+            if self.slo is not None:
+                self.slo.maybe_tick()
+            if self.autopilot is not None:
+                self.autopilot.maybe_tick()
+            if self.telemetry is not None:
+                self.telemetry.maybe_tick()
             if params.get("format") == "prometheus":
                 # &exemplars=1 opts into OpenMetrics exemplars; the bare
                 # scrape stays strict v0.0.4, whose parsers reject them
@@ -655,6 +789,9 @@ class ModelServer:
                 },
                 "registry": REGISTRY.snapshot(),
             })
+        if endpoint in ("slo", "telemetry", "incidents", "incident", "autopilot",
+                        "autopilot-action"):
+            return self._control(method, endpoint, args, params)
         if endpoint == "tenants":
             snapshot = self.tenants.snapshot()
             snapshot["admission"] = self.admission.stats()
@@ -694,6 +831,71 @@ class ModelServer:
             return self._score_endpoint(method, endpoint, machine, params, headers, body, state)
         finally:
             state.exit()
+
+    def _control(self, method: str, endpoint: str, args: Dict[str, str],
+                 params: Dict[str, str]) -> Response:
+        """The control loops' routes; each read ticks what it shows."""
+        if endpoint == "slo":
+            if self.slo is None:
+                return _json({"enabled": False})
+            self.slo.maybe_tick()
+            return _json(self.slo.snapshot(recorder=flightrec.RECORDER))
+        if endpoint == "telemetry":
+            if self.telemetry is None:
+                return _json({"enabled": False})
+            self.telemetry.maybe_tick()
+            window = telemetry_engine.parse_window(params.get("window")) or 300.0
+            view = self.telemetry.view(window=window)
+            if params.get("view") == "export":
+                return _json(telemetry_engine.build_export(view, window=window))
+            return _json(view)
+        if endpoint == "incidents":
+            # a breach since the last scrape opens its report before this
+            # answer renders
+            if self.slo is not None:
+                self.slo.maybe_tick()
+            if params.get("view") == "ledger":
+                try:
+                    limit = int(params.get("limit", ""))
+                except ValueError:
+                    limit = 0
+                return _json({
+                    "ledger": control_ledger.LEDGER.snapshot(),
+                    "events": control_ledger.LEDGER.recent(
+                        window=telemetry_engine.parse_window(params.get("window")),
+                        limit=limit or 200),
+                })
+            return _json({"incidents": self.incidents.list(),
+                          "correlator": self.incidents.snapshot()})
+        if endpoint == "incident":
+            report = self.incidents.get(args["incident_id"])
+            if report is None:
+                raise HTTPError(404, f"no incident {args['incident_id']!r} (rotated out of "
+                                     "GORDO_INCIDENT_KEEP, or never opened)")
+            return _json(report)
+        if endpoint == "autopilot":
+            if self.autopilot is None:
+                return _json(disabled_snapshot())
+            # the SLO ticks first, so the controller reads fresh burn rates
+            if self.slo is not None:
+                self.slo.maybe_tick()
+            self.autopilot.maybe_tick()
+            return _json(self.autopilot.snapshot())
+        # autopilot-action: the runtime kill switch
+        if method != "POST":
+            raise HTTPError(405, "POST required")
+        if self.autopilot is None:
+            return _json({**disabled_snapshot(),
+                          "error": "hard kill switch active; runtime enable is not possible"},
+                         409)
+        action = args["action"]
+        if action == "enable":
+            self.autopilot.enable()
+        elif action == "disable":
+            self.autopilot.disable(reason="operator via /autopilot/disable")
+        else:
+            raise HTTPError(404, f"unknown autopilot action {action!r} (enable | disable)")
+        return _json(self.autopilot.snapshot())
 
     def _healthz(self, args: Dict[str, str], state: _ServerState) -> Response:
         name = args.get("machine")

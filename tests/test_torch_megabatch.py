@@ -689,7 +689,12 @@ def test_apply_tuning_retargets_a_running_engine(models, X):
     before = _bits(engine.anomaly(name, X))
     applied = engine.apply_tuning(dispatch_depth=3, fill_window_us=5000)
     assert applied == {"dispatch_depth": 3, "fill_window_us": 5000}
-    assert engine.current_tuning() == {"dispatch_depth": 3, "fill_window_us": 5000}
+    # every machine is resident: the residency cap is the reference's
+    # default, and a residency value is not applicable (None)
+    assert engine.current_tuning() == {"dispatch_depth": 3, "fill_window_us": 5000,
+                                       "megabatch_residency": 128}
+    assert engine.apply_tuning(megabatch_residency=4) == {"megabatch_residency": None}
+    assert engine.current_tuning()["megabatch_residency"] == 128
     assert engine._buckets[0]._fill_s == 0.005
     assert engine._buckets[0]._inflight_slots._depth == 3
     assert _bits(engine.anomaly(name, X)) == before

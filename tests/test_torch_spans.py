@@ -459,3 +459,44 @@ def test_configure_logging_refuses_an_unknown_format():
         with pytest.raises(ValueError, match="'text' or 'json'"):
             module.configure_logging("INFO", "xml")
     assert logsetup.TEXT_FORMAT == ref_logsetup.TEXT_FORMAT
+
+
+def test_log_record_factories_of_both_packages_compose():
+    """Each package's factory wraps the other's: a record made under one
+    package's trace carries that trace id whichever factory is outermost
+    (the port's leaves an id the inner factory stamped when it has none)."""
+    saved = logging.getLogRecordFactory()
+    saved_flags = (tracing._factory_installed, ref_tracing._factory_installed)
+    try:
+        logging.setLogRecordFactory(logging.LogRecord)
+        tracing._factory_installed = ref_tracing._factory_installed = False
+        ref_tracing.install_log_record_factory()
+        tracing.install_log_record_factory()  # the port's outermost
+        logger = logging.getLogger("gordo-test-compose")
+
+        def trace_of(make):
+            records = []
+            handler = logging.Handler()
+            handler.emit = records.append
+            logger.addHandler(handler)
+            try:
+                make()
+            finally:
+                logger.removeHandler(handler)
+            return records[0].trace_id
+
+        def logged_under(module, trace_id):
+            def make():
+                token = module.set_trace_id(trace_id)
+                try:
+                    logger.warning("x")
+                finally:
+                    module.reset_trace_id(token)
+            return make
+
+        assert trace_of(logged_under(ref_tracing, "ref0000000000001")) == "ref0000000000001"
+        assert trace_of(logged_under(tracing, "port000000000001")) == "port000000000001"
+        assert trace_of(lambda: logger.warning("x")) == ""
+    finally:
+        logging.setLogRecordFactory(saved)
+        tracing._factory_installed, ref_tracing._factory_installed = saved_flags
