@@ -229,7 +229,49 @@ Phases; any failure exits non-zero before the result line:
    launches = 3 x PatchTST dispatches (the second server's warm-up
    included). Printed with the card: each stage's requests and latency, the
    skewed dense stage on fresh servers with the loops off and on (req/s,
-   p50, p99).
+   p50, p99);
+14. the fleet tier (``phase_tier``): 24 ``dense_ae_10tag`` machines
+   (``TIER_DENSE``, the first a generation root), the slice machine twice
+   in fp32 and once in bf16, in one models root; a PatchTST request holds
+   ``TIER_WINDOWS`` = 16 windows, so its flash forwards run at BH 8192, the
+   slice shape that phase 2 holds. Tier A: the port's
+   ``assemble_fleet`` in this process over 2 ``SubprocessWorker``s, each the
+   port's ``run-server --worker-id i`` on the card through CLI_RUNNER (a
+   launch record per process), replicas 2, probes every 0.5 s, the router
+   on a ``ThreadingHTTPServer`` here; the workers run an ``engine-dispatch``
+   latency fault of ``TIER_SLOW_S`` on ``TIER_SLOW``. Checked: every
+   machine's answer carries ``X-Gordo-Worker`` of its placed worker and
+   equals the same request posted straight to that worker, byte for byte,
+   and the CPU plain path (fp32 within SERVE_RTOL, bf16 within
+   BF16_SERVE_RTOL); a dense machine driven past ``TIER_HOT_RPS`` is
+   promoted hot and answered by both workers; a routed PatchTST trace on the
+   router holds ``route`` with the worker's lane (``device_execute``,
+   ``fetch``) inside it, and a stitch merged; the aggregate ``/metrics``'s
+   scoring counters equal the workers' sum (plus the router's own),
+   ``/telemetry`` merges both workers, ``/slo`` answers on all three; a
+   worker SIGTERMed while ``TIER_SLOW``'s request is in flight answers
+   ``/healthz`` 503 ``draining``, its request 200, and is respawned in its
+   slot; a worker SIGKILLed is ejected and respawned; a new generation of
+   ``TIER_RELOAD`` committed through the store is adopted by ``POST
+   /reload`` (canary, then sweep) and undone by ``POST /rollback``, each
+   answer against the CPU; the elastic seam boots a third worker that
+   answers its share and retires it ring first; 4 paced dense clients see no
+   non-200 through drain, crash, reload and the elastic seam; ``run-watchman``
+   over the router reports all 27 machines healthy, then, under a ``probe``
+   fault, that one machine unhealthy with the fault's message; every worker
+   process that exited by SIGTERM launched ``flash_fwd_f32`` and
+   ``flash_fwd_bf16`` 3 times per fp32 and bf16 PatchTST dispatch of its
+   engines (read off its ``/metrics`` before each reload and its exit).
+   Tier B: ``python -m gordo_components_tpu_torch.cli run-fleet-server
+   --workers 2`` boots and answers 10 requests; its workers hold the card's
+   device files open and the router none (nor maps libcuda; ``nvidia-smi
+   --query-compute-apps=pid`` is printed and, where its pids are this
+   namespace's, must list the workers and not the router); SIGTERM exits 0
+   with no worker left. Printed with the card: the router's overhead
+   (``TIER_OVERHEAD`` alternating pairs of routed and direct requests, dense
+   and PatchTST: each side's p50, p99 and max, and the pairs' median
+   difference with a 95 % bootstrap interval), worker boot, drain,
+   eject and respawn-to-ready seconds, the reload's and rollback's walls.
 
 The line before last is ``nvidia-smi``'s name and power limit; the one
 before that the kernels' JSON record; the last line is the result.
@@ -3922,6 +3964,849 @@ def phase_control(torch, device, tmp: str, card: str) -> dict:
     return {n: launches[n] + launches_second[n] for n in KERNELS}
 
 
+TIER_DENSE = [f"tier-dense-{i:02d}" for i in range(24)]
+TIER_PATCHTST = ["tier-patchtst-0", "tier-patchtst-1"]
+TIER_BF16 = "tier-patchtst-bf16"
+TIER_MACHINES = TIER_DENSE + TIER_PATCHTST + [TIER_BF16]
+TIER_RELOAD = TIER_DENSE[0]  # a generation root: the rolling reload and the rollback
+TIER_SLOW = TIER_DENSE[-1]  # an engine-dispatch latency fault holds its request in flight
+TIER_SLOW_S = 2.0  # seconds of that fault: the drain's window
+TIER_HOT = TIER_DENSE[1]
+TIER_HOT_RPS = 10.0  # the placement's promotion rate (its window is 10 s)
+TIER_HOT_REQUESTS = 240
+TIER_CLIENTS = 4
+TIER_WINDOWS = SEAMS_WINDOWS  # windows of a PatchTST request: BH 8192, as phase 2 holds
+TIER_OVERHEAD = {"dense": 400, "patchtst": 100}  # alternating pairs, routed and direct
+TIER_WORKERS = 2
+TIER_PROBE_S = 0.5
+TIER_READY_S = 300.0
+TIER_BOOT_GRACE_S = 180.0
+TIER_B_REQUESTS = 10
+
+
+class TierWorkers:
+    """Tier A's worker factory: every incarnation of a slot is a
+    ``SubprocessWorker`` running the port's ``run-server --worker-id i``
+    through CLI_RUNNER, with a launch record and a log of its own. Each
+    incarnation banks its engine's PatchTST dispatches (from ``/metrics``)
+    before every engine swap and before it stops, so that its launches can
+    be held to 3 per dispatch."""
+
+    def __init__(self, tmp: str, models_dir: str, device_arg, env: dict):
+        self.tmp, self.models_dir, self.device_arg, self.env = tmp, models_dir, device_arg, env
+        self.incarnations = []
+        self._logs = []
+
+    def __call__(self, spec):
+        from gordo_components_tpu_torch.router import SubprocessWorker, server_worker_argv
+
+        n = len(self.incarnations)
+        record = os.path.join(self.tmp, f"tier-{spec.name}-{n}.json")
+        log_path = os.path.join(self.tmp, f"tier-{spec.name}-{n}.log")
+        log = open(log_path, "wb")
+        self._logs.append(log)
+        argv = server_worker_argv(spec, self.models_dir,
+                                  launcher=[sys.executable, "-c", CLI_RUNNER, record],
+                                  device=self.device_arg)
+        worker = SubprocessWorker(spec, argv, env=self.env, stdout=log, stderr=subprocess.STDOUT)
+        self.incarnations.append({"name": spec.name, "worker": worker, "record": record,
+                                  "log": log_path, "banked": {"f32": 0, "bf16": 0},
+                                  "killed": False})
+        return worker
+
+    def live(self, name: str) -> dict:
+        return [inc for inc in self.incarnations if inc["name"] == name][-1]
+
+    def dispatches(self, inc: dict) -> dict:
+        """The incarnation's current engine's PatchTST dispatches by
+        compute dtype, from its /metrics."""
+        status, _, raw, _ = http("GET", inc["worker"].spec.base_url + "/metrics")
+        if status != 200:
+            fail(f"tier: {inc['name']} /metrics answered HTTP {status}")
+        # the PatchTST buckets are the ones of lookback LOOKBACK (the dense
+        # machines read flat rows)
+        buckets = json.loads(raw)["engine"]["bucket_dispatches"]
+        return {rung: sum(counts["dispatches"] for key, counts in buckets.items()
+                          if key.startswith(f"L{LOOKBACK}a") and key.endswith(f"/{dtype}"))
+                for rung, dtype in (("f32", "float32"), ("bf16", "bfloat16"))}
+
+    def bank(self, inc: dict) -> dict:
+        """Add the current engine's PatchTST dispatches to the
+        incarnation's total; called once per engine, just before it is
+        swapped or stopped."""
+        counts = self.dispatches(inc)
+        for key, value in counts.items():
+            inc["banked"][key] += value
+        return counts
+
+    def tail(self, inc: dict, n: int = 3000) -> str:
+        try:
+            with open(inc["log"], "rb") as fh:
+                return fh.read()[-n:].decode(errors="replace")
+        except OSError:
+            return ""
+
+    def close(self) -> None:
+        for log in self._logs:
+            log.close()
+
+
+def tier_launch_sums(incarnations: list, kernels=None) -> tuple:
+    """Hold every worker process's launch record to its banked PatchTST
+    dispatches: ``flash_fwd_f32`` = 3 x its fp32 dispatches, ``flash_fwd_bf16``
+    = 3 x its bf16 ones, no backward launch. A SIGKILLed incarnation writes no
+    record and is left out. Returns (the summed launches by kernel, the
+    problems found)."""
+    kernels = kernels or KERNELS
+    layers = SLICE["n_layers"]
+    sums = dict.fromkeys(kernels, 0)
+    problems = []
+    for inc in incarnations:
+        if inc["killed"]:
+            continue
+        try:
+            with open(inc["record"]) as fh:
+                launches = json.load(fh)["launches"]
+        except (OSError, ValueError, KeyError) as exc:
+            problems.append(f"{inc['name']}: no launch record ({exc})")
+            continue
+        want = {name: 0 for name in kernels}
+        want["flash_fwd_f32"] = layers * inc["banked"]["f32"]
+        want["flash_fwd_bf16"] = layers * inc["banked"]["bf16"]
+        got = {name: launches.get(name, 0) for name in kernels}
+        if got != want:
+            problems.append(f"{inc['name']} ({os.path.basename(inc['record'])}): launches {got}, "
+                            f"want {want} for dispatches {inc['banked']}")
+        for name in kernels:
+            sums[name] += got[name]
+    return sums, problems
+
+
+class TierClients:
+    """``TIER_CLIENTS`` threads asking the router for ``machines`` in turn,
+    ``pause`` s apart (so that no machine's rate reaches the hot threshold
+    by accident), until stopped; every status is kept, every non-200
+    named."""
+
+    def __init__(self, base: str, machines: list, encoded: dict, pause: float = 0.05):
+        self.base, self.machines, self.encoded, self.pause = base, machines, encoded, pause
+        self.statuses, self.errors, self.answered_by = [], [], {}
+        self._stop = threading.Event()
+        self._threads = [threading.Thread(target=self._run, args=(c,), daemon=True)
+                         for c in range(TIER_CLIENTS)]
+
+    def _run(self, c: int) -> None:
+        i = c
+        while not self._stop.is_set():
+            machine = self.machines[i % len(self.machines)]
+            i += TIER_CLIENTS
+            try:
+                status, headers, raw, _ = http(
+                    "POST", f"{self.base}/gordo/v0/project/{machine}/anomaly/prediction",
+                    self.encoded[machine])
+            except Exception as exc:  # noqa: BLE001 - reported by the phase
+                self.errors.append(f"{machine}: {exc!r}")
+                continue
+            self.statuses.append(status)
+            if status != 200:
+                self.errors.append(f"{machine}: HTTP {status} {raw[:200]!r}")
+            worker = headers.get("X-Gordo-Worker")
+            self.answered_by[worker] = self.answered_by.get(worker, 0) + 1
+            self._stop.wait(self.pause)
+
+    def __enter__(self):
+        for thread in self._threads:
+            thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        for thread in self._threads:
+            thread.join(timeout=120)
+
+    def check(self, label: str) -> None:
+        if self.errors or any(thread.is_alive() for thread in self._threads):
+            fail(f"tier {label}: clients saw {len(self.errors)} error(s) of "
+                 f"{len(self.statuses)}: {self.errors[:3]}")
+        if not self.statuses:
+            fail(f"tier {label}: the clients sent nothing")
+
+
+def tier_build(models_dir: str, device) -> dict:
+    """The tier's models root: ``TIER_DENSE`` at bench.py's ``dense_ae_10tag``
+    widths (``TIER_RELOAD`` as a generation root), the slice machine twice in
+    fp32 and once in bf16. Returns {machine: tags}."""
+    import shutil
+
+    from gordo_components_tpu_torch.serializer import load, load_metadata, write_artifact_files
+    from gordo_components_tpu_torch.store.generations import commit_generation
+
+    estimator, kwargs, tags = ZOO["dense-ae-10tag"]
+    for i, name in enumerate(TIER_DENSE):
+        build_zoo_artifact(os.path.join(models_dir, name), estimator, kwargs, tags, device,
+                           np.random.default_rng(SEED + 14000 + i))
+    flat = os.path.join(models_dir, TIER_RELOAD)
+    model, metadata = load(flat, device="cpu"), load_metadata(flat)
+    shutil.rmtree(flat)
+    commit_generation(flat, lambda staging: write_artifact_files(model, staging, metadata))
+    for i, name in enumerate(TIER_PATCHTST):
+        build_artifact(os.path.join(models_dir, name), device, seed=SEED + 14100 + i)
+    build_artifact(os.path.join(models_dir, TIER_BF16), device, compute_dtype="bfloat16",
+                   seed=SEED + 14200)
+    return {**{name: tags for name in TIER_DENSE},
+            **{name: N_TAGS for name in TIER_PATCHTST + [TIER_BF16]}}
+
+
+def tier_commit_reload(models_dir: str, device) -> None:
+    """A new generation of ``TIER_RELOAD`` (other weights) through the
+    port's store."""
+    import shutil
+
+    from gordo_components_tpu_torch.serializer import load, load_metadata, write_artifact_files
+    from gordo_components_tpu_torch.store.generations import commit_generation
+
+    estimator, kwargs, tags = ZOO["dense-ae-10tag"]
+    staged = os.path.join(os.path.dirname(models_dir), "tier-reload-staged")
+    build_zoo_artifact(staged, estimator, kwargs, tags, device,
+                       np.random.default_rng(SEED + 14300))
+    model, metadata = load(staged, device="cpu"), load_metadata(staged)
+    shutil.rmtree(staged)
+    commit_generation(os.path.join(models_dir, TIER_RELOAD),
+                      lambda staging: write_artifact_files(model, staging, metadata))
+
+
+def tier_cpu_answers(models_dir: str, bodies: dict, names: list) -> dict:
+    """Each machine's answer to its body on the CPU plain path."""
+    from gordo_components_tpu_torch import wire
+    from gordo_components_tpu_torch.serializer import load
+    from gordo_components_tpu_torch.server.engine import ServingEngine
+
+    answers = {}
+    for name in names:
+        cpu = ServingEngine({name: load(os.path.join(models_dir, name), device="cpu")},
+                            device="cpu")
+        try:
+            answers[name] = dict(zip(wire.SCORE_FIELDS, cpu.anomaly(name, bodies[name])))
+        finally:
+            cpu.close()
+    return answers
+
+
+def tier_wait(predicate, timeout: float, what: str, poll: float = 0.01) -> float:
+    """Seconds until ``predicate()`` holds; fails after ``timeout``."""
+    started = time.perf_counter()
+    while not predicate():
+        if time.perf_counter() - started > timeout:
+            fail(f"tier: {what} not within {timeout:.0f} s")
+        time.sleep(poll)
+    return time.perf_counter() - started
+
+
+def tier_check_scores(label: str, status: int, raw: bytes, plain: dict, tags: int,
+                      rtol: float) -> float:
+    if status != 200:
+        fail(f"tier {label}: HTTP {status} {raw[:300]!r}")
+    payload = json.loads(raw)
+    return compare_scores(f"tier {label}", len(plain["model-output"]), payload, plain, rtol, tags)
+
+
+def tier_percentiles(walls: list) -> dict:
+    return {"n": len(walls), "p50_ms": float(np.percentile(walls, 50)),
+            "p99_ms": float(np.percentile(walls, 99)), "max_ms": float(np.max(walls))}
+
+
+def tier_overhead(walls: dict) -> dict:
+    """Routed and direct walls of alternating pairs: each side's
+    percentiles, and the median of the pairs' differences (routed - direct)
+    with a 95 % bootstrap interval, which says whether the router's cost is
+    resolved at all under the requests' own spread."""
+    diffs = np.asarray(walls["routed"]) - np.asarray(walls["direct"])
+    rng = np.random.default_rng(SEED)
+    medians = np.median(diffs[rng.integers(0, len(diffs), (2000, len(diffs)))], axis=1)
+    low, high = np.percentile(medians, [2.5, 97.5])
+    return {**{label: tier_percentiles(w) for label, w in walls.items()},
+            "paired_median_ms": float(np.median(diffs)),
+            "paired_median_95_ms": [float(low), float(high)]}
+
+
+def tier_scoring_series(url: str) -> dict:
+    """The scoring endpoints' request counters of one Prometheus
+    exposition, by series."""
+    samples = tier_prometheus(url)
+    picked = {}
+    for family in ("gordo_server_requests_total", "gordo_server_request_duration_seconds_count"):
+        for labels, value in samples.get(family, []):
+            if labels.get("endpoint") in ("anomaly", "prediction", "bulk-anomaly"):
+                picked[(family, tuple(sorted(labels.items())))] = value
+    return picked
+
+
+def phase_tier(torch, device, tmp: str, card: str) -> dict:
+    """The fleet tier on the card (see the module docstring, 14). Returns the
+    flash launches of Tier A's worker processes."""
+    import signal
+
+    from gordo_components_tpu_torch.router import WorkerSpec, assemble_fleet, make_router_server
+
+    phase_started = time.perf_counter()
+    models_dir = os.path.join(tmp, "tier")
+    tags = tier_build(models_dir, device)
+    rng = np.random.default_rng(SEED + 14400)
+    bodies = {name: sensor_rows(rng, SEAMS_ROWS, tags[name]) for name in TIER_DENSE}
+    bodies.update({name: sensor_rows(rng, LOOKBACK + TIER_WINDOWS - 1)
+                   for name in TIER_PATCHTST + [TIER_BF16]})
+    encoded = {name: json.dumps({"X": X.tolist()}).encode() for name, X in bodies.items()}
+    plain = tier_cpu_answers(models_dir, bodies, TIER_MACHINES)
+    print(f"tier: {len(TIER_MACHINES)} machines built and scored on the CPU plain path in "
+          f"{time.perf_counter() - phase_started:.1f} s")
+
+    for key in ("GORDO_AUTOPILOT", "GORDO_FAULTS", "GORDO_LEDGER_DIR", "GORDO_TELEMETRY_DIR"):
+        os.environ.pop(key, None)
+    root = os.path.dirname(os.path.abspath(__file__))
+    device_arg = "cpu" if device.type == "cpu" else None
+    factory = TierWorkers(tmp, models_dir, device_arg, {
+        "PYTHONPATH": root,
+        "GORDO_FAULTS": f"engine-dispatch:{TIER_SLOW}:latency:{TIER_SLOW_S}",
+        "GORDO_LEDGER_DIR": os.path.join(tmp, "tier-ledger"),
+    })
+    ports = [free_port() for _ in range(TIER_WORKERS)]
+    specs = [WorkerSpec(f"worker-{i}", i, "127.0.0.1", port) for i, port in enumerate(ports)]
+    router = assemble_fleet(specs, factory, project="project", models_root=models_dir,
+                            replicas=2, hot_rps=TIER_HOT_RPS, boot_grace=TIER_BOOT_GRACE_S)
+    supervisor, control = router.supervisor, router.control
+    front = None
+    times = {}
+    try:
+        started = time.perf_counter()
+        supervisor.start_all()
+        ready = supervisor.wait_ready(timeout=TIER_READY_S)
+        times["boot_s"] = time.perf_counter() - started
+        if len(ready) != TIER_WORKERS:
+            fail(f"tier: only {ready} of {TIER_WORKERS} workers booted in {TIER_READY_S:.0f} s: "
+                 + factory.tail(factory.incarnations[0]))
+        control.start(interval=TIER_PROBE_S)
+        front = make_router_server(router, "127.0.0.1", 0)
+        threading.Thread(target=front.serve_forever, daemon=True).start()
+        base = f"http://127.0.0.1:{front.server_address[1]}"
+        worker_url = {spec.name: spec.base_url for spec in specs}
+        worker_id = {spec.name: str(spec.worker_id) for spec in specs}
+        print(f"tier [{card}]: {TIER_WORKERS} workers on the card ready in "
+              f"{times['boot_s']:.1f} s (launched together)")
+
+        # 1. placement and bytes
+        worst = {"dense": 0.0, "f32": 0.0, "bf16": 0.0}
+        for name in TIER_MACHINES:
+            owner = router.placement.replica_set(name)[0]
+            path = f"/gordo/v0/project/{name}/anomaly/prediction"
+            status, headers, routed, _ = http("POST", base + path, encoded[name])
+            if headers.get("X-Gordo-Worker") != worker_id[owner]:
+                fail(f"tier placement: {name} answered by worker "
+                     f"{headers.get('X-Gordo-Worker')}, placed on {owner}")
+            direct_status, _, direct, _ = http("POST", worker_url[owner] + path, encoded[name])
+            if (status, routed) != (direct_status, direct):
+                fail(f"tier placement: {name}'s routed body differs from the direct one "
+                     f"(HTTP {status} vs {direct_status})")
+            kind = "bf16" if name == TIER_BF16 else "f32" if name in TIER_PATCHTST else "dense"
+            rtol = BF16_SERVE_RTOL if kind == "bf16" else SERVE_RTOL
+            worst[kind] = max(worst[kind], tier_check_scores(
+                f"placement {name}", status, routed, plain[name], tags[name], rtol))
+        print(f"tier placement: {len(TIER_MACHINES)} machines answered by their placed worker, "
+              f"routed bytes == direct bytes; vs the CPU plain path: dense {worst['dense']:.3g}, "
+              f"fp32 PatchTST {worst['f32']:.3g} (limit {SERVE_RTOL}), bf16 "
+              f"{worst['bf16']:.3g} (limit {BF16_SERVE_RTOL})")
+
+        # the router's overhead: routed and direct in pairs, one at a time,
+        # each pair's order swapped from the last
+        # (the PatchTST machine placed on the worker that check 5 drains, if
+        # there is one: a SIGTERMed worker records its launches, the one
+        # check 6 SIGKILLs none)
+        overhead = {}
+        drained = router.placement.replica_set(TIER_SLOW)[0]
+        timed = next((m for m in TIER_PATCHTST if router.placement.replica_set(m)[0] == drained),
+                     TIER_PATCHTST[0])
+        for kind, machine in (("dense", TIER_DENSE[3]), ("patchtst", timed)):
+            owner = router.placement.replica_set(machine)[0]
+            path = f"/gordo/v0/project/{machine}/anomaly/prediction"
+            walls = {"routed": [], "direct": []}
+            pair = [("routed", base + path), ("direct", worker_url[owner] + path)]
+            for i in range(TIER_OVERHEAD[kind]):
+                for label, url in (pair if i % 2 == 0 else pair[::-1]):
+                    status, _, _, ms = http("POST", url, encoded[machine])
+                    if status != 200:
+                        fail(f"tier overhead: {label} {machine} HTTP {status}")
+                    walls[label].append(ms)
+            overhead[kind] = tier_overhead(walls)
+        print(f"tier [{card}]: router overhead (workers are processes sharing the card, clients "
+              f"and router in this process; not comparable with phase 5's in-process times) "
+              + json.dumps(overhead))
+
+        # 2. hot replication
+        hot = TierClients(base, [TIER_HOT], encoded, pause=0.0)
+        with hot:
+            tier_wait(lambda: len(hot.statuses) >= TIER_HOT_REQUESTS, 300, "the hot burst")
+        hot.check("hot replication")
+        if not router.placement.is_hot(TIER_HOT) or TIER_HOT not in \
+                router.placement.stats()["hot_machines"]:
+            fail(f"tier hot: {TIER_HOT} not promoted after {len(hot.statuses)} requests")
+        if set(hot.answered_by) != set(worker_id.values()):
+            fail(f"tier hot: {TIER_HOT} answered by {hot.answered_by}, want both workers")
+        print(f"tier hot: {TIER_HOT} promoted at {TIER_HOT_RPS} req/s, {len(hot.statuses)} "
+              f"requests answered by workers {hot.answered_by}")
+
+        # 3. one stitched trace
+        status, headers, _, _ = http(
+            "POST", f"{base}/gordo/v0/project/{TIER_PATCHTST[1]}/anomaly/prediction",
+            encoded[TIER_PATCHTST[1]], {"X-Gordo-Trace-Id": "tier-stitched"})
+        owner = router.placement.replica_set(TIER_PATCHTST[1])[0]
+        timeline = json.loads(http("GET", f"{base}/debug/requests/tier-stitched")[2])
+        spans = timeline.get("spans", [])
+        route = [s for s in spans if s["name"] == "route"]
+        lane = [s for s in spans if s.get("process") == owner]
+        if status != 200 or not route or not {"device_execute", "fetch"} <= \
+                {s["name"] for s in lane}:
+            fail(f"tier stitch: route {bool(route)}, {owner}'s lane "
+                 f"{sorted({s['name'] for s in lane})}")
+        window = (route[0]["start_ms"] - 2.0, route[0]["start_ms"] + route[0]["duration_ms"] + 2.0)
+        if not all(window[0] <= s["start_ms"] and s["start_ms"] + s["duration_ms"] <= window[1]
+                   for s in lane):
+            fail(f"tier stitch: {owner}'s spans leave the route window {window}")
+        samples = tier_prometheus(base + "/metrics?format=prometheus")
+        merged = sum(v for labels, v in samples.get("gordo_router_stitch_total", [])
+                     if labels.get("outcome") == "merged")
+        if merged < 1:
+            fail(f"tier stitch: gordo_router_stitch_total merged {merged}")
+        stage = {s["name"]: round(s["duration_ms"], 2) for s in lane}
+        print(f"tier stitch: a routed PatchTST trace holds route "
+              f"{route[0]['duration_ms']:.1f} ms and {owner}'s lane inside it {stage}; "
+              f"{merged:.0f} merged")
+
+        # 4. scrape of scrapes
+        scrape = "/metrics?format=prometheus"
+        workers_series = {name: tier_scoring_series(url + scrape)
+                          for name, url in worker_url.items()}
+        # the router's own registry, which the aggregate adds: this process's
+        # (earlier phases' in-process servers counted into it)
+        own = tier_scoring_series(base + scrape)
+        aggregate = tier_scoring_series(base + scrape + "&aggregate=1")
+        for key in set(own) | set(aggregate) | {k for w in workers_series.values() for k in w}:
+            want = own.get(key, 0.0) + sum(w.get(key, 0.0) for w in workers_series.values())
+            if abs(aggregate.get(key, 0.0) - want) > 1e-9:
+                fail(f"tier aggregate: {key} is {aggregate.get(key)} in the aggregate, "
+                     f"{want} summed")
+        telemetry = json.loads(http("GET", base + "/telemetry")[2])
+        tiers = set(telemetry.get("workers") or [])
+        if not set(worker_url) <= tiers or telemetry.get("errors"):
+            fail(f"tier telemetry: the fleet view holds workers {sorted(tiers)}, errors "
+                 f"{telemetry.get('errors')}")
+        for url in [base, *worker_url.values()]:
+            slo = json.loads(http("GET", url + "/slo")[2])
+            if not slo.get("enabled") or not slo.get("objectives"):
+                fail(f"tier slo: {url}/slo answered {str(slo)[:200]}")
+        print(f"tier aggregate: {len(aggregate)} scoring series equal the workers' sum (and the "
+              f"router's own); /telemetry holds {sorted(tiers)}; /slo answers on the router and "
+              f"each worker")
+
+        # 5. graceful drain under dense traffic
+        dense_traffic = [m for m in TIER_DENSE if m != TIER_SLOW]
+        victim = router.placement.replica_set(TIER_SLOW)[0]
+        inc = factory.live(victim)
+        factory.bank(inc)
+        slow = {}
+
+        def slow_request():
+            slow["answer"] = http("POST", f"{base}/gordo/v0/project/{TIER_SLOW}/anomaly/"
+                                          f"prediction", encoded[TIER_SLOW])
+
+        respawns = supervisor.respawn_counts()[victim]
+        with TierClients(base, dense_traffic, encoded) as clients:
+            time.sleep(0.5)
+            slow_thread = threading.Thread(target=slow_request, daemon=True)
+            slow_thread.start()
+            time.sleep(0.5)  # the slow request now sleeps in its dispatch's fault
+            terminated = time.perf_counter()
+            os.kill(inc["worker"].pid, signal.SIGTERM)
+            seen = {}
+
+            def draining():
+                try:
+                    status, headers, raw, _ = http("GET", worker_url[victim] + "/healthz")
+                except OSError:
+                    return False
+                if status == 503 and headers.get("X-Gordo-Draining") == "1" and \
+                        json.loads(raw).get("status") == "draining":
+                    seen["at"] = time.perf_counter() - terminated
+                    return True
+                return False
+
+            tier_wait(draining, 10, f"{victim}'s /healthz answering draining")
+            tier_wait(lambda: not inc["worker"].alive(), 60, f"{victim} exiting")
+            times["drain_s"] = time.perf_counter() - terminated
+            tier_wait(lambda: supervisor.respawn_counts()[victim] > respawns, 30,
+                      f"{victim} respawned")
+            times["drain_to_respawn_s"] = time.perf_counter() - terminated
+            times["drain_respawn_ready_s"] = tier_wait(
+                lambda: control.routable(victim) and
+                (control.last_probe(victim) or {}).get("state") == "ok",
+                TIER_READY_S, f"{victim} ready again", poll=0.05)
+            slow_thread.join(timeout=30)
+            placed = next(m for m in dense_traffic if not router.placement.is_hot(m)
+                          and router.placement.replica_set(m)[0] == victim)
+            status, headers, _, _ = http("POST", f"{base}/gordo/v0/project/{placed}/anomaly/"
+                                                 "prediction", encoded[placed])
+            if status != 200 or headers.get("X-Gordo-Worker") != worker_id[victim]:
+                fail(f"tier drain: {placed} after the respawn: HTTP {status} from "
+                     f"{headers.get('X-Gordo-Worker')}")
+        clients.check("drain")
+        if (slow.get("answer") or (0,))[0] != 200:
+            fail(f"tier drain: the in-flight request answered {(slow.get('answer') or ['none'])[0]}")
+        if inc["worker"].pid == factory.live(victim)["worker"].pid:
+            fail("tier drain: the slot was not respawned")
+        print(f"tier [{card}] drain: {victim} answered /healthz draining {seen['at']:.3f} s after "
+              f"SIGTERM, exited after {times['drain_s']:.2f} s (its in-flight request 200), "
+              f"respawned in the same slot {times['drain_to_respawn_s']:.2f} s after SIGTERM, "
+              f"ready {times['drain_respawn_ready_s']:.2f} s later; clients "
+              f"{len(clients.statuses)} requests, all 200, answered by {clients.answered_by}")
+
+        # 6. crash under dense traffic
+        crashed = next(name for name in worker_url if name != victim)
+        inc = factory.live(crashed)
+        killed_dispatches = factory.dispatches(inc)
+        respawns = supervisor.respawn_counts()[crashed]
+        with TierClients(base, dense_traffic, encoded) as clients:
+            time.sleep(0.5)
+            inc["killed"] = True
+            os.kill(inc["worker"].pid, signal.SIGKILL)
+            times["eject_s"] = tier_wait(
+                lambda: supervisor.respawn_counts()[crashed] > respawns, 30,
+                f"{crashed} ejected")
+            times["crash_respawn_ready_s"] = tier_wait(
+                lambda: control.routable(crashed) and
+                (control.last_probe(crashed) or {}).get("state") == "ok",
+                TIER_READY_S, f"{crashed} ready again", poll=0.05)
+            time.sleep(0.5)
+        clients.check("crash")
+        events = [e["event"] for e in control.status()["events"] if e["worker"] == crashed]
+        if "ejected" not in events or "respawned" not in events:
+            fail(f"tier crash: the control plane's events for {crashed}: {events}")
+        print(f"tier [{card}] crash: {crashed} SIGKILLed (its last /metrics: PatchTST dispatches "
+              f"{killed_dispatches}, no launch record), ejected and respawned after "
+              f"{times['eject_s']:.2f} s, ready {times['crash_respawn_ready_s']:.2f} s later; "
+              f"clients {len(clients.statuses)} requests, all 200")
+
+        # 7. rolling reload, then rollback
+        for name in worker_url:
+            factory.bank(factory.live(name))
+        tier_commit_reload(models_dir, device)
+        fresh = tier_cpu_answers(models_dir, bodies, [TIER_RELOAD])[TIER_RELOAD]
+        with TierClients(base, dense_traffic, encoded) as clients:
+            started = time.perf_counter()
+            status, _, raw, _ = http("POST", base + "/reload", b"")
+            times["reload_s"] = time.perf_counter() - started
+        clients.check("reload")
+        result = json.loads(raw)
+        if status != 200 or result.get("aborted") or result.get("canary") != sorted(worker_url)[0] \
+                or list(result["workers"]) != sorted(worker_url) \
+                or not all(w["ok"] for w in result["workers"].values()):
+            fail(f"tier reload: HTTP {status} {json.dumps(result)[:600]}")
+        for url in [base, *worker_url.values()]:
+            status, _, raw, _ = http("POST", f"{url}/gordo/v0/project/{TIER_RELOAD}/anomaly/"
+                                             "prediction", encoded[TIER_RELOAD])
+            tier_check_scores(f"reload {url}", status, raw, fresh, tags[TIER_RELOAD], SERVE_RTOL)
+        for name in worker_url:
+            factory.bank(factory.live(name))
+        started = time.perf_counter()
+        status, _, raw, _ = http("POST", base + "/rollback", b"")
+        times["rollback_s"] = time.perf_counter() - started
+        rolled = json.loads(raw)
+        if status != 200 or rolled.get("aborted") or TIER_RELOAD not in rolled.get("restored", {}):
+            fail(f"tier rollback: HTTP {status} {json.dumps(rolled)[:600]}")
+        for url in [base, *worker_url.values()]:
+            status, _, raw, _ = http("POST", f"{url}/gordo/v0/project/{TIER_RELOAD}/anomaly/"
+                                             "prediction", encoded[TIER_RELOAD])
+            tier_check_scores(f"rollback {url}", status, raw, plain[TIER_RELOAD],
+                              tags[TIER_RELOAD], SERVE_RTOL)
+        print(f"tier [{card}] reload: canary {result['canary']} then {sorted(result['workers'])}, "
+              f"{times['reload_s']:.2f} s, clients {len(clients.statuses)} requests all 200; "
+              f"{TIER_RELOAD} answers its new generation on both workers; rollback in "
+              f"{times['rollback_s']:.2f} s restores the old answers")
+
+        # 8. the elastic seam
+        elastic = router.autopilot.elastic
+        with TierClients(base, dense_traffic, encoded) as clients:
+            started = time.perf_counter()
+            added = elastic.apply_target(TIER_WORKERS + 1)
+            if not elastic.join(timeout=TIER_READY_S) or \
+                    (elastic.last_op() or {}).get("state") != "spawned":
+                fail(f"tier elastic: spawn of {added}: {elastic.last_op()}")
+            times["elastic_spawn_s"] = time.perf_counter() - started
+            share = [m for m in TIER_MACHINES if not router.placement.is_hot(m)
+                     and router.placement.replica_set(m)[0] == added]
+            new_id = str(supervisor.specs[added].worker_id)
+            for machine in share:
+                status, headers, raw, _ = http(
+                    "POST", f"{base}/gordo/v0/project/{machine}/anomaly/prediction",
+                    encoded[machine])
+                if status != 200 or headers.get("X-Gordo-Worker") != new_id:
+                    fail(f"tier elastic: {machine} placed on {added} answered HTTP {status} by "
+                         f"{headers.get('X-Gordo-Worker')}")
+            factory.bank(factory.live(added))
+            retired = elastic.apply_target(TIER_WORKERS)
+            if not share or retired != added or added in router.placement.workers():
+                fail(f"tier elastic: retired {retired}, ring {router.placement.workers()}")
+            if not elastic.join(timeout=120) or (elastic.last_op() or {}).get("state") != "retired":
+                fail(f"tier elastic: retire of {added}: {elastic.last_op()}")
+        clients.check("elastic")
+        print(f"tier [{card}] elastic: {added} booted and joined the ring in "
+              f"{times['elastic_spawn_s']:.2f} s, answered its {len(share)} machines, retired "
+              f"ring first; clients {len(clients.statuses)} requests all 200")
+
+        # 9. the watchman
+        tier_watchman(base, root)
+
+        # 10. flash launches across processes
+        for name in worker_url:
+            factory.bank(factory.live(name))
+    finally:
+        control.stop()
+        supervisor.stop_all(grace=60)
+        if front is not None:
+            front.shutdown()
+            front.server_close()
+        else:
+            router.close()
+        factory.close()
+    launches, problems = tier_launch_sums(factory.incarnations)
+    if problems:
+        fail("tier launches: " + "; ".join(problems))
+    print(f"tier launches: {len(factory.incarnations)} worker processes, "
+          f"{sum(inc['killed'] for inc in factory.incarnations)} SIGKILLed (no record); the "
+          f"others' records {launches} = {SLICE['n_layers']} x their PatchTST dispatches "
+          + json.dumps({os.path.basename(inc["record"]): inc["banked"]
+                        for inc in factory.incarnations if not inc["killed"]}))
+    times.update(tier_b(models_dir, root, encoded, card, device_arg))
+    print(f"tier [{card}] times: " + json.dumps({k: round(v, 3) for k, v in times.items()})
+          + f"; phase wall {time.perf_counter() - phase_started:.1f} s")
+    return launches
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def free_port_run(n: int) -> int:
+    """The first of ``n`` consecutive free loopback ports."""
+    import socket
+
+    for _ in range(100):
+        first = free_port()
+        socks = []
+        try:
+            for i in range(n):
+                sock = socket.socket()
+                socks.append(sock)
+                sock.bind(("127.0.0.1", first + i))
+            return first
+        except OSError:
+            continue
+        finally:
+            for sock in socks:
+                sock.close()
+    fail(f"no {n} consecutive free ports")
+
+
+def tier_prometheus(url: str) -> dict:
+    from gordo_components_tpu_torch.observability.exposition import parse_prometheus_text
+
+    status, _, raw, _ = http("GET", url)
+    if status != 200:
+        fail(f"tier: {url} answered HTTP {status}")
+    return parse_prometheus_text(raw.decode())
+
+
+def tier_watchman(base: str, root: str) -> None:
+    """``run-watchman`` over the router and every machine, twice: all
+    healthy, then with a ``probe`` fault on one machine, that one unhealthy
+    with the fault's message."""
+    import signal
+
+    faulted = TIER_DENSE[5]
+    for label, faults_spec in (("clean", None), ("fault", f"probe:{faulted}:error:watchman drill")):
+        port = free_port()
+        env = {**os.environ, "PYTHONPATH": root}
+        env.pop("GORDO_FAULTS", None)
+        if faults_spec:
+            env["GORDO_FAULTS"] = faults_spec
+        argv = [sys.executable, "-m", "gordo_components_tpu_torch.cli", "run-watchman",
+                "--project", "project", "--target-url", base, "--host", "127.0.0.1",
+                "--port", str(port)]
+        for machine in TIER_MACHINES:
+            argv += ["--machine", machine]
+        proc = subprocess.Popen(argv, cwd=root, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT)
+        try:
+            body = None
+            end = time.monotonic() + 60
+            while time.monotonic() < end and body is None:
+                if proc.poll() is not None:
+                    fail(f"tier watchman: exited {proc.returncode}: "
+                         f"{proc.stdout.read()[-2000:]!r}")
+                try:
+                    status, _, raw, _ = http("GET", f"http://127.0.0.1:{port}/")
+                    body = json.loads(raw) if status == 200 else None
+                except OSError:
+                    time.sleep(0.2)
+            if body is None:
+                fail("tier watchman: no answer within 60 s")
+        finally:
+            proc.send_signal(signal.SIGTERM)
+            code = proc.wait(timeout=30)
+        if code != 0:
+            fail(f"tier watchman: exit {code} on SIGTERM")
+        by_target = {e["target"]: e for e in body["endpoints"]}
+        if sorted(by_target) != sorted(TIER_MACHINES):
+            fail(f"tier watchman: probed {sorted(by_target)}")
+        unhealthy = sorted(m for m, e in by_target.items() if not e["healthy"])
+        want = [faulted] if faults_spec else []
+        if unhealthy != want or (faults_spec and "watchman drill" not in by_target[faulted]["error"]):
+            fail(f"tier watchman {label}: unhealthy {unhealthy} (want {want}): "
+                 f"{[by_target[m]['error'] for m in unhealthy][:3]}")
+        slowest = max(e["latency_ms"] for e in body["endpoints"])
+        print(f"tier watchman ({label}): {len(by_target)} machines through the router, unhealthy "
+              f"{unhealthy}" + (f" ({by_target[faulted]['error'][:80]})" if faults_spec else "")
+              + f"; slowest probe {slowest:.1f} ms")
+
+
+def tier_children(pid: int) -> list:
+    found = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as fh:
+                fields = fh.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if int(fields[1]) == pid:
+            found.append(int(entry))
+    return found
+
+
+def tier_nvidia_files(pid: int) -> list:
+    """The NVIDIA device files process ``pid`` holds open."""
+    found = []
+    try:
+        for fd in os.listdir(f"/proc/{pid}/fd"):
+            try:
+                target = os.readlink(f"/proc/{pid}/fd/{fd}")
+            except OSError:
+                continue
+            if target.startswith("/dev/nvidia"):
+                found.append(target)
+    except OSError:
+        pass
+    return sorted(set(found))
+
+
+def tier_b(models_dir: str, root: str, encoded: dict, card: str, device_arg) -> dict:
+    """Tier B: ``run-fleet-server --workers 2`` as a process. It boots and
+    answers TIER_B_REQUESTS requests, PatchTST among them; both workers hold
+    the card's device files open and the router none (nor maps libcuda or
+    libtorch), and where nvidia-smi reports pids of this namespace it lists
+    both workers and not the router; SIGTERM exits 0 and leaves no worker
+    alive. Returns its boot seconds."""
+    import shutil
+    import signal
+
+    port = free_port()
+    worker_base = free_port_run(2)
+    base = f"http://127.0.0.1:{port}"
+    log_path = os.path.join(os.path.dirname(models_dir), "tier-b.log")
+    log = open(log_path, "wb")
+    argv = [sys.executable, "-m", "gordo_components_tpu_torch.cli", "run-fleet-server",
+            "--models-dir", models_dir, "--workers", "2", "--host", "127.0.0.1",
+            "--port", str(port), "--worker-base-port", str(worker_base),
+            "--probe-interval", str(TIER_PROBE_S)]
+    if device_arg is not None:
+        argv += ["--device", device_arg]
+    env = {**os.environ, "PYTHONPATH": root,
+           "GORDO_LEDGER_DIR": os.path.join(os.path.dirname(models_dir), "tier-b-ledger")}
+    env.pop("GORDO_FAULTS", None)
+    proc = subprocess.Popen(argv, cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT)
+    workers = []
+
+    def tail():
+        log.flush()
+        with open(log_path, "rb") as fh:
+            return fh.read()[-3000:].decode(errors="replace")
+
+    try:
+        def up():
+            if proc.poll() is not None:
+                fail(f"tier B: run-fleet-server exited {proc.returncode}: {tail()}")
+            try:
+                status, _, raw, _ = http("GET", base + "/healthz")
+            except OSError:
+                return False
+            return status == 200 and json.loads(raw).get("status") == "ok"
+
+        boot = tier_wait(up, TIER_READY_S, "run-fleet-server's workers", poll=0.2)
+        workers = tier_children(proc.pid)
+        if len(workers) != 2:
+            fail(f"tier B: the router has children {workers}")
+        asked = (TIER_DENSE[:TIER_B_REQUESTS - 2] + TIER_PATCHTST)[:TIER_B_REQUESTS]
+        for machine in asked:
+            status, headers, raw, _ = http(
+                "POST", f"{base}/gordo/v0/project/{machine}/anomaly/prediction", encoded[machine])
+            if status != 200:
+                fail(f"tier B: {machine} HTTP {status} {raw[:200]!r}")
+        smi = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=60) \
+            if shutil.which("nvidia-smi") else subprocess.CompletedProcess([], 127, "", "")
+        listed = {int(line) for line in smi.stdout.split() if line.strip().isdigit()}
+        # the process side of the same fact, whatever pid namespace
+        # nvidia-smi reports in: a process with a CUDA context holds the
+        # /dev/nvidia* files open and maps libcuda
+        on_card = {pid: tier_nvidia_files(pid) for pid in [*workers, proc.pid]}
+        with open(f"/proc/{proc.pid}/maps") as fh:
+            router_maps = fh.read()
+        smi_sees_workers = smi.returncode == 0 and set(workers) <= listed
+        if not all(on_card[pid] for pid in workers) or on_card[proc.pid] \
+                or "libcuda" in router_maps or "libtorch" in router_maps \
+                or (smi_sees_workers and proc.pid in listed):
+            fail(f"tier B: nvidia-smi compute apps {sorted(listed)} (rc {smi.returncode}), "
+                 f"workers {workers}, router {proc.pid}; device files open {on_card}; the "
+                 f"router maps libcuda: {'libcuda' in router_maps}, libtorch: "
+                 f"{'libtorch' in router_maps}")
+        smi_note = ("lists the workers and not the router" if smi_sees_workers else
+                    f"lists pids {sorted(listed)} of another pid namespace (rc {smi.returncode})")
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(timeout=120)
+        if code != 0:
+            fail(f"tier B: exit {code} on SIGTERM: {tail()}")
+        alive = [pid for pid in workers if os.path.exists(f"/proc/{pid}")]
+        if alive:
+            fail(f"tier B: workers {alive} outlived the router")
+        print(f"tier [{card}] B: run-fleet-server booted 2 workers in {boot:.1f} s, answered "
+              f"{len(asked)} requests; the workers {sorted(workers)} hold the card's device "
+              f"files, the router {proc.pid} none and maps no libcuda or libtorch; nvidia-smi "
+              f"{smi_note}; SIGTERM exit 0, no worker left")
+        return {"tier_b_boot_s": boot}
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        for pid in workers:
+            try:
+                os.kill(pid, 9)
+            except ProcessLookupError:
+                pass
+        log.close()
+
+
 def main() -> None:
     try:
         import torch
@@ -3951,10 +4836,11 @@ def main() -> None:
         seams = phase_seams(torch, device, tmp, kernels, card)
         client = phase_client(torch, device, tmp, kernels, card)
         control = phase_control(torch, device, tmp, card)
+        tier = phase_tier(torch, device, tmp, card)
         for name in KERNELS:
             launches[name] += (trained[name] + trained_bf16[name] + built[name]
                                + fleet_built[name] + seams[name] + client[name]
-                               + control[name])
+                               + control[name] + tier[name])
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -9,14 +9,15 @@ knobs.
 - :mod:`.controller`: the tick, the oscillation guard, the kill switches
   and the decision journal.
 
-The router's elastic worker count (``autopilot/elastic.py`` in the
-reference) waits for the router.
+- :mod:`.elastic`: the router's actuator, the worker count, spawning
+  and retiring worker processes through the supervisor and the ring.
 """
 
 from __future__ import annotations
 
 from .controller import (
     Autopilot,
+    build_router_autopilot,
     build_server_autopilot,
     disabled_snapshot,
     enabled_at_boot,
@@ -33,6 +34,7 @@ __all__ = [
     "Observation",
     "SignalReader",
     "Thresholds",
+    "build_router_autopilot",
     "build_server_autopilot",
     "disabled_snapshot",
     "enabled_at_boot",

@@ -29,7 +29,8 @@ Every applied decision is journaled in
 synthetic flight-recorder timeline, as an ``autopilot``/``decision``
 control-ledger event, and in the bounded ring ``/autopilot`` serves.
 
-The router's controller (the elastic worker count) comes with the router.
+The router's controller (:func:`build_router_autopilot`) has one
+actuator, the elastic worker count (:mod:`.elastic`).
 """
 
 from __future__ import annotations
@@ -530,3 +531,54 @@ def build_server_autopilot(server, clock=time.monotonic):
         ),
     ]
     return Autopilot(reader, actuators, role="server", clock=clock)
+
+
+def build_router_autopilot(router, clock=time.monotonic):
+    """Wire the router-side controller: ONE actuator, the elastic worker
+    count, spawning/retiring through the existing supervisor slot table
+    and consistent-hash ring (``elastic.ElasticWorkers``) on sustained
+    burn or sustained idle. None under the hard kill switch."""
+    if hard_off():
+        return None
+    from .elastic import ElasticWorkers
+
+    thresholds = policy.Thresholds.from_env()
+    elastic = ElasticWorkers(
+        router.supervisor, router.control, router.placement,
+    )
+    reader = signals.SignalReader(
+        slo=router.slo,
+        recorder=flightrec.RECORDER,
+        request_count=lambda: signals.registry_counter_total(
+            "gordo_router_requests_total", {"outcome": "ok"}
+        ),
+        extras=lambda: {
+            "elastic_busy": elastic.busy(),
+            "workers": elastic.count(),
+        },
+        clock=clock,
+    )
+    worker_bounds = policy.bounds_knob(
+        "GORDO_AUTOPILOT_WORKER_BOUNDS", policy.Bounds(1, 8)
+    )
+    actuators = [
+        Actuator(
+            name="workers",
+            read=elastic.count,
+            apply=elastic.apply_target,
+            decide=policy.workers_rule(thresholds),
+            bounds=worker_bounds,
+            # ±1 worker per decision: AIMD degenerates to linear steps
+            aimd=policy.AIMD(step=0.0, backoff=0.99),
+            cooldown=policy.cooldown_knob(),
+            confirm=policy.scale_ticks_knob(),
+            # apply_target answers None when no op ran (op in flight,
+            # no retire candidate) — never journal those
+            skip_on_none=True,
+        ),
+    ]
+    pilot = Autopilot(reader, actuators, role="router", clock=clock)
+    pilot.elastic = elastic
+    pilot.thresholds = thresholds
+    pilot.static_idle_rps = thresholds.idle_rps
+    return pilot

@@ -157,6 +157,10 @@ def confirm_knob() -> int:
     return max(1, _env_int("GORDO_AUTOPILOT_CONFIRM", 2))
 
 
+def scale_ticks_knob() -> int:
+    return max(1, _env_int("GORDO_AUTOPILOT_SCALE_TICKS", 3))
+
+
 # -- decision rules -----------------------------------------------------------
 #
 # Each rule returns (direction, reason). Reasons are a closed enum (they

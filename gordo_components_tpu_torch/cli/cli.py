@@ -1,9 +1,9 @@
 """``python -m gordo_components_tpu_torch.cli``: the ``build``,
-``fleet-build``, ``rollback``, ``run-server``, ``trace``, ``slo``,
-``tenants``, ``autopilot``, ``telemetry``, ``incidents`` and ``client
-predict`` commands of the reference's CLI
-(``gordo_components_tpu/cli/cli.py:164-430, 519-692, 894-1071,
-1159-1357, 1493-1530``), on ``argparse``.
+``fleet-build``, ``rollback``, ``run-server``, ``run-fleet-server``,
+``run-watchman``, ``trace``, ``slo``, ``tenants``, ``autopilot``,
+``telemetry``, ``incidents`` and ``client predict`` commands of the
+reference's CLI (``gordo_components_tpu/cli/cli.py:164-430, 519-831,
+894-1071, 1159-1357, 1493-1530``), on ``argparse``.
 
 The arguments, environment variables (``MODEL_CONFIG``, ``DATA_CONFIG``,
 ``OUTPUT_DIR``, ``MODEL_REGISTER_DIR``, ``METADATA``, ``GORDO_TRACE_DIR``,
@@ -15,9 +15,14 @@ device failure (an out-of-memory on the card), 75 another device failure
 (retryable), 1 anything else. Configs are JSON, or YAML read through
 ``yaml`` (imported only there). ``--device`` picks the card (default) or
 the CPU; there is no silent fallback. ``run-server`` offers the flags
-whose machinery the port has; the reference's shard mode, compile cache,
-megabatch residency, lazy boot, mesh and worker flags are not offered
-(ROADMAP.md). ``trace``, ``slo``, ``tenants``, ``autopilot``, ``telemetry``
+whose machinery the port has, ``--worker-id`` among them; the reference's
+shard mode, compile cache, megabatch, lazy boot and mesh flags are not
+offered (ROADMAP.md). ``run-fleet-server`` spawns ``--workers`` such
+servers (``--device`` passed on) behind a router that never touches the
+card; SIGTERM drains the router, then each worker, and leaves no worker
+behind. ``run-watchman`` probes each machine's ``/healthz`` at a target
+URL (``GORDO_FAULTS='probe:<machine>:error'`` fails one probe on
+purpose), or follows a fleet build's manifest with ``--watch``. ``trace``, ``slo``, ``tenants``, ``autopilot``, ``telemetry``
 and ``incidents`` read (or, ``autopilot enable|disable``, POST to) a running
 server over HTTP (``urllib``), print its JSON and exit 1 when it cannot be
 reached or answers an error (``telemetry export`` also when the document
@@ -36,7 +41,15 @@ client.ClientError`.
     python -m gordo_components_tpu_torch.cli rollback [--list] MODEL_DIR
     python -m gordo_components_tpu_torch.cli run-server (--model-dir DIR ... |
         --models-dir DIR) [--host H] [--port N] [--project P] [--max-inflight N]
-        [--tenants SPEC] [--faults SPEC] [--device cpu]
+        [--tenants SPEC] [--faults SPEC] [--worker-id N] [--device cpu]
+    python -m gordo_components_tpu_torch.cli run-fleet-server --models-dir DIR
+        [--workers 2] [--host H] [--port 5555] [--worker-base-port 5600]
+        [--project P] [--replicas 2] [--hot-rps 50] [--probe-interval 2]
+        [--max-inflight N] [--tenants SPEC] [--device cpu]
+    python -m gordo_components_tpu_torch.cli run-watchman --project P --machine M ...
+        --target-url URL [--host H] [--port 5556] [--manifest FILE]
+    python -m gordo_components_tpu_torch.cli run-watchman --watch --manifest FILE
+        [--interval 5]
     python -m gordo_components_tpu_torch.cli trace list --base-url URL [--limit N]
     python -m gordo_components_tpu_torch.cli trace dump TRACE_ID --base-url URL
         [--format chrome|json] [-o FILE]
@@ -212,9 +225,12 @@ def rollback(args: argparse.Namespace) -> int:
 
 
 def run_server(args: argparse.Namespace) -> int:
-    """Serve built model(s) over HTTP until SIGTERM or an interrupt; on
-    either the admission gate closes, in-flight requests drain and the
-    engine stops."""
+    """Serve built model(s) over HTTP until SIGTERM or an interrupt. SIGTERM
+    runs the graceful drain first (admission closes with the draining
+    marker, in-flight requests finish, the engine quiesces; at most
+    ``GORDO_DRAIN_TIMEOUT`` seconds, default 10) and stops the listener
+    only after it, so ``/healthz`` keeps answering ``draining`` meanwhile:
+    a silent socket would read as a dead worker to a router."""
     import signal
     import threading
 
@@ -246,7 +262,8 @@ def run_server(args: argparse.Namespace) -> int:
     if not resolved and not args.models_dir:
         logger.error("Provide --model-dir (or MODEL_LOCATION) or --models-dir")
         return EXIT_USAGE
-    options = {"project": args.project, "max_inflight": args.max_inflight}
+    options = {"project": args.project, "max_inflight": args.max_inflight,
+               "worker_id": args.worker_id}
     if not resolved:
         target = args.models_dir  # a fleet: reload rescans it
     elif len(resolved) == 1 and not args.models_dir:
@@ -257,9 +274,19 @@ def run_server(args: argparse.Namespace) -> int:
     host, port = httpd.server_address[:2]
     logger.info("Serving %s on http://%s:%d", sorted(httpd.model_server.machines), host, port)
 
+    drain_timeout = float(os.environ.get("GORDO_DRAIN_TIMEOUT", "10"))
+
+    def _drain_and_stop() -> None:
+        # admission closed, in-flight drained, engine quiesced, and only
+        # then the listener stopped
+        httpd.model_server.quiesce(drain_timeout)
+        httpd.shutdown()
+
     def _on_sigterm(signum, frame) -> None:
-        # shutdown() waits for serve_forever, which this (main) thread runs
-        threading.Thread(target=httpd.shutdown, name="gordo-drain", daemon=True).start()
+        logger.info("SIGTERM: beginning graceful drain")
+        # a thread: this (main) thread runs serve_forever, which shutdown()
+        # waits for, and which must keep answering while the drain runs
+        threading.Thread(target=_drain_and_stop, name="gordo-drain", daemon=True).start()
 
     try:
         signal.signal(signal.SIGTERM, _on_sigterm)
@@ -272,6 +299,72 @@ def run_server(args: argparse.Namespace) -> int:
     finally:
         httpd.server_close()  # closes admission, drains, stops the engine
     logger.info("Server stopped")
+    return 0
+
+
+def run_fleet_server(args: argparse.Namespace) -> int:
+    """The horizontal serving tier: spawn and supervise ``--workers``
+    server processes over one models tree (each ``run-server --worker-id
+    i``, on the card unless ``--device cpu``) and route ``/prediction``
+    traffic by consistent-hash machine→worker placement. Worker health
+    probes drive breaker/quarantine-based eject + respawn; ``POST /reload``
+    canaries one worker then sweeps the rest, and ``POST /rollback`` swaps
+    ``CURRENT`` fleet-wide before re-adopting. This process never touches
+    the card."""
+    from ..resilience import qos
+    from ..router import MESH_NOT_PORTED
+    from ..router import run_fleet_server as serve_fleet
+
+    if args.workers < 1:
+        logger.error("--workers must be >= 1")
+        return EXIT_USAGE
+    if args.mesh_shards:
+        logger.error("--mesh-shards %d: %s", args.mesh_shards, MESH_NOT_PORTED)
+        return EXIT_USAGE
+    worker_args: List[str] = []
+    if args.max_inflight is not None:
+        worker_args += ["--max-inflight", str(args.max_inflight)]
+    if args.tenants is not None:
+        try:
+            qos.parse_tenants(args.tenants)
+        except ValueError as exc:
+            logger.error("Bad --tenants spec: %s", exc)
+            return EXIT_USAGE
+        # env, not worker_args: the router process reads the table too
+        os.environ["GORDO_TENANTS"] = args.tenants
+    serve_fleet(
+        args.models_dir,
+        workers=args.workers,
+        host=args.host,
+        port=args.port,
+        worker_base_port=args.worker_base_port,
+        project=args.project,
+        replicas=args.replicas,
+        hot_rps=args.hot_rps,
+        probe_interval=args.probe_interval,
+        worker_args=worker_args,
+        device=args.device,
+    )
+    return 0
+
+
+def run_watchman(args: argparse.Namespace) -> int:
+    """Serve the fleet-health aggregator (or, with ``--watch``, follow a
+    fleet build's manifest and exit 0 once every machine is built)."""
+    from ..watchman import run_watchman as serve_watchman
+    from ..watchman import watch_build_progress
+
+    if args.watch:
+        if not args.manifest:
+            logger.error("--watch requires --manifest")
+            return EXIT_USAGE
+        return 0 if watch_build_progress(args.manifest, interval_s=args.interval) else 1
+    if not (args.project and args.machines and args.target_url):
+        logger.error("--project, --machine and --target-url are required (or use --watch "
+                     "--manifest)")
+        return EXIT_USAGE
+    serve_watchman(args.project, list(args.machines), args.target_url, host=args.host,
+                   port=args.port, manifest_path=args.manifest)
     return 0
 
 
@@ -591,9 +684,70 @@ def parser() -> argparse.ArgumentParser:
                    help="fault-injection spec 'point:target:kind[:param][;...]' (points "
                         "model-load, engine-dispatch, data-fetch; kinds error, latency, "
                         "corrupt); never in production")
+    s.add_argument("--worker-id", type=int, default=env("GORDO_WORKER_ID"),
+                   help="fleet slot id when this server runs as one worker of a "
+                        "run-fleet-server tier: responses carry X-Gordo-Worker, /healthz "
+                        "reports the id, and the ledger and warehouse directories are "
+                        "worker-<id> (default: GORDO_WORKER_ID, else unset, 0 in the paths)")
     s.add_argument("--device", default=None,
                    help="cuda (default) or cpu; there is no silent fallback")
     s.set_defaults(run=run_server)
+
+    fs = commands.add_parser(
+        "run-fleet-server", help="the horizontal serving tier: a router over supervised "
+                                 "worker server processes",
+        epilog="Not offered: --megabatch/--no-megabatch (the port's run-server has no such "
+               "flag). --mesh-shards above 0 exits 2: mesh serving needs several cards "
+               "(ROADMAP Queue 1 item 10).")
+    fs.add_argument("--models-dir", required=True,
+                    help="directory whose immediate subdirectories are model dirs; every "
+                         "worker serves this tree")
+    fs.add_argument("--workers", type=int, default=2,
+                    help="worker server processes to spawn and supervise (default 2)")
+    fs.add_argument("--host", default="0.0.0.0", help="router listen address")
+    fs.add_argument("--port", type=int, default=5555, help="router listen port")
+    fs.add_argument("--worker-base-port", type=int, default=5600,
+                    help="worker i listens on worker-base-port + i (loopback; default 5600)")
+    fs.add_argument("--project", default="project")
+    fs.add_argument("--replicas", type=int, default=2,
+                    help="distinct workers serving each HOT machine (cold machines are "
+                         "pinned to exactly one; default 2)")
+    fs.add_argument("--hot-rps", type=float, default=50.0,
+                    help="request rate at which a machine is replicated across --replicas "
+                         "workers; 0 disables rate-based promotion (default 50)")
+    fs.add_argument("--probe-interval", type=float, default=2.0,
+                    help="control-plane health-probe interval in seconds, each tick "
+                         "jittered by 10%% (default 2)")
+    fs.add_argument("--max-inflight", type=int, default=None,
+                    help="per-WORKER admission bound (see run-server)")
+    fs.add_argument("--tenants", default=env("GORDO_TENANTS"),
+                    help="the tenant table (see run-server), exported as GORDO_TENANTS so "
+                         "the router and every worker load the same table")
+    fs.add_argument("--mesh-shards", type=int, default=int(env("GORDO_MESH_SHARDS") or 0),
+                    help="mesh serving: not ported; any value above 0 exits 2")
+    fs.add_argument("--device", default=None,
+                    help="passed on to every worker: cuda (default) or cpu; the router "
+                         "itself never touches the card")
+    fs.set_defaults(run=run_fleet_server)
+
+    w = commands.add_parser("run-watchman", help="the fleet-health aggregator, or a fleet "
+                                                 "build follower with --watch")
+    w.add_argument("--project", default=None)
+    w.add_argument("--machine", dest="machines", action="append", default=[],
+                   help="a machine to probe; repeat for several")
+    w.add_argument("--target-url", default=None,
+                   help="the server (or fleet router) base URL the machines are served at")
+    w.add_argument("--host", default="0.0.0.0")
+    w.add_argument("--port", type=int, default=5556)
+    w.add_argument("--manifest", default=None,
+                   help="a fleet build's fleet_manifest.json; GET / then also reports build "
+                        "progress (completed/pending) from it")
+    w.add_argument("--watch", action="store_true",
+                   help="no HTTP: follow the fleet manifest, print one JSON progress line "
+                        "per interval, exit 0 when every machine is completed")
+    w.add_argument("--interval", type=float, default=5.0,
+                   help="--watch poll interval in seconds (default 5)")
+    w.set_defaults(run=run_watchman)
 
     t = commands.add_parser("trace", help="flight-recorder timelines of a running server")
     trace_commands = t.add_subparsers(dest="trace_command", required=True)

@@ -8,11 +8,11 @@ port's copy of ``gordo_components_tpu/observability/stitch.py``).
 - A router decodes the header and merges the server's spans into its own
   timeline under its ``route`` stage (:func:`merge_remote`), each span
   tagged with the server's process label, so the Chrome export renders one
-  lane per process. The port has no router yet (ROADMAP.md); these are
-  its half.
+  lane per process (``router/router.py``: ``_stitch_response``).
 - A timeline over the cap is announced by
   ``X-Gordo-Timeline-Truncated: <bytes>`` instead, and the router pulls it
-  from ``/debug/requests/<trace_id>``.
+  from ``/debug/requests/<trace_id>`` when that trace is read
+  (``_pull_stitch``).
 
 Clock alignment: the two processes share no ``perf_counter`` epoch, so
 remote spans are placed by wall-clock offset (``started_wall`` delta),

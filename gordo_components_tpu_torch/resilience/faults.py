@@ -12,10 +12,12 @@ variable (read once, lazily). The grammar is the reference's::
   ``store-commit``, ``spec-commit``, ``reconcile-apply``. Every one parses,
   so a reference spec is accepted whole; the port wires ``model-load``
   (the server's machine load), ``engine-dispatch`` (the engine's
-  pre-dispatch seam), ``data-fetch`` (the fleet build's per-machine fetch
+  pre-dispatch seam), ``probe`` (the watchman's per-machine health check
+  and the fleet control plane's per-worker probe, target the machine or
+  worker name), ``data-fetch`` (the fleet build's per-machine fetch
   and the server's ``?start&end`` fetch) and ``store-commit`` (the atomic
-  commit); ``probe``, ``spec-commit`` and
-  ``reconcile-apply`` belong to parts not ported yet and never fire;
+  commit); ``spec-commit`` and ``reconcile-apply`` belong to the fleet
+  reconciler, not ported yet, and never fire;
 - ``target``: a machine or endpoint name, or ``*`` for any;
 - ``kind``: ``error`` (raise :class:`FaultInjected`; param = message),
   ``latency`` (sleep; param = seconds, default 0.05), ``corrupt``

@@ -1259,15 +1259,25 @@ class ServingEngine:
         requests = sum(b.request_count for b in buckets)
         prec_machines: Dict[str, int] = {}
         prec_requests: Dict[str, int] = {}
+        by_shape: Dict[str, Dict[str, int]] = {}
         for b in buckets:
             prec_machines[b.precision] = prec_machines.get(b.precision, 0) + len(b.names)
             prec_requests[b.precision] = prec_requests.get(b.precision, 0) + b.request_count
+            compute = str(getattr(b.template, "dtype", torch.float32)).replace("torch.", "")
+            counts = by_shape.setdefault(f"{b.shape_key}/{compute}",
+                                         {"dispatches": 0, "requests": 0})
+            counts["dispatches"] += b.dispatch_count
+            counts["requests"] += b.request_count
         return {
             "machines": len(self._by_name),
             "buckets": len(buckets),
             "dispatches": dispatches,
             "batched_requests": requests,
             "max_dispatch_batch": max((b.max_batch_seen for b in buckets), default=0),
+            # dispatches (warm-up included) and requests by bucket shape and
+            # compute dtype, so a caller outside the process can tie kernel
+            # launches to the buckets that made them
+            "bucket_dispatches": dict(sorted(by_shape.items())),
             # machines the engine cannot score, with the reason
             "host_path_machines": dict(sorted(self.skipped.items())),
             "dispatch_depth": buckets[0].dispatch_depth if buckets else 0,

@@ -77,8 +77,12 @@ stands in for a broken artifact and quarantines the machine); the stacked
 engine places one copy of each bucket's weights on the device and is
 warmed up before the server binds its port and before a reload publishes
 a new engine. Control events (quarantine, recovery, fault plans, shed
-levels) go to the control ledger under ``GORDO_LEDGER_DIR/worker-0``, or
-``<models-dir>/.telemetry/ledger-worker-0``, or memory only. ``POST /reload``
+levels) go to the control ledger under ``GORDO_LEDGER_DIR/worker-<id>``,
+or ``<models-dir>/.telemetry/ledger-worker-<id>``, or memory only, where
+``<id>`` is the server's ``worker_id`` (``--worker-id``,
+``GORDO_WORKER_ID``; 0 when unset): each worker of a fleet tier over one
+models directory writes a tree of its own, and a worker's responses carry
+``X-Gordo-Worker: <id>``. ``POST /reload``
 rescans a models directory and swaps machines and engine as ONE state;
 the old state's in-flight requests drain before its engine closes.
 
@@ -96,7 +100,13 @@ none at all under ``0``) moves the dispatch depth, the fill window, the
 in-flight bound and the shed ladder through :meth:`ModelServer.
 apply_tuning`, whose values a reload carries to the new engine. The
 warehouse (``GORDO_TELEMETRY``, default on) keeps its segments under
-``GORDO_TELEMETRY_DIR`` or ``<models-dir>/.telemetry/worker-0``.
+``GORDO_TELEMETRY_DIR`` or ``<models-dir>/.telemetry/worker-<id>``.
+
+Shutdown is the reference's graceful sequence, :meth:`ModelServer.quiesce`:
+admission closes (new work answers 503 with ``X-Gordo-Draining: 1``, and
+``/healthz`` answers ``draining``), in-flight requests drain, the engine
+quiesces; ``run-server`` stops its listener only after that, so a router
+reads a draining worker as draining, never as dead.
 
 Run: ``python -m gordo_components_tpu_torch.cli run-server --models-dir DIR
 [--port N] [--device cpu]`` (or ``python -m
@@ -113,8 +123,8 @@ import re
 import threading
 import time
 import urllib.parse
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Callable, Dict, List, Mapping, NamedTuple, Optional, Tuple, Union
+from http.server import ThreadingHTTPServer
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 
@@ -140,9 +150,15 @@ from ..resilience.admission import (
 from ..resilience.deadline import DeadlineExceeded
 from ..resilience.quarantine import Quarantine
 from ..serializer.persistence import dumps, load, load_metadata
-from ..store.generations import current_generation, is_artifact_dir, resolve_artifact_dir
+from ..store.generations import (
+    current_generation,
+    is_artifact_dir,
+    resolve_artifact_dir,
+    scan_models_dir,
+)
 from ..utils.backend import DeviceLike, resolve_device
 from .engine import ServingEngine
+from .httpd import AppHTTPServer, Response
 
 logger = logging.getLogger(__name__)
 
@@ -209,13 +225,6 @@ _PARQUET_TYPES = (
     "application/x-parquet",
     "application/vnd.apache.parquet",
 )
-
-
-class Response(NamedTuple):
-    status: int
-    body: bytes
-    content_type: str
-    headers: Dict[str, str]
 
 
 def _json(payload: Any, status: int = 200, headers: Optional[Dict[str, str]] = None) -> Response:
@@ -303,18 +312,6 @@ class _Machine:
             return None
 
 
-def scan_models_dir(models_dir: str) -> Dict[str, str]:
-    """``{name: path}`` for each immediate artifact subdirectory (flat or
-    generation root) of ``models_dir``; hidden directories never count."""
-    return {
-        entry: os.path.join(models_dir, entry)
-        for entry in sorted(os.listdir(models_dir))
-        if not entry.startswith(".")
-        and os.path.isdir(os.path.join(models_dir, entry))
-        and is_artifact_dir(os.path.join(models_dir, entry))
-    }
-
-
 class _ServerState:
     """Machines and their engine, swapped as ONE reference on reload, so a
     request never sees machines and engine of different generations. Each
@@ -392,8 +389,15 @@ class ModelServer:
         quarantine_cooldown: float = 30.0,
         drain_timeout: float = 10.0,
         models_root: Optional[str] = None,
+        worker_id: Optional[int] = None,
     ):
         self.device = resolve_device(device)
+        if worker_id is None:
+            raw_worker = os.environ.get("GORDO_WORKER_ID")
+            worker_id = int(raw_worker) if raw_worker else None
+        # this process's slot in a fleet tier; its directories and the
+        # correlator's role are worker-<id> (0 when unset)
+        self.worker_id = worker_id
         self.project = project
         tracing.install_log_record_factory()
         if max_inflight is None:
@@ -424,9 +428,11 @@ class ModelServer:
         # before the machines load, so their quarantine events land there
         ledger_dir = os.environ.get("GORDO_LEDGER_DIR")
         if ledger_dir:
-            ledger_dir = os.path.join(ledger_dir, "worker-0")
+            # one GORDO_LEDGER_DIR serves the whole tier: two writers in one
+            # segment directory would interleave torn tails
+            ledger_dir = os.path.join(ledger_dir, self._role)
         elif self.models_root:
-            ledger_dir = os.path.join(self.models_root, ".telemetry", "ledger-worker-0")
+            ledger_dir = os.path.join(self.models_root, ".telemetry", f"ledger-{self._role}")
         control_ledger.configure(ledger_dir or None)
         # a server of one artifact answers the bare paths
         self._single = not isinstance(models_dir, Mapping) and self.models_root is None
@@ -469,18 +475,23 @@ class ModelServer:
         if telemetry_engine.enabled():
             warehouse_dir = os.environ.get("GORDO_TELEMETRY_DIR")
             if not warehouse_dir and self.models_root:
-                warehouse_dir = os.path.join(self.models_root, ".telemetry", "worker-0")
+                warehouse_dir = os.path.join(self.models_root, ".telemetry", self._role)
             self.telemetry = telemetry_engine.TelemetryWarehouse(
                 directory=warehouse_dir or None,
+                worker=str(self.worker_id) if self.worker_id is not None else "",
                 cost_sampler=lambda: telemetry_engine.sample_costs(self._state.engine),
             )
         self.incidents = incidents_engine.IncidentCorrelator(
             directory=os.path.join(ledger_dir, "incidents") if ledger_dir else None,
             warehouse=self.telemetry,
-            role="worker-0",
+            role=self._role,
         )
         if self.slo is not None:
             self.slo.breach_hook = self.incidents.on_breach
+
+    @property
+    def _role(self) -> str:
+        return f"worker-{self.worker_id if self.worker_id is not None else 0}"
 
     def _scan(self) -> Dict[str, str]:
         """``{name: artifact dir}``: the pinned machines, then every artifact
@@ -513,10 +524,37 @@ class ModelServer:
     def engine(self) -> ServingEngine:
         return self._state.engine
 
+    def quiesce(self, drain_timeout: Optional[float] = None) -> bool:
+        """The graceful-shutdown sequence (SIGTERM, then this, then exit):
+        close the admission gate (new requests shed at once, stamped with
+        the draining marker so a router re-routes them), wait for every
+        in-flight request to finish, then drain the engine's dispatch
+        pipeline. Afterwards, stopping the process drops no accepted
+        request. Returns False when the drain timed out (stragglers are
+        logged; the caller exits anyway)."""
+        if drain_timeout is None:
+            drain_timeout = self.drain_timeout
+        self.admission.close("draining for shutdown")
+        logger.info("Draining: admission closed; waiting up to %.1fs for in-flight requests",
+                    drain_timeout)
+        state = self._state
+        drained = state.drain(drain_timeout)
+        if not drained:
+            logger.warning("Drain timed out after %.1fs with requests still in flight; "
+                           "shutting down anyway", drain_timeout)
+        try:
+            state.engine.quiesce()
+        except Exception:  # noqa: BLE001 - the process is going down anyway
+            logger.warning("Engine quiesce failed during shutdown", exc_info=True)
+        logger.info("Drain complete (clean=%s)", drained)
+        return drained
+
     def close(self) -> None:
         """Stop admitting, let admitted requests finish (up to
-        ``drain_timeout``), then stop the engine's collector threads."""
-        self.admission.close("shutting down")
+        ``drain_timeout``), then stop the engine's collector threads.
+        Idempotent, and cheap after :meth:`quiesce`."""
+        if self.admission.closed is None:
+            self.admission.close("shutting down")
         if not self.admission.drain(self.drain_timeout):
             logger.warning("Shutdown: requests still in flight after %.1fs", self.drain_timeout)
         self._state.engine.close()
@@ -676,6 +714,9 @@ class ModelServer:
                 response = _json({"error": f"{type(exc).__name__}: {exc}"}, 500)
                 endpoint = "error"
             response.headers[tracing.TRACE_HEADER] = trace_id
+            if self.worker_id is not None:
+                # which fleet slot answered: a router's placement checks read it
+                response.headers["X-Gordo-Worker"] = str(self.worker_id)
             if self.admission.closed is not None:
                 response.headers[DRAINING_HEADER] = "1"
             elapsed = time.perf_counter() - started
@@ -692,6 +733,8 @@ class ModelServer:
             if timeline is not None:
                 timeline.meta["endpoint"] = endpoint
                 timeline.meta["tenant"] = tenant_spec.name
+                if self.worker_id is not None:
+                    timeline.meta["worker"] = self.worker_id
                 timeline.finish(status=str(status), error=f"HTTP {status}" if status >= 500 else "")
                 # only when the caller negotiated it; past the size cap the
                 # truncation marker says to pull /debug/requests/<trace_id>
@@ -924,6 +967,7 @@ class ModelServer:
                 "quarantined": quarantined,
                 "suspect": suspects,
                 "device": str(self.device),
+                "worker_id": self.worker_id,
                 "machines": sorted(state.machines),
                 # machines the engine cannot lift, with the reason (503)
                 "skipped": dict(state.engine.skipped),
@@ -1188,44 +1232,6 @@ def _parse_parquet(body: bytes, tags: Optional[List[str]]) -> Tuple[np.ndarray,
     return arr, timestamps
 
 
-class _Handler(BaseHTTPRequestHandler):
-    server_version = "gordo-torch"
-    protocol_version = "HTTP/1.1"
-
-    def _route(self, method: str) -> None:
-        app: ModelServer = self.server.model_server  # type: ignore[attr-defined]
-        length = int(self.headers.get("Content-Length") or 0)
-        body = self.rfile.read(length) if length else b""
-        response = app.handle(method, self.path, self.headers, body)
-        self.send_response(response.status)
-        self.send_header("Content-Type", response.content_type)
-        self.send_header("Content-Length", str(len(response.body)))
-        for key, value in response.headers.items():
-            self.send_header(key, value)
-        self.end_headers()
-        self.wfile.write(response.body)
-
-    def do_GET(self) -> None:  # noqa: N802 - http.server's naming
-        self._route("GET")
-
-    def do_POST(self) -> None:  # noqa: N802
-        self._route("POST")
-
-    def log_message(self, fmt: str, *args: Any) -> None:
-        logger.debug("%s %s", self.address_string(), fmt % args)
-
-
-class _HTTPServer(ThreadingHTTPServer):
-    daemon_threads = True
-    # the listen backlog: socketserver's default of 5 drops the SYNs of a
-    # burst of concurrent clients, which retry after 1 s and then 3 s
-    request_queue_size = 128
-
-    def server_close(self) -> None:
-        super().server_close()
-        self.model_server.close()  # type: ignore[attr-defined]
-
-
 def make_server(
     models_dir: str, host: str = "127.0.0.1", port: int = 5555,
     device: DeviceLike = None, project: str = "project", **options: Any,
@@ -1236,7 +1242,7 @@ def make_server(
     ``server_close()`` also drains and closes the engine."""
     app = ModelServer(models_dir, project=project, device=device, **options)
     try:
-        httpd = _HTTPServer((host, port), _Handler)
+        httpd = AppHTTPServer((host, port), app)
     except BaseException:
         app.close()
         raise

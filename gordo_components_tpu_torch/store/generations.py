@@ -234,6 +234,19 @@ def is_artifact_dir(path: str) -> bool:
     return is_generation_root(path) or os.path.exists(os.path.join(path, "definition.json"))
 
 
+def scan_models_dir(models_dir: str) -> Dict[str, str]:
+    """``{name: path}`` for each immediate artifact subdirectory (flat or
+    generation root) of ``models_dir``; hidden directories never count.
+    The server's fleet and the router's fleet-wide rollback walk this."""
+    return {
+        entry: os.path.join(models_dir, entry)
+        for entry in sorted(os.listdir(models_dir))
+        if not entry.startswith(".")
+        and os.path.isdir(os.path.join(models_dir, entry))
+        and is_artifact_dir(os.path.join(models_dir, entry))
+    }
+
+
 def build_fleet_index(models_root: str) -> Dict[str, Dict[str, Any]]:
     """Every immediate, non-hidden artifact subdirectory of
     ``models_root`` with its current generation (``None`` for a flat one

@@ -11,7 +11,13 @@ signal reader's extras on a port engine equal the reference's on the same
 fleet (the ``megabatch`` keys the fill and residency rules read); the
 engine's ``apply_tuning`` scores to the bit as before; a reload keeps the
 applied tuning; and the server's controller wires the reference's five
-actuators with the same bounds.
+actuators with the same bounds. Last the router's actuator, the elastic
+worker count (the reference's cases of ``tests/test_autopilot.py`` over
+thread-backed workers): a scale-up adds a slot and then a ring member, a
+retire leaves the ring first and never drops the last worker, the
+controller drives a scale through ``workers_rule`` (confirm ticks, ±1, the
+bounds' ceiling), and the router's controller wires the same actuator as
+the reference's (bounds, ``GORDO_AUTOPILOT_SCALE_TICKS``, cooldown).
 """
 
 import json
@@ -354,3 +360,158 @@ def test_server_controller_wires_the_reference_actuators(models_root, tmp_path, 
         assert server.autopilot is None
     finally:
         server.close()
+
+
+# -- the router's elastic worker count ------------------------------------------
+
+def _elastic_fleet(n=2):
+    from test_torch_router import _free_port, _ThreadWorker
+
+    from gordo_components_tpu_torch.router import WorkerSpec, assemble_fleet
+    from gordo_components_tpu_torch.server.httpd import Response
+
+    class _Ok:
+        def handle(self, method, path, headers, body):
+            return Response(200, b'{"ok": true, "status": "ok", "live": true, "ready": true}',
+                            "application/json", {})
+
+        def close(self):
+            pass
+
+    specs = [WorkerSpec(f"worker-{i}", i, "127.0.0.1", _free_port()) for i in range(n)]
+    router = assemble_fleet(specs, lambda spec: _ThreadWorker(spec, _Ok()), project="proj",
+                            respawn=False)
+    router.supervisor.start_all()
+    assert len(router.supervisor.wait_ready(timeout=10)) == n
+    return router, _free_port
+
+
+def _stop(router):
+    router.control.stop()
+    router.supervisor.stop_all(grace=5)
+    router.close()
+
+
+def test_elastic_scale_up_adds_slot_and_ring_member(monkeypatch):
+    from gordo_components_tpu_torch.autopilot.elastic import ElasticWorkers
+
+    monkeypatch.setenv("GORDO_AUTOPILOT", "1")
+    router, free_port = _elastic_fleet(2)
+    try:
+        elastic = ElasticWorkers(router.supervisor, router.control, router.placement,
+                                 port_allocator=free_port, ready_timeout=10.0)
+        assert elastic.count() == 2
+        name = elastic.scale_up()
+        assert name == "worker-2"
+        assert elastic.join(timeout=30)
+        assert elastic.last_op()["state"] == "spawned"
+        assert sorted(router.supervisor.specs) == ["worker-0", "worker-1", "worker-2"]
+        assert "worker-2" in router.placement.workers()
+        assert router.supervisor.alive("worker-2")
+        assert elastic.busy() is False
+    finally:
+        _stop(router)
+
+
+def test_elastic_retire_leaves_ring_first_and_never_drops_last(monkeypatch):
+    from gordo_components_tpu_torch.autopilot.elastic import ElasticWorkers
+
+    monkeypatch.setenv("GORDO_AUTOPILOT", "1")
+    router, free_port = _elastic_fleet(2)
+    try:
+        elastic = ElasticWorkers(router.supervisor, router.control, router.placement,
+                                 port_allocator=free_port)
+        name = elastic.scale_down()
+        assert name == "worker-1"  # newest slot retires first
+        # off the ring synchronously — BEFORE the drain completes
+        assert "worker-1" not in router.placement.workers()
+        assert elastic.join(timeout=30)
+        assert sorted(router.supervisor.specs) == ["worker-0"]
+        assert elastic.last_op()["state"] == "retired"
+        # the floor: a single-worker fleet refuses to retire
+        assert elastic.scale_down() is None
+        assert sorted(router.supervisor.specs) == ["worker-0"]
+    finally:
+        _stop(router)
+
+
+def test_controller_drives_elastic_scale_through_workers_rule(monkeypatch):
+    """Sustained burn observed by the controller spawns a worker through
+    the full policy path (confirm ticks, cooldown, AIMD ±1)."""
+    from gordo_components_tpu_torch.autopilot.elastic import ElasticWorkers
+
+    monkeypatch.setenv("GORDO_AUTOPILOT", "1")
+    router, free_port = _elastic_fleet(2)
+    try:
+        elastic = ElasticWorkers(router.supervisor, router.control, router.placement,
+                                 port_allocator=free_port, ready_timeout=10.0)
+        clock = [0.0]
+        actuator = policy.Actuator(
+            name="workers",
+            read=elastic.count,
+            apply=elastic.apply_target,
+            decide=policy.workers_rule(policy.Thresholds()),
+            bounds=policy.Bounds(1, 3),
+            aimd=policy.AIMD(step=0.0, backoff=0.99),
+            cooldown=1.0,
+            confirm=2,
+        )
+        reader = _Scripted(signals.Observation(burn_fast=5.0))
+        pilot = controller.Autopilot(reader, [actuator], role="test", clock=lambda: clock[0],
+                                     min_interval=1.0, enabled=True,
+                                     recorder=flightrec.FlightRecorder(enabled=True))
+        clock[0] += 2
+        pilot.tick()
+        assert elastic.count() == 2  # hysteresis: one tick is not enough
+        clock[0] += 2
+        pilot.tick()
+        assert elastic.join(timeout=30)
+        assert elastic.count() == 3
+        decision = pilot.snapshot()["decisions"][-1]
+        assert (decision["actuator"], decision["direction"], decision["reason"]) == (
+            "workers", "up", "sustained_burn")
+        # ceiling: at 3 with bounds 1:3 nothing more fires
+        for _ in range(2):
+            clock[0] += 5
+            pilot.tick()
+        elastic.join(timeout=30)
+        assert elastic.count() == 3
+    finally:
+        _stop(router)
+
+
+@pytest.mark.parametrize("env", [{}, {"GORDO_AUTOPILOT_WORKER_BOUNDS": "2:5",
+                                      "GORDO_AUTOPILOT_SCALE_TICKS": "5",
+                                      "GORDO_AUTOPILOT_COOLDOWN": "7"}])
+def test_router_controller_wires_the_reference_actuator(monkeypatch, env):
+    from test_torch_router import _free_port
+
+    from gordo_components_tpu import router as ref_router
+
+    from gordo_components_tpu_torch import router
+
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    monkeypatch.delenv("GORDO_AUTOPILOT", raising=False)
+    specs = [(f"worker-{i}", i, "127.0.0.1", _free_port()) for i in range(2)]
+    ours = router.assemble_fleet([router.WorkerSpec(*s) for s in specs], lambda spec: None)
+    theirs = ref_router.assemble_fleet([ref_router.WorkerSpec(*s) for s in specs],
+                                       lambda spec: None)
+    try:
+        for pilot in (ours.autopilot, theirs.autopilot):
+            assert pilot is not None and pilot.enabled is False  # built frozen
+            assert list(pilot.actuators) == ["workers"]
+        a, b = ours.autopilot.actuators["workers"], theirs.autopilot.actuators["workers"]
+        assert tuple(a.bounds) == tuple(b.bounds)
+        assert (a.confirm, a.cooldown, a.skip_on_none) == (b.confirm, b.cooldown, b.skip_on_none)
+        assert (a.aimd.step, a.aimd.backoff) == (b.aimd.step, b.aimd.backoff)
+        assert ours.autopilot.elastic.count() == theirs.autopilot.elastic.count() == 2
+    finally:
+        ours.close()
+        theirs.close()
+    monkeypatch.setenv("GORDO_AUTOPILOT", "0")
+    off = router.assemble_fleet([router.WorkerSpec(*specs[0])], lambda spec: None)
+    try:
+        assert off.autopilot is None
+    finally:
+        off.close()
