@@ -273,6 +273,37 @@ Phases; any failure exits non-zero before the result line:
    difference with a 95 % bootstrap interval), worker boot, drain,
    eject and respawn-to-ready seconds, the reload's and rollback's walls.
 
+15. the spill tier and the host path (``phase_spill``): one models root of
+   ``SPILL_DENSE`` (64 ``dense_ae_10tag`` machines), the slice machine three
+   times in fp32 (``SPILL_RELOAD`` a generation root), once in bf16, a
+   ``dense_ae_10tag`` machine at int8 and the slice machine behind a
+   MinMaxScaler and a StandardScaler (``SPILL_HOST``, which the engine
+   cannot lift), with a ``FLEET_INDEX.json`` from the port's
+   ``write_fleet_index``. The port's server boots it lazily
+   (``GORDO_BOOT_EAGER=4``, a ``GORDO_HOST_CACHE_MB`` that holds two fp32
+   PatchTST bundles but not three, sized from the bundle bytes the engine
+   reports) and, beside it, eagerly. Checked: after boot the lazy server
+   holds at least the lazy machines' stacked bytes less on the card; every
+   lazy machine's first answer (a miss) and second (a hit) equal the eager
+   server's lone answer byte for byte (npz), and the CPU plain path within
+   SERVE_RTOL (bf16: BF16_SERVE_RTOL); ``SPILL_SCHEDULE`` over the fp32
+   PatchTST machines moves the host cache's hit, miss, store and evict
+   counts as ``spill_lru_prediction`` says; ``POST /prefetch`` queues an
+   untouched machine and names an unknown one, whose first request is then
+   a hit, and a machine-scoped ``/healthz`` of another moves no counter;
+   the host-path machine answers 200 on both servers, its estimator on the
+   card, equal to its CPU pipeline within SERVE_RTOL; a new generation of
+   ``SPILL_RELOAD`` is listed ``refreshed`` by ``POST /reload`` on both
+   servers, and its next request is a miss answering what the eager
+   server, reloaded, answers, byte for byte, and not the old answer;
+   ``flash_fwd_f32`` launched 3 times per fp32 PatchTST dispatch, stacked
+   or spilled, and per host-path forward, ``flash_fwd_bf16`` 3 times per
+   bf16 dispatch. Printed with the card: both boots' walls and device
+   bytes, the miss, hit and eager request walls by rung, a bundle's
+   host-to-device copy against a plain pinned ``copy_`` of 256 MiB, the
+   prefetch loads' walls, the host path's walls against the eager fp32
+   PatchTST request's.
+
 The line before last is ``nvidia-smi``'s name and power limit; the one
 before that the kernels' JSON record; the last line is the result.
 """
@@ -297,7 +328,9 @@ SEED = 0
 N_TAGS = 64
 LOOKBACK = 1440  # one day at 1-minute resolution
 SLICE = dict(patch_length=16, stride=8, d_model=512, n_heads=8, n_layers=3, ff_dim=1024)
-WINDOWS = (1, 16, 64, 16, 16)  # windows per request
+# windows per request (each scored again on the CPU plain path, ~12 s at W =
+# 16 on the card's host, so every window count is asked once)
+WINDOWS = (1, 16, 64)
 # card peaks (NVIDIA H100 SXM data sheet, dense): fp32 outside the tensor
 # cores, bf16 on the tensor cores, and device memory bandwidth
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
@@ -776,10 +809,12 @@ def sensor_rows(rng: np.random.Generator, n: int, tags: int = N_TAGS) -> np.ndar
 
 
 def build_artifact(dest: str, device, compute_dtype: str = "float32", seed: int = SEED,
-                   precision: str = None) -> list:
+                   precision: str = None, scalers: tuple = ("MinMaxScaler",)) -> list:
     """The slice machine with seeded weights and scalers, dumped by the port
     (at ``precision``: its metadata pins the rung, and at int8
-    ``write_artifact_files`` writes the quantized sidecar)."""
+    ``write_artifact_files`` writes the quantized sidecar). ``scalers``: the
+    input transformers before the estimator, each fitted on the one
+    before's output."""
     from gordo_components_tpu_torch.serializer import dump, pipeline_from_definition
 
     rng = np.random.default_rng(seed)
@@ -790,7 +825,7 @@ def build_artifact(dest: str, device, compute_dtype: str = "float32", seed: int 
                     "regressor": {
                         "Pipeline": {
                             "steps": [
-                                "MinMaxScaler",
+                                *scalers,
                                 {"PatchTSTAutoEncoder": {
                                     "kind": "patchtst", "lookback_window": LOOKBACK,
                                     "attention_impl": "flash", "compute_dtype": compute_dtype,
@@ -806,9 +841,12 @@ def build_artifact(dest: str, device, compute_dtype: str = "float32", seed: int 
     }
     model = pipeline_from_definition(definition)
     ttr = model.base_estimator
-    scaler, est = (step for _, step in ttr.regressor.steps)
+    *transformers, est = (step for _, step in ttr.regressor.steps)
     train = sensor_rows(rng, 4 * LOOKBACK)
-    scaler.fit(train)
+    rows_in = train
+    for transformer in transformers:
+        transformer.fit(rows_in)
+        rows_in = transformer.transform(rows_in)
     ttr.transformer.fit(train)
     est.to(device)
     est.set_state({"params": slice_weights(rng), "n_features": N_TAGS,
@@ -4807,6 +4845,443 @@ def tier_b(models_dir: str, root: str, encoded: dict, card: str, device_arg) -> 
         log.close()
 
 
+SPILL_DENSE = [f"spill-dense-{i:02d}" for i in range(64)]
+SPILL_PATCHTST = ["spill-patchtst-0", "spill-patchtst-1", "spill-patchtst-2"]
+SPILL_BF16 = "spill-patchtst-bf16"
+SPILL_INT8 = "spill-int8"  # dense_ae_10tag at the int8 rung
+SPILL_HOST = "spill-host"  # a scaler pair before the estimator: the engine cannot lift it
+SPILL_EAGER = 4  # GORDO_BOOT_EAGER: the index's first names, dense machines
+SPILL_RELOAD = SPILL_PATCHTST[0]  # a generation root; a new generation is committed
+SPILL_PREFETCH = SPILL_DENSE[-1]  # hinted by /prefetch before its first request
+SPILL_PROBED = SPILL_DENSE[-2]  # its machine-scoped /healthz must load nothing
+SPILL_WINDOWS = TIER_WINDOWS  # windows of a PatchTST request: BH 8192, as phase 2 holds
+SPILL_SCHEDULE = (0, 1, 0, 2, 1, 0, 2, 2, 1, 0)  # the LRU check, over SPILL_PATCHTST
+SPILL_HOST_REQUESTS = 3  # host-path requests per server
+SPILL_COPY_BYTES = 256 << 20  # the plain pinned copy that bounds a bundle's copy
+SPILL_ENV = {"GORDO_BOOT_EAGER": str(SPILL_EAGER), "GORDO_TELEMETRY": "0"}
+
+
+def spill_lru_prediction(schedule: list, sizes: dict, cap: int) -> dict:
+    """The host cache's hit, miss, store and evict counts for a schedule of
+    requests to lazy machines, from an empty cache of ``cap`` bytes, as the
+    server counts them: a resident machine's request is one hit; any other
+    request's first lookup (the server's load of the machine) is a miss
+    and a store, evicting the oldest entries to make room, and the engine's
+    lookup that follows is a hit, or, for an entry larger than the whole
+    cap (never cached), a second miss and store."""
+    from collections import OrderedDict
+
+    cache, used = OrderedDict(), 0
+    counts = dict.fromkeys(("hit", "miss", "store", "evict"), 0)
+    for name in schedule:
+        if name in cache:
+            counts["hit"] += 1
+            cache.move_to_end(name)
+            continue
+        counts["miss"] += 1
+        counts["store"] += 1
+        size = sizes[name]
+        if size > cap:
+            counts["miss"] += 1
+            counts["store"] += 1
+            continue
+        while used + size > cap and cache:
+            used -= cache.popitem(last=False)[1]
+            counts["evict"] += 1
+        cache[name] = size
+        used += size
+        counts["hit"] += 1
+    return counts
+
+
+def spill_cache_counts(engine) -> dict:
+    """The host cache's counters under the names of
+    :func:`spill_lru_prediction`."""
+    stats = engine.host_cache.stats()
+    return {"hit": stats["hits"], "miss": stats["misses"], "store": stats["loads"],
+            "evict": stats["evictions"]}
+
+
+def spill_delta(after: dict, before: dict) -> dict:
+    return {key: after[key] - before[key] for key in after}
+
+
+def spill_commit(models_dir: str, name: str, source: str) -> None:
+    """The artifact at ``source`` committed as a new generation of ``name``
+    through the port's store (a flat ``name`` becomes a generation root);
+    ``source`` is removed."""
+    import shutil
+
+    from gordo_components_tpu_torch.serializer import load, load_metadata, write_artifact_files
+    from gordo_components_tpu_torch.store.generations import commit_generation
+
+    model, metadata = load(source, device="cpu"), load_metadata(source)
+    shutil.rmtree(source)
+    commit_generation(os.path.join(models_dir, name),
+                      lambda staging: write_artifact_files(model, staging, metadata))
+
+
+def spill_build(models_dir: str, staged: str, device) -> dict:
+    """The phase's models root with its fleet index: ``SPILL_DENSE`` and
+    ``SPILL_INT8`` at bench.py's ``dense_ae_10tag`` widths, the slice machine
+    three times in fp32 (``SPILL_RELOAD`` a generation root), once in bf16 and
+    once behind a MinMaxScaler and a StandardScaler (``SPILL_HOST``); and, at
+    ``staged``, the next generation of ``SPILL_RELOAD`` (other weights), built
+    here so that no build runs while the launches are counted. Returns
+    {machine: tags}."""
+    from gordo_components_tpu_torch.store.generations import build_fleet_index, write_fleet_index
+
+    estimator, kwargs, tags = ZOO["dense-ae-10tag"]
+    for i, name in enumerate(SPILL_DENSE):
+        build_zoo_artifact(os.path.join(models_dir, name), estimator, kwargs, tags, device,
+                           np.random.default_rng(SEED + 15000 + i))
+    build_zoo_artifact(os.path.join(models_dir, SPILL_INT8), estimator, kwargs, tags, device,
+                       np.random.default_rng(SEED + 15100), precision="int8")
+    for i, name in enumerate(SPILL_PATCHTST):
+        build_artifact(os.path.join(models_dir, name), device, seed=SEED + 15200 + i)
+    build_artifact(os.path.join(models_dir, SPILL_BF16), device, compute_dtype="bfloat16",
+                   seed=SEED + 15300)
+    build_artifact(os.path.join(models_dir, SPILL_HOST), device, seed=SEED + 15400,
+                   scalers=("MinMaxScaler", "StandardScaler"))
+    flat = os.path.join(os.path.dirname(models_dir), "spill-flat")
+    os.rename(os.path.join(models_dir, SPILL_RELOAD), flat)
+    spill_commit(models_dir, SPILL_RELOAD, flat)
+    build_artifact(staged, device, seed=SEED + 15600)
+    write_fleet_index(models_dir, build_fleet_index(models_dir))
+    return {**{name: tags for name in SPILL_DENSE + [SPILL_INT8]},
+            **{name: N_TAGS for name in SPILL_PATCHTST + [SPILL_BF16, SPILL_HOST]}}
+
+
+def spill_cpu_answers(models_dir: str, bodies: dict, names: list) -> dict:
+    """Each machine's answer on the CPU plain path, at its rung: the engine
+    for a machine it lifts, the pipeline's own ``anomaly`` for the host-path
+    machine."""
+    from gordo_components_tpu_torch import wire
+    from gordo_components_tpu_torch.server.engine import ServingEngine
+    from gordo_components_tpu_torch.server.server import _Machine
+
+    machines = {name: _Machine(name, os.path.join(models_dir, name)) for name in names}
+    # one engine for them all: each request still dispatches alone
+    cpu = ServingEngine({name: m.model for name, m in machines.items()},
+                        precisions={name: m.precision for name, m in machines.items()},
+                        quantized={name: m.quantized for name, m in machines.items()
+                                   if m.quantized is not None},
+                        device="cpu")
+    answers = {}
+    try:
+        for name in names:
+            if cpu.can_score(name):
+                answers[name] = dict(zip(wire.SCORE_FIELDS, cpu.anomaly(name, bodies[name])))
+                continue
+            frame = machines[name].model.anomaly(bodies[name])
+            answers[name] = {field: np.ravel(frame[field]) if field == "total-anomaly-score"
+                             else frame[field] for field in wire.SCORE_FIELDS}
+    finally:
+        cpu.close()
+    return answers
+
+
+def spill_same_bits(label: str, got: dict, want: dict) -> None:
+    """Two npz answers hold the same arrays, byte for byte."""
+    from gordo_components_tpu_torch import wire
+
+    for field in wire.SCORE_FIELDS:
+        a, b = np.asarray(got["data"][field]), np.asarray(want["data"][field])
+        if a.dtype != b.dtype or a.shape != b.shape or a.tobytes() != b.tobytes():
+            diff = (float(np.abs(a.astype(np.float64) - b.astype(np.float64)).max())
+                    if a.shape == b.shape else None)
+            fail(f"spill {label}: {field} differs from the eager server's lone answer "
+                 f"({a.dtype}{a.shape} vs {b.dtype}{b.shape}, max |diff| {diff})")
+
+
+def spill_rung(name: str) -> str:
+    return {SPILL_INT8: "dense-int8", SPILL_BF16: "patchtst-bf16",
+            SPILL_HOST: "patchtst-host-path"}.get(
+        name, "patchtst-f32" if name in SPILL_PATCHTST else "dense-f32")
+
+
+def spill_flash_dispatches(stats: dict, dtype: str) -> int:
+    """PatchTST dispatches of the slice machine's shape at one compute
+    dtype, stacked and spilled, from an engine's ``stats()``."""
+    key = f"L{LOOKBACK}a0f{N_TAGS}/{dtype}"
+    return (stats["bucket_dispatches"].get(key, {}).get("dispatches", 0)
+            + stats["spill"]["scorer_dispatches"].get(key, 0))
+
+
+def phase_spill(torch, device, tmp: str, card: str) -> dict:
+    """The host-RAM spill tier and the host path on the card (see the module
+    docstring, 15). Returns the phase's flash launches."""
+    from gordo_components_tpu_torch.ops import _kernels
+    from gordo_components_tpu_torch.serializer.persistence import estimators
+    from gordo_components_tpu_torch.server.engine import ServingEngine, _tree_map, _tree_nbytes
+    from gordo_components_tpu_torch.server.server import ModelServer, make_server
+    from gordo_components_tpu_torch.store.generations import build_fleet_index, write_fleet_index
+
+    phase_started = time.perf_counter()
+    models_dir = os.path.join(tmp, "spill")
+    staged = os.path.join(tmp, "spill-staged")
+    tags = spill_build(models_dir, staged, device)
+    names = sorted(tags)
+    rng = np.random.default_rng(SEED + 15500)
+    bodies = {name: sensor_rows(rng, LOOKBACK + SPILL_WINDOWS - 1 if tags[name] == N_TAGS
+                                else SEAMS_ROWS, tags[name]) for name in names}
+    encoded = {name: json.dumps({"X": X.tolist()}).encode() for name, X in bodies.items()}
+    built_s = time.perf_counter() - phase_started
+    plain = spill_cpu_answers(models_dir, bodies, names)
+    print(f"spill: {len(names)} machines built and indexed in {built_s:.1f} s, scored on the "
+          f"CPU plain path in {time.perf_counter() - phase_started - built_s:.1f} s")
+
+    # the cap holds two fp32 PatchTST bundles and not three, sized from the
+    # bytes the engine reports for each bundle
+    sizer = ServingEngine({}, lazy={name: ModelServer._lazy_loader(
+        name, os.path.join(models_dir, name)) for name in SPILL_PATCHTST},
+        host_cache_mb=0, device=device)
+    sizes = {name: sizer._build_bundle(name, sizer._lazy[name])[1] for name in SPILL_PATCHTST}
+    sizer.close()
+    del sizer
+    cap_mb = math.ceil(2.5 * max(sizes.values()) / 2**20)
+    cap = cap_mb << 20
+    if not 2 * max(sizes.values()) <= cap < sum(sizes.values()):
+        fail(f"spill: a cap of {cap_mb} MiB does not hold two bundles of {sizes} but not three")
+
+    saved = {key: os.environ.get(key) for key in (*SPILL_ENV, "GORDO_HOST_CACHE_MB")}
+    os.environ.update(SPILL_ENV, GORDO_HOST_CACHE_MB=str(cap_mb))
+    servers = []
+    try:
+        # the phase's path starts here, with both boots
+        _kernels.reset_launches()
+        torch.cuda.synchronize()
+        base_bytes = torch.cuda.memory_allocated()
+        boot = {}
+        for label, lazy_boot in (("lazy", True), ("eager", False)):
+            started = time.perf_counter()
+            httpd = make_server(models_dir, port=0, device=device, lazy_boot=lazy_boot)
+            thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+            thread.start()
+            servers.append((httpd, thread))
+            torch.cuda.synchronize()
+            boot[label] = {"wall_s": time.perf_counter() - started,
+                           "device_bytes": torch.cuda.memory_allocated() - base_bytes
+                           - sum(b["device_bytes"] for b in boot.values())}
+        (lazy_httpd, _), (eager_httpd, _) = servers
+        lazy_app, eager_app = lazy_httpd.model_server, eager_httpd.model_server
+        lazy_url = f"http://127.0.0.1:{lazy_httpd.server_address[1]}"
+        eager_url = f"http://127.0.0.1:{eager_httpd.server_address[1]}"
+        lazy_engine = lazy_app.engine
+
+        # 1. the lazy boot holds none of the lazy machines' bytes on the card
+        lazy_names = sorted(lazy_app._state.lazy_names)
+        if sorted(lazy_app.machines) != names[:SPILL_EAGER] or lazy_names != names[SPILL_EAGER:]:
+            fail(f"spill: lazy boot made {sorted(lazy_app.machines)} eager and {lazy_names} lazy")
+        per_machine = {n: b.stacked_nbytes() // len(b.names)
+                       for b in eager_app.engine._buckets for n in b.names}
+        lazy_stacked = sum(per_machine.get(n, 0) for n in lazy_names)
+        held_less = boot["eager"]["device_bytes"] - boot["lazy"]["device_bytes"]
+        if held_less < lazy_stacked or lazy_engine.host_cache.stats()["entries"]:
+            fail(f"spill: the lazy boot holds {boot['lazy']['device_bytes']} device bytes, the "
+                 f"eager {boot['eager']['device_bytes']}: {held_less} less, not the lazy "
+                 f"machines' {lazy_stacked} stacked bytes (or the cache holds entries)")
+        print(f"spill [{card}]: boot {json.dumps(boot)}; the lazy machines' stacked bytes "
+              f"{lazy_stacked}; cap {cap_mb} MiB for fp32 PatchTST bundles of {sizes} bytes")
+
+        def ask(url, name):
+            status, payload, ms = post_body(
+                f"{url}/gordo/v0/project/{name}/anomaly/prediction", encoded[name], npz=True)
+            if status != 200:
+                fail(f"spill: {name} answered HTTP {status}: {str(payload)[:300]}")
+            return payload, ms
+
+        # 4. /prefetch, and a probe that loads nothing
+        status, _, raw, _ = http("POST", f"{lazy_url}/prefetch",
+                                 json.dumps({"machines": [SPILL_PREFETCH, "ghost"]}).encode())
+        started = time.perf_counter()
+        lazy_engine.host_cache.quiesce()
+        prefetch_dense_ms = (time.perf_counter() - started) * 1e3
+        if status != 200 or json.loads(raw) != {"queued": 1, "skipped": 0, "unknown": 1}:
+            fail(f"spill: /prefetch answered HTTP {status} {raw[:200]!r}")
+        before = spill_cache_counts(lazy_engine)
+        status, _, raw, _ = http("GET", f"{lazy_url}/gordo/v0/project/{SPILL_PROBED}/healthz")
+        if status != 200 or json.loads(raw)["status"] != "lazy" or (
+                spill_cache_counts(lazy_engine) != before):
+            fail(f"spill: /healthz of {SPILL_PROBED} answered {status} {raw[:200]!r} or moved "
+                 f"the cache's counters")
+
+        # 2. every lazy machine: a miss, then a hit, each the eager server's
+        # lone answer byte for byte, and the CPU plain path's within tolerance
+        walls = {"miss": {}, "hit": {}, "eager": {}}
+        eager_answers = {}
+        worst = {}
+        for name in lazy_names:
+            if name == SPILL_HOST:
+                continue
+            rung = spill_rung(name)
+            counts = [spill_cache_counts(lazy_engine)]
+            first, miss_ms = ask(lazy_url, name)
+            counts.append(spill_cache_counts(lazy_engine))
+            second, hit_ms = ask(lazy_url, name)
+            counts.append(spill_cache_counts(lazy_engine))
+            eager, eager_ms = ask(eager_url, name)
+            want_first = ({"hit": 1, "miss": 0, "store": 0, "evict": 0} if name == SPILL_PREFETCH
+                          else {"hit": 1, "miss": 1, "store": 1})
+            got_first = spill_delta(counts[1], counts[0])
+            if {k: got_first[k] for k in want_first} != want_first or spill_delta(
+                    counts[2], counts[1]) != {"hit": 1, "miss": 0, "store": 0, "evict": 0}:
+                fail(f"spill: {name}'s requests moved the cache by {got_first} and "
+                     f"{spill_delta(counts[2], counts[1])}")
+            spill_same_bits(f"{name} miss", first, eager)
+            spill_same_bits(f"{name} hit", second, eager)
+            rtol = BF16_SERVE_RTOL if name == SPILL_BF16 else SERVE_RTOL
+            rows = len(plain[name]["model-output"])
+            worst[rung] = max(worst.get(rung, 0.0), compare_arrays(
+                f"spill {name}", rows, first["data"], plain[name], rtol, tags[name]))
+            eager_answers[name] = eager
+            for kind, ms in (("miss" if name != SPILL_PREFETCH else "hit", miss_ms),
+                             ("hit", hit_ms), ("eager", eager_ms)):
+                walls[kind].setdefault(rung, []).append(ms)
+        print(f"spill: {len(eager_answers)} lazy machines, each a miss then a hit equal to the "
+              f"eager server's lone answer byte for byte; worst relative difference from the "
+              f"CPU plain path by rung {json.dumps(worst)} (limits {SERVE_RTOL}, bf16 "
+              f"{BF16_SERVE_RTOL})")
+
+        # 3. the LRU schedule over the fp32 PatchTST machines
+        lazy_engine.host_cache.clear()
+        schedule = [SPILL_PATCHTST[i] for i in SPILL_SCHEDULE]
+        before = spill_cache_counts(lazy_engine)
+        for name in schedule:
+            kind = "hit" if lazy_engine.host_cache.peek(name) is not None else "miss"
+            payload, ms = ask(lazy_url, name)
+            spill_same_bits(f"{name} schedule", payload, eager_answers[name])
+            walls[kind].setdefault(spill_rung(name), []).append(ms)
+        got = spill_delta(spill_cache_counts(lazy_engine), before)
+        want = spill_lru_prediction(schedule, sizes, cap)
+        if got != want:
+            fail(f"spill: the schedule moved the cache by {got}, an LRU of {cap_mb} MiB predicts "
+                 f"{want}")
+        print(f"spill: the schedule {list(SPILL_SCHEDULE)} moved the cache by {got}, as an LRU "
+              f"of {cap_mb} MiB predicts")
+
+        # 4. (cont.) a prefetch of an evicted PatchTST bundle; its request hits
+        evicted = [n for n in SPILL_PATCHTST if lazy_engine.host_cache.peek(n) is None][0]
+        started = time.perf_counter()
+        status, _, raw, _ = http("POST", f"{lazy_url}/prefetch",
+                                 json.dumps({"machines": [evicted]}).encode())
+        lazy_engine.host_cache.quiesce()
+        prefetch_ms = (time.perf_counter() - started) * 1e3
+        before = spill_cache_counts(lazy_engine)
+        payload, _ = ask(lazy_url, evicted)
+        moved = spill_delta(spill_cache_counts(lazy_engine), before)
+        if json.loads(raw)["queued"] != 1 or moved["miss"] or moved["hit"] != 1:
+            fail(f"spill: /prefetch of {evicted} answered {raw[:200]!r}; its request moved "
+                 f"the cache by {moved}")
+        spill_same_bits(f"{evicted} prefetched", payload, eager_answers[evicted])
+
+        # the bundle's host-to-device copy against a plain pinned copy
+        resident = [n for n in SPILL_PATCHTST if lazy_engine.host_cache.peek(n) is not None][0]
+        tree = lazy_engine.host_cache.peek(resident)["entry"]
+        tree_bytes = _tree_nbytes(tree)
+        copy_ms = timed_ms(lambda: _tree_map(lambda a: a.to(device, non_blocking=True), tree))
+        src = torch.empty(SPILL_COPY_BYTES, dtype=torch.uint8).pin_memory()
+        dst = torch.empty_like(src, device=device)
+        plain_copy_ms = timed_ms(lambda: dst.copy_(src, non_blocking=True))
+        del src, dst
+
+        # 5. the host path, on both servers, on the card
+        host_walls, host_answers, forwards = {}, {}, []
+        for label, url, app in (("lazy", lazy_url, lazy_app), ("eager", eager_url, eager_app)):
+            if label == "lazy":  # the first request loads it, on the host path
+                payload, ms = ask(url, SPILL_HOST)
+                host_walls.setdefault(label, []).append(ms)
+                host_answers[label] = payload
+                forwards.append(1)
+                model = lazy_engine.host_cache.peek(SPILL_HOST)["context"].model
+            else:
+                model = app.machines[SPILL_HOST].model
+            est = next(estimators(model))
+            if {p.device.type for p in est.module_.parameters()} != {"cuda"}:
+                fail(f"spill: the {label} server's host-path estimator is not on the card")
+            hook = est.module_.register_forward_hook(lambda *args: forwards.append(1))
+            try:
+                for _ in range(SPILL_HOST_REQUESTS):
+                    payload, ms = ask(url, SPILL_HOST)
+                    host_walls.setdefault(label, []).append(ms)
+                    host_answers.setdefault(label, payload)
+            finally:
+                hook.remove()
+        for label, payload in host_answers.items():
+            compare_arrays(f"spill host path ({label})", len(plain[SPILL_HOST]["model-output"]),
+                           payload["data"], plain[SPILL_HOST], SERVE_RTOL, N_TAGS)
+        spill_same_bits("host path", host_answers["lazy"], host_answers["eager"])
+        if len(forwards) != 1 + 2 * SPILL_HOST_REQUESTS:
+            fail(f"spill: {len(forwards)} host-path forwards for "
+                 f"{1 + 2 * SPILL_HOST_REQUESTS} requests")
+
+        # 6. a new generation of one lazy machine, adopted by /reload
+        eager_dispatches = {dtype: spill_flash_dispatches(eager_app.engine.stats(), dtype)
+                            for dtype in ("float32", "bfloat16")}
+        spill_commit(models_dir, SPILL_RELOAD, staged)
+        write_fleet_index(models_dir, build_fleet_index(models_dir))
+        reloads = {}
+        for label, url in (("lazy", lazy_url), ("eager", eager_url)):
+            started = time.perf_counter()
+            status, _, raw, _ = http("POST", f"{url}/reload")
+            reloads[label] = {"wall_s": time.perf_counter() - started, **json.loads(raw)}
+            if status != 200 or reloads[label].get("refreshed") != [SPILL_RELOAD]:
+                fail(f"spill: {label} /reload answered {status} {raw[:300]!r}")
+        before = spill_cache_counts(lazy_engine)
+        payload, _ = ask(lazy_url, SPILL_RELOAD)
+        moved = spill_delta(spill_cache_counts(lazy_engine), before)
+        if (moved["miss"], moved["store"]) != (1, 1):
+            fail(f"spill: the refreshed machine's request moved the cache by {moved}")
+        # the new generation's answer: the eager server's, which reloaded it
+        spill_same_bits("new generation", payload, ask(eager_url, SPILL_RELOAD)[0])
+        if np.array_equal(payload["data"]["model-output"],
+                          eager_answers[SPILL_RELOAD]["data"]["model-output"]):
+            fail("spill: the new generation answers as the old one did")
+
+        # 7. the launches: 3 per PatchTST dispatch, stacked or spilled, and
+        # per host-path forward
+        launches = {name: _kernels.LAUNCHES[name] for name in KERNELS}
+        spilled = {dtype: spill_flash_dispatches(lazy_engine.stats(), dtype)
+                   for dtype in ("float32", "bfloat16")}
+        stacked = {dtype: eager_dispatches[dtype] + spill_flash_dispatches(
+            eager_app.engine.stats(), dtype) for dtype in ("float32", "bfloat16")}
+        layers = SLICE["n_layers"]
+        want = {**NO_LAUNCHES,
+                "flash_fwd_f32": layers * (spilled["float32"] + stacked["float32"]
+                                           + len(forwards)),
+                "flash_fwd_bf16": layers * (spilled["bfloat16"] + stacked["bfloat16"])}
+        if launches != want or not spilled["float32"] or not spilled["bfloat16"]:
+            fail(f"spill: launches {launches}, want {want} for spilled dispatches {spilled}, "
+                 f"stacked {stacked} and {len(forwards)} host-path forwards")
+
+        def percentiles(by_rung):
+            return {rung: {"n": len(ms), "p50_ms": float(np.percentile(ms, 50)),
+                           "p99_ms": float(np.percentile(ms, 99))}
+                    for rung, ms in sorted(by_rung.items())}
+
+        print(f"spill [{card}]: request walls by rung {json.dumps({k: percentiles(v) for k, v in walls.items()})}")
+        print(f"spill [{card}]: a {resident} bundle ({tree_bytes} bytes, pinned) to the card in "
+              f"{copy_ms:.4f} ms ({tree_bytes / copy_ms / 1e6:.2f} GB/s); a plain pinned copy_ of "
+              f"{SPILL_COPY_BYTES >> 20} MiB {plain_copy_ms:.4f} ms "
+              f"({SPILL_COPY_BYTES / plain_copy_ms / 1e6:.2f} GB/s); prefetch loads: "
+              f"{evicted} {prefetch_ms:.1f} ms, {SPILL_PREFETCH} {prefetch_dense_ms:.1f} ms")
+        print(f"spill [{card}]: host path {json.dumps(percentiles(host_walls))} against the "
+              f"eager fp32 PatchTST lone request {json.dumps(percentiles({'eager': walls['eager']['patchtst-f32']}))}; "
+              f"reloads {json.dumps(reloads)}")
+        print(f"spill [{card}]: {json.dumps({'launches': launches, 'spilled': spilled, 'stacked': stacked, 'host_forwards': len(forwards), 'cache': lazy_engine.host_cache.stats(), 'phase_s': time.perf_counter() - phase_started})}")
+        return launches
+    finally:
+        for httpd, thread in servers:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=30)
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+
+
 def main() -> None:
     try:
         import torch
@@ -4837,10 +5312,11 @@ def main() -> None:
         client = phase_client(torch, device, tmp, kernels, card)
         control = phase_control(torch, device, tmp, card)
         tier = phase_tier(torch, device, tmp, card)
+        spill = phase_spill(torch, device, tmp, card)
         for name in KERNELS:
             launches[name] += (trained[name] + trained_bf16[name] + built[name]
                                + fleet_built[name] + seams[name] + client[name]
-                               + control[name] + tier[name])
+                               + control[name] + tier[name] + spill[name])
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

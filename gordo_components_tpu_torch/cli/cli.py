@@ -15,9 +15,11 @@ device failure (an out-of-memory on the card), 75 another device failure
 (retryable), 1 anything else. Configs are JSON, or YAML read through
 ``yaml`` (imported only there). ``--device`` picks the card (default) or
 the CPU; there is no silent fallback. ``run-server`` offers the flags
-whose machinery the port has, ``--worker-id`` among them; the reference's
-shard mode, compile cache, megabatch, lazy boot and mesh flags are not
-offered (ROADMAP.md). ``run-fleet-server`` spawns ``--workers`` such
+whose machinery the port has, ``--worker-id`` among them, and
+``--lazy-boot/--no-lazy-boot`` (exported as ``GORDO_LAZY_BOOT``, which a
+fleet tier's workers inherit; it needs ``--models-dir``, whose
+``FLEET_INDEX.json`` then names the fleet); the reference's shard mode,
+compile cache, megabatch and mesh flags are not offered (ROADMAP.md). ``run-fleet-server`` spawns ``--workers`` such
 servers (``--device`` passed on) behind a router that never touches the
 card; SIGTERM drains the router, then each worker, and leaves no worker
 behind. ``run-watchman`` probes each machine's ``/healthz`` at a target
@@ -41,7 +43,7 @@ client.ClientError`.
     python -m gordo_components_tpu_torch.cli rollback [--list] MODEL_DIR
     python -m gordo_components_tpu_torch.cli run-server (--model-dir DIR ... |
         --models-dir DIR) [--host H] [--port N] [--project P] [--max-inflight N]
-        [--tenants SPEC] [--faults SPEC] [--worker-id N] [--device cpu]
+        [--tenants SPEC] [--faults SPEC] [--worker-id N] [--lazy-boot] [--device cpu]
     python -m gordo_components_tpu_torch.cli run-fleet-server --models-dir DIR
         [--workers 2] [--host H] [--port 5555] [--worker-base-port 5600]
         [--project P] [--replicas 2] [--hot-rps 50] [--probe-interval 2]
@@ -253,6 +255,14 @@ def run_server(args: argparse.Namespace) -> int:
         except ValueError as exc:
             logger.error("Bad --faults spec: %s", exc)
             return EXIT_USAGE
+    if args.lazy_boot is not None:
+        # exported, so that every reload's state and a tier's workers agree
+        os.environ["GORDO_LAZY_BOOT"] = "1" if args.lazy_boot else "0"
+    lazy_boot = os.environ.get("GORDO_LAZY_BOOT", "0").strip().lower() in (
+        "1", "true", "on", "yes")
+    if lazy_boot and not args.models_dir:
+        logger.error("--lazy-boot requires --models-dir (its FLEET_INDEX.json names the fleet)")
+        return EXIT_USAGE
     model_dirs = args.model_dirs or (
         [os.environ["MODEL_LOCATION"]] if os.environ.get("MODEL_LOCATION") else [])
     resolved = {}
@@ -263,7 +273,7 @@ def run_server(args: argparse.Namespace) -> int:
         logger.error("Provide --model-dir (or MODEL_LOCATION) or --models-dir")
         return EXIT_USAGE
     options = {"project": args.project, "max_inflight": args.max_inflight,
-               "worker_id": args.worker_id}
+               "worker_id": args.worker_id, "lazy_boot": lazy_boot}
     if not resolved:
         target = args.models_dir  # a fleet: reload rescans it
     elif len(resolved) == 1 and not args.models_dir:
@@ -689,6 +699,11 @@ def parser() -> argparse.ArgumentParser:
                         "run-fleet-server tier: responses carry X-Gordo-Worker, /healthz "
                         "reports the id, and the ledger and warehouse directories are "
                         "worker-<id> (default: GORDO_WORKER_ID, else unset, 0 in the paths)")
+    s.add_argument("--lazy-boot", action=argparse.BooleanOptionalAction, default=None,
+                   help="boot from the models directory's FLEET_INDEX.json: the first "
+                        "GORDO_BOOT_EAGER machines load now, the rest on their first request "
+                        "through the host-RAM spill tier (GORDO_HOST_CACHE_MB), verified "
+                        "then; needs --models-dir; overrides GORDO_LAZY_BOOT")
     s.add_argument("--device", default=None,
                    help="cuda (default) or cpu; there is no silent fallback")
     s.set_defaults(run=run_server)

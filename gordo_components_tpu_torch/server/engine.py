@@ -4,9 +4,10 @@
 pipeline at 611-748, ``_Bucket`` at 761-2499 and ``ServingEngine`` at
 2501-3262 and its metrics at 95-190, with the request seams: span
 timelines, the weighted-fair drain and the ``engine-dispatch`` fault
-point; and the control loops' seams: traffic notes, ``cost_ledger``, live
-tuning; without the mesh, hot cache, compile cache and spill tier —
-ROADMAP.md lists them).
+point; the control loops' seams: traffic notes, ``cost_ledger``, live
+tuning; and the host-RAM spill tier at 526-608, 2560-2584, 2820-2956 and
+3039-3115, without its mesh-shard accounting; without the mesh, hot cache
+and compile cache — ROADMAP.md lists them).
 
 Every machine that shares an architecture (the reference's signature:
 config, loss, widths, lookback, lookahead and precision) is stacked into
@@ -69,6 +70,21 @@ accountant (``observability/traffic.py``) under its bucket's
 took from enqueue to fetched outputs: ``cost_ledger`` reports them per rung
 beside the stacked bytes, for the telemetry warehouse.
 
+The spill tier (``lazy=``): a machine registered lazily, ``{name:
+loader}``, is not stacked and holds no device bytes. Its first request
+pays the store path: the loader verifies and deserialises the artifact,
+the engine lifts it into the machine's host tree (pinned once on a CUDA
+engine) and caches that bundle in the byte-bounded
+:class:`~.host_cache.HostTierCache` (``GORDO_HOST_CACHE_MB``, default 256;
+0 disables it). Every request of it copies the tree to the device and
+runs the bucket's own closure unbatched through a per-architecture
+:class:`_SpillScorer`, as a bucket runs a lone request, so a spilled
+answer equals the same machine's lone eager answer to the bit. A lazy
+machine the engine cannot lift raises :class:`SpillNotLiftable`, and one
+loaded eagerly lands in :attr:`ServingEngine.skipped`; the server scores
+both on the host path (``model.anomaly``), for which the engine places
+their estimators on its device. ``prefetch`` queues background loads.
+
 Request seams, as the reference's: each request's priority class
 (``resilience/qos.py``) and span context (``observability/spans.py``) are
 captured when it is submitted, since the leader and the collector that
@@ -97,7 +113,7 @@ import threading
 import time
 import weakref
 from dataclasses import dataclass
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -112,7 +128,9 @@ from ..observability.registry import REGISTRY
 from ..ops import windowing
 from ..ops.scaling import ScalerParams
 from ..resilience import deadline, faults, qos
+from ..serializer.persistence import estimators
 from ..utils.backend import DeviceLike, resolve_device
+from .host_cache import HostTierCache
 
 logger = logging.getLogger(__name__)
 
@@ -443,6 +461,87 @@ def _to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
     return tensor.pin_memory().to(device, non_blocking=True)
 
 
+# -- the spill tier -------------------------------------------------------------
+class SpillNotLiftable(Exception):
+    """A lazily registered machine whose model the engine cannot lift (the
+    eager boot's ``skipped`` rule). Its bundle is cached all the same; the
+    server scores it on the host path, as an eager boot would."""
+
+
+def _entry_host_tree(entry: _MachineEntry, device: torch.device) -> Dict[str, Any]:
+    """One machine's dispatchable tree: the dict a bucket gathers for one
+    slot (``_MachineEntry.tree``), so the spill program sees the same
+    inputs. For a CUDA engine each leaf is pinned here, once per bundle,
+    by PyTorch's caching host allocator: it records the stream of every
+    copy made from a block, so an LRU eviction that drops the bundle while
+    a non-blocking copy is in flight cannot hand the block out again."""
+    tree = entry.tree()
+    if device.type == "cuda":
+        tree = _tree_map(lambda a: a.pin_memory(), tree)
+    return tree
+
+
+def _shape_key(lookback: int, lookahead: Optional[int], n_features: int) -> str:
+    """An architecture's shape in traffic accounting's groups and the
+    dispatch counts: ``L<lookback>[a<lookahead>]f<features>``."""
+    return f"L{lookback}" + (f"a{lookahead}" if lookahead is not None else "") + f"f{n_features}"
+
+
+def _compute_dtype(template: torch.nn.Module) -> str:
+    """A template's compute dtype by name (``float32`` unless it says)."""
+    return str(getattr(template, "dtype", torch.float32)).replace("torch.", "")
+
+
+def _tree_nbytes(tree) -> int:
+    return sum(a.numel() * a.element_size() for a in _tree_leaves(tree))
+
+
+class _SpillScorer:
+    """The spill tier's program for one architecture: a meta template of
+    the estimator's module, as a bucket holds, and the one scoring closure
+    (``_make_machine_score``), run unbatched on ONE machine's tree, as a
+    bucket runs a lone request. So a spilled answer equals the same
+    machine's lone eager answer to the bit on the same device. The lock
+    covers the enqueue only, since ``functional_call`` swaps the shared
+    template's parameters; the wait for the outputs runs outside it, so
+    spill requests of one architecture overlap on the card."""
+
+    def __init__(self, est, precision: str, device: torch.device):
+        self.lookback = est.lookback_window
+        self.lookahead = est.lookahead
+        self.n_features = int(est.n_features_)
+        self.precision = precision
+        self.device = device
+        self._offset = 0 if self.lookahead is None else self.lookback - 1 + self.lookahead
+        self.template = _meta_template(est.module_)
+        self._score = _make_machine_score(self.lookback, self.lookahead, self.template, precision)
+        self._lock = threading.Lock()
+        # the bucket's key for the same shape, and the dispatches enqueued,
+        # so a caller can tie kernel launches to the spill path
+        self.shape_key = _shape_key(self.lookback, self.lookahead, self.n_features)
+        self.dispatch_count = 0
+
+    def enqueue(self, tree: Dict[str, Any], x: np.ndarray, m_valid: int):
+        """Copy ``tree`` to the device and enqueue the score of ``x``'s
+        first ``m_valid`` + offset rows (the rows a bucket computes for a
+        lone request) under the lock, then, outside it, the outputs' copy to
+        pinned host memory and a CUDA event; returns ``(host tensors, event
+        or None)``."""
+        rows = x[: m_valid + self._offset]
+        with self._lock, torch.inference_mode():
+            machine = _tree_map(lambda a: a.to(self.device, non_blocking=True), tree)
+            outputs = self._score(machine, _to_device(rows, self.device))
+            self.dispatch_count += 1
+        if self.device.type != "cuda":
+            return outputs, None
+        # behind the work on the same stream, outside the lock, as a
+        # bucket's enqueue does
+        host = tuple(t.to("cpu", non_blocking=True) for t in outputs)
+        done = torch.cuda.Event(blocking=True)
+        done.record(torch.cuda.current_stream(self.device))
+        return host, done
+
+
 # -- the pipeline (the reference's) -------------------------------------------
 class _Item:
     __slots__ = ("idx", "x", "m_valid", "in_flight", "done", "result", "error",
@@ -591,10 +690,7 @@ class _Bucket:
         self.n_features = int(entries[0].sx.scale.shape[0])
         # the bucket's shape in traffic accounting's groups (one value per
         # bucket, so bounded by construction)
-        self.shape_key = (
-            f"L{lookback}" + (f"a{lookahead}" if lookahead is not None else "")
-            + f"f{self.n_features}"
-        )
+        self.shape_key = _shape_key(lookback, lookahead, self.n_features)
         # stack on the host, place on the device once
         host = _tree_map(lambda *leaves: torch.stack(leaves), *[e.tree() for e in entries])
         self.stacked = _tree_map(lambda a: a.to(device), host)
@@ -1030,17 +1126,23 @@ class _Bucket:
 
 class ServingEngine:
     """Stacked buckets from loaded models, scored by machine name on one
-    device.
+    device, and the spill tier for machines registered lazily.
 
     ``models``: ``{machine_name: loaded model}`` (weights anywhere: the
     engine stacks them on the host and places one copy on ``device``). A
     machine the engine cannot lift is recorded in :attr:`skipped` with
-    its reason and answers ``KeyError``. ``target_cols``: optional
+    its reason, answers ``KeyError`` here, and has its estimators placed
+    on ``device`` for the server's host path. ``target_cols``: optional
     ``{name: [input-column index of each target tag]}`` for target-subset
     machines; ``precisions``: ``{name: rung}``; ``quantized``: ``{name:
     (q_tree, scale_tree)}``, int8 machines' stored sidecars
     (``precision.load_quantized``). ``fill_window_us`` defaults to
-    ``GORDO_FILL_WINDOW_US``.
+    ``GORDO_FILL_WINDOW_US``. ``lazy``: ``{name: loader}``, machines
+    served through the spill tier; ``loader()`` returns ``{"model",
+    "target_cols", "precision", "quantized", "context", "nbytes"}``
+    (``context`` is the caller's and rides in the bundle; ``nbytes`` is
+    the artifact's size, counted in the cache's byte ledger beside the
+    tree). ``host_cache_mb`` defaults to ``GORDO_HOST_CACHE_MB`` (256).
     """
 
     def __init__(
@@ -1054,6 +1156,8 @@ class ServingEngine:
         precisions: Optional[Dict[str, str]] = None,
         quantized: Optional[Dict[str, Tuple[Any, Any]]] = None,
         device: DeviceLike = None,
+        lazy: Optional[Dict[str, Callable[[], Dict[str, Any]]]] = None,
+        host_cache_mb: Optional[int] = None,
     ):
         self.device = resolve_device(device)
         if fill_window_us is None:
@@ -1069,6 +1173,22 @@ class ServingEngine:
         target_cols = target_cols or {}
         precisions = precisions or {}
         quantized = quantized or {}
+        # the spill tier: lazy machines hold no stacked slot and no device
+        # bytes until a request loads their bundle through the host cache
+        if host_cache_mb is None:
+            host_cache_mb = _env_int("GORDO_HOST_CACHE_MB", 256)
+        self.host_cache_mb = host_cache_mb
+        self._lazy: Dict[str, Callable[[], Dict[str, Any]]] = dict(lazy or {})
+        self.host_cache = HostTierCache(host_cache_mb << 20)
+        # one scorer per architecture signature (O(architectures), never
+        # O(machines)); two racing first builds keep the first
+        self._spill_scorers: Dict[str, _SpillScorer] = {}
+        # lazy machines whose bundle could not be lifted: name -> reason
+        self._host_only: Dict[str, str] = {}
+        # the cost ledger's spill seconds and requests by rung (a bucket
+        # keeps its own); GIL-atomic updates, a lost race drops one sample
+        self._spill_dispatch_seconds: Dict[str, float] = {}
+        self._spill_request_counts: Dict[str, int] = {}
 
         groups: Dict[str, List[Tuple[Any, _MachineEntry]]] = {}
         for name, model in models.items():
@@ -1080,6 +1200,7 @@ class ServingEngine:
             except (ValueError, AttributeError, TypeError) as exc:
                 logger.info("Serving engine skips %r: %s", name, exc)
                 self.skipped[name] = str(exc)
+                self._place_for_host_path(model)
                 continue
             groups.setdefault(sig, []).append((est, entry))
 
@@ -1104,6 +1225,14 @@ class ServingEngine:
                 len(self._by_name), len(self._buckets), self.device,
             )
 
+    def _place_for_host_path(self, model: Any) -> None:
+        """A machine the engine cannot lift is scored by the server's host
+        path (``model.anomaly`` / ``model.predict``): its estimators go to
+        the engine's device once, here, so that path runs on the card and
+        never quietly on the CPU. Its transformers stay numpy."""
+        for est in estimators(model):
+            est.to(self.device)
+
     # -- public API --------------------------------------------------------------
     def warmup(self, rows: Optional[int] = None) -> int:
         """Score one synthetic request per bucket before traffic arrives: it
@@ -1118,13 +1247,17 @@ class ServingEngine:
         return len(self._buckets)
 
     def close(self) -> None:
-        """Stop every bucket's collector thread (in-flight work drains)."""
+        """Stop every bucket's collector thread (in-flight work drains) and
+        the host cache's prefetch worker."""
         for bucket in self._buckets:
             bucket.close()
+        self.host_cache.close()
 
     def quiesce(self) -> None:
+        """Drain every bucket's fetch stage and the queued prefetches."""
         for bucket in self._buckets:
             bucket.quiesce()
+        self.host_cache.quiesce()
 
     @property
     def residency_cap(self) -> int:
@@ -1165,19 +1298,89 @@ class ServingEngine:
         return applied
 
     def can_score(self, name: str) -> bool:
-        return name in self._by_name
+        return name in self._by_name or name in self._lazy
 
     def machines(self) -> List[str]:
-        return sorted(self._by_name)
+        return sorted(set(self._by_name) | set(self._lazy))
 
-    def _prepare(self, bucket: _Bucket, X: np.ndarray) -> Tuple[np.ndarray, int]:
+    # -- the spill tier ----------------------------------------------------------
+    def has_lazy(self, name: str) -> bool:
+        return name in self._lazy
+
+    def lazy_machines(self) -> List[str]:
+        return sorted(self._lazy)
+
+    def spill_bundle(self, name: str) -> Dict[str, Any]:
+        """The machine's spill bundle (host tree, scorer and the loader's
+        context) from the host cache, or on a miss through the store path
+        (:meth:`_build_bundle`). Store errors propagate typed: the server
+        quarantines on them."""
+        loader = self._lazy.get(name)
+        if loader is None:
+            raise KeyError(f"machine {name!r} is not registered lazy")
+        return self.host_cache.get_or_load(name, lambda: self._build_bundle(name, loader))
+
+    def _build_bundle(self, name: str, loader) -> Tuple[Dict[str, Any], int]:
+        """The store path: the loader (verify, deserialise), the lift, the
+        host tree (pinned on a CUDA engine) and the architecture's scorer.
+        Returns ``(bundle, nbytes)`` for the cache's byte ledger: the tree's
+        bytes plus the loader's artifact-size hint, which stands for the
+        host copy of the model parked in the context."""
+        loaded = loader()
+        context_nbytes = int(loaded.get("nbytes") or 0)
+        try:
+            est, sig, entry = _lift_machine(
+                name, loaded["model"], loaded.get("target_cols"), loaded.get("precision"),
+                loaded.get("quantized"),
+            )
+        except (ValueError, AttributeError, TypeError) as exc:
+            # the eager boot's skip rule: the host path serves it, with its
+            # estimators on this engine's device; the bundle still caches
+            # (the deserialisation is the expensive part either way)
+            logger.info("Spill tier serves %r on the host path only: %s", name, exc)
+            self._place_for_host_path(loaded["model"])
+            self._host_only[name] = str(exc)
+            bundle = {"entry": None, "sig": None, "scorer": None, "skip": str(exc),
+                      "context": loaded.get("context")}
+            return bundle, context_nbytes
+        self._host_only.pop(name, None)
+        scorer = self._spill_scorers.get(sig) or self._spill_scorers.setdefault(
+            sig, _SpillScorer(est, json.loads(sig)["precision"], self.device))
+        tree = _entry_host_tree(entry, self.device)
+        bundle = {"entry": tree, "sig": sig, "scorer": scorer,
+                  "context": loaded.get("context")}
+        return bundle, _tree_nbytes(tree) + context_nbytes
+
+    def prefetch(self, names: List[str]) -> Dict[str, int]:
+        """A placement hint: queue background loads of the lazy machines
+        expected here. Unknown and eager names are counted, never loaded;
+        a hint for a machine cached or in flight is skipped."""
+        queued = skipped = unknown = 0
+        for name in names:
+            loader = self._lazy.get(name)
+            if loader is None:
+                unknown += 1
+                continue
+            if self.host_cache.prefetch(
+                name, lambda name=name, loader=loader: self._build_bundle(name, loader)
+            ):
+                queued += 1
+            else:
+                skipped += 1
+        return {"queued": queued, "skipped": skipped, "unknown": unknown}
+
+    # -- scoring -----------------------------------------------------------------
+    def _prepare(self, shape, X: np.ndarray) -> Tuple[np.ndarray, int]:
+        """``X`` padded to its row bucket, and its scored row count.
+        ``shape``: what the rule reads, ``lookback``, ``lookahead`` and
+        ``n_features`` (a bucket or a spill scorer)."""
         X = np.asarray(getattr(X, "values", X), np.float32)
         if X.ndim == 1:
             X = X[None, :]
-        if X.shape[1] != bucket.n_features:
-            raise ValueError(f"Model expects {bucket.n_features} features, got {X.shape[1]}")
+        if X.shape[1] != shape.n_features:
+            raise ValueError(f"Model expects {shape.n_features} features, got {X.shape[1]}")
         n = X.shape[0]
-        L, la = bucket.lookback, bucket.lookahead
+        L, la = shape.lookback, shape.lookahead
         if la is None:
             m_valid = n
         else:
@@ -1192,10 +1395,14 @@ class ServingEngine:
         return X, m_valid
 
     def anomaly(self, name: str, X) -> ScoreResult:
-        """Full anomaly scoring on the engine's device. Requests longer than
-        ``max_rows_dispatch`` rows score in overlapping chunks."""
+        """Full anomaly scoring on the engine's device, through the
+        machine's bucket or, for a lazy machine, the spill tier. Requests
+        longer than ``max_rows_dispatch`` rows score in overlapping
+        chunks."""
         resolved = self._by_name.get(name)
         if resolved is None:
+            if name in self._lazy:
+                return self._anomaly_spill(name, X)
             raise KeyError(name)
         bucket, idx = resolved
         # one note per request (not per chunk or dispatch), under the
@@ -1217,19 +1424,62 @@ class ServingEngine:
             bucket, X, lambda x_padded, m_valid: bucket.submit(idx, x_padded, m_valid)
         )
 
-    def _chunked_score(self, bucket: _Bucket, X, score_chunk) -> ScoreResult:
-        """THE chunk-and-stitch rule: for a windowed model chunk c+1 starts
-        ``offset`` rows before chunk c ends, so its first prediction row is
-        exactly one past chunk c's last — no gap, no duplicate."""
+    def _anomaly_spill(self, name: str, X) -> ScoreResult:
+        """A lazy machine through the spill tier: the bundle (a cache hit,
+        or the store path first), then per chunk one copy of its tree to
+        the device and one unbatched dispatch. The seams, the chunking rule
+        and the scoring closure are the stacked path's."""
+        with spans.stage("dispatch", machine=name):
+            deadline.check("engine.dispatch")
+            faults.inject("engine-dispatch", name)
+            X = faults.corrupt("engine-dispatch", name, X)
+        bundle = self.spill_bundle(name)
+        scorer: Optional[_SpillScorer] = bundle["scorer"]
+        if scorer is None:
+            raise SpillNotLiftable(bundle.get("skip") or name)
+        traffic_accounting.note(name, bucket="spill", precision=scorer.precision)
+        return self._chunked_score(
+            scorer, X, lambda x_padded, m_valid: self._spill_score_once(
+                name, bundle, scorer, x_padded, m_valid),
+        )
+
+    def _spill_score_once(self, name: str, bundle: Dict[str, Any], scorer: _SpillScorer,
+                          x_padded: np.ndarray, m_valid: int) -> ScoreResult:
+        started = time.perf_counter()
+        with spans.stage("dispatch", path="spill", machine=name):
+            # the copy the spill tier exists for: one machine's tree to the
+            # device, instead of a disk read and a deserialisation
+            outputs = scorer.enqueue(bundle["entry"], x_padded, m_valid)
+        with spans.stage("fetch", path="spill"):
+            x_tail, pred, scaled, total = _Bucket._host(outputs)
+        elapsed = time.perf_counter() - started
+        rung = scorer.precision
+        _M_REQUESTS.labels("spill").inc()
+        _M_PRECISION.labels(rung).inc()
+        self._spill_dispatch_seconds[rung] = self._spill_dispatch_seconds.get(rung, 0.0) + elapsed
+        self._spill_request_counts[rung] = self._spill_request_counts.get(rung, 0) + 1
+        return ScoreResult(
+            model_input=x_tail[:m_valid],
+            model_output=pred[:m_valid],
+            tag_anomaly_scores=scaled[:m_valid],
+            total_anomaly_score=total[:m_valid],
+        )
+
+    def _chunked_score(self, shape, X, score_chunk) -> ScoreResult:
+        """THE chunk-and-stitch rule of both paths (``shape``: a bucket or a
+        spill scorer, read for its lookback, lookahead and width): for a
+        windowed model chunk c+1 starts ``offset`` rows before chunk c ends,
+        so its first prediction row is exactly one past chunk c's last — no
+        gap, no duplicate."""
         X = np.asarray(getattr(X, "values", X), np.float32)
         if X.ndim == 1:
             X = X[None, :]
         cap = self.max_rows_dispatch
         if X.shape[0] <= cap:
             deadline.check("engine.dispatch")
-            x_padded, m_valid = self._prepare(bucket, X)
+            x_padded, m_valid = self._prepare(shape, X)
             return score_chunk(x_padded, m_valid)
-        L, la = bucket.lookback, bucket.lookahead
+        L, la = shape.lookback, shape.lookahead
         offset = 0 if la is None else L - 1 + la
         if cap <= offset:
             raise ValueError(
@@ -1244,7 +1494,7 @@ class ServingEngine:
             chunk = X[start : start + cap]
             if len(chunk) <= offset:  # fully covered by the previous chunk
                 break
-            x_padded, m_valid = self._prepare(bucket, chunk)
+            x_padded, m_valid = self._prepare(shape, chunk)
             parts.append(score_chunk(x_padded, m_valid))
             start += cap - offset
         return ScoreResult(*(np.concatenate(field) for field in zip(*parts)))
@@ -1253,6 +1503,12 @@ class ServingEngine:
         """Raw-unit predictions (the /prediction payload)."""
         return self.anomaly(name, X).model_output
 
+    def host_path_machines(self) -> Dict[str, str]:
+        """Machines scored on the server's host path, with the reason: the
+        eager ones the engine skipped and the lazy ones whose bundle could
+        not be lifted."""
+        return dict(sorted({**self._host_only, **self.skipped}.items()))
+
     def stats(self) -> Dict[str, Any]:
         buckets = self._buckets
         dispatches = sum(b.dispatch_count for b in buckets)
@@ -1260,11 +1516,14 @@ class ServingEngine:
         prec_machines: Dict[str, int] = {}
         prec_requests: Dict[str, int] = {}
         by_shape: Dict[str, Dict[str, int]] = {}
+        spill_by_shape: Dict[str, int] = {}
+        for scorer in list(self._spill_scorers.values()):
+            key = f"{scorer.shape_key}/{_compute_dtype(scorer.template)}"
+            spill_by_shape[key] = spill_by_shape.get(key, 0) + scorer.dispatch_count
         for b in buckets:
             prec_machines[b.precision] = prec_machines.get(b.precision, 0) + len(b.names)
             prec_requests[b.precision] = prec_requests.get(b.precision, 0) + b.request_count
-            compute = str(getattr(b.template, "dtype", torch.float32)).replace("torch.", "")
-            counts = by_shape.setdefault(f"{b.shape_key}/{compute}",
+            counts = by_shape.setdefault(f"{b.shape_key}/{_compute_dtype(b.template)}",
                                          {"dispatches": 0, "requests": 0})
             counts["dispatches"] += b.dispatch_count
             counts["requests"] += b.request_count
@@ -1278,8 +1537,8 @@ class ServingEngine:
             # compute dtype, so a caller outside the process can tie kernel
             # launches to the buckets that made them
             "bucket_dispatches": dict(sorted(by_shape.items())),
-            # machines the engine cannot score, with the reason
-            "host_path_machines": dict(sorted(self.skipped.items())),
+            # machines scored on the host path, with the reason
+            "host_path_machines": self.host_path_machines(),
             "dispatch_depth": buckets[0].dispatch_depth if buckets else 0,
             # every dispatch runs the one fused program, so the block's
             # counts are the engine's; the reference's block counts its
@@ -1303,34 +1562,53 @@ class ServingEngine:
                 "machines": dict(sorted(prec_machines.items())),
                 "requests": dict(sorted(prec_requests.items())),
             },
+            # the spill tier: lazy machines, the host cache's economy and
+            # the scorers (one per architecture, never per machine)
+            "spill": {
+                "lazy_machines": len(self._lazy),
+                "scorers": len(self._spill_scorers),
+                "requests": sum(self._spill_request_counts.values()),
+                # dispatches by shape and compute dtype, as bucket_dispatches
+                "scorer_dispatches": dict(sorted(spill_by_shape.items())),
+                "host_cache": self.host_cache.stats(),
+            },
         }
 
     def cost_ledger(self) -> Dict[str, Any]:
         """The measured-cost sample the telemetry warehouse takes each tick:
         per rung, the machines, buckets, stacked device bytes, served
-        requests and summed dispatch seconds (the reference's ``rungs``
-        block). The reference's ``host_cache`` and ``spill`` blocks come
-        with the spill tier (ROADMAP.md); until then they hold what the
-        reference reports for a fleet with no lazy machine and no host
-        cache. O(buckets), never O(machines)."""
+        requests and summed dispatch seconds of the buckets and the spill
+        tier (the reference's ``rungs`` block); the host cache's bytes,
+        counters and latencies (``host_cache``); the spill tier's lazy
+        machines, scorers and requests (``spill``); and the count of
+        machines scored on the host path, eager and lazy. O(buckets +
+        rungs), never O(machines)."""
         rungs: Dict[str, Dict[str, Any]] = {}
-        for b in self._buckets:
-            entry = rungs.setdefault(b.precision, {
+
+        def rung_entry(precision: str) -> Dict[str, Any]:
+            return rungs.setdefault(precision, {
                 "machines": 0, "buckets": 0, "device_bytes": 0, "requests": 0,
                 "dispatch_seconds_total": 0.0,
             })
+
+        for b in self._buckets:
+            entry = rung_entry(b.precision)
             entry["machines"] += len(b.names)
             entry["buckets"] += 1
             entry["device_bytes"] += b.stacked_nbytes()
             entry["requests"] += b.request_count
             entry["dispatch_seconds_total"] += b.dispatch_seconds_total
+        for rung, seconds in list(self._spill_dispatch_seconds.items()):
+            entry = rung_entry(rung)
+            entry["dispatch_seconds_total"] += seconds
+            entry["requests"] += self._spill_request_counts.get(rung, 0)
         return {
             "rungs": {rung: rungs[rung] for rung in sorted(rungs)},
-            "host_cache": {
-                "enabled": False, "cap_bytes": 0, "bytes": 0, "entries": 0, "hits": 0,
-                "misses": 0, "evictions": 0, "loads": 0, "prefetches": 0,
-                "hit_latency_s": None, "load_latency_s": None,
+            "host_cache": self.host_cache.stats(),
+            "spill": {
+                "lazy_machines": len(self._lazy),
+                "scorers": len(self._spill_scorers),
+                "requests_total": sum(self._spill_request_counts.values()),
             },
-            "spill": {"lazy_machines": 0, "scorers": 0, "requests_total": 0},
-            "host_path_machines": len(self.skipped),
+            "host_path_machines": len(self.skipped) + len(self._host_only),
         }

@@ -1,9 +1,10 @@
 """HTTP front of the port (port of ``gordo_components_tpu/server/server.py``:
 the routes at 108-160, ``_ServerState`` at 275-420, the control loops'
 wiring at 657-795, ``reload`` at 796-1040, the request wrapper at
-1253-1432, the handlers at 1470-1866 and the scoring path at 1868-2248; the
-reference's routes of parts not ported yet, ``/layout`` and ``/prefetch``,
-are listed in ROADMAP.md).
+1253-1432, the handlers at 1470-1866 and the scoring path at 1868-2248,
+with lazy fleet boot at 435-470, 570-655 and 1122-1200, ``/prefetch`` at
+1741-1754 and the host path at 2010-2024 and 2170-2200; ``/layout``, a
+part not ported yet, is listed in ROADMAP.md).
 
 Built on the standard library's ``ThreadingHTTPServer``: no web framework.
 Routes, each also under ``/gordo/v0/<project>/<machine>/`` where marked:
@@ -14,6 +15,10 @@ Routes, each also under ``/gordo/v0/<project>/<machine>/`` where marked:
   while it is quarantined);
 - ``GET  /metadata`` (and machine-scoped): the machine's build metadata;
 - ``GET  /models``; ``POST /reload``;
+- ``POST /prefetch`` (``{"machines": [...]}``): a placement hint that
+  queues background host-cache loads of lazy machines; answers
+  ``{"queued", "skipped", "unknown"}`` (405 for another method, 400 for a
+  body without a ``machines`` list);
 - ``GET  /download-model`` (and machine-scoped): the machine's artifact as
   one gzip'd tar (``serializer.dumps``), which either package ``loads``;
 - ``GET  /metrics``: JSON (``latency``, ``engine``, ``resilience``,
@@ -68,9 +73,13 @@ detector 422 on ``/anomaly/prediction``, an expired ``X-Gordo-Deadline``
 504 (the machine is marked suspect), a shed 503, and any other scoring
 exception quarantines the machine (503) while the rest of the fleet keeps
 serving. Every answer echoes ``X-Gordo-Trace-Id``. A machine the engine
-cannot lift answers 503 on the scoring endpoints: the port has no host
-path, so nothing is scored on the CPU in its place. A parquet body is
-read through pyarrow (415 where it is missing).
+cannot lift (a pipeline with a ``FeatureUnion``, or more steps than
+``[scaler, estimator]``) is scored on the host path, as the reference
+scores it: ``model.anomaly`` / ``model.predict``, the transformers in
+numpy and the estimator on the server's device, where the engine placed it
+once; a joint multi-step forecaster, which no path scores as anomalies,
+answers 503 on ``/anomaly/prediction``. A parquet body is read through
+pyarrow (415 where it is missing).
 
 Machines load to the host (a ``model-load`` fault, ``GORDO_FAULTS``,
 stands in for a broken artifact and quarantines the machine); the stacked
@@ -85,6 +94,19 @@ models directory writes a tree of its own, and a worker's responses carry
 ``X-Gordo-Worker: <id>``. ``POST /reload``
 rescans a models directory and swaps machines and engine as ONE state;
 the old state's in-flight requests drain before its engine closes.
+
+Lazy fleet boot (``lazy_boot=True``, ``GORDO_LAZY_BOOT=1``, ``run-server
+--lazy-boot``): the models root's ``FLEET_INDEX.json``
+(``store.generations.write_fleet_index``) names the fleet; its first
+``GORDO_BOOT_EAGER`` machines (sorted names, default 0) load at boot and
+the rest are lazy: no load, no device bytes, until a request's first
+touch verifies and loads the artifact through the engine's spill tier
+(``GORDO_HOST_CACHE_MB``). A load that fails there quarantines the machine
+as an eager boot's would. A machine-scoped ``/healthz`` of a lazy machine
+answers from the host cache, or as ``lazy``, and never loads it. With no
+readable index the boot scans instead. ``POST /reload`` re-reads the index:
+membership changes swap the state, and a lazy machine whose index
+``generation`` moved has its cached bundle dropped (``refreshed``).
 
 The control loops tick on reads, never on a thread: every ``/metrics``
 scrape ticks the SLO evaluator, then the autopilot, then the telemetry
@@ -149,15 +171,16 @@ from ..resilience.admission import (
 )
 from ..resilience.deadline import DeadlineExceeded
 from ..resilience.quarantine import Quarantine
-from ..serializer.persistence import dumps, load, load_metadata
+from ..serializer.persistence import dumps, estimators, load, load_metadata
 from ..store.generations import (
     current_generation,
     is_artifact_dir,
+    read_fleet_index,
     resolve_artifact_dir,
     scan_models_dir,
 )
 from ..utils.backend import DeviceLike, resolve_device
-from .engine import ServingEngine
+from .engine import ScoreResult, ServingEngine, SpillNotLiftable
 from .httpd import AppHTTPServer, Response
 
 logger = logging.getLogger(__name__)
@@ -194,6 +217,7 @@ _ROOT_ENDPOINTS = {
     "/metrics": "metrics",
     "/models": "models",
     "/reload": "reload",
+    "/prefetch": "prefetch",
     "/tenants": "tenants",
     "/prediction": "prediction",
     "/anomaly/prediction": "anomaly",
@@ -318,13 +342,18 @@ class _ServerState:
     scoring request ``enter()``s the state it read and ``exit()``s when
     done; a reload ``drain()``s the old state before closing its engine."""
 
-    __slots__ = ("machines", "single", "engine", "_inflight", "_cond")
+    __slots__ = ("machines", "single", "engine", "lazy_names", "_inflight", "_cond")
 
-    def __init__(self, machines: Dict[str, _Machine], single: bool, device):
+    def __init__(self, machines: Dict[str, _Machine], single: bool, device,
+                 lazy_loaders: Optional[Dict[str, Callable[[], Dict[str, Any]]]] = None):
         self._inflight = 0
         self._cond = threading.Condition()
         self.machines = machines
         self.single = next(iter(machines.values())) if single else None
+        # the fleet index's machines that are not materialised: the engine
+        # loads each through its spill tier at the first touch
+        lazy_loaders = lazy_loaders or {}
+        self.lazy_names = frozenset(lazy_loaders)
         self.engine = ServingEngine(
             {name: m.model for name, m in machines.items()},
             target_cols={name: m.target_columns for name, m in machines.items()},
@@ -332,9 +361,14 @@ class _ServerState:
             quantized={name: m.quantized for name, m in machines.items()
                        if m.quantized is not None},
             device=device,
+            lazy=lazy_loaders,
         )
         for name, reason in self.engine.skipped.items():
-            logger.warning("Machine %r is not served: %s", name, reason)
+            logger.warning("Machine %r is scored on the host path: %s", name, reason)
+        if lazy_loaders:
+            logger.info("Lazy fleet boot: %d machine(s) eager, %d lazy behind the host-RAM "
+                        "spill tier (GORDO_HOST_CACHE_MB=%d)", len(machines), len(lazy_loaders),
+                        self.engine.host_cache_mb)
         ladder = self.engine.stats()["precision"]["machines"]
         if set(ladder) - {"f32"}:
             logger.info("Precision ladder: %s",
@@ -377,7 +411,9 @@ class ModelServer:
     ``GORDO_MAX_INFLIGHT`` (64), the admission queue to ``GORDO_MAX_QUEUE``
     (32); ``quarantine_cooldown``: seconds before a quarantined machine may
     be probed; ``drain_timeout``: how long a reload or a shutdown waits for
-    in-flight requests. :meth:`close` drains and stops the engine.
+    in-flight requests. ``lazy_boot`` (default ``GORDO_LAZY_BOOT``, off)
+    boots a models directory from its fleet index, most machines lazy (see
+    the module docstring). :meth:`close` drains and stops the engine.
     """
 
     def __init__(
@@ -390,6 +426,7 @@ class ModelServer:
         drain_timeout: float = 10.0,
         models_root: Optional[str] = None,
         worker_id: Optional[int] = None,
+        lazy_boot: Optional[bool] = None,
     ):
         self.device = resolve_device(device)
         if worker_id is None:
@@ -417,6 +454,10 @@ class ModelServer:
         self._quarantined_dirs: Dict[str, str] = {}
         # machines named explicitly: reload keeps them, wherever they live
         self._pinned: Dict[str, str] = {}
+        # the lazy half of a lazily booted fleet: name -> model dir, and
+        # each one's index generation, reload's staleness signal
+        self._lazy_dirs: Dict[str, str] = {}
+        self._lazy_gens: Dict[str, Any] = {}
         self._reload_lock = threading.Lock()
         if isinstance(models_dir, Mapping):
             self.models_root = models_root
@@ -434,6 +475,10 @@ class ModelServer:
         elif self.models_root:
             ledger_dir = os.path.join(self.models_root, ".telemetry", f"ledger-{self._role}")
         control_ledger.configure(ledger_dir or None)
+        if lazy_boot is None:
+            lazy_boot = os.environ.get("GORDO_LAZY_BOOT", "0").strip().lower() in (
+                "1", "true", "on", "yes")
+        self.lazy_boot = bool(lazy_boot) and bool(self.models_root)
         # a server of one artifact answers the bare paths
         self._single = not isinstance(models_dir, Mapping) and self.models_root is None
         if self._single:
@@ -441,21 +486,25 @@ class ModelServer:
             machines = {name: _Machine(name, models_dir)}
         else:
             machines = {}
-            for name, path in self._scan().items():
+            eager_dirs, lazy_dirs, lazy_gens = self._partition()
+            self._lazy_dirs = lazy_dirs
+            self._lazy_gens = {name: lazy_gens.get(name) for name in lazy_dirs}
+            for name, path in eager_dirs.items():
                 try:
                     machines[name] = _Machine(name, path)
                 except Exception as exc:  # noqa: BLE001 - one bad artifact must not stop the fleet
                     logger.exception("Failed to load machine %r", name)
                     self.quarantine.quarantine(name, f"{type(exc).__name__}: {exc}", "load")
                     self._quarantined_dirs[name] = path
-            if not machines:
+            if not machines and not lazy_dirs:
                 raise ValueError(
                     f"no model artifact under {self.models_root or sorted(self._pinned)} "
                     f"loaded; quarantined: {sorted(self._quarantined_dirs)}"
                 )
         self._state = self._new_state(machines)
         self._start_control_loops(ledger_dir or None)
-        logger.info("ModelServer serving %d model(s): %s", len(machines), sorted(machines))
+        logger.info("ModelServer serving %d model(s): %s%s", len(machines), sorted(machines),
+                    f" and {len(self._lazy_dirs)} lazy" if self._lazy_dirs else "")
 
     def _start_control_loops(self, ledger_dir: Optional[str]) -> None:
         """The SLO evaluator over the request series this server records
@@ -502,10 +551,99 @@ class ModelServer:
                 found.setdefault(name, path)
         return found
 
+    def _partition(self) -> Tuple[Dict[str, str], Dict[str, str], Dict[str, Any]]:
+        """``(eager dirs, lazy dirs, index generations)``. Under lazy boot,
+        from the fleet index: the pinned machines and the index's first
+        ``GORDO_BOOT_EAGER`` names (sorted; they warm the common
+        architecture's kernels at boot) are eager, the rest lazy. Else, or
+        when the index is absent or damaged (which turns lazy boot off: a
+        bad index must never make a fleet unbootable), the scan, all
+        eager."""
+        index = read_fleet_index(self.models_root) if self.lazy_boot else None
+        if self.lazy_boot and index is None:
+            logger.warning("Lazy boot: no readable fleet index at %s; scanning instead",
+                           self.models_root)
+            self.lazy_boot = False
+        if not self.lazy_boot:
+            return self._scan(), {}, {}
+        try:
+            eager_n = int(os.environ.get("GORDO_BOOT_EAGER", "0"))
+        except ValueError:
+            eager_n = 0
+        eager, lazy, gens = dict(self._pinned), {}, {}
+        for i, name in enumerate(sorted(index)):
+            entry = index[name] if isinstance(index[name], dict) else {}
+            gens[name] = entry.get("generation")
+            path = os.path.join(self.models_root, entry.get("path") or name)
+            if i < eager_n:
+                eager.setdefault(name, path)
+            elif name not in eager:
+                lazy[name] = path
+        return eager, lazy, gens
+
+    def _lazy_loaders(self) -> Dict[str, Callable[[], Dict[str, Any]]]:
+        """A loader per lazy machine, fresh for each state: a reload's new
+        engine starts with a cold host cache, so no bundle of a dropped
+        generation is served."""
+        return {name: self._lazy_loader(name, path) for name, path in self._lazy_dirs.items()}
+
+    @staticmethod
+    def _lazy_loader(name: str, path: str) -> Callable[[], Dict[str, Any]]:
+        def load_lazy() -> Dict[str, Any]:
+            # the store path the spill tier fronts: _Machine verifies the
+            # manifest before deserialising (the first touch's check), and
+            # parks in the bundle so the metadata routes need no second load
+            machine = _Machine(name, path)
+            nbytes = 0
+            try:
+                with os.scandir(resolve_artifact_dir(path)) as entries:
+                    nbytes = sum(e.stat().st_size for e in entries if e.is_file())
+            except OSError:
+                pass
+            return {
+                "model": machine.model,
+                "target_cols": machine.target_columns,
+                "precision": machine.precision,
+                "quantized": machine.quantized,
+                "context": machine,
+                # the host copy of the model parked in the bundle, for the
+                # cache's byte ledger
+                "nbytes": nbytes,
+            }
+
+        return load_lazy
+
+    def _materialize_lazy(self, name: str, state: _ServerState) -> _Machine:
+        """A lazy machine's ``_Machine``: off the host cache without counting
+        a lookup (the engine counts the request's own), else through the
+        spill tier's store path. A load that fails quarantines the machine
+        as an eager boot's failure would, with the same probe recovery."""
+        bundle = state.engine.host_cache.peek(name)
+        if bundle is not None:
+            return bundle["context"]
+        probing = False
+        if self.quarantine.is_quarantined(name):
+            if not self.quarantine.probe_allowed(name):
+                self._abort_quarantined(name)
+            probing = True
+            logger.info("Quarantine recovery probe (lazy load) for machine %r", name)
+        try:
+            bundle = state.engine.spill_bundle(name)
+        except Exception as exc:  # noqa: BLE001 - one broken artifact must not stop the fleet
+            logger.exception("Lazy load of machine %r failed", name)
+            self.quarantine.quarantine(name, f"{type(exc).__name__}: {exc}", "load")
+            self._abort_quarantined(name)
+        if probing:
+            self.quarantine.recover(name)
+            logger.info("Machine %r recovered from quarantine", name)
+        return bundle["context"]
+
     def _new_state(self, machines: Dict[str, _Machine]) -> _ServerState:
-        """A state for ``machines`` with its engine warmed up (kernel
-        libraries built, cuBLAS handles made) before it takes traffic."""
-        state = _ServerState(machines, single=self._single, device=self.device)
+        """A state for ``machines`` (and the lazy ones) with its engine
+        warmed up (kernel libraries built, cuBLAS handles made) before it
+        takes traffic."""
+        state = _ServerState(machines, single=self._single, device=self.device,
+                             lazy_loaders=self._lazy_loaders())
         state.engine.warmup()
         # the autopilot's applied values carry over: a new engine reads the
         # environment's, which would revert every adaptation at a reload
@@ -602,14 +740,22 @@ class ModelServer:
         state: new machines load, vanished ones drop, machines whose
         artifacts changed on disk re-load. A directory that fails to load
         is skipped and reported, never fatal: the machine keeps its
-        previous artifact if it had one, else is quarantined."""
+        previous artifact if it had one, else is quarantined. Under lazy
+        boot the fleet index is re-read: a materialised machine stays
+        eager, lazy membership changes count as added or removed, and a
+        lazy machine whose index generation moved has its cached bundle
+        dropped and counts as refreshed (its next touch pays the store
+        path)."""
         if not self.models_root:
             raise ValueError(
                 "Server was not started with a models directory; reload has nothing to rescan"
             )
         with self._reload_lock:
             state = self._state
-            seen = self._scan()
+            seen, new_lazy, new_gens = self._partition()
+            for name in state.machines:
+                if name in new_lazy:  # materialised: stays eager
+                    seen[name] = new_lazy.pop(name)
             added: List[str] = []
             refreshed: List[str] = []
             errors: Dict[str, str] = {}
@@ -640,7 +786,19 @@ class ModelServer:
                 self._quarantined_dirs.pop(name, None)
                 self.quarantine.recover(name)
             removed = sorted(set(state.machines) - set(machines))
+            # the lazy half: membership changes swap the state like eager
+            # ones; a moved index generation drops the cached bundle, so the
+            # next touch verifies and loads the new generation (no I/O here)
+            added += [name for name in new_lazy if name not in state.lazy_names]
+            removed = sorted(set(removed) | {
+                name for name in state.lazy_names if name not in new_lazy and name not in machines})
+            lazy_refreshed = [name for name in new_lazy if name in state.lazy_names
+                              and self._lazy_gens.get(name) != new_gens.get(name)]
+            for name in lazy_refreshed:
+                state.engine.host_cache.drop(name)
+            self._lazy_gens = {name: new_gens.get(name) for name in new_lazy}
             if added or removed or refreshed:
+                self._lazy_dirs = new_lazy
                 self._state = self._new_state(machines)
                 # drain BEFORE closing: a request still scoring against the
                 # old engine's stacked trees must finish first
@@ -654,9 +812,9 @@ class ModelServer:
             return {
                 "added": sorted(added),
                 "removed": removed,
-                "refreshed": sorted(refreshed),
+                "refreshed": sorted(set(refreshed) | set(lazy_refreshed)),
                 "errors": errors,
-                "total": len(machines),
+                "total": len(machines) + len(new_lazy),
             }
 
     # -- dispatch --------------------------------------------------------------
@@ -788,13 +946,17 @@ class ModelServer:
                                  "/gordo/v0/<project>/<machine>/<endpoint>")
         if args.get("project") != self.project:
             raise HTTPError(404, f"Unknown project {args.get('project')!r}")
-        try:
-            return state.machines[name]
-        except KeyError:
-            if self.quarantine.is_quarantined(name):
-                # it exists but failed to load: 503 (try later), not 404
-                self._abort_quarantined(name)
-            raise HTTPError(404, f"Unknown machine {name!r}") from None
+        machine = state.machines.get(name)
+        if machine is not None:
+            return machine
+        if name in state.lazy_names:
+            # known from the fleet index, not materialised: the first touch
+            # verifies and loads it through the spill tier
+            return self._materialize_lazy(name, state)
+        if self.quarantine.is_quarantined(name):
+            # it exists but failed to load: 503 (try later), not 404
+            self._abort_quarantined(name)
+        raise HTTPError(404, f"Unknown machine {name!r}")
 
     def _abort_quarantined(self, name: str) -> None:
         raise HTTPError(
@@ -854,7 +1016,21 @@ class ModelServer:
                 return _json(recorded.to_chrome_trace())
             return _json(recorded.to_dict())
         if endpoint == "models":
-            return _json({"project": self.project, "models": sorted(state.machines)})
+            return _json({"project": self.project,
+                          "models": sorted(set(state.machines) | state.lazy_names)})
+        if endpoint == "prefetch":
+            # a placement hint: background host-cache loads of lazy machines;
+            # advisory, the answer says what was queued and nothing waits
+            if method != "POST":
+                raise HTTPError(405, "POST required")
+            try:
+                payload = json.loads(body.decode() or "{}")
+            except (UnicodeDecodeError, json.JSONDecodeError):
+                raise HTTPError(400, "Request body is not valid JSON") from None
+            names = payload.get("machines") if isinstance(payload, dict) else None
+            if not isinstance(names, list):
+                raise HTTPError(400, 'Payload must contain "machines": [...]')
+            return _json(state.engine.prefetch([str(n) for n in names]))
         if endpoint == "reload":
             if method != "POST":
                 raise HTTPError(405, "POST required")
@@ -943,6 +1119,20 @@ class ModelServer:
     def _healthz(self, args: Dict[str, str], state: _ServerState) -> Response:
         name = args.get("machine")
         if name is not None:
+            if (name in state.lazy_names and name not in state.machines
+                    and args.get("project") == self.project
+                    and not self.quarantine.is_quarantined(name)):
+                # a probe never loads a lazy machine (a watchman sweeping the
+                # fleet would thrash the tier): it answers off the host cache
+                # without touching its order or counters, or as "lazy"
+                bundle = state.engine.host_cache.peek(name)
+                if bundle is None:
+                    return _json({"ok": True, "status": "lazy", "lazy": True, "resident": False,
+                                  "generation": None, "verified": None, "precision": None})
+                served = bundle["context"]
+                return _json({"ok": True, "status": "ok", "lazy": True, "resident": True,
+                              "generation": served.generation, "verified": True,
+                              "precision": served.precision})
             if self.quarantine.is_quarantined(name):
                 return _json(
                     {"ok": False, "status": "quarantined",
@@ -956,7 +1146,7 @@ class ModelServer:
         quarantined = self.quarantine.quarantined()
         suspects = self.quarantine.suspects()
         draining = self.admission.closed is not None
-        ready = bool(state.machines) and not draining
+        ready = bool(state.machines or state.lazy_names) and not draining
         degraded = bool(quarantined or suspects)
         return _json(
             {
@@ -969,10 +1159,14 @@ class ModelServer:
                 "device": str(self.device),
                 "worker_id": self.worker_id,
                 "machines": sorted(state.machines),
-                # machines the engine cannot lift, with the reason (503)
+                # machines the engine cannot lift, with the reason: the host
+                # path scores them
                 "skipped": dict(state.engine.skipped),
                 "store": {
                     "verified": len(state.machines),
+                    # the index's machines not touched yet: verified at the
+                    # first touch
+                    "lazy": len(state.lazy_names),
                     "unverified": sorted(self._quarantined_dirs),
                     "generations": {n: m.generation for n, m in sorted(state.machines.items())},
                     "precisions": {n: m.precision for n, m in sorted(state.machines.items())},
@@ -1088,9 +1282,18 @@ class ModelServer:
                  state: _ServerState) -> Response:
         X, _ = self._parse_X(method, machine, headers, body)
         self._validate_X(X, machine)
-        self._servable(machine, state)
-        output = self._guarded(machine, lambda: state.engine.predict(machine.name, X),
-                               "Prediction failed")
+
+        def run():
+            if state.engine.can_score(machine.name):
+                try:
+                    return state.engine.predict(machine.name, X)
+                except SpillNotLiftable:
+                    pass  # a lazy machine the engine cannot lift: the host path
+            # the host path: the engine's deadline check does not cover it
+            deadline.check("server.predict")
+            return np.asarray(machine.model.predict(X))
+
+        output = self._guarded(machine, run, "Prediction failed")
         return self._scored_response(headers, {"model-input": X, "model-output": output})
 
     def _anomaly(self, method: str, machine: _Machine, params: Dict[str, str],
@@ -1105,8 +1308,7 @@ class ModelServer:
         else:
             X, timestamps = self._parse_X(method, machine, headers, body)
             self._validate_X(X, machine)
-        self._servable(machine, state)
-        scored = self._guarded(machine, lambda: state.engine.anomaly(machine.name, X),
+        scored = self._guarded(machine, lambda: self._score(machine, X, state),
                                "Anomaly scoring failed")
         if timestamps is not None:
             # the model scores the last rows: a window of L rows scores its
@@ -1147,12 +1349,33 @@ class ModelServer:
         return X, wire.iso_timestamps(dataset.index, None if naive else "UTC")
 
     @staticmethod
-    def _servable(machine: _Machine, state: _ServerState) -> None:
-        """A machine the engine could not lift answers 503 with the reason:
-        there is no host path to score it on instead."""
-        if not state.engine.can_score(machine.name):
+    def _score(machine: _Machine, X: np.ndarray, state: _ServerState) -> ScoreResult:
+        """The anomaly arrays through the engine when it scores the machine,
+        else on the host path: ``model.anomaly``, its transformers in numpy
+        and its estimator on the server's device. Either way inside the
+        request's ``score`` stage; the host path's span is flat."""
+        if state.engine.can_score(machine.name):
+            try:
+                return state.engine.anomaly(machine.name, X)
+            except SpillNotLiftable:
+                pass  # a lazy machine the engine cannot lift: the host path
+        # the engine's deadline check does not cover the host path
+        deadline.check("server.anomaly_host")
+        if any(getattr(est, "joint_horizon", False) for est in estimators(machine.model)):
+            # a joint forecast predicts horizon x F values per window: no
+            # path compares them one row per timestamp
             raise HTTPError(503, f"Machine {machine.name!r} cannot be scored: "
-                                 f"{state.engine.skipped.get(machine.name)}")
+                                 f"{state.engine.host_path_machines().get(machine.name)}")
+        cols = machine.target_columns
+        X = np.asarray(X, np.float32)
+        frame = machine.model.anomaly(X) if cols is None else machine.model.anomaly(
+            X, y=X[:, cols])
+        return ScoreResult(
+            model_input=frame["model-input"],
+            model_output=frame["model-output"],
+            tag_anomaly_scores=frame["tag-anomaly-scores"],
+            total_anomaly_score=np.ravel(frame["total-anomaly-score"]),
+        )
 
     @staticmethod
     def _scored_response(headers: Dict[str, str], arrays: Dict[str, Any],
@@ -1187,6 +1410,8 @@ class ModelServer:
             raise HTTPError(400, f"{error_prefix}: {exc}") from None
         except DeadlineExceeded:
             self.quarantine.mark_suspect(machine.name, "deadline expired at dispatch")
+            raise
+        except HTTPError:
             raise
         except Exception as exc:  # noqa: BLE001 - isolate THIS machine
             logger.exception("Scoring failed for machine %r; quarantining", machine.name)
