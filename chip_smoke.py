@@ -303,6 +303,36 @@ Phases; any failure exits non-zero before the result line:
    host-to-device copy against a plain pinned ``copy_`` of 256 MiB, the
    prefetch loads' walls, the host path's walls against the eager fp32
    PatchTST request's.
+16. fleet control (``phase_fleet_control``): one models root of 16
+   ``dense_ae_10tag`` machines, the slice machine ``FC_SLICE`` with two
+   generations of other seeds (``CURRENT`` on the newer), an eager fp32
+   slice machine and two lazy ones, fp32 and bf16 (in the fleet index, out
+   of ``GORDO_BOOT_EAGER``), under a host cache of two bundles, served by
+   ``cli run-fleet-server --workers 2`` as a process (``FLEET_RUNNER``
+   records each worker process's launches). ``/fleet`` is enabled with no
+   spec and an empty diff. ``cli fleet apply`` of a spec pinning the older
+   generation converges (``/metrics`` scraped until ``/fleet/diff`` is
+   empty): ``CURRENT`` on disk and both workers' ``/healthz`` name it, the
+   journal shows ``generation`` then ``adoption`` (worker-0, the canary,
+   first), and a W = 16 request through the router equals an in-process
+   eager server on the card over that generation's artifact byte for byte
+   (npz), and not the newer one's. Skewed traffic (``FC_HOT`` hot, the lazy
+   machines warm, ``FC_PACED`` paced throughout) feeds ``cli layout plan
+   --cap 1 --parity-budget 0``, ``explain`` and ``apply``: after convergence
+   each worker's ``/healthz`` ``layout`` and ``GET /layout`` carry the
+   plan's fingerprint and pins, the router's ring weights are the plan's,
+   each worker's host cache loads the hinted lazy machines it did not hold,
+   and each hinted machine's next W = 16 request is a host-cache hit with
+   no store read, equal to the eager server's answer byte for byte (and a
+   second one, whose wall is a warm scorer's). ``cli
+   fleet rollback`` clears the fingerprints and the weights; the paced
+   clients saw no non-200. At SIGTERM every worker process's
+   ``flash_fwd_f32`` launches are 3 per fp32 PatchTST dispatch, stacked or
+   spilled, its ``flash_fwd_bf16`` 3 per bf16 one. Printed with the card:
+   each step's convergence seconds, the longest scrape (a reload) and the
+   rollback's wall, a hit's wall.
+
+Every phase prints its wall (``phase wall``), and the script its total.
 
 The line before last is ``nvidia-smi``'s name and power limit; the one
 before that the kernels' JSON record; the last line is the result.
@@ -4981,7 +5011,7 @@ def spill_cpu_answers(models_dir: str, bodies: dict, names: list) -> dict:
     return answers
 
 
-def spill_same_bits(label: str, got: dict, want: dict) -> None:
+def spill_same_bits(label: str, got: dict, want: dict, phase: str = "spill") -> None:
     """Two npz answers hold the same arrays, byte for byte."""
     from gordo_components_tpu_torch import wire
 
@@ -4990,7 +5020,7 @@ def spill_same_bits(label: str, got: dict, want: dict) -> None:
         if a.dtype != b.dtype or a.shape != b.shape or a.tobytes() != b.tobytes():
             diff = (float(np.abs(a.astype(np.float64) - b.astype(np.float64)).max())
                     if a.shape == b.shape else None)
-            fail(f"spill {label}: {field} differs from the eager server's lone answer "
+            fail(f"{phase} {label}: {field} differs from the eager server's lone answer "
                  f"({a.dtype}{a.shape} vs {b.dtype}{b.shape}, max |diff| {diff})")
 
 
@@ -5282,6 +5312,485 @@ def phase_spill(torch, device, tmp: str, card: str) -> dict:
                 os.environ[key] = value
 
 
+FC_DENSE = [f"fc-dense-{i:02d}" for i in range(16)]
+FC_SLICE = "fc-slice-a"  # a generation root: gen-0001 and gen-0002, of other seeds
+FC_NEWER = FC_SLICE + "-newer"  # the newer generation, flat, on the eager server
+FC_EAGER = "fc-slice-eager"
+FC_LAZY = {"float32": "fc-slice-lazy-f32", "bfloat16": "fc-slice-lazy-bf16"}
+FC_EAGER_N = len(FC_DENSE) + 2  # GORDO_BOOT_EAGER: the index's first names
+FC_WORKERS = ("worker-0", "worker-1")
+FC_WINDOWS = TIER_WINDOWS  # windows of a PatchTST request: BH 8192, as phase 2 holds
+# the hot machine lives on the lazy machines' worker of the uniform ring,
+# the paced one on the other: the first such pair (sorted) for which
+# fc_design moves both lazy machines to the paced one's worker over every
+# rate combination
+FC_HOT = "fc-dense-13"
+FC_PACED = "fc-dense-00"
+FC_HOT_REQUESTS = 240
+FC_HOT_PAUSE_S = 0.04  # about 25 req/s: under the placement's hot rate of 50
+FC_PACED_PAUSE_S = 1.0  # each of TIER_CLIENTS threads: about 4 req/s in all
+FC_WARM = 2  # requests to each lazy machine before the plan
+FC_CAP = 1  # the plan's residency cap: one resident per worker, the rest hinted
+FC_CONVERGE_S = 240.0
+# the reconciler ticks on every /metrics scrape and a repaired class rests
+# half a second; the autopilot's envelope and the spec's default bounds
+# agree on the fleet's two workers; a committed plan is not re-derived
+# (the rates move while the phase runs; the CPU tests hold the re-derive)
+FC_ENV = {"GORDO_LAZY_BOOT": "1", "GORDO_BOOT_EAGER": str(FC_EAGER_N),
+          "GORDO_FLEET_INTERVAL": "0", "GORDO_FLEET_COOLDOWN": "0.5",
+          "GORDO_TELEMETRY_INTERVAL": "2", "GORDO_AUTOPILOT_WORKER_BOUNDS": "2:2",
+          "GORDO_LAYOUT_REDERIVE": "0"}
+# the rates (req/s) the plan's design assumes, each over a spread it must
+# survive: the hot machine, the paced one, the slice machine asked once,
+# each lazy machine
+FC_RATES = {"hot": (9.0, 16.0, 40.0), "paced": (2.0, 4.0, 6.0), "slice": (0.05, 0.5),
+            "lazy": (0.05, 0.2, 0.5)}
+FC_BAD_OUTCOMES = ("failed", "canary_failed", "aborted", "unwired", "hold")
+# runs ``cli run-fleet-server`` as ``python -m`` does, each worker process
+# under CLI_RUNNER (its second argument), which writes that process's launch
+# counts at exit to ``<first argument>/<worker>-<n>.json``
+FLEET_RUNNER = """
+import itertools, os, runpy, sys
+import gordo_components_tpu_torch.router as router
+records, runner = sys.argv[1], sys.argv[2]
+plain, count = router.server_worker_argv, itertools.count()
+def recorded(spec, *args, **kwargs):
+    record = os.path.join(records, f"{spec.name}-{next(count)}.json")
+    return plain(spec, *args, launcher=[sys.executable, "-c", runner, record], **kwargs)
+router.server_worker_argv = recorded
+sys.argv = ["gordo_components_tpu_torch.cli", *sys.argv[3:]]
+runpy.run_module("gordo_components_tpu_torch.cli", run_name="__main__", alter_sys=True)
+"""
+
+
+def fc_layout_doc(rates: dict) -> dict:
+    """A ``gordo-layout-input/v1`` document with these per-machine rates
+    (req/s) at the 1m horizon, shaped as the router's export."""
+    total = sum(rates.values())
+    return {
+        "schema": "gordo-layout-input/v1", "generated_t": 1.0, "window_s": 60.0,
+        "horizon": "1m",
+        "source": {"workers": list(FC_WORKERS), "interval_s": 2.0, "coverage_s": 60.0,
+                   "sketch_capacity": 512},
+        "machines": [{"machine": m, "count": r * 60.0, "error": 0.0, "rates": {"1m": r},
+                      "rate": r} for m, r in sorted(rates.items())],
+        "rungs": {"f32": {"machines": len(rates), "buckets": 2, "device_bytes": 1 << 30,
+                          "requests": total * 60.0, "count": total * 60.0,
+                          "rates": {"1m": total}, "dispatch_seconds_total": total * 0.6,
+                          "latency_s": 0.01, "compile_seconds": 0.0}},
+        "tiers": {"host_cache": {}, "spill": {}},
+        "totals": {"count": total * 60.0, "rates": {"1m": total},
+                   "machines_tracked": len(rates)},
+    }
+
+
+def fc_plan_outcome(plan: dict) -> tuple:
+    """``({lazy machine: the worker hinted to prefetch it, or None},
+    {worker: its resident machines})`` of a plan."""
+    hinted = {m: next((w for w, names in sorted(plan["prefetch"].items()) if m in names), None)
+              for m in FC_LAZY.values()}
+    resident = {w: list(e["resident"]) for w, e in plan["residency"]["workers"].items()}
+    return hinted, resident
+
+
+def fc_design(hot: str, paced: str) -> tuple:
+    """Whether the plan (cap ``FC_CAP``) makes ``hot`` and ``paced`` the two
+    residents and hints both lazy machines over every combination of
+    ``FC_RATES``, and in how many it moves both off their worker of the
+    uniform ring (their ``home``, where the warm-up loads them: the moved
+    worker's cache must then load them). Returns ``(home, combinations that
+    moved both, combinations)``, or None when a combination breaks it."""
+    from itertools import product
+
+    from gordo_components_tpu_torch.layout import compile_plan
+    from gordo_components_tpu_torch.router.placement import HashRing
+
+    ring = HashRing(FC_WORKERS, vnodes=64)
+    homes = {ring.primary(m) for m in FC_LAZY.values()}
+    if len(homes) != 1:
+        fail(f"fleet control: the lazy machines live on {sorted(homes)} of the uniform ring")
+    home = homes.pop()
+    combos = list(product(*FC_RATES.values()))
+    moved = 0
+    for h, p, sl, lz in combos:
+        rates = {hot: h, paced: p, FC_SLICE: sl, **dict.fromkeys(FC_LAZY.values(), lz)}
+        hinted, resident = fc_plan_outcome(
+            compile_plan(fc_layout_doc(rates), residency_cap=FC_CAP, parity_budget=0.0))
+        if sorted(sum(resident.values(), [])) != sorted([hot, paced]) or (
+                None in hinted.values()):
+            return None
+        moved += all(worker != home for worker in hinted.values())
+    return home, moved, len(combos)
+
+
+def fc_build(models_dir: str, eager_dir: str, staged: str, device) -> dict:
+    """The phase's models root with its fleet index, and ``eager_dir``, the
+    in-process eager server's root: ``FC_SLICE``'s two generations as flat
+    machines (``FC_SLICE`` the older, ``FC_NEWER`` the newer) and copies of
+    the lazy machines. Returns {machine: tags}."""
+    import shutil
+
+    from gordo_components_tpu_torch.store.generations import build_fleet_index, write_fleet_index
+
+    estimator, kwargs, tags = ZOO["dense-ae-10tag"]
+    for i, name in enumerate(FC_DENSE):
+        build_zoo_artifact(os.path.join(models_dir, name), estimator, kwargs, tags, device,
+                           np.random.default_rng(SEED + 16000 + i))
+    for i, flat in enumerate((FC_SLICE, FC_NEWER)):
+        build_artifact(staged, device, seed=SEED + 16100 + i)
+        spill_commit(models_dir, FC_SLICE, staged)
+        shutil.copytree(os.path.join(models_dir, FC_SLICE, f"gen-{i + 1:04d}"),
+                        os.path.join(eager_dir, flat))
+    build_artifact(os.path.join(models_dir, FC_EAGER), device, seed=SEED + 16200)
+    for i, (dtype, name) in enumerate(FC_LAZY.items()):
+        build_artifact(os.path.join(models_dir, name), device, compute_dtype=dtype,
+                       seed=SEED + 16300 + i)
+        shutil.copytree(os.path.join(models_dir, name), os.path.join(eager_dir, name))
+    write_fleet_index(models_dir, build_fleet_index(models_dir))
+    return {**{name: tags for name in FC_DENSE},
+            **{name: N_TAGS for name in (FC_SLICE, FC_EAGER, *FC_LAZY.values())}}
+
+
+def fc_get(url: str) -> dict:
+    status, _, raw, _ = http("GET", url)
+    if status != 200:
+        fail(f"fleet control: GET {url} answered HTTP {status} {raw[:300]!r}")
+    return json.loads(raw)
+
+
+def fc_cli(root: str, *args: str) -> str:
+    """One ``python -m gordo_components_tpu_torch.cli`` command; its stdout.
+    Fails on a non-zero exit."""
+    result = subprocess.run([sys.executable, "-m", "gordo_components_tpu_torch.cli", *args],
+                            cwd=root, capture_output=True, text=True, timeout=300,
+                            env={**os.environ, "PYTHONPATH": root})
+    if result.returncode != 0:
+        fail(f"fleet control: cli {' '.join(args[:2])} exited {result.returncode}: "
+             f"{result.stderr[-2000:]}")
+    return result.stdout
+
+
+def fc_converge(base: str, label: str) -> tuple:
+    """Scrape the router's /metrics (each scrape ticks the reconciler) until
+    a fresh /fleet/diff is empty; fails after ``FC_CONVERGE_S`` or on a
+    repair step that failed. Returns (seconds, the longest scrape's
+    seconds)."""
+    started = time.perf_counter()
+    longest = 0.0
+    while True:
+        t0 = time.perf_counter()
+        fc_get(base + "/metrics")
+        longest = max(longest, time.perf_counter() - t0)
+        diff = fc_get(base + "/fleet/diff")
+        bad = [r for r in fc_get(base + "/fleet/status")["repairs"]
+               if r["outcome"] in FC_BAD_OUTCOMES]
+        if bad:
+            fail(f"fleet control {label}: reconciler steps {bad[:3]}")
+        if not diff["divergences"]:
+            return time.perf_counter() - started, longest
+        if time.perf_counter() - started > FC_CONVERGE_S:
+            fail(f"fleet control {label}: no convergence within {FC_CONVERGE_S:.0f} s: "
+                 f"{diff['divergences'][:3]}")
+        time.sleep(0.1)
+
+
+def fc_dispatches(url: str) -> dict:
+    """A worker's PatchTST dispatches at the slice's shape by rung, stacked
+    and spilled, from its /metrics."""
+    stats = fc_get(url + "/metrics")["engine"]
+    return {rung: spill_flash_dispatches(stats, dtype)
+            for rung, dtype in (("f32", "float32"), ("bf16", "bfloat16"))}
+
+
+def fc_cache(url: str) -> dict:
+    return fc_get(url + "/metrics")["engine"]["spill"]["host_cache"]
+
+
+def fc_ask(base: str, name: str, body: bytes) -> tuple:
+    """A W = 16 request through the router asking for npz: (payload, the
+    answering worker's name, wall ms)."""
+    from gordo_components_tpu_torch import wire
+
+    status, headers, raw, ms = http("POST", f"{base}/gordo/v0/project/{name}/anomaly/prediction",
+                                    body, {"Accept": wire.NPZ_CONTENT_TYPE})
+    if status != 200:
+        fail(f"fleet control: {name} answered HTTP {status} {raw[:300]!r}")
+    return decode(headers, raw), f"worker-{headers.get('X-Gordo-Worker')}", ms
+
+
+def fc_expected(torch, device, eager_dir: str, encoded: dict) -> dict:
+    """The eager in-process server's lone answers on the card (npz), one per
+    machine of ``eager_dir``, for ``FC_SLICE``'s rows on both generations."""
+    from gordo_components_tpu_torch.server.server import make_server
+
+    saved = os.environ.get("GORDO_TELEMETRY")
+    os.environ["GORDO_TELEMETRY"] = "0"
+    httpd = make_server(eager_dir, port=0, device=device)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        expected = {}
+        for name in (FC_SLICE, FC_NEWER, *FC_LAZY.values()):
+            body = encoded[FC_SLICE if name == FC_NEWER else name]
+            expected[name] = fc_ask(url, name, body)[0]
+        return expected
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+        httpd.model_server.close()
+        if saved is None:
+            os.environ.pop("GORDO_TELEMETRY", None)
+        else:
+            os.environ["GORDO_TELEMETRY"] = saved
+        torch.cuda.synchronize()
+
+
+def phase_fleet_control(torch, device, tmp: str, card: str) -> dict:
+    """The declarative fleet reconciler, the layout compiler and ``/layout``
+    on the card (see the module docstring, 16). Returns the flash launches
+    of the fleet's worker processes."""
+    import signal
+
+    from gordo_components_tpu_torch.server.engine import ServingEngine
+    from gordo_components_tpu_torch.server.server import ModelServer
+
+    phase_started = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    device_arg = "cpu" if device.type == "cpu" else None
+    models_dir = os.path.join(tmp, "fleetctl")
+    eager_dir = os.path.join(tmp, "fleetctl-eager")
+    tags = fc_build(models_dir, eager_dir, os.path.join(tmp, "fleetctl-staged"), device)
+    hot, paced = FC_HOT, FC_PACED
+    design = fc_design(hot, paced)
+    if design is None or design[1] != design[2]:
+        fail(f"fleet control: the plan's design does not hold for {hot} and {paced}: {design}")
+    home, moved, combos = design
+    rng = np.random.default_rng(SEED + 16400)
+    bodies = {name: sensor_rows(rng, LOOKBACK + FC_WINDOWS - 1 if n == N_TAGS else SEAMS_ROWS, n)
+              for name, n in tags.items()}
+    encoded = {name: json.dumps({"X": X.tolist()}).encode() for name, X in bodies.items()}
+    sizer = ServingEngine({}, lazy={name: ModelServer._lazy_loader(
+        name, os.path.join(models_dir, name)) for name in FC_LAZY.values()},
+        host_cache_mb=0, device=device)
+    sizes = {name: sizer._build_bundle(name, sizer._lazy[name])[1] for name in FC_LAZY.values()}
+    sizer.close()
+    del sizer
+    cap_mb = math.ceil(2.25 * max(sizes.values()) / 2**20)  # holds both bundles
+    expected = fc_expected(torch, device, eager_dir, encoded)
+    print(f"fleet control: {len(tags)} machines built and indexed, the eager answers computed "
+          f"in {time.perf_counter() - phase_started:.1f} s; hot {hot}, paced {paced}, the lazy "
+          f"machines' home {home} (moved off it in {moved} of {combos} rate combinations); a "
+          f"host cache of {cap_mb} MiB for bundles of {sizes} bytes")
+
+    records = os.path.join(tmp, "fleetctl-records")
+    os.makedirs(records, exist_ok=True)
+    port = free_port()
+    worker_base = free_port_run(len(FC_WORKERS))
+    base = f"http://127.0.0.1:{port}"
+    workers = {name: f"http://127.0.0.1:{worker_base + i}" for i, name in enumerate(FC_WORKERS)}
+    log_path = os.path.join(tmp, "fleetctl.log")
+    log = open(log_path, "wb")
+    argv = [sys.executable, "-c", FLEET_RUNNER, records, CLI_RUNNER, "run-fleet-server",
+            "--models-dir", models_dir, "--workers", str(len(FC_WORKERS)), "--host", "127.0.0.1",
+            "--port", str(port), "--worker-base-port", str(worker_base),
+            "--probe-interval", str(TIER_PROBE_S)]
+    if device_arg is not None:
+        argv += ["--device", device_arg]
+    env = {**os.environ, "PYTHONPATH": root, **FC_ENV, "GORDO_HOST_CACHE_MB": str(cap_mb),
+           "GORDO_LEDGER_DIR": os.path.join(tmp, "fleetctl-ledger")}
+    env.pop("GORDO_FAULTS", None)
+    proc = subprocess.Popen(argv, cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT)
+    children = []
+
+    def tail():
+        log.flush()
+        with open(log_path, "rb") as fh:
+            return fh.read()[-3000:].decode(errors="replace")
+
+    try:
+        def up():
+            if proc.poll() is not None:
+                fail(f"fleet control: run-fleet-server exited {proc.returncode}: {tail()}")
+            try:
+                status, _, raw, _ = http("GET", base + "/healthz")
+            except OSError:
+                return False
+            return status == 200 and json.loads(raw).get("status") == "ok"
+
+        boot = tier_wait(up, TIER_READY_S, "run-fleet-server's workers", poll=0.2)
+        children = tier_children(proc.pid)
+        walls = {"boot_s": boot}
+
+        # 2. no spec yet
+        status_body = fc_get(base + "/fleet")
+        if not status_body.get("enabled") or status_body.get("spec") is not None or fc_get(
+                base + "/fleet/diff")["divergences"]:
+            fail(f"fleet control: /fleet before any spec answered {status_body}")
+        banked = {name: fc_dispatches(url) for name, url in workers.items()}
+
+        with TierClients(base, [paced], encoded, pause=FC_PACED_PAUSE_S) as clients:
+            # 3. a spec pinning the older generation
+            spec_file = os.path.join(tmp, "fleetctl-spec.json")
+            with open(spec_file, "w") as fh:
+                json.dump({"machines": {FC_SLICE: {"generation": "gen-0001"}}}, fh)
+            record = json.loads(fc_cli(root, "fleet", "apply", spec_file, "--base-url",
+                                       base))["record"]
+            if record["revision"] != 1:
+                fail(f"fleet control: the spec committed as {record}")
+            walls["pin_converge_s"], walls["longest_scrape_s"] = fc_converge(base, "pin")
+            with open(os.path.join(models_dir, FC_SLICE, "CURRENT")) as fh:
+                current = fh.read().strip()
+            served = {name: fc_get(url + "/healthz")["store"]["generations"].get(FC_SLICE)
+                      for name, url in workers.items()}
+            steps = [(r["class"], r["target"], r["outcome"])
+                     for r in fc_get(base + "/fleet/status")["repairs"]
+                     if r["class"] in ("generation", "adoption")]
+            want_steps = [("generation", FC_SLICE, "applied"),
+                          *(("adoption", name, "applied") for name in FC_WORKERS)]
+            if current != "gen-0001" or set(served.values()) != {"gen-0001"} or (
+                    steps != want_steps):
+                fail(f"fleet control: CURRENT {current}, served {served}, journal {steps}")
+            before = {name: fc_dispatches(url) for name, url in workers.items()}
+            payload, answered, pin_ms = fc_ask(base, FC_SLICE, encoded[FC_SLICE])
+            moved_by = {name: {k: v - before[name][k] for k, v in fc_dispatches(url).items()}
+                        for name, url in workers.items()}
+            if moved_by[answered] != {"f32": 1, "bf16": 0} or any(
+                    any(d.values()) for name, d in moved_by.items() if name != answered):
+                fail(f"fleet control: the pinned request ({answered}) moved dispatches {moved_by}")
+            spill_same_bits("pinned generation", payload, expected[FC_SLICE], "fleet control")
+            if np.array_equal(payload["data"]["model-output"],
+                              expected[FC_NEWER]["data"]["model-output"]):
+                fail("fleet control: the pinned generation answers as the newer one does")
+            print(f"fleet control [{card}]: spec revision 1 pins {FC_SLICE} to gen-0001: converged "
+                  f"in {walls['pin_converge_s']:.2f} s (journal {steps}); the longest scrape, an "
+                  f"adoption reload, {walls['longest_scrape_s']:.2f} s; {answered} answers it byte "
+                  f"for byte as the eager server does, in {pin_ms:.1f} ms")
+
+            # 4. skewed traffic, then a plan compiled, explained and applied
+            for _ in range(FC_HOT_REQUESTS):
+                status, _, raw, _ = http(
+                    "POST", f"{base}/gordo/v0/project/{hot}/anomaly/prediction", encoded[hot])
+                if status != 200:
+                    fail(f"fleet control: {hot} answered HTTP {status} {raw[:200]!r}")
+                time.sleep(FC_HOT_PAUSE_S)
+            warmed = {}
+            for name in FC_LAZY.values():
+                for _ in range(FC_WARM):
+                    payload, warmed[name], _ = fc_ask(base, name, encoded[name])
+                    spill_same_bits(f"{name} warm", payload, expected[name], "fleet control")
+            if set(warmed.values()) != {home}:
+                fail(f"fleet control: the lazy machines warmed on {warmed}, not {home}")
+            plan_file = os.path.join(tmp, "fleetctl-plan.json")
+            fc_cli(root, "layout", "plan", "--base-url", base, "--window", "1m", "--cap",
+                   str(FC_CAP), "--parity-budget", "0", "-o", plan_file)
+            with open(plan_file) as fh:
+                plan = json.load(fh)
+            hinted, resident = fc_plan_outcome(plan)
+            if plan["precision"] or None in hinted.values() or sorted(
+                    sum(resident.values(), [])) != sorted([hot, paced]):
+                fail(f"fleet control: the plan hints {hinted}, pins {resident}, downgrades "
+                     f"{plan['precision']}; rates {plan['source']['rates']}")
+            explained = fc_cli(root, "layout", "explain", plan_file)
+            held = {name: fc_get(f"{workers[w]}/gordo/v0/project/{name}/healthz")["resident"]
+                    for name, w in hinted.items()}
+            caches = {name: fc_cache(url) for name, url in workers.items()}
+            record = json.loads(fc_cli(root, "layout", "apply", plan_file, "--base-url",
+                                       base))["record"]
+            if record["revision"] != 2:
+                fail(f"fleet control: the plan committed as {record}")
+            walls["plan_converge_s"], _ = fc_converge(base, "plan")
+            fingerprint = plan["fingerprint"]
+            weights = {w: v for w, v in plan["weights"].items() if v != 1.0}
+            ring = fc_get(base + "/router/status")["placement"]["weights"]
+            if ring != weights:
+                fail(f"fleet control: the router's ring weights {ring}, the plan's {weights}")
+            loads = {}
+            for name, url in workers.items():
+                layout = fc_get(url + "/layout")
+                mine = [m for m, w in hinted.items() if w == name and not held[m]]
+                loads[name] = len(mine)
+                if (fc_get(url + "/healthz")["layout"] != fingerprint
+                        or layout["fingerprint"] != fingerprint or layout["cap"] != FC_CAP
+                        or layout["resident"] != resident[name]
+                        or (layout["applied"].get("prefetch") or {}).get("queued", 0) != len(mine)):
+                    fail(f"fleet control: {name} applied {layout}, the plan {fingerprint} pins "
+                         f"{resident[name]} and hints {mine} to load")
+                tier_wait(lambda: fc_cache(url)["prefetches"] - caches[name]["prefetches"]
+                          >= len(mine), 120, f"{name}'s prefetches of {mine}", poll=0.1)
+            hits = {}  # the first and the second request's walls, both hits
+            for dtype, name in FC_LAZY.items():
+                worker = hinted[name]
+                cache, dispatched = fc_cache(workers[worker]), fc_dispatches(workers[worker])
+                payload, answered, first_ms = fc_ask(base, name, encoded[name])
+                cache_moved = {k: fc_cache(workers[worker])[k] - cache[k]
+                               for k in ("hits", "misses", "loads")}
+                rung = "f32" if dtype == "float32" else "bf16"
+                if answered != worker or cache_moved != {"hits": 1, "misses": 0, "loads": 0} or (
+                        fc_dispatches(workers[worker])[rung] - dispatched[rung] != 1):
+                    fail(f"fleet control: {name}, hinted to {worker}, answered by {answered} "
+                         f"moved its cache by {cache_moved}")
+                spill_same_bits(f"{name} hinted", payload, expected[name], "fleet control")
+                payload, answered, second_ms = fc_ask(base, name, encoded[name])
+                if answered != worker:
+                    fail(f"fleet control: {name}'s second request answered by {answered}")
+                spill_same_bits(f"{name} hinted, again", payload, expected[name], "fleet control")
+                hits[name] = [round(first_ms, 1), round(second_ms, 1)]
+            print(f"fleet control [{card}]: spec revision 2 carries plan {fingerprint} (weights "
+                  f"{weights}, residents {resident}, hints {hinted}): converged in "
+                  f"{walls['plan_converge_s']:.2f} s; prefetch loads {loads}; each hinted lazy "
+                  f"machine's next request a host-cache hit with no store read, byte for byte "
+                  f"the eager answer, in {json.dumps(hits)} ms (the first and a second "
+                  f"request); explain:\n" + "\n".join(explained.splitlines()[:4]))
+
+            # 5. rollback
+            record = json.loads(fc_cli(root, "fleet", "rollback", "--base-url", base))["record"]
+            if (record["revision"], record["reverted_to"]) != (3, 1):
+                fail(f"fleet control: the rollback committed as {record}")
+            walls["rollback_converge_s"], _ = fc_converge(base, "rollback")
+            left = {name: (fc_get(url + "/healthz")["layout"], fc_get(url + "/layout")["fingerprint"])
+                    for name, url in workers.items()}
+            ring = fc_get(base + "/router/status")["placement"]["weights"]
+            if any(v != (None, None) for v in left.values()) or ring:
+                fail(f"fleet control: after the rollback the workers hold {left}, the ring {ring}")
+        clients.check("fleet control (paced clients)")
+
+        # the launches: 3 per PatchTST dispatch, stacked or spilled, per process
+        for name, url in workers.items():
+            final = fc_dispatches(url)
+            banked[name] = {k: banked[name][k] + final[k] for k in final}
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(timeout=120)
+        if code != 0:
+            fail(f"fleet control: run-fleet-server exited {code} on SIGTERM: {tail()}")
+        alive = [pid for pid in children if os.path.exists(f"/proc/{pid}")]
+        if alive:
+            fail(f"fleet control: workers {alive} outlived the router")
+        incarnations = []
+        for name in FC_WORKERS:
+            found = sorted(f for f in os.listdir(records) if f.startswith(f"{name}-"))
+            if len(found) != 1:
+                fail(f"fleet control: launch records {found} for {name}")
+            incarnations.append({"name": name, "record": os.path.join(records, found[0]),
+                                 "banked": banked[name], "killed": False})
+        launches, problems = tier_launch_sums(incarnations)
+        if problems:
+            fail(f"fleet control: {problems}")
+        print(f"fleet control [{card}]: {json.dumps({'walls': walls, 'dispatches': banked, 'launches': launches, 'paced_requests': len(clients.statuses), 'phase_s': time.perf_counter() - phase_started})}")
+        return launches
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        for pid in children:
+            try:
+                os.kill(pid, 9)
+            except ProcessLookupError:
+                pass
+        log.close()
+
+
 def main() -> None:
     try:
         import torch
@@ -5294,29 +5803,46 @@ def main() -> None:
     except ImportError as exc:
         fail(f"run from the root of a checkout: {exc}")
     device = resolve_device(None)
-    card = phase_environment()
-    kernels = phase_kernels(torch, device)
+    script_started = time.perf_counter()
+    walls = {}
+
+    def timed(label, phase, *args):
+        started = time.perf_counter()
+        result = phase(*args)
+        walls[label] = round(time.perf_counter() - started, 1)
+        print(f"phase wall {label}: {walls[label]:.1f} s")
+        return result
+
+    card = timed("1 environment", phase_environment)
+    kernels = timed("2 kernels", phase_kernels, torch, device)
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
-        launches = phase_serve(torch, device, tmp)
-        launches["flash_fwd_bf16"] = phase_serve_bf16(torch, device, tmp)["flash_fwd_bf16"]
-        phase_zoo(torch, device, tmp)
-        launches["flash_fwd_f32"] += phase_fleet(torch, device, tmp)["flash_fwd_f32"]
-        launches["flash_fwd_f32"] += phase_int8(torch, device, tmp)["flash_fwd_f32"]
-        phase_surface(torch, device, tmp)
-        trained = phase_train(torch, device, tmp)["launches"]
-        trained_bf16 = phase_train_bf16(torch, device)
-        phase_build(torch, device, tmp)
-        built = phase_cli_build(torch, device, tmp)
-        fleet_built = phase_fleet_build(torch, device, tmp)
-        seams = phase_seams(torch, device, tmp, kernels, card)
-        client = phase_client(torch, device, tmp, kernels, card)
-        control = phase_control(torch, device, tmp, card)
-        tier = phase_tier(torch, device, tmp, card)
-        spill = phase_spill(torch, device, tmp, card)
+        launches = timed("3 serve", phase_serve, torch, device, tmp)
+        launches["flash_fwd_bf16"] = timed("3b serve bf16", phase_serve_bf16, torch, device,
+                                           tmp)["flash_fwd_bf16"]
+        timed("4 zoo", phase_zoo, torch, device, tmp)
+        launches["flash_fwd_f32"] += timed("5 fleet", phase_fleet, torch, device,
+                                           tmp)["flash_fwd_f32"]
+        launches["flash_fwd_f32"] += timed("6 int8", phase_int8, torch, device,
+                                           tmp)["flash_fwd_f32"]
+        timed("7 surface", phase_surface, torch, device, tmp)
+        trained = timed("8 train", phase_train, torch, device, tmp)["launches"]
+        trained_bf16 = timed("8b train bf16", phase_train_bf16, torch, device)
+        timed("9 build", phase_build, torch, device, tmp)
+        built = timed("9b cli build", phase_cli_build, torch, device, tmp)
+        fleet_built = timed("10 fleet build", phase_fleet_build, torch, device, tmp)
+        seams = timed("11 seams", phase_seams, torch, device, tmp, kernels, card)
+        client = timed("12 client", phase_client, torch, device, tmp, kernels, card)
+        control = timed("13 control", phase_control, torch, device, tmp, card)
+        tier = timed("14 tier", phase_tier, torch, device, tmp, card)
+        spill = timed("15 spill", phase_spill, torch, device, tmp, card)
+        fleet_control = timed("16 fleet control", phase_fleet_control, torch, device, tmp, card)
         for name in KERNELS:
             launches[name] += (trained[name] + trained_bf16[name] + built[name]
                                + fleet_built[name] + seams[name] + client[name]
-                               + control[name] + tier[name] + spill[name])
+                               + control[name] + tier[name] + spill[name]
+                               + fleet_control[name])
+    print(f"script wall [{card}]: {time.perf_counter() - script_started:.1f} s; phase walls "
+          f"{json.dumps(walls)}")
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -183,6 +183,32 @@ class Autopilot:
             reason=reason,
         )
 
+    def set_bounds(self, name: str, lo: int, hi: int) -> bool:
+        """Re-aim one actuator's hard bounds at runtime, the fleet
+        reconciler's ownership seam: the autopilot adapts freely INSIDE
+        the envelope, the spec owns the envelope itself. The change is
+        journaled like a decision (reason ``fleet_spec``); a no-op (same
+        bounds) journals nothing. Returns whether the bounds changed."""
+        actuator = self.actuators.get(name)
+        if actuator is None:
+            raise KeyError(f"unknown actuator {name!r}")
+        with self._lock:
+            old = actuator.bounds
+            if (old.lo, old.hi) == (lo, hi):
+                return False
+            actuator.bounds = policy.Bounds(int(lo), int(hi))
+            self._journal_locked(
+                name, "bounds", "fleet_spec",
+                value_from=None, value_to=None, now=self._clock(),
+                extra={"bounds_from": [old.lo, old.hi],
+                       "bounds_to": [int(lo), int(hi)]},
+            )
+        logger.info(
+            "Autopilot (%s): %s bounds re-aimed [%d, %d] -> [%d, %d]",
+            self.role, name, old.lo, old.hi, lo, hi,
+        )
+        return True
+
     # -- evaluation ----------------------------------------------------------
     def maybe_tick(self, now: Optional[float] = None) -> bool:
         """Scrape-path entry (like ``SLOEvaluator.maybe_tick``): tick

@@ -1,9 +1,9 @@
 """``python -m gordo_components_tpu_torch.cli``: the ``build``,
 ``fleet-build``, ``rollback``, ``run-server``, ``run-fleet-server``,
 ``run-watchman``, ``trace``, ``slo``, ``tenants``, ``autopilot``,
-``telemetry``, ``incidents`` and ``client predict`` commands of the
-reference's CLI (``gordo_components_tpu/cli/cli.py:164-430, 519-831,
-894-1071, 1159-1357, 1493-1530``), on ``argparse``.
+``fleet``, ``telemetry``, ``incidents``, ``layout`` and ``client predict``
+commands of the reference's CLI (``gordo_components_tpu/cli/cli.py:164-430,
+519-831, 894-1530``), on ``argparse``.
 
 The arguments, environment variables (``MODEL_CONFIG``, ``DATA_CONFIG``,
 ``OUTPUT_DIR``, ``MODEL_REGISTER_DIR``, ``METADATA``, ``GORDO_TRACE_DIR``,
@@ -24,11 +24,15 @@ servers (``--device`` passed on) behind a router that never touches the
 card; SIGTERM drains the router, then each worker, and leaves no worker
 behind. ``run-watchman`` probes each machine's ``/healthz`` at a target
 URL (``GORDO_FAULTS='probe:<machine>:error'`` fails one probe on
-purpose), or follows a fleet build's manifest with ``--watch``. ``trace``, ``slo``, ``tenants``, ``autopilot``, ``telemetry``
-and ``incidents`` read (or, ``autopilot enable|disable``, POST to) a running
-server over HTTP (``urllib``), print its JSON and exit 1 when it cannot be
+purpose), or follows a fleet build's manifest with ``--watch``. ``trace``,
+``slo``, ``tenants``, ``autopilot``, ``fleet``, ``telemetry``, ``incidents``
+and ``layout`` read (or, ``autopilot enable|disable``, ``fleet
+apply|rollback`` and ``layout apply``, POST to) a running server or router
+over HTTP (``urllib``), print its JSON and exit 1 when it cannot be
 reached or answers an error (``telemetry export`` also when the document
-fails ``validate_layout_input``); ``client predict`` scores a range through
+fails ``validate_layout_input``, ``layout explain|apply`` when the plan
+fails ``validate_layout_plan``; ``layout plan`` compiles locally, ``layout
+explain PLAN_FILE`` works offline); ``client predict`` scores a range through
 :class:`~gordo_components_tpu_torch.client.Client`, prints ``{machine:
 rows}`` as JSON and exits 1 on a :class:`~gordo_components_tpu_torch.
 client.ClientError`.
@@ -58,6 +62,12 @@ client.ClientError`.
     python -m gordo_components_tpu_torch.cli slo --base-url URL
     python -m gordo_components_tpu_torch.cli tenants --base-url URL
     python -m gordo_components_tpu_torch.cli autopilot status|enable|disable --base-url URL
+    python -m gordo_components_tpu_torch.cli fleet apply SPEC_FILE --base-url URL
+    python -m gordo_components_tpu_torch.cli fleet diff|status|rollback --base-url URL
+    python -m gordo_components_tpu_torch.cli layout plan (--base-url URL | --input DOC)
+        [--window 10m] [--cap N] [--parity-budget B] [-o FILE]
+    python -m gordo_components_tpu_torch.cli layout explain (PLAN_FILE | --base-url URL)
+    python -m gordo_components_tpu_torch.cli layout apply PLAN_FILE --base-url URL
     python -m gordo_components_tpu_torch.cli telemetry traffic|costs --base-url URL
         [--window SECONDS]
     python -m gordo_components_tpu_torch.cli telemetry export --base-url URL
@@ -450,13 +460,18 @@ def tenants(args: argparse.Namespace) -> int:
     return 0
 
 
-def _request_json(url: str, method: str = "GET") -> Optional[Any]:
-    """The JSON body of ``method url``, or None (logged) when the server
-    cannot be reached, answers no JSON or answers an error status."""
+def _request_json(url: str, method: str = "GET", payload: Any = None) -> Optional[Any]:
+    """The JSON body of ``method url`` (POSTing ``payload`` as JSON when
+    given), or None (logged) when the server cannot be reached, answers no
+    JSON or answers an error status."""
     import urllib.error
     import urllib.request
 
-    request = urllib.request.Request(url, method=method, data=b"" if method == "POST" else None)
+    data = None
+    if method == "POST":
+        data = b"" if payload is None else json.dumps(payload).encode()
+    request = urllib.request.Request(url, method=method, data=data,
+                                     headers={"Content-Type": "application/json"})
     try:
         with urllib.request.urlopen(request, timeout=30) as response:
             status, raw = response.status, response.read()
@@ -573,6 +588,127 @@ def incidents(args: argparse.Namespace) -> int:
     if args.window is not None:
         query["window"] = args.window
     return _print_from(f"{base}/incidents?{urllib.parse.urlencode(query)}")
+
+
+def _read_json_file(path: str) -> Optional[Any]:
+    try:
+        with open(path) as fh:
+            return json.load(fh)
+    except OSError as exc:
+        logger.error("Cannot read %s: %s", path, exc)
+    except ValueError as exc:
+        logger.error("%s is not JSON: %s", path, exc)
+    return None
+
+
+def fleet(args: argparse.Namespace) -> int:
+    """The declarative fleet reconciler of a running router: ``apply``
+    commits a JSON spec file as a new revision (``POST /fleet/apply``;
+    parsing is loud: an unknown machine, precision rung or key is a 422,
+    so exit 1); ``diff`` shows the spec-vs-observed divergences without
+    repairing (``/fleet/diff``); ``status`` dumps ``/fleet`` (revision,
+    divergence counts, the repair ring, frozen and cooling classes);
+    ``rollback`` re-applies the previous revision as a new one. Under
+    ``GORDO_FLEET=0`` at router start every verb answers 409 (exit 1)."""
+    base = args.base_url.rstrip("/")
+    if args.fleet_command == "apply":
+        payload = _read_json_file(args.spec_file)
+        if payload is None:
+            return 1
+        body = _request_json(f"{base}/fleet/apply", "POST", payload)
+    elif args.fleet_command == "rollback":
+        body = _request_json(f"{base}/fleet/rollback", "POST")
+    else:
+        body = _request_json(f"{base}/fleet/diff" if args.fleet_command == "diff"
+                             else f"{base}/fleet")
+    if body is None:
+        return 1
+    print(json.dumps(body, indent=2))
+    return 0
+
+
+def _read_plan(path: str) -> Optional[Any]:
+    from ..layout import plan as layout_plan
+
+    plan = _read_json_file(path)
+    if plan is None:
+        return None
+    problems = layout_plan.validate_layout_plan(plan)
+    for problem in problems:
+        logger.error("layout-plan validation: %s", problem)
+    return None if problems else plan
+
+
+def layout(args: argparse.Namespace) -> int:
+    """The fleet layout compiler: ``plan`` compiles a ``gordo-layout-plan/v1``
+    from a live router's ``/telemetry?view=export`` (``--base-url``) or a
+    saved layout-input document (``--input``), the same document always to
+    the same bytes; ``explain`` renders a plan's decisions and why each
+    machine moved (a plan file, or with ``--base-url`` the committed spec's
+    plan); ``apply`` commits a plan file into the fleet spec journal (the
+    current spec with ``layout`` replaced, as a new revision), where the
+    reconciler drives it onto the fleet and ``fleet rollback`` reverts it."""
+    from ..layout import compiler as layout_compiler
+    from ..layout import plan as layout_plan
+    from ..observability import telemetry as telemetry_engine
+
+    if args.layout_command == "plan":
+        if (args.base_url is None) == (args.input is None):
+            logger.error("pass exactly one of --base-url or --input")
+            return 1
+        if args.base_url is not None:
+            seconds = telemetry_engine.parse_window(args.window)
+            if seconds is None:
+                logger.error("--window %r is not a duration (try 90, 10m, 1h)", args.window)
+                return 1
+            doc = _telemetry(args.base_url, seconds, view="export")
+        else:
+            doc = _read_json_file(args.input)
+        if doc is None:
+            return 1
+        try:
+            plan = layout_compiler.compile_plan(
+                doc, residency_cap=args.cap, parity_budget=args.parity_budget)
+        except ValueError as exc:
+            logger.error("layout plan does not compile: %s", exc)
+            return 1
+        rendered = json.dumps(plan, indent=2, sort_keys=True)
+        if args.output:
+            with open(args.output, "w") as fh:
+                fh.write(rendered + "\n")
+            print(args.output)
+        else:
+            print(rendered)
+        return 0
+    if args.layout_command == "explain":
+        if (args.plan_file is None) == (args.base_url is None):
+            logger.error("pass exactly one of PLAN_FILE or --base-url")
+            return 1
+        if args.plan_file is not None:
+            plan = _read_plan(args.plan_file)
+        else:
+            body = _request_json(f"{args.base_url.rstrip('/')}/fleet/diff")
+            plan = None if body is None else (body.get("spec") or {}).get("layout")
+            if body is not None and plan is None:
+                logger.error("the committed fleet spec carries no layout plan")
+        if plan is None:
+            return 1
+        print(layout_plan.explain_plan(plan))
+        return 0
+    plan = _read_plan(args.plan_file)
+    if plan is None:
+        return 1
+    base = args.base_url.rstrip("/")
+    body = _request_json(f"{base}/fleet/diff")
+    if body is None:
+        return 1
+    spec = dict(body.get("spec") or {})
+    spec["layout"] = plan
+    reply = _request_json(f"{base}/fleet/apply", "POST", spec)
+    if reply is None:
+        return 1
+    print(json.dumps(reply, indent=2))
+    return 0
 
 
 def client_predict(args: argparse.Namespace) -> int:
@@ -831,6 +967,46 @@ def parser() -> argparse.ArgumentParser:
                                                     "seconds or 1m/10m/1h forms")
     ile.add_argument("--limit", type=int, default=200, help="newest events kept (default 200)")
     ile.set_defaults(run=incidents)
+
+    fl = commands.add_parser("fleet", help="the declarative fleet reconciler of a running "
+                                           "router")
+    fleet_commands = fl.add_subparsers(dest="fleet_command", required=True)
+    fa = fleet_commands.add_parser("apply", help="commit a JSON fleet spec as a new revision")
+    fa.add_argument("spec_file")
+    for action, text in (("diff", "spec-vs-observed divergences, read-only"),
+                         ("status", "the reconciler's status and repair journal"),
+                         ("rollback", "re-apply the previous spec revision as a new one")):
+        fleet_commands.add_parser(action, help=text)
+    for fp in fleet_commands.choices.values():
+        fp.add_argument("--base-url", required=True, help="the router's base URL")
+        fp.set_defaults(run=fleet)
+
+    la = commands.add_parser("layout", help="the fleet layout compiler")
+    layout_commands = la.add_subparsers(dest="layout_command", required=True)
+    lp = layout_commands.add_parser("plan", help="compile a gordo-layout-plan/v1 from measured "
+                                                 "costs")
+    lp.add_argument("--base-url", default=None,
+                    help="router base URL to pull /telemetry?view=export from")
+    lp.add_argument("--input", default=None,
+                    help="a saved layout-input document instead of a live fleet")
+    lp.add_argument("--window", default="10m",
+                    help="rate horizon: seconds or 1m/10m/1h forms (default 10m)")
+    lp.add_argument("--cap", type=int, default=None, help="per-worker residency cap override")
+    lp.add_argument("--parity-budget", type=float, default=None,
+                    help="traffic-weighted parity budget for precision downgrades (0 disables "
+                         "them)")
+    lp.add_argument("--output", "-o", default=None, help="write the plan here instead of stdout")
+    lp.set_defaults(run=layout)
+    le = layout_commands.add_parser("explain", help="render a plan's decisions and why each "
+                                                    "machine moved")
+    le.add_argument("plan_file", nargs="?", default=None)
+    le.add_argument("--base-url", default=None,
+                    help="read the committed spec's plan from a live router")
+    le.set_defaults(run=layout)
+    lap = layout_commands.add_parser("apply", help="commit a plan into the fleet spec journal")
+    lap.add_argument("plan_file")
+    lap.add_argument("--base-url", required=True, help="the router's base URL")
+    lap.set_defaults(run=layout)
 
     c = commands.add_parser("client", help="bulk prediction against running servers")
     client_commands = c.add_subparsers(dest="client_command", required=True)

@@ -15,9 +15,11 @@ variable (read once, lazily). The grammar is the reference's::
   pre-dispatch seam), ``probe`` (the watchman's per-machine health check
   and the fleet control plane's per-worker probe, target the machine or
   worker name), ``data-fetch`` (the fleet build's per-machine fetch
-  and the server's ``?start&end`` fetch) and ``store-commit`` (the atomic
-  commit); ``spec-commit`` and ``reconcile-apply`` belong to the fleet
-  reconciler, not ported yet, and never fire;
+  and the server's ``?start&end`` fetch), ``store-commit`` (the atomic
+  commit), ``spec-commit`` (the fleet spec journal's append, target the
+  revision number: ``error`` before it, ``torn-write`` after it) and
+  ``reconcile-apply`` (between a reconciler step's WAL ``applying`` record
+  and its repair, target ``<class>/<target>``);
 - ``target``: a machine or endpoint name, or ``*`` for any;
 - ``kind``: ``error`` (raise :class:`FaultInjected`; param = message),
   ``latency`` (sleep; param = seconds, default 0.05), ``corrupt``

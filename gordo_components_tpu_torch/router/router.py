@@ -29,11 +29,16 @@ Where the port differs, by design: the front is the standard library's
 front) and the routes are matched by hand; forwards take kept-alive
 ``http.client`` connections from a pool per worker
 (:class:`~..utils.http.Session`) in place of a pooled
-``requests.Session``. The router builds no fleet reconciler (ROADMAP
-Queue 1 item 8): ``self.fleet`` is None, so ``/fleet`` answers the
-reference's disabled snapshot and ``/fleet/<action>`` 409, as the
-reference does under ``GORDO_FLEET=0``. Nothing here imports ``torch``:
-the router's process never touches the card.
+``requests.Session``. Nothing here imports ``torch``: the router's
+process never touches the card.
+
+With a ``models_root`` the router builds the declarative fleet
+reconciler (``fleet.wiring.build_router_reconciler``): ``/metrics`` and
+``/fleet`` reads tick it, ``/fleet/status`` and ``/fleet/diff`` read it,
+``POST /fleet/apply`` commits a spec and ``POST /fleet/rollback``
+re-applies the previous revision. Without a ``models_root``, or under
+``GORDO_FLEET=0``, ``self.fleet`` is None: ``/fleet`` answers the
+disabled snapshot and ``/fleet/<action>`` 409.
 """
 
 from __future__ import annotations
@@ -49,6 +54,9 @@ import urllib.parse
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 from ..autopilot import build_router_autopilot, disabled_snapshot
+from ..fleet import reconciler as fleet_reconciler
+from ..fleet.spec import FleetSpec, SpecError
+from ..fleet.wiring import build_router_reconciler
 from ..observability import aggregate, exposition, flightrec, spans, stitch, tracing
 from ..observability import incidents as incidents_engine
 from ..observability import ledger as ledger_engine
@@ -57,6 +65,7 @@ from ..observability import telemetry as telemetry_engine
 from ..observability.registry import REGISTRY
 from ..resilience import qos
 from ..server.httpd import AppHTTPServer, Response
+from ..store.generations import build_fleet_index
 from ..utils import http
 from ..watchman.control import DRAINING_HEADER, ControlPlane
 from .placement import Placement
@@ -137,17 +146,6 @@ _PATTERNS = (
     (re.compile(r"^/debug/requests/(?P<trace_id>[^/]+)$"), "debug-request"),
     (re.compile(r"^/gordo/v0/(?P<project>[^/]+)/(?P<machine>[^/]+)/(?P<rest>.+)$"), "machine"),
 )
-
-
-def fleet_disabled_snapshot() -> Dict[str, Any]:
-    """What ``/fleet`` answers without a reconciler (a copy of the
-    reference's ``fleet.reconciler.disabled_snapshot``)."""
-    return {
-        "enabled": False,
-        "hard_off": True,
-        "reason": "GORDO_FLEET=0 (hard kill switch; restart without it "
-                  "to construct the reconciler)",
-    }
 
 
 def _aggregate_enabled() -> bool:
@@ -266,8 +264,12 @@ class FleetRouter:
         # None under GORDO_AUTOPILOT=0; constructed-but-frozen when the
         # knob is unset.
         self.autopilot = build_router_autopilot(self)
-        # the declarative fleet reconciler is not ported yet
-        self.fleet = None
+        # the declarative fleet reconciler: journaled desired-state specs
+        # diffed against the observed fleet each scrape, repaired through
+        # the seams above (supervisor, rollout, autopilot, generation
+        # store, placement, the workers' /layout). None under GORDO_FLEET=0
+        # or without a models_root; inert until a spec is committed.
+        self.fleet = build_router_reconciler(self)
         # the router's own control ledger (its autopilot, rollout and
         # breaker events land here) plus its breach-edge incident
         # correlator. Warehouse deltas come through the aggregate fan-out
@@ -289,12 +291,18 @@ class FleetRouter:
                 _AggregateWarehouse(self)
                 if telemetry_engine.enabled() else None
             ),
-            spec_revision=lambda: None,
+            spec_revision=self._current_spec_revision,
             role="router",
         )
         if self.slo is not None:
             self.slo.breach_hook = self.incidents.on_breach
         tracing.install_log_record_factory()
+
+    def _current_spec_revision(self) -> Optional[int]:
+        if self.fleet is None:
+            return None
+        loaded = self.fleet.spec_store.current_spec()
+        return loaded[0] if loaded else None
 
     # -- the front ------------------------------------------------------------
     def handle(self, method: str, raw_path: str, headers: Mapping[str, str],
@@ -367,6 +375,8 @@ class FleetRouter:
                 self.slo.maybe_tick()
             if self.autopilot is not None:
                 self.autopilot.maybe_tick()
+            if self.fleet is not None:
+                self.fleet.maybe_tick()
             exemplars = request.args.get("exemplars") in ("1", "true")
             if request.args.get("format") == "prometheus":
                 if request.args.get("aggregate") in (
@@ -476,16 +486,14 @@ class FleetRouter:
                 )
             return _json(self.autopilot.snapshot())
         if endpoint == "fleet":
-            return _json(fleet_disabled_snapshot())
+            if self.fleet is None:
+                return _json(fleet_reconciler.disabled_snapshot())
+            if self.slo is not None:
+                self.slo.maybe_tick()
+            self.fleet.maybe_tick()
+            return _json(self.fleet.snapshot())
         if endpoint == "fleet-action":
-            return _json(
-                {
-                    **fleet_disabled_snapshot(),
-                    "error": "fleet reconciler not constructed "
-                             "(GORDO_FLEET=0 or no models_root)",
-                },
-                status=409,
-            )
+            return self._fleet_action(request, args.get("action"))
         if endpoint == "debug-requests":
             limit = request.int_arg("limit")
             return _json(
@@ -538,6 +546,49 @@ class FleetRouter:
                 status=404,
             )
         return self._route(request, args["machine"], request.full_path)
+
+    # -- the fleet spec's control surface --------------------------------------
+    def _fleet_action(self, request: _Request, action: Optional[str]) -> Response:
+        if self.fleet is None:
+            return _json(
+                {
+                    **fleet_reconciler.disabled_snapshot(),
+                    "error": "fleet reconciler not constructed "
+                             "(GORDO_FLEET=0 or no models_root)",
+                },
+                status=409,
+            )
+        if action == "status":
+            return _json(self.fleet.snapshot())
+        if action == "diff":
+            return _json(self.fleet.diff_now())
+        if action in ("apply", "rollback") and request.method != "POST":
+            return _json({"error": "POST required"}, status=405)
+        if action == "apply":
+            try:
+                payload = json.loads(request.body.decode() or "{}")
+            except (UnicodeDecodeError, ValueError) as exc:
+                return _json({"error": f"spec body is not JSON: {exc}"}, status=400)
+            known = sorted(build_fleet_index(self.models_root)) if self.models_root else None
+            try:
+                spec = FleetSpec.parse(payload, known_machines=known)
+            except SpecError as exc:
+                return _json({"error": str(exc)}, status=422)
+            record = self.fleet.spec_store.commit(spec, op="apply")
+            return _json({"committed": True, "record": record})
+        if action == "rollback":
+            try:
+                record = self.fleet.spec_store.rollback(
+                    reason="operator via /fleet/rollback"
+                )
+            except SpecError as exc:
+                return _json({"error": str(exc)}, status=422)
+            return _json({"committed": True, "record": record})
+        return _json(
+            {"error": f"unknown fleet action {action!r} "
+                      "(status | diff | apply | rollback)"},
+            status=404,
+        )
 
     # -- routing core --------------------------------------------------------
     def _route(self, request: _Request, machine: str, path: str) -> Response:

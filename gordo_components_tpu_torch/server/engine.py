@@ -113,7 +113,7 @@ import threading
 import time
 import weakref
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -1183,6 +1183,8 @@ class ServingEngine:
         # one scorer per architecture signature (O(architectures), never
         # O(machines)); two racing first builds keep the first
         self._spill_scorers: Dict[str, _SpillScorer] = {}
+        # the layout plan's resident set (pin_residency)
+        self.residency_pins: Tuple[str, ...] = ()
         # lazy machines whose bundle could not be lifted: name -> reason
         self._host_only: Dict[str, str] = {}
         # the cost ledger's spill seconds and requests by rung (a bucket
@@ -1296,6 +1298,29 @@ class ServingEngine:
         if megabatch_residency is not None:
             applied["megabatch_residency"] = None
         return applied
+
+    def pin_residency(self, names: Iterable[str]) -> Dict[str, Any]:
+        """Install a layout plan's resident set, REPLACING the previous one
+        (``pin_residency(())`` clears it), as the reference's fully resident
+        engine does: every eager machine already holds its stacked slot, so
+        the pins are recorded and all of them count as resident, none is
+        seeded. Names the engine does not serve eagerly (lazy machines,
+        typos, machines gone from the store) are reported in ``unknown``,
+        never fatal: the plan degrades."""
+        pinned = set()
+        unknown: List[str] = []
+        for name in names:
+            if name in self._by_name:
+                pinned.add(name)
+            else:
+                unknown.append(name)
+        self.residency_pins = tuple(sorted(pinned))
+        return {
+            "pinned": len(pinned),
+            "resident": len(pinned),
+            "seeded": 0,
+            "unknown": sorted(unknown),
+        }
 
     def can_score(self, name: str) -> bool:
         return name in self._by_name or name in self._lazy

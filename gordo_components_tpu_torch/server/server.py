@@ -3,8 +3,8 @@ the routes at 108-160, ``_ServerState`` at 275-420, the control loops'
 wiring at 657-795, ``reload`` at 796-1040, the request wrapper at
 1253-1432, the handlers at 1470-1866 and the scoring path at 1868-2248,
 with lazy fleet boot at 435-470, 570-655 and 1122-1200, ``/prefetch`` at
-1741-1754 and the host path at 2010-2024 and 2170-2200; ``/layout``, a
-part not ported yet, is listed in ROADMAP.md).
+1741-1754, the host path at 2010-2024 and 2170-2200, and ``/layout`` at
+678-682, 998-1006 and 1755-1816).
 
 Built on the standard library's ``ThreadingHTTPServer``: no web framework.
 Routes, each also under ``/gordo/v0/<project>/<machine>/`` where marked:
@@ -15,6 +15,14 @@ Routes, each also under ``/gordo/v0/<project>/<machine>/`` where marked:
   while it is quarantined);
 - ``GET  /metadata`` (and machine-scoped): the machine's build metadata;
 - ``GET  /models``; ``POST /reload``;
+- ``GET  /layout`` (the layout plan this worker applied: ``fingerprint``,
+  ``resident``, ``cap``, ``applied``); ``POST /layout`` (``{fingerprint,
+  resident, cap, prefetch}``: the worker's slice of a committed plan, as
+  the fleet reconciler lands it: residency pins, the residency cap through
+  :meth:`ModelServer.apply_tuning`, ``/prefetch`` hints) and ``POST
+  /layout {"clear": true}`` (back to no plan). Each is an ``apply-plan`` or
+  ``clear-plan`` control-ledger event; the fingerprint is ``/healthz``'s
+  ``layout`` and survives a reload, whose new engine is re-pinned;
 - ``POST /prefetch`` (``{"machines": [...]}``): a placement hint that
   queues background host-cache loads of lazy machines; answers
   ``{"queued", "skipped", "unknown"}`` (405 for another method, 400 for a
@@ -218,6 +226,7 @@ _ROOT_ENDPOINTS = {
     "/models": "models",
     "/reload": "reload",
     "/prefetch": "prefetch",
+    "/layout": "layout",
     "/tenants": "tenants",
     "/prediction": "prediction",
     "/anomaly/prediction": "anomaly",
@@ -449,6 +458,10 @@ class ModelServer:
         self.drain_timeout = drain_timeout
         # values the autopilot applied: a reload's new engine inherits them
         self._tuning: Dict[str, int] = {}
+        # the layout plan last applied through /layout (fingerprint,
+        # residency pins, cap, what applying did): a reload's new engine is
+        # re-pinned from it
+        self._layout: Dict[str, Any] = {}
         # machines that failed to load, name -> dir: quarantined, retried
         # at every reload
         self._quarantined_dirs: Dict[str, str] = {}
@@ -533,6 +546,7 @@ class ModelServer:
         self.incidents = incidents_engine.IncidentCorrelator(
             directory=os.path.join(ledger_dir, "incidents") if ledger_dir else None,
             warehouse=self.telemetry,
+            layout_fingerprint=lambda: self._layout.get("fingerprint"),
             role=self._role,
         )
         if self.slo is not None:
@@ -651,6 +665,10 @@ class ModelServer:
                          if key not in ("max_inflight", "shed_level")}
         if engine_tuning:
             state.engine.apply_tuning(**engine_tuning)
+        # so does the applied layout plan's resident set; machines gone from
+        # the new scan are reported by pin_residency and skipped
+        if self._layout.get("resident"):
+            state.engine.pin_residency(self._layout["resident"])
         return state
 
     # the current state's parts
@@ -1031,6 +1049,8 @@ class ModelServer:
             if not isinstance(names, list):
                 raise HTTPError(400, 'Payload must contain "machines": [...]')
             return _json(state.engine.prefetch([str(n) for n in names]))
+        if endpoint == "layout":
+            return self._layout_route(method, body, state)
         if endpoint == "reload":
             if method != "POST":
                 raise HTTPError(405, "POST required")
@@ -1116,6 +1136,56 @@ class ModelServer:
             raise HTTPError(404, f"unknown autopilot action {action!r} (enable | disable)")
         return _json(self.autopilot.snapshot())
 
+    def _layout_route(self, method: str, body: bytes, state: _ServerState) -> Response:
+        """The layout plan's application seam: the fleet reconciler (or an
+        operator) lands this worker's slice of the committed plan here;
+        the fingerprint recorded is what ``/healthz`` reports back."""
+        if method != "POST":
+            return _json({
+                "fingerprint": self._layout.get("fingerprint"),
+                "resident": list(self._layout.get("resident") or ()),
+                "cap": self._layout.get("cap"),
+                "applied": self._layout.get("applied"),
+            })
+        try:
+            payload = json.loads(body.decode() or "{}")
+        except (UnicodeDecodeError, json.JSONDecodeError):
+            raise HTTPError(400, "Request body is not valid JSON") from None
+        if not isinstance(payload, dict):
+            raise HTTPError(400, "Request body must be a JSON object")
+        if payload.get("clear"):
+            cleared = state.engine.pin_residency(())
+            previous = self._layout.get("fingerprint")
+            self._layout = {}
+            control_ledger.emit(actor="layout", action="clear-plan", target="worker",
+                                before=previous)
+            return _json({"cleared": True, "residency": cleared})
+        fingerprint = payload.get("fingerprint")
+        if not isinstance(fingerprint, str) or not fingerprint:
+            raise HTTPError(400, 'Payload must carry the plan "fingerprint"')
+        resident = payload.get("resident") or []
+        if not isinstance(resident, list):
+            raise HTTPError(400, '"resident" must be a list of machine names')
+        resident = [str(name) for name in resident]
+        applied: Dict[str, Any] = {"residency": state.engine.pin_residency(resident)}
+        cap = payload.get("cap")
+        if cap is not None:
+            applied["tuning"] = self.apply_tuning(megabatch_residency=int(cap))
+        hints = payload.get("prefetch") or []
+        if isinstance(hints, list) and hints:
+            applied["prefetch"] = state.engine.prefetch([str(name) for name in hints])
+        previous = self._layout.get("fingerprint")
+        self._layout = {
+            "fingerprint": fingerprint,
+            "resident": resident,
+            "cap": int(cap) if cap is not None else None,
+            "applied": applied,
+        }
+        control_ledger.emit(actor="layout", action="apply-plan", target="worker",
+                            before=previous, after=fingerprint,
+                            reason=f"{len(resident)} pin(s), cap {cap}")
+        return _json({"fingerprint": fingerprint, "applied": applied})
+
     def _healthz(self, args: Dict[str, str], state: _ServerState) -> Response:
         name = args.get("machine")
         if name is not None:
@@ -1162,6 +1232,9 @@ class ModelServer:
                 # machines the engine cannot lift, with the reason: the host
                 # path scores them
                 "skipped": dict(state.engine.skipped),
+                # the layout plan this worker applied (null: none), the fleet
+                # reconciler's convergence signal for its layout class
+                "layout": self._layout.get("fingerprint"),
                 "store": {
                     "verified": len(state.machines),
                     # the index's machines not touched yet: verified at the
