@@ -35,7 +35,9 @@ Phases; any failure exits non-zero before the result line:
    requests, one at a time. The launch counts are zeroed just before and
    read just after; every dispatch (one per lone request) must launch the
    fp32 kernel once per layer, and every response must match the same
-   artifact scored by the port with ``device="cpu"`` (its plain path);
+   artifact scored by the port with ``device="cpu"`` (its plain path) over
+   its first and last ``CPU_PLAIN_WINDOWS // 2`` windows (each window
+   scores alone; so do phases 14 and 15);
 3b. the bf16 path: the same machine built with ``compute_dtype="bfloat16"``
    answers one W = 16 request; it must launch the bf16 kernel once per
    layer and the fp32 kernel never, and match the same artifact scored on
@@ -243,7 +245,8 @@ Phases; any failure exits non-zero before the result line:
    machine's answer carries ``X-Gordo-Worker`` of its placed worker and
    equals the same request posted straight to that worker, byte for byte,
    and the CPU plain path (fp32 within SERVE_RTOL, bf16 within
-   BF16_SERVE_RTOL); a dense machine driven past ``TIER_HOT_RPS`` is
+   BF16_SERVE_RTOL; a PatchTST answer over its first and last
+   ``CPU_PLAIN_WINDOWS // 2`` windows); a dense machine driven past ``TIER_HOT_RPS`` is
    promoted hot and answered by both workers; a routed PatchTST trace on the
    router holds ``route`` with the worker's lane (``device_execute``,
    ``fetch``) inside it, and a stitch merged; the aggregate ``/metrics``'s
@@ -286,13 +289,15 @@ Phases; any failure exits non-zero before the result line:
    holds at least the lazy machines' stacked bytes less on the card; every
    lazy machine's first answer (a miss) and second (a hit) equal the eager
    server's lone answer byte for byte (npz), and the CPU plain path within
-   SERVE_RTOL (bf16: BF16_SERVE_RTOL); ``SPILL_SCHEDULE`` over the fp32
+   SERVE_RTOL (bf16: BF16_SERVE_RTOL) over its first and last
+   ``CPU_PLAIN_WINDOWS // 2`` windows; ``SPILL_SCHEDULE`` over the fp32
    PatchTST machines moves the host cache's hit, miss, store and evict
    counts as ``spill_lru_prediction`` says; ``POST /prefetch`` queues an
    untouched machine and names an unknown one, whose first request is then
    a hit, and a machine-scoped ``/healthz`` of another moves no counter;
    the host-path machine answers 200 on both servers, its estimator on the
-   card, equal to its CPU pipeline within SERVE_RTOL; a new generation of
+   card, equal to its CPU pipeline within SERVE_RTOL over the same windows;
+   a new generation of
    ``SPILL_RELOAD`` is listed ``refreshed`` by ``POST /reload`` on both
    servers, and its next request is a miss answering what the eager
    server, reloaded, answers, byte for byte, and not the old answer;
@@ -331,6 +336,32 @@ Phases; any failure exits non-zero before the result line:
    spilled, its ``flash_fwd_bf16`` 3 per bf16 one. Printed with the card:
    each step's convergence seconds, the longest scrape (a reload) and the
    rollback's wall, a hit's wall.
+17. warm boot (``phase_warm_boot``): phases 1-16 run with the
+   kernel-library store off (``WB_OFF``), as they did before it; this
+   phase serves a models tree of the full-width slice machine at fp32 and
+   at bf16 by fresh ``cli run-server`` processes over the store the tree
+   defaults to (``<models>/.compile-cache/torch-cuda``), ``nvcc`` reached
+   through a wrapper first on ``PATH`` that logs each invocation. The cold
+   boot compiles exactly the two forward libraries (2 misses, 2 writes); the
+   warm boot, with no ``nvcc`` to be found (``PATH`` without one,
+   ``CUDA_HOME`` empty, so it can run none), reads 2 hits and answers W =
+   16 requests bit for bit as the cold boot did, and its ``/telemetry``
+   compile block holds both entries with fp32 and bf16 build seconds,
+   which the layout export's rungs carry; a flipped bit in the fp32
+   entry's library reads invalid, is rebuilt (one ``nvcc``) and written
+   back, and the answers keep their bits; under ``CUDA_KERNEL_DEBUG=1`` the boot's own
+   resolution (``_kernels.resolve``, in this process) makes 2 new entries,
+   never a stale hit; ``cli cache list`` marks the entries
+   ``current``/``verified``, ``cli cache purge --stale`` removes a damaged
+   bf16 entry and the debug ones and leaves the current fp32 entry and a
+   reference-format ``cc-*`` entry beside the port's subdirectory; ``cli
+   fleet-build`` of two narrow PatchTST machines (129 patches), run beside
+   the flipped boot and the debug build with a log of its own, compiles
+   the fp32 forward and backward for its fit and nothing for its serving
+   export, and a boot over its output compiles nothing and reads a hit.
+   Printed with the card: every boot's wall from its start to a 200 on
+   ``/healthz``, the ``nvcc`` counts, the compile block, the fleet build's
+   wall. Its launches are every process's, recorded at exit.
 
 Every phase prints its wall (``phase wall``), and the script its total.
 
@@ -361,6 +392,10 @@ SLICE = dict(patch_length=16, stride=8, d_model=512, n_heads=8, n_layers=3, ff_d
 # windows per request (each scored again on the CPU plain path, ~12 s at W =
 # 16 on the card's host, so every window count is asked once)
 WINDOWS = (1, 16, 64)
+# phases 3, 14 and 15 hold this many windows of a PatchTST answer, half from
+# each end, against the CPU plain path: each window scores alone, and the
+# whole answers took 188 s of the script on the CPU (PR 15)
+CPU_PLAIN_WINDOWS = 4
 # card peaks (NVIDIA H100 SXM data sheet, dense): fp32 outside the tensor
 # cores, bf16 on the tensor cores, and device memory bandwidth
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
@@ -976,6 +1011,40 @@ def serve(artifact: str, device, windows, rng) -> list:
     return results
 
 
+def cpu_plain_parts(X: np.ndarray) -> list:
+    """The row blocks of a request that the CPU plain path scores: those of
+    its first and of its last ``CPU_PLAIN_WINDOWS // 2`` windows (a request
+    of no more windows, or a dense one shorter than a lookback, whole).
+    Each window scores alone, so they answer the answer's first and last
+    rows (:func:`end_rows`)."""
+    half = CPU_PLAIN_WINDOWS // 2
+    if len(X) < LOOKBACK or len(X) - LOOKBACK + 1 <= CPU_PLAIN_WINDOWS:
+        return [X]
+    return [X[:LOOKBACK + half - 1], X[len(X) - (LOOKBACK + half - 1):]]
+
+
+def cpu_plain_answer(score, X: np.ndarray) -> dict:
+    """``score(rows)`` (a dict of arrays, a row per window) over each of
+    :func:`cpu_plain_parts`, joined along the rows."""
+    parts = [score(rows) for rows in cpu_plain_parts(X)]
+    return {field: np.concatenate([np.asarray(part[field]) for part in parts])
+            for field in parts[0]}
+
+
+def end_rows(data: dict, rows: int) -> dict:
+    """An answer's four score arrays at the ``rows`` rows that
+    :func:`cpu_plain_answer` scored: the first ``rows // 2`` and the last
+    ``rows - rows // 2`` (every row where ``rows`` is the answer's)."""
+    head = rows // 2
+
+    def ends(array):
+        array = np.asarray(array)
+        return np.concatenate([array[:head], array[len(array) - (rows - head):]])
+
+    return {field: ends(data[field]) for field in (
+        "model-input", "model-output", "tag-anomaly-scores", "total-anomaly-score")}
+
+
 def compare_arrays(label: str, w: int, data: dict, plain: dict, rtol: float,
                    tags: int = N_TAGS) -> float:
     """The four score arrays (``w`` rows of ``tags``) against another
@@ -1028,12 +1097,21 @@ def phase_serve(torch, device, tmp: str) -> dict:
 
     cpu_engine = ServingEngine({"m": load(artifact, device="cpu")}, device="cpu")
     for w, (X, payload, _, _) in zip(WINDOWS, results):
+        # each window scores alone, so the first and last rows of an answer
+        # are the answers to the rows that make those windows
         started = time.perf_counter()
-        plain = dict(zip(wire.SCORE_FIELDS, cpu_engine.anomaly("m", X)))
+        plain = cpu_plain_answer(
+            lambda rows: dict(zip(wire.SCORE_FIELDS, cpu_engine.anomaly("m", rows))), X)
         cpu_s = time.perf_counter() - started
-        worst = compare_scores("fp32", w, payload, plain, SERVE_RTOL)
-        print(f"W={w}: card vs CPU plain path, worst relative difference {worst:.3g} "
-              f"(limit {SERVE_RTOL}); CPU scoring took {cpu_s:.1f} s")
+        depth = len(plain["model-output"])
+        worst = compare_arrays("fp32", depth, end_rows(payload["data"], depth), plain,
+                               SERVE_RTOL)
+        if len(payload["tag-thresholds"]) != N_TAGS or \
+                np.asarray(payload["data"]["model-output"]).shape != (w, N_TAGS):
+            fail(f"fp32 W={w}: thresholds or model-output shape wrong")
+        print(f"W={w}: card vs CPU plain path over {depth} windows from both ends, worst "
+              f"relative difference {worst:.3g} (limit {SERVE_RTOL}); CPU scoring took "
+              f"{cpu_s:.1f} s")
     return {n: sum(r[2][n] for r in results) for n in KERNELS}
 
 
@@ -2419,11 +2497,12 @@ def phase_build(torch, device, tmp: str) -> None:
         thread.join(timeout=30)
 
 
-def run_cli(tmp: str, *args: str, record_name: str = "cli-record.json") -> tuple:
+def run_cli(tmp: str, *args: str, record_name: str = "cli-record.json",
+            env: dict = None) -> tuple:
     """One ``python -m gordo_components_tpu_torch.cli`` process (through
-    CLI_RUNNER, which writes its counts to ``record_name`` under ``tmp``);
-    returns (stdout lines, wall s, its launch counts, its peak device
-    bytes). Fails on a non-zero exit."""
+    CLI_RUNNER, which writes its counts to ``record_name`` under ``tmp``)
+    in ``env`` (default this process's); returns (stdout lines, wall s, its
+    launch counts, its peak device bytes). Fails on a non-zero exit."""
     record = os.path.join(tmp, record_name)
     if os.path.exists(record):
         os.remove(record)
@@ -2431,7 +2510,7 @@ def run_cli(tmp: str, *args: str, record_name: str = "cli-record.json") -> tuple
     started = time.perf_counter()
     result = subprocess.run(
         [sys.executable, "-c", CLI_RUNNER, record, *args], cwd=root, capture_output=True,
-        text=True, timeout=900, env={**os.environ, "PYTHONPATH": root})
+        text=True, timeout=900, env={**(os.environ if env is None else env), "PYTHONPATH": root})
     wall = time.perf_counter() - started
     if result.returncode != 0:
         fail(f"cli {' '.join(args[:2])}: exit {result.returncode}\n{result.stderr[-4000:]}")
@@ -2754,8 +2833,9 @@ def phase_fleet_build(torch, device, tmp: str) -> dict:
     with open(config_path, "w") as fh:
         json.dump(config, fh)
     names = [m["name"] for m in config["machines"]]
+    # the serving export is phase 17's (WB_FLEET); this phase times the build
     args = ["fleet-build", "--machine-config", config_path, "--output-dir", out,
-            "--model-register-dir", registry]
+            "--model-register-dir", registry, "--no-serving-cache"]
 
     lines, wall, built, peak = run_cli(tmp, *args)
     results = json.loads("\n".join(lines))
@@ -4254,7 +4334,8 @@ def tier_cpu_answers(models_dir: str, bodies: dict, names: list) -> dict:
         cpu = ServingEngine({name: load(os.path.join(models_dir, name), device="cpu")},
                             device="cpu")
         try:
-            answers[name] = dict(zip(wire.SCORE_FIELDS, cpu.anomaly(name, bodies[name])))
+            answers[name] = cpu_plain_answer(
+                lambda rows: dict(zip(wire.SCORE_FIELDS, cpu.anomaly(name, rows))), bodies[name])
         finally:
             cpu.close()
     return answers
@@ -4275,7 +4356,9 @@ def tier_check_scores(label: str, status: int, raw: bytes, plain: dict, tags: in
     if status != 200:
         fail(f"tier {label}: HTTP {status} {raw[:300]!r}")
     payload = json.loads(raw)
-    return compare_scores(f"tier {label}", len(plain["model-output"]), payload, plain, rtol, tags)
+    rows = len(plain["model-output"])
+    payload["data"] = end_rows(payload["data"], rows)
+    return compare_scores(f"tier {label}", rows, payload, plain, rtol, tags)
 
 
 def tier_percentiles(walls: list) -> dict:
@@ -4997,15 +5080,17 @@ def spill_cpu_answers(models_dir: str, bodies: dict, names: list) -> dict:
                         quantized={name: m.quantized for name, m in machines.items()
                                    if m.quantized is not None},
                         device="cpu")
+    def score(name, rows):
+        if cpu.can_score(name):
+            return dict(zip(wire.SCORE_FIELDS, cpu.anomaly(name, rows)))
+        frame = machines[name].model.anomaly(rows)
+        return {field: np.ravel(frame[field]) if field == "total-anomaly-score"
+                else frame[field] for field in wire.SCORE_FIELDS}
+
     answers = {}
     try:
         for name in names:
-            if cpu.can_score(name):
-                answers[name] = dict(zip(wire.SCORE_FIELDS, cpu.anomaly(name, bodies[name])))
-                continue
-            frame = machines[name].model.anomaly(bodies[name])
-            answers[name] = {field: np.ravel(frame[field]) if field == "total-anomaly-score"
-                             else frame[field] for field in wire.SCORE_FIELDS}
+            answers[name] = cpu_plain_answer(lambda rows: score(name, rows), bodies[name])
     finally:
         cpu.close()
     return answers
@@ -5163,7 +5248,8 @@ def phase_spill(torch, device, tmp: str, card: str) -> dict:
             rtol = BF16_SERVE_RTOL if name == SPILL_BF16 else SERVE_RTOL
             rows = len(plain[name]["model-output"])
             worst[rung] = max(worst.get(rung, 0.0), compare_arrays(
-                f"spill {name}", rows, first["data"], plain[name], rtol, tags[name]))
+                f"spill {name}", rows, end_rows(first["data"], rows), plain[name], rtol,
+                tags[name]))
             eager_answers[name] = eager
             for kind, ms in (("miss" if name != SPILL_PREFETCH else "hit", miss_ms),
                              ("hit", hit_ms), ("eager", eager_ms)):
@@ -5238,8 +5324,9 @@ def phase_spill(torch, device, tmp: str, card: str) -> dict:
             finally:
                 hook.remove()
         for label, payload in host_answers.items():
-            compare_arrays(f"spill host path ({label})", len(plain[SPILL_HOST]["model-output"]),
-                           payload["data"], plain[SPILL_HOST], SERVE_RTOL, N_TAGS)
+            rows = len(plain[SPILL_HOST]["model-output"])
+            compare_arrays(f"spill host path ({label})", rows, end_rows(payload["data"], rows),
+                           plain[SPILL_HOST], SERVE_RTOL, N_TAGS)
         spill_same_bits("host path", host_answers["lazy"], host_answers["eager"])
         if len(forwards) != 1 + 2 * SPILL_HOST_REQUESTS:
             fail(f"spill: {len(forwards)} host-path forwards for "
@@ -5791,6 +5878,380 @@ def phase_fleet_control(torch, device, tmp: str, card: str) -> dict:
         log.close()
 
 
+# phase 17: warm boot. A models tree of the full-width slice machine at
+# fp32 and at bf16 (compute and rung), served by fresh run-server processes
+# over the store under the tree (<models>/.compile-cache/torch-cuda, the
+# default); nvcc reached through a logging wrapper first on PATH
+WB_MACHINES = {"wb-slice-f32": ("float32", None), "wb-slice-bf16": ("bfloat16", "bf16")}
+WB_WINDOWS = 16
+WB_READY_S = 300.0
+# the store off for phases 1-16, which go on as they were: every process
+# builds into the package's build directory
+WB_OFF = {"GORDO_COMPILE_CACHE_STORE": "off", "GORDO_COMPILE_CACHE": "off"}
+# fleet-build --serving-cache: two narrow PatchTST machines whose 129
+# patches still take the flash kernel (BH 32 * 4 tags * 4 heads = 512)
+WB_FLEET_SLICE = dict(kind="patchtst", lookback_window=1040, patch_length=16, stride=8,
+                      d_model=64, n_heads=4, n_layers=1, ff_dim=128, attention_impl="flash",
+                      batch_size=32, epochs=1)
+WB_FLEET_TAGS = 4
+WB_FLEET_ROWS = 1040 + 63
+WB_FLEET = ("wb-fleet-0", "wb-fleet-1")
+REFERENCE_ENTRY = "cc-00000000000000000000000000000000"  # a reference-format entry
+
+
+def expected_forward_libraries(dtypes) -> list:
+    """The forward libraries a warm-up resolves for buckets computing in
+    these dtypes (``float32``/``bfloat16``; int8 computes in float32)."""
+    names = {"float32": "flash_fwd_f32", "bfloat16": "flash_fwd_bf16", "int8": "flash_fwd_f32"}
+    return sorted({names[d] for d in dtypes})
+
+
+def write_nvcc_wrapper(bin_dir: str, real: str, log: str) -> str:
+    """An ``nvcc`` in ``bin_dir`` that appends its arguments to ``log`` and
+    runs ``real``; returns its path."""
+    os.makedirs(bin_dir, exist_ok=True)
+    path = os.path.join(bin_dir, "nvcc")
+    with open(path, "w") as fh:
+        fh.write(f'#!/bin/sh\nprintf "%s\\n" "$*" >> "{log}"\nexec "{real}" "$@"\n')
+    os.chmod(path, 0o755)
+    return path
+
+
+def nvcc_compiled(log: str) -> list:
+    """The sources the logged ``nvcc`` invocations compiled, in order (a
+    ``--version`` query compiles nothing)."""
+    if not os.path.exists(log):
+        return []
+    with open(log) as fh:
+        lines = [line.split() for line in fh if " -o " in line]
+    return [os.path.basename(args[-1]) for args in lines]
+
+
+def env_without_nvcc(env: dict, empty_dir: str) -> dict:
+    """``env`` with every ``PATH`` directory that holds an ``nvcc`` left out
+    and ``CUDA_HOME`` at an empty directory: no ``nvcc`` can be found."""
+    os.makedirs(empty_dir, exist_ok=True)
+    path = [d for d in env.get("PATH", "").split(os.pathsep)
+            if d and not os.path.exists(os.path.join(d, "nvcc"))]
+    return {**env, "PATH": os.pathsep.join(path), "CUDA_HOME": empty_dir}
+
+
+def store_entry(root: str, library: str, debug: bool = False) -> str:
+    """The entry directory of ``library`` (a debug build's or not) in a
+    store root, read from each entry's KEY.json."""
+    for name in sorted(os.listdir(root)):
+        try:
+            with open(os.path.join(root, name, "KEY.json")) as fh:
+                key = json.load(fh)
+        except (OSError, ValueError):
+            continue
+        if key["program"]["library"] == library and key["backend"]["debug"] == debug:
+            return os.path.join(root, name)
+    fail(f"warm boot: no {library} entry (debug {debug}) in {root}")
+
+
+def flip_a_bit(path: str) -> None:
+    with open(path, "r+b") as fh:
+        fh.seek(os.path.getsize(path) // 2)
+        byte = fh.read(1)[0]
+        fh.seek(-1, os.SEEK_CUR)
+        fh.write(bytes([byte ^ 0x01]))
+
+
+def wb_boot(tmp: str, models_dir: str, label: str, env: dict, bodies: dict,
+            telemetry: bool = False) -> dict:
+    """One fresh ``run-server`` process over ``models_dir`` (through
+    CLI_RUNNER): the wall from its start to a 200 on ``/healthz``, the
+    engine's ``compile_cache`` and ``kernel_libraries``, the score arrays
+    of each body's machine, optionally the telemetry's compile block and the
+    layout export's rungs; then SIGTERM (exit 0) and its launch counts."""
+    import signal
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    record = os.path.join(tmp, f"wb-{label}.json")
+    log_path = os.path.join(tmp, f"wb-{label}.log")
+    log = open(log_path, "wb")
+    argv = [sys.executable, "-c", CLI_RUNNER, record, "run-server", "--models-dir", models_dir,
+            "--host", "127.0.0.1", "--port", str(port)]
+    started = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT)
+
+    def tail():
+        log.flush()
+        with open(log_path, "rb") as fh:
+            return fh.read()[-3000:].decode(errors="replace")
+
+    try:
+        def up():
+            if proc.poll() is not None:
+                fail(f"warm boot {label}: run-server exited {proc.returncode}: {tail()}")
+            try:
+                return http("GET", base + "/healthz")[0] == 200
+            except OSError:
+                return False
+
+        tier_wait(up, WB_READY_S, f"warm boot {label}'s /healthz", poll=0.05)
+        boot_s = time.perf_counter() - started
+        engine = json.loads(http("GET", base + "/metrics")[2])["engine"]
+        out = {"boot_s": boot_s, "compile_cache": engine["compile_cache"],
+               "kernel_libraries": engine["kernel_libraries"], "scores": {}}
+        for name, body in bodies.items():
+            status, reply, raw, _ = http(
+                "POST", f"{base}/gordo/v0/project/{name}/anomaly/prediction", body)
+            if status != 200:
+                fail(f"warm boot {label}: {name} HTTP {status} {raw[:300]!r}")
+            data = decode(reply, raw)["data"]
+            out["scores"][name] = {field: np.asarray(data[field], np.float64)
+                                   for field in ("model-output", "tag-anomaly-scores",
+                                                 "total-anomaly-score")}
+        if telemetry:
+            out["compile"] = json.loads(http("GET", base + "/telemetry")[2])["costs"]["compile"]
+            out["rungs"] = json.loads(http("GET", base + "/telemetry?view=export")[2])["rungs"]
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(timeout=120)
+        if code != 0:
+            fail(f"warm boot {label}: exit {code} on SIGTERM: {tail()}")
+        with open(record) as fh:
+            out["launches"] = json.load(fh)["launches"]
+        return out
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def cli_output(*args: str) -> str:
+    """What ``python -m gordo_components_tpu_torch.cli ARGS`` prints, run in
+    this process (a command that needs no card); fails on a non-zero exit."""
+    import contextlib
+    import io
+
+    from gordo_components_tpu_torch.cli.cli import main as cli_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = cli_main(["--log-level", "WARNING", *args])
+    if code != 0:
+        fail(f"cli {' '.join(args[:2])}: exit {code}")
+    return out.getvalue()
+
+
+def wb_same_bits(label: str, got: dict, want: dict) -> None:
+    for name, fields in want.items():
+        for field, array in fields.items():
+            other = got["scores"][name][field]
+            if other.shape != array.shape or other.tobytes() != array.tobytes():
+                fail(f"warm boot {label}: {name} {field} differs from the cold boot's")
+
+
+def wb_counts(label: str, boot: dict, expected: dict, libraries: dict) -> None:
+    counters = {key: 0 for key in ("hit", "miss", "stale", "invalid", "write", "write_error")}
+    counters.update(expected)
+    if boot["compile_cache"] != counters or boot["kernel_libraries"] != libraries:
+        fail(f"warm boot {label}: compile_cache {boot['compile_cache']}, libraries "
+             f"{boot['kernel_libraries']}; expected {counters}, {libraries}")
+
+
+def wb_fleet_config() -> dict:
+    return {"project-name": "chip-smoke-warm-boot", "machines": [{
+        "name": name,
+        "model": {"DiffBasedAnomalyDetector": {"base_estimator": {
+            "TransformedTargetRegressor": {
+                "regressor": {"Pipeline": {"steps": [
+                    "MinMaxScaler", {"PatchTSTAutoEncoder": WB_FLEET_SLICE}]}},
+                "transformer": "MinMaxScaler"}}}},
+        "dataset": data_config(WB_FLEET_TAGS, WB_FLEET_ROWS, SEED + 700 + i),
+        "evaluation": {"n_splits": 1, "cv_parallel": False},
+    } for i, name in enumerate(WB_FLEET)]}
+
+
+def phase_warm_boot(torch, device, tmp: str, card: str) -> dict:
+    """Warm boot on the card: fresh run-server processes over one models
+    tree and the kernel-library store under it. The cold boot runs nvcc for
+    exactly the two forward libraries and writes both; a warm boot with no
+    nvcc to be found (so it runs none) reads two hits and answers bit for
+    bit what the cold boot did; a flipped bit in the fp32 entry reads
+    invalid, is rebuilt and written back; under CUDA_KERNEL_DEBUG the
+    boot's resolution makes two new entries, never a stale hit;
+    ``cache list`` marks the entries, ``cache purge --stale`` removes a
+    damaged entry and the debug ones and leaves the current ones and a
+    reference-format entry beside the store; ``fleet-build`` (its serving
+    export on by default) over two narrow PatchTST machines, beside the
+    flipped boot and the debug build, makes the next boot over its output
+    run no nvcc; the telemetry's compile block shows fp32 and bf16 build
+    seconds. Returns the launches of every process."""
+    from gordo_components_tpu_torch.compile_cache import CompileCacheStore, default_root
+    from gordo_components_tpu_torch.ops import _kernels
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    wb = os.path.join(tmp, "warm-boot")
+    models = os.path.join(wb, "models")
+    store = default_root(models)
+    rng = np.random.default_rng(SEED + 17)
+    bodies = {}
+    for seed, (name, (dtype, precision)) in enumerate(WB_MACHINES.items()):
+        tags = build_artifact(os.path.join(models, name), device, compute_dtype=dtype,
+                              seed=SEED + 170 + seed, precision=precision)
+        X = sensor_rows(rng, LOOKBACK + WB_WINDOWS - 1, len(tags))
+        bodies[name] = json.dumps({"X": X.tolist()}).encode()
+    log = os.path.join(wb, "nvcc.log")
+    wrapper_dir = os.path.join(wb, "bin")
+    write_nvcc_wrapper(wrapper_dir, _kernels._nvcc(), log)
+    env = {key: value for key, value in os.environ.items() if key not in WB_OFF}
+    env.update({"PYTHONPATH": root, "PATH": wrapper_dir + os.pathsep + env.get("PATH", ""),
+                "GORDO_LEDGER_DIR": os.path.join(wb, "ledger"),
+                "GORDO_TELEMETRY": "1", "GORDO_TELEMETRY_INTERVAL": "0"})
+    for key in ("CUDA_KERNEL_DEBUG", "GORDO_FAULTS", "GORDO_LAZY_BOOT", "GORDO_TELEMETRY_DIR"):
+        env.pop(key, None)
+    f32, bf16 = "flash_fwd_f32", "flash_fwd_bf16"
+    wanted = expected_forward_libraries([d for d, _ in WB_MACHINES.values()])
+    launches = dict(NO_LAUNCHES)
+    boots = {}
+
+    def boot(label, boot_env, **kwargs):
+        before = len(nvcc_compiled(log))
+        result = wb_boot(wb, models, label, boot_env, bodies, **kwargs)
+        result["nvcc"] = nvcc_compiled(log)[before:]
+        for name in KERNELS:
+            launches[name] += result["launches"][name]
+        boots[label] = result
+        return result
+
+    fleet_bin = os.path.join(wb, "fleet-bin")
+    fleet_log = os.path.join(wb, "fleet-nvcc.log")
+    write_nvcc_wrapper(fleet_bin, _kernels._nvcc(), fleet_log)
+    fleet_env = {**env, "PATH": fleet_bin + os.pathsep + os.environ.get("PATH", "")}
+    config_path = os.path.join(wb, "fleet.json")
+    with open(config_path, "w") as fh:
+        json.dump(wb_fleet_config(), fh)
+    out = os.path.join(wb, "fleet-out")
+    fleet_run = {}
+
+    def fleet_build():
+        # a thread: fail() raises SystemExit here, which the caller reads
+        # as a missing result (its message is on stderr already)
+        try:
+            fleet_run["result"] = run_cli(wb, "fleet-build", "--machine-config", config_path,
+                                          "--output-dir", out,
+                                          record_name="wb-fleet-build.json", env=fleet_env)
+        except SystemExit:
+            pass
+
+    cold = boot("cold", env)
+    if sorted(cold["nvcc"]) != sorted(f"{n}.cu" for n in wanted):
+        fail(f"warm boot cold: nvcc compiled {cold['nvcc']}, expected the libraries {wanted}")
+    wb_counts("cold", cold, {"miss": 2, "write": 2}, {f32: "miss", bf16: "miss"})
+    # no nvcc can be found: the boot serves only if it needs none
+    warm = boot("warm", env_without_nvcc(env, os.path.join(wb, "no-cuda")), telemetry=True)
+    if warm["nvcc"]:
+        fail(f"warm boot warm: nvcc ran for {warm['nvcc']}")
+    wb_counts("warm", warm, {"hit": 2}, {f32: "hit", bf16: "hit"})
+    wb_same_bits("warm", warm, cold["scores"])
+    compile_block = warm["compile"]
+    by_rung = compile_block["by_precision"]
+    if compile_block["keys"] != 2 or not (by_rung.get("f32", 0) > 0 and by_rung.get("bf16", 0) > 0) \
+            or not all(warm["rungs"][r]["compile_seconds"] == by_rung[r] for r in ("f32", "bf16")):
+        fail(f"warm boot telemetry: compile block {compile_block}, export rungs "
+             f"{ {r: v.get('compile_seconds') for r, v in warm['rungs'].items()} }")
+
+    # fleet-build --serving-cache runs beside the next boot and the debug
+    # build (its own store, its own nvcc log): their walls are taken beside
+    # it
+    fleet_thread = threading.Thread(target=fleet_build, name="wb-fleet-build")
+    fleet_thread.start()
+    flip_a_bit(os.path.join(store_entry(store, f32), "library.so"))
+    healed = boot("flipped", env)
+    if healed["nvcc"] != [f"{f32}.cu"]:
+        fail(f"warm boot flipped: nvcc compiled {healed['nvcc']}, expected {f32} alone")
+    wb_counts("flipped", healed, {"invalid": 1, "hit": 1, "write": 1}, {f32: "invalid", bf16: "hit"})
+    wb_same_bits("flipped", healed, cold["scores"])
+
+    # a CUDA_KERNEL_DEBUG build, resolved in this process by the boot's own
+    # call (_kernels.resolve) with the wrapper first on PATH
+    saved = {key: os.environ.get(key) for key in ("CUDA_KERNEL_DEBUG", "PATH")}
+    os.environ.update(CUDA_KERNEL_DEBUG="1", PATH=env["PATH"])
+    try:
+        before = len(nvcc_compiled(log))
+        debug_store = CompileCacheStore(store)
+        debug = {"compile_cache": debug_store.counters,
+                 "kernel_libraries": _kernels.resolve(wanted, debug_store)}
+        debug_nvcc = nvcc_compiled(log)[before:]
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    if sorted(debug_nvcc) != sorted(f"{n}.cu" for n in wanted):
+        fail(f"warm boot debug: nvcc compiled {debug_nvcc}")
+    wb_counts("debug", debug, {"miss": 2, "write": 2}, {f32: "miss", bf16: "miss"})
+
+    # the cache verbs: a damaged bf16 entry, the debug entries of another
+    # backend, and a reference-format entry beside the port's subdirectory
+    flip_a_bit(os.path.join(store_entry(store, bf16), "library.so"))
+    reference = os.path.join(os.path.dirname(store), REFERENCE_ENTRY)
+    os.makedirs(reference)
+    with open(os.path.join(reference, "KEY.json"), "w") as fh:
+        json.dump({"program": {"kind": "serving-cold"}, "backend": {"jax": "0"}}, fh)
+    listed = json.loads(cli_output("cache", "list", "--store", store))
+    marks = {(e["program"]["library"], e["backend"]["debug"]): (e["current"], e["verified"])
+             for e in listed["entries"]}
+    if marks != {(f32, False): (True, True), (bf16, False): (True, False),
+                 (f32, True): (False, True), (bf16, True): (False, True)}:
+        fail(f"warm boot cache list: (library, debug) -> (current, verified) {marks}")
+    damaged = {os.path.basename(store_entry(store, bf16)),
+               os.path.basename(store_entry(store, f32, True)),
+               os.path.basename(store_entry(store, bf16, True))}
+    kept = os.path.basename(store_entry(store, f32))
+    purged = json.loads(cli_output("cache", "purge", "--store", store, "--stale"))
+    left = sorted(n for n in os.listdir(store) if n.startswith("cc-"))
+    if set(purged["removed"]) != damaged or left != [kept] or not os.path.isdir(reference):
+        fail(f"warm boot cache purge --stale: removed {purged['removed']}, left {left}, the "
+             f"reference-format entry {'kept' if os.path.isdir(reference) else 'removed'}")
+
+    # fleet-build --serving-cache: the export after the commits fills the
+    # store a server over the output defaults to
+    fleet_thread.join()
+    if "result" not in fleet_run:
+        fail("warm boot: fleet-build failed")
+    _, fleet_wall, fleet_launches, _ = fleet_run["result"]
+    fleet_nvcc = nvcc_compiled(fleet_log)
+    for name in KERNELS:
+        launches[name] += fleet_launches[name]
+    if sorted(fleet_nvcc) != ["flash_bwd_f32.cu", "flash_fwd_f32.cu"]:
+        fail(f"warm boot fleet-build: nvcc compiled {fleet_nvcc}, expected the fp32 forward "
+             f"and backward (the fit's) and nothing for the export")
+    fleet_bodies = {name: json.dumps({"X": sensor_rows(
+        rng, WB_FLEET_SLICE["lookback_window"] + WB_WINDOWS - 1, WB_FLEET_TAGS).tolist()}).encode()
+        for name in WB_FLEET}
+    served = wb_boot(wb, out, "fleet", fleet_env, fleet_bodies)
+    for name in KERNELS:
+        launches[name] += served["launches"][name]
+    if nvcc_compiled(fleet_log) != fleet_nvcc:
+        fail(f"warm boot fleet: the boot over the exported store ran nvcc "
+             f"{nvcc_compiled(fleet_log)[len(fleet_nvcc):]}")
+    wb_counts("fleet", served, {"hit": 1}, {f32: "hit"})
+    if not served["launches"]["flash_fwd_f32"]:
+        fail("warm boot fleet: the served PatchTST machines launched no flash_fwd_f32")
+
+    walls = ", ".join(f"{label} {b['boot_s']:.2f} s" for label, b in boots.items())
+    print(f"warm boot [{card}]: boot walls (start to /healthz 200) {walls}; nvcc "
+          f"invocations cold {len(cold['nvcc'])}, warm (no nvcc on the host) "
+          f"{len(warm['nvcc'])}, flipped "
+          f"{len(healed['nvcc'])}, debug {len(debug_nvcc)}; warm answers equal the cold "
+          f"boot's bit for bit; compile block keys {compile_block['keys']}, bytes "
+          f"{compile_block['bytes_total']}, seconds by rung {by_rung}")
+    print(f"warm boot [{card}]: fleet-build with the serving export {fleet_wall:.2f} s, "
+          f"beside the flipped boot and the debug build (nvcc {fleet_nvcc}), the boot over "
+          f"its output {served['boot_s']:.2f} s with "
+          f"{served['compile_cache']['hit']} hit and no nvcc; cache purge --stale removed "
+          f"{len(purged['removed'])} and kept {kept} and {REFERENCE_ENTRY}")
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -5803,6 +6264,8 @@ def main() -> None:
     except ImportError as exc:
         fail(f"run from the root of a checkout: {exc}")
     device = resolve_device(None)
+    # phases 1-16 run as they did before the store: phase 17 measures it
+    os.environ.update(WB_OFF)
     script_started = time.perf_counter()
     walls = {}
 
@@ -5836,11 +6299,12 @@ def main() -> None:
         tier = timed("14 tier", phase_tier, torch, device, tmp, card)
         spill = timed("15 spill", phase_spill, torch, device, tmp, card)
         fleet_control = timed("16 fleet control", phase_fleet_control, torch, device, tmp, card)
+        warm_boot = timed("17 warm boot", phase_warm_boot, torch, device, tmp, card)
         for name in KERNELS:
             launches[name] += (trained[name] + trained_bf16[name] + built[name]
                                + fleet_built[name] + seams[name] + client[name]
                                + control[name] + tier[name] + spill[name]
-                               + fleet_control[name])
+                               + fleet_control[name] + warm_boot[name])
     print(f"script wall [{card}]: {time.perf_counter() - script_started:.1f} s; phase walls "
           f"{json.dumps(walls)}")
     print(json.dumps({"kernels": [{

@@ -28,6 +28,7 @@ from ..dataset import GordoBaseDataset
 from ..models.anomaly.diff import DiffBasedAnomalyDetector, cv_record, fold_scores
 from ..models.metrics import METRICS
 from ..observability.registry import REGISTRY
+from ..ops import _kernels
 from ..serializer import load_metadata, pipeline_from_definition, pipeline_into_definition
 from ..serializer.persistence import estimators, write_artifact_files
 from ..store.errors import StoreError
@@ -207,6 +208,7 @@ def provide_saved_model(
     evaluation_config: Optional[Dict[str, Any]] = None,
     precision: Optional[str] = None,
     device: DeviceLike = None,
+    compile_cache_store: Any = None,
 ) -> str:
     """Idempotent build; returns the model dir (a generation root).
 
@@ -217,7 +219,9 @@ def provide_saved_model(
     ``gen-NNNN`` under ``output_dir`` with ``CURRENT`` swapped to it, and
     the key registered. ``precision`` (default ``GORDO_PRECISION_DEFAULT``,
     else f32) is pinned into the build metadata; int8 also writes the
-    quantized sidecar. Training always runs in the model's own dtype."""
+    quantized sidecar. Training always runs in the model's own dtype.
+    ``compile_cache_store``: a :class:`~..compile_cache.CompileCacheStore`
+    the fit's kernel libraries (forward and backward) resolve through."""
     precision = precision_mod.resolve_default(precision)
     if (evaluation_config or {}).get("cv_mode") == "cross_val_only":
         raise ValueError(
@@ -245,8 +249,9 @@ def provide_saved_model(
     if model_register_dir and replace_cache:
         disk_registry.delete_key(model_register_dir, cache_key)
 
-    model, build_metadata = build_model(name, model_config, data_config, metadata,
-                                        evaluation_config, device=device)
+    with _kernels.use_store(compile_cache_store):
+        model, build_metadata = build_model(name, model_config, data_config, metadata,
+                                            evaluation_config, device=device)
     build_metadata["model"]["cache_key"] = cache_key
     build_metadata["precision"] = precision
     commit_generation(

@@ -1,9 +1,10 @@
 """``python -m gordo_components_tpu_torch.cli``: the ``build``,
-``fleet-build``, ``rollback``, ``run-server``, ``run-fleet-server``,
-``run-watchman``, ``trace``, ``slo``, ``tenants``, ``autopilot``,
-``fleet``, ``telemetry``, ``incidents``, ``layout`` and ``client predict``
-commands of the reference's CLI (``gordo_components_tpu/cli/cli.py:164-430,
-519-831, 894-1530``), on ``argparse``.
+``fleet-build``, ``rollback``, ``cache``, ``run-server``,
+``run-fleet-server``, ``run-watchman``, ``trace``, ``slo``, ``tenants``,
+``autopilot``, ``fleet``, ``telemetry``, ``incidents``, ``layout`` and
+``client predict`` commands of the reference's CLI
+(``gordo_components_tpu/cli/cli.py:164-528, 519-831, 894-1530``), on
+``argparse``.
 
 The arguments, environment variables (``MODEL_CONFIG``, ``DATA_CONFIG``,
 ``OUTPUT_DIR``, ``MODEL_REGISTER_DIR``, ``METADATA``, ``GORDO_TRACE_DIR``,
@@ -18,8 +19,11 @@ the CPU; there is no silent fallback. ``run-server`` offers the flags
 whose machinery the port has, ``--worker-id`` among them, and
 ``--lazy-boot/--no-lazy-boot`` (exported as ``GORDO_LAZY_BOOT``, which a
 fleet tier's workers inherit; it needs ``--models-dir``, whose
-``FLEET_INDEX.json`` then names the fleet); the reference's shard mode,
-compile cache, megabatch and mesh flags are not offered (ROADMAP.md). ``run-fleet-server`` spawns ``--workers`` such
+``FLEET_INDEX.json`` then names the fleet) and ``--compile-cache-store``
+(the kernel-library store, :mod:`..compile_cache`, which ``fleet-build
+--serving-cache`` fills and ``cache list|warm|purge`` manage; ``build`` and
+``fleet-build`` fit through ``--compile-cache-dir``); the reference's shard
+mode, megabatch and mesh flags are not offered (ROADMAP.md). ``run-fleet-server`` spawns ``--workers`` such
 servers (``--device`` passed on) behind a router that never touches the
 card; SIGTERM drains the router, then each worker, and leaves no worker
 behind. ``run-watchman`` probes each machine's ``/healthz`` at a target
@@ -39,15 +43,20 @@ client.ClientError`.
 
     python -m gordo_components_tpu_torch.cli build NAME --model-config M \\
         --data-config D --output-dir OUT [--model-register-dir REG] \\
-        [--cv-mode build_only] [--precision int8] [--device cpu]
+        [--cv-mode build_only] [--precision int8] [--compile-cache-dir DIR|off]
+        [--device cpu]
     python -m gordo_components_tpu_torch.cli fleet-build --machine-config FLEET \\
         --output-dir OUT [--model-register-dir REG] [--n-splits 3] [--seed 0] \\
         [--slice-size 256] [--precision int8] [--precision-map a=f32,b=int8] \\
-        [--device cpu]
+        [--no-serving-cache] [--compile-cache-dir DIR|off] [--device cpu]
     python -m gordo_components_tpu_torch.cli rollback [--list] MODEL_DIR
+    python -m gordo_components_tpu_torch.cli cache list --store STORE
+    python -m gordo_components_tpu_torch.cli cache warm --models-dir DIR [--store STORE]
+    python -m gordo_components_tpu_torch.cli cache purge --store STORE [--stale]
     python -m gordo_components_tpu_torch.cli run-server (--model-dir DIR ... |
         --models-dir DIR) [--host H] [--port N] [--project P] [--max-inflight N]
-        [--tenants SPEC] [--faults SPEC] [--worker-id N] [--lazy-boot] [--device cpu]
+        [--tenants SPEC] [--faults SPEC] [--worker-id N] [--lazy-boot]
+        [--compile-cache-store STORE|off] [--device cpu]
     python -m gordo_components_tpu_torch.cli run-fleet-server --models-dir DIR
         [--workers 2] [--host H] [--port 5555] [--worker-base-port 5600]
         [--project P] [--replicas 2] [--hot-rps 50] [--probe-interval 2]
@@ -134,6 +143,17 @@ def _load_config(value: Optional[str], kind: str) -> dict:
     return parsed
 
 
+def _build_store(output_dir: str, cache_dir: Optional[str]):
+    """The kernel-library store a build's fit resolves its libraries
+    through: ``--compile-cache-dir`` (``off``: none, the package's build
+    directory), else the one a server over ``output_dir`` defaults to."""
+    from ..compile_cache import CompileCacheStore, default_root
+
+    if cache_dir == "off":
+        return None
+    return CompileCacheStore(cache_dir or default_root(output_dir))
+
+
 def build(args: argparse.Namespace) -> int:
     """Build one machine's model (idempotent through the config-hash
     cache) and print its model dir."""
@@ -154,6 +174,7 @@ def build(args: argparse.Namespace) -> int:
                 evaluation_config={"cv_mode": args.cv_mode, "n_splits": args.n_splits},
                 precision=args.precision,
                 device=args.device,
+                compile_cache_store=_build_store(args.output_dir, args.compile_cache_dir),
             )
     except InsufficientDataError as exc:
         logger.error("Data error building %r: %s", args.name, exc)
@@ -198,6 +219,7 @@ def fleet_build(args: argparse.Namespace) -> int:
             slice_size=args.slice_size or None,
             precision_default=args.precision,
             precision_map=parse_precision_map(args.precision_map),
+            compile_cache_store=_build_store(args.output_dir, args.compile_cache_dir),
         )
     except InsufficientDataError as exc:
         logger.error("Data error in fleet build: %s", exc)
@@ -214,6 +236,18 @@ def fleet_build(args: argparse.Namespace) -> int:
                      "restarted run resumes from the registry and the journal",
                      exc, EXIT_RETRYABLE)
         return EXIT_RETRYABLE
+    if args.serving_cache and results:
+        # the serving builds, paid here, once, into the store a server over
+        # this tree defaults to; best effort: a failed export costs the
+        # first boot its builds, never the build its artifacts
+        from ..compile_cache import default_root, export_serving_cache
+
+        try:
+            summary = export_serving_cache(results, default_root(args.output_dir))
+            logger.info("Serving compile-cache export: %s", summary)
+        except Exception:  # noqa: BLE001 - best effort by contract
+            logger.warning("Serving compile-cache export failed (builds unaffected; the "
+                           "first server boot will build instead)", exc_info=True)
     print(json.dumps(results, indent=2))
     return 0
 
@@ -283,7 +317,8 @@ def run_server(args: argparse.Namespace) -> int:
         logger.error("Provide --model-dir (or MODEL_LOCATION) or --models-dir")
         return EXIT_USAGE
     options = {"project": args.project, "max_inflight": args.max_inflight,
-               "worker_id": args.worker_id, "lazy_boot": lazy_boot}
+               "worker_id": args.worker_id, "lazy_boot": lazy_boot,
+               "compile_cache_store": args.compile_cache_store}
     if not resolved:
         target = args.models_dir  # a fleet: reload rescans it
     elif len(resolved) == 1 and not args.models_dir:
@@ -319,6 +354,43 @@ def run_server(args: argparse.Namespace) -> int:
     finally:
         httpd.server_close()  # closes admission, drains, stops the engine
     logger.info("Server stopped")
+    return 0
+
+
+def cache_list(args: argparse.Namespace) -> int:
+    """Print the store's entries as JSON: key, size, whether each verifies
+    and whether its backend fingerprint matches this process."""
+    from ..compile_cache import CompileCacheStore, backend_fingerprint
+
+    store = CompileCacheStore(args.store)
+    print(json.dumps({"root": store.root, "backend": backend_fingerprint(),
+                      "entries": store.entries()}, indent=2))
+    return 0
+
+
+def cache_warm(args: argparse.Namespace) -> int:
+    """Fill the store for every model under ``--models-dir`` off the
+    serving path and print the summary."""
+    from ..compile_cache import default_root, export_serving_cache
+    from ..store.generations import scan_models_dir
+
+    model_dirs = scan_models_dir(args.models_dir) if os.path.isdir(args.models_dir) else {}
+    if not model_dirs:
+        logger.error("No model dirs found under %r", args.models_dir)
+        return EXIT_USAGE
+    summary = export_serving_cache(model_dirs, args.store or default_root(args.models_dir))
+    print(json.dumps(summary, indent=2))
+    return 0
+
+
+def cache_purge(args: argparse.Namespace) -> int:
+    """Delete entries (all, or with ``--stale`` the ones of another backend
+    or that fail verification) and sweep crash debris."""
+    from ..compile_cache import CompileCacheStore
+
+    store = CompileCacheStore(args.store)
+    removed = store.purge(stale_only=args.stale_only)
+    print(json.dumps({"root": store.root, "removed": removed}, indent=2))
     return 0
 
 
@@ -732,6 +804,12 @@ def client_predict(args: argparse.Namespace) -> int:
     return 0
 
 
+_COMPILE_CACHE_DIR_HELP = (
+    "the kernel-library store the build's fit loads its CUDA libraries from and writes "
+    "them to ('off': none, the package's build directory). Default: "
+    "<output-dir>/.compile-cache/torch-cuda")
+
+
 def parser() -> argparse.ArgumentParser:
     env = os.environ.get
     root = argparse.ArgumentParser(
@@ -766,6 +844,8 @@ def parser() -> argparse.ArgumentParser:
                         "else f32")
     b.add_argument("--trace-dir", default=env("GORDO_TRACE_DIR"),
                    help="write a torch.profiler Chrome trace of the build to this directory")
+    b.add_argument("--compile-cache-dir", default=env("GORDO_COMPILE_CACHE"),
+                   help=_COMPILE_CACHE_DIR_HELP)
     b.add_argument("--device", default=None,
                    help="cuda (default) or cpu; there is no silent fallback")
     b.set_defaults(run=build)
@@ -775,8 +855,7 @@ def parser() -> argparse.ArgumentParser:
                             "programs on the card",
         epilog="Not offered yet: --coordinator-address, --num-processes, --process-id and "
                "--n-devices (multi-process ranks over torch.distributed, ROADMAP Queue 1 "
-               "item 3) and --serving-cache (the serving compile cache, ROADMAP Queue 1 "
-               "item 7).")
+               "item 10).")
     f.add_argument("--machine-config", required=True,
                    help="fleet YAML/JSON (machines + globals): a file path or a string")
     f.add_argument("--output-dir", default=env("OUTPUT_DIR"), required=not env("OUTPUT_DIR"))
@@ -797,6 +876,14 @@ def parser() -> argparse.ArgumentParser:
                         "names to f32/bf16/int8")
     f.add_argument("--trace-dir", default=env("GORDO_TRACE_DIR"),
                    help="write a torch.profiler Chrome trace of the training to this directory")
+    f.add_argument("--serving-cache", action=argparse.BooleanOptionalAction, default=True,
+                   help="after the build, put the kernel libraries the fleet's serving "
+                        "launches into <output-dir>/.compile-cache/torch-cuda (the store "
+                        "run-server --models-dir defaults to), so the first boot, and every "
+                        "reload and rollback, loads them instead of running nvcc (best "
+                        "effort; default on)")
+    f.add_argument("--compile-cache-dir", default=env("GORDO_COMPILE_CACHE"),
+                   help=_COMPILE_CACHE_DIR_HELP)
     f.add_argument("--device", default=None,
                    help="cuda (default) or cpu; there is no silent fallback")
     f.set_defaults(run=fleet_build)
@@ -840,6 +927,12 @@ def parser() -> argparse.ArgumentParser:
                         "GORDO_BOOT_EAGER machines load now, the rest on their first request "
                         "through the host-RAM spill tier (GORDO_HOST_CACHE_MB), verified "
                         "then; needs --models-dir; overrides GORDO_LAZY_BOOT")
+    s.add_argument("--compile-cache-store", default=env("GORDO_COMPILE_CACHE_STORE"),
+                   help="the kernel-library store the server loads its CUDA libraries from "
+                        "('off': none, the package's build directory). Default: "
+                        "<models-dir>/.compile-cache/torch-cuda when --models-dir is given, "
+                        "the store fleet-build fills, so a boot, a reload and a rollback run "
+                        "no nvcc against a warm store")
     s.add_argument("--device", default=None,
                    help="cuda (default) or cpu; there is no silent fallback")
     s.set_defaults(run=run_server)
@@ -1007,6 +1100,34 @@ def parser() -> argparse.ArgumentParser:
     lap.add_argument("plan_file")
     lap.add_argument("--base-url", required=True, help="the router's base URL")
     lap.set_defaults(run=layout)
+
+    ca = commands.add_parser(
+        "cache", help="the kernel-library store (built CUDA libraries beside the models)",
+        epilog="Not offered on 'warm': --shard-fleet (mesh serving needs several cards, "
+               "ROADMAP Queue 1 item 10) and --rows (a library does not depend on a "
+               "request's rows; 'warm' needs no card).")
+    cache_commands = ca.add_subparsers(dest="cache_command", required=True)
+    cl = cache_commands.add_parser("list", help="entries as JSON: key, size, verified, and "
+                                                "current (this process's backend)")
+    cl.add_argument("--store", required=True,
+                    help="store root (e.g. <models-dir>/.compile-cache/torch-cuda)")
+    cl.set_defaults(run=cache_list)
+    cw = cache_commands.add_parser("warm", help="put the libraries a models tree's serving "
+                                                "launches into the store, off the serving path")
+    cw.add_argument("--models-dir", required=True,
+                    help="directory whose immediate subdirectories are model dirs (the tree "
+                         "run-server --models-dir serves)")
+    cw.add_argument("--store", default=None,
+                    help="store root (default: <models-dir>/.compile-cache/torch-cuda, "
+                         "run-server's default)")
+    cw.set_defaults(run=cache_warm)
+    cg = cache_commands.add_parser("purge", help="delete entries and sweep crash debris")
+    cg.add_argument("--store", required=True, help="store root")
+    cg.add_argument("--stale", dest="stale_only", action="store_true",
+                    help="remove only entries of another backend (torch, CUDA, machine, "
+                         "architecture or debug flag) or that fail verification; without it "
+                         "the whole store is cleared")
+    cg.set_defaults(run=cache_purge)
 
     c = commands.add_parser("client", help="bulk prediction against running servers")
     client_commands = c.add_subparsers(dest="client_command", required=True)

@@ -44,7 +44,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ...ops.attention import dense_attention
-from ...ops.flash_attention import flash_attention
+from ...ops.flash_attention import flash_attention, launches_kernel
 from ..modules import (KeyStream, activation, dropout, dropout_generator, linear,
                        replay_generator, resolve_dtype)
 from ..register import register_model_factory
@@ -168,6 +168,13 @@ class PatchTSTModule(nn.Module):
             if n_features_out != n_features
             else None
         )
+
+    def flash_dtype(self) -> Optional[torch.dtype]:
+        """The dtype of the flash kernel this module's forward launches (its
+        compute dtype), or None where its attention is dense or its patch
+        sequence fits one tile: what a caller must load before it runs."""
+        flash = any(layer.attn.attention_impl == "flash" for layer in self.layers)
+        return self.dtype if flash and launches_kernel(self.n_patches) else None
 
     def forward(
         self, x: torch.Tensor, generator: Optional[KeyStream] = None

@@ -798,13 +798,36 @@ def merge_views(views: Dict[str, Dict[str, Any]]) -> Dict[str, Any]:
 
 # -- the measured-cost ledger sample ------------------------------------------
 
-def sample_costs(engine: Any) -> Dict[str, Any]:
-    """One ledger sample from a live engine, read from the serving process
-    itself. Duck-typed on purpose: observability must not import the
-    server package (the dependency points the other way). The reference
-    adds a ``compile`` block from its compile cache, which the port does
-    not have yet (ROADMAP.md)."""
-    return {} if engine is None else {"engine": engine.cost_ledger()}
+def sample_costs(engine: Any, compile_store: Any = None) -> Dict[str, Any]:
+    """One ledger sample from a live engine (and its compile-cache store):
+    read from the serving process itself. Duck-typed on purpose:
+    observability must not import the server package (the dependency
+    points the other way). The ``compile`` block sums the store's entries:
+    how many, their bytes, the build seconds they saved, and those seconds
+    by the rung each library serves (``f32``, ``bf16``)."""
+    costs: Dict[str, Any] = {}
+    if engine is not None:
+        costs["engine"] = engine.cost_ledger()
+    if compile_store is not None:
+        by_precision: Dict[str, float] = {}
+        seconds_total = 0.0
+        bytes_total = 0
+        keys = 0
+        for entry in compile_store.entries():
+            keys += 1
+            bytes_total += int(entry.get("bytes") or 0)
+            seconds = float(entry.get("compile_seconds") or 0.0)
+            seconds_total += seconds
+            rung = str(entry.get("precision") or "")
+            if rung:
+                by_precision[rung] = by_precision.get(rung, 0.0) + seconds
+        costs["compile"] = {
+            "keys": keys,
+            "bytes_total": bytes_total,
+            "seconds_total": seconds_total,
+            "by_precision": dict(sorted(by_precision.items())),
+        }
+    return costs
 
 
 # -- the layout-input export (the layout compiler's input contract) ----------

@@ -10,6 +10,14 @@ headers the source includes, so an edited header rebuilds every library
 that includes it. Nothing here runs on import: the
 CPU tests import this module on machines with no ``nvcc`` and no card.
 
+A process may instead resolve its libraries through a compile-cache store
+beside the models (:mod:`..compile_cache`; :func:`resolve`, or
+:func:`use_store` for the libraries first launched in a block): a verified
+entry is loaded with no ``nvcc`` at all, a missing, stale or damaged one is
+built into a private file, written back and loaded. Loaded libraries are
+process-wide, kept by name and source hash; a store that asks for one
+already loaded reports ``loaded`` and receives a copy if it lacks one.
+
 With ``CUDA_KERNEL_DEBUG=1`` in the environment of the build, the sources
 are compiled with ``-DCUDA_KERNEL_DEBUG`` into libraries of their own: the
 bf16 kernel's pipeline waits then trap after seconds instead of waiting
@@ -24,6 +32,7 @@ at the caller's next synchronisation.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -32,7 +41,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -86,13 +95,34 @@ def _count(*names: str) -> None:
 
 
 def _nvcc() -> str:
+    """The compiler: ``nvcc`` on ``PATH``, else ``$CUDA_HOME/bin/nvcc``
+    (``CUDA_HOME`` defaults to ``/usr/local/cuda``)."""
     found = shutil.which("nvcc")
     if found:
         return found
-    default = "/usr/local/cuda/bin/nvcc"
+    default = os.path.join(os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "nvcc")
     if os.path.exists(default):
         return default
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built here")
+
+
+_NVCC_VERSION: Dict[str, Optional[str]] = {}
+
+
+def nvcc_version() -> Optional[str]:
+    """The compiler's version line (``Cuda compilation tools, release
+    12.4, V12.4.131``), or None where it cannot be read; kept in a store
+    entry's metadata, never in its key."""
+    nvcc = _nvcc()
+    if nvcc not in _NVCC_VERSION:
+        try:
+            out = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
+                                 timeout=60).stdout
+            lines = [line for line in out.splitlines() if "release" in line]
+            _NVCC_VERSION[nvcc] = (lines or [out.strip() or None])[-1]
+        except (OSError, subprocess.SubprocessError):
+            _NVCC_VERSION[nvcc] = None
+    return _NVCC_VERSION[nvcc]
 
 
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
@@ -120,32 +150,56 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
-def _start_build(name: str) -> Optional[Tuple[subprocess.Popen, str, str]]:
-    """Start ``nvcc`` for one kernel unless its library is built already;
-    it writes to a private temporary name, renamed into place when done."""
-    target = library_path(name)
-    if os.path.exists(target):
-        return None
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{target}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = [_nvcc(), *nvcc_flags(), "-o", tmp, os.path.join(SRC_DIR, SOURCES[name])]
-    proc = subprocess.Popen(
-        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-    )
-    return proc, tmp, target
+_IDENTITIES: Dict[Tuple[str, str, Tuple[str, ...]], str] = {}
 
 
-def build_all(names: Optional[List[str]] = None) -> float:
-    """Compile every named kernel (default: all), one ``nvcc`` per source,
-    all started together. Returns the wall seconds; raises with the
-    compiler's output on failure."""
+def _identity(name: str) -> str:
+    """What a loaded library is kept under in :data:`_LIBS`: its name and
+    the hash of its source and flags, so that a debug build is a library of
+    its own in one process. Hashed once per source directory and flags:
+    every launch looks its library up through this."""
+    key = (name, SRC_DIR, tuple(nvcc_flags()))
+    ident = _IDENTITIES.get(key)
+    if ident is None:
+        ident = _IDENTITIES.setdefault(key, os.path.basename(library_path(name))[: -len(".so")])
+    return ident
+
+
+# the rung each library serves: the dtype of the tensors it takes
+_PRECISION = {"flash_fwd_f32": "f32", "flash_fwd_bf16": "bf16",
+              "flash_bwd_f32": "f32", "flash_bwd_bf16": "bf16"}
+
+
+def library_key(name: str) -> Dict[str, Any]:
+    """The program half of a library's compile-cache key: its name, the
+    rung it serves, the SHA-256 of its source and included headers, and
+    the build flags (the store adds the backend fingerprint)."""
+    return {
+        "kind": "kernel-library",
+        "library": name,
+        "precision": _PRECISION[name],
+        "source": hashlib.sha256(_source_bytes(SOURCES[name])).hexdigest(),
+        "flags": nvcc_flags(),
+    }
+
+
+def _compile(jobs: List[Tuple[str, str]]) -> Dict[str, float]:
+    """Run ``nvcc`` for each ``(name, target path)``, all started together;
+    each writes to a private temporary name, renamed into place when done.
+    Returns each library's seconds from the start to its compiler's exit;
+    raises with the compiler's output on failure."""
     started = time.perf_counter()
     running = []
+    seconds: Dict[str, float] = {}
     try:
-        for name in names or list(SOURCES):
-            job = _start_build(name)
-            if job is not None:
-                running.append((name, *job))
+        for name, target in jobs:
+            os.makedirs(os.path.dirname(target), exist_ok=True)
+            tmp = f"{target}.{os.getpid()}.{threading.get_ident()}.tmp"
+            cmd = [_nvcc(), *nvcc_flags(), "-o", tmp, os.path.join(SRC_DIR, SOURCES[name])]
+            proc = subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            )
+            running.append((name, proc, tmp, target))
         for name, proc, tmp, target in running:
             output, _ = proc.communicate()
             if proc.returncode != 0:
@@ -154,6 +208,7 @@ def build_all(names: Optional[List[str]] = None) -> float:
                     f"{output}"
                 )
             os.replace(tmp, target)
+            seconds[name] = time.perf_counter() - started
     finally:
         for _, proc, tmp, _ in running:
             if proc.poll() is None:
@@ -161,25 +216,227 @@ def build_all(names: Optional[List[str]] = None) -> float:
                 proc.wait()
             if os.path.exists(tmp):
                 os.remove(tmp)
+    return seconds
+
+
+def build_all(names: Optional[List[str]] = None) -> float:
+    """Compile every named kernel (default: all) into :data:`BUILD_DIR`
+    unless its library is there already, one ``nvcc`` per source, all
+    started together. Returns the wall seconds; raises with the compiler's
+    output on failure."""
+    started = time.perf_counter()
+    _compile([(name, library_path(name)) for name in names or list(SOURCES)
+              if not os.path.exists(library_path(name))])
     return time.perf_counter() - started
 
 
-def _library(name: str) -> ctypes.CDLL:
+def _load_library(path: str, name: str) -> ctypes.CDLL:
+    """``dlopen`` one library and declare its entries' types."""
+    lib = ctypes.CDLL(path)
+    lib.gordo_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.gordo_cuda_error_string.restype = ctypes.c_char_p
+    backward = name in _BWD_FOR_DTYPE.values()
+    for entry in _ENTRIES[name]:
+        (bind_flash_bwd_entry if backward else bind_flash_entry)(getattr(lib, entry))
+    if backward:
+        workspace = getattr(lib, f"gordo_{name}_workspace")
+        workspace.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        workspace.restype = ctypes.c_longlong
+    return lib
+
+
+# the probe of a library loaded from a store: one launch at this shape,
+# held against the plain version within these tolerances, relative to the
+# plain version's largest magnitude (at least 1)
+_PROBE_SHAPE = (2, 136, 32)
+_PROBE_TOL = {"f32": 1e-4, "bf16": 5e-2}
+
+
+def _probe_library(name: str, lib: ctypes.CDLL) -> None:
+    """Launch a loaded library once on a tiny input on the current card
+    and hold it against its plain version; raises if it disagrees. The
+    launch calls the library directly and is not counted in
+    :data:`LAUNCHES`."""
+    from .flash_attention import flash_bwd_reference, flash_fwd_reference
+
+    dtype = torch.float32 if _PRECISION[name] == "f32" else torch.bfloat16
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    q, k, v, dout = (torch.randn(_PROBE_SHAPE, generator=gen).to("cuda", dtype)
+                     for _ in range(4))
+    scale = _PROBE_SHAPE[-1] ** -0.5
+    if name in _KERNEL_FOR_DTYPE.values():
+        got = _launch_flash(q, k, v, scale, lib=lib, count=False)[0]
+        want = flash_fwd_reference(q, k, v, scale)[0]
+    else:
+        out, lse = flash_fwd_reference(q, k, v, scale)
+        got = torch.cat(_launch_flash_bwd(q, k, v, out, lse, dout, scale, None,
+                                          lib=lib, count=False))
+        want = torch.cat(flash_bwd_reference(q, k, v, out, lse, dout, scale))
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = _PROBE_TOL[_PRECISION[name]] * max(1.0, want.float().abs().max().item())
+    if not err <= tol:
+        raise RuntimeError(f"{name}: probe differs from the plain version by {err:.3g} "
+                           f"(limit {tol:.3g})")
+
+
+# identity -> the file a loaded library was loaded from, the seconds its
+# build took in this process (None if it was not built here) and the
+# compiler's version: a write-back into another store copies that file
+_LIB_FILES: Dict[str, Tuple[str, Optional[float], Optional[str]]] = {}
+# the stores through which a library that is not loaded yet is resolved
+# at its first launch (use_store; the innermost wins); none: the
+# package's build directory
+_ACTIVE_STORE: List[Any] = []
+
+
+@contextlib.contextmanager
+def use_store(store: Any) -> Iterator[None]:
+    """Resolve every library first launched inside the block through
+    ``store`` (a :class:`~..compile_cache.store.CompileCacheStore`; None
+    changes nothing): a build's fit launches the forward and backward
+    libraries through the build's store."""
+    if store is None:
+        yield
+        return
+    _ACTIVE_STORE.append(store)
+    try:
+        yield
+    finally:
+        _ACTIVE_STORE.pop()
+
+
+def resolve(names: Iterable[str], store: Any = None) -> Dict[str, str]:
+    """Load the named libraries, through ``store`` when one is given, and
+    report what that took for each: ``hit`` (loaded from the store),
+    ``miss``/``stale``/``invalid`` (the store could not serve it: built
+    with ``nvcc`` and written back over the bad entry), ``loaded`` (already
+    loaded in this process; written into ``store`` if it lacks it). With
+    no store: ``built`` (``nvcc`` ran into :data:`BUILD_DIR`) or ``cached``
+    (the library was there). Raises if a library must be built and
+    ``nvcc`` cannot be found, naming the store."""
     with _LOAD_LOCK:
-        lib = _LIBS.get(name)
-        if lib is None:
-            build_all([name])
-            lib = ctypes.CDLL(library_path(name))
-            lib.gordo_cuda_error_string.argtypes = [ctypes.c_int]
-            lib.gordo_cuda_error_string.restype = ctypes.c_char_p
-            backward = name in _BWD_FOR_DTYPE.values()
-            for entry in _ENTRIES[name]:
-                (bind_flash_bwd_entry if backward else bind_flash_entry)(getattr(lib, entry))
+        return _resolve_locked(list(dict.fromkeys(names)), store)
+
+
+def _require_nvcc(store: Any, missing: Dict[str, str]) -> None:
+    """Raise, naming the store too, if ``nvcc`` cannot be found for the
+    libraries that must be built (``{name: why}``)."""
+    try:
+        _nvcc()
+    except RuntimeError as exc:
+        where = (f"the compile cache at {store.root} holds no usable entry for "
+                 + ", ".join(f"{name} ({why})" for name, why in missing.items())
+                 if store is not None else "no compile cache was given")
+        raise RuntimeError(f"{exc}, and {where}") from exc
+
+
+def _build_into(store: Any, why: Dict[str, str]) -> Dict[str, Tuple[str, float, Optional[str]]]:
+    """Build the libraries named in ``why`` (``{name: why it is built}``)
+    with ``nvcc``, all at once, each into a private file, and write each
+    into ``store``; returns ``{name: (file, build seconds, nvcc version)}``."""
+    from ..compile_cache.store import private_path
+
+    _require_nvcc(store, why)
+    targets = {name: private_path(_identity(name)) for name in why}
+    seconds = _compile(list(targets.items()))
+    compiler = nvcc_version()
+    for name, target in targets.items():
+        store.put(library_key(name), target, compile_seconds=seconds[name], compiler=compiler)
+    return {name: (targets[name], seconds[name], compiler) for name in why}
+
+
+def _copy_loaded(name: str, store: Any) -> None:
+    """Write the file this process loaded ``name`` from into ``store``."""
+    path, seconds, compiler = _LIB_FILES[_identity(name)]
+    store.put(library_key(name), path, compile_seconds=seconds, compiler=compiler)
+
+
+def _resolve_locked(names: List[str], store: Any) -> Dict[str, str]:
+    outcomes: Dict[str, str] = {}
+    to_build: List[str] = []
+    for name in names:
+        ident = _identity(name)
+        if ident in _LIBS:
+            if store is not None and not store.holds(library_key(name)):
+                _copy_loaded(name, store)
+            outcomes[name] = "loaded"
+        elif store is None:
+            outcomes[name] = "cached" if os.path.exists(library_path(name)) else "built"
+            to_build.append(name)
+        else:
+            outcome, loaded = store.lookup(
+                library_key(name),
+                load=lambda path, name=name: (_load_library(path, name), path),
+                probe=lambda loaded, name=name: _probe_library(name, loaded[0]))
+            outcomes[name] = outcome
+            if loaded is not None:
+                _LIBS[ident], path = loaded
+                _LIB_FILES[ident] = (path, None, None)
+            else:
+                to_build.append(name)
+    if store is not None:
+        files = _build_into(store, {name: outcomes[name] for name in to_build}) if to_build else {}
+    else:
+        missing = [name for name in to_build if outcomes[name] == "built"]
+        if missing:
+            _require_nvcc(None, {name: "built" for name in missing})
+        seconds = _compile([(name, library_path(name)) for name in missing])
+        compiler = nvcc_version() if missing else None
+        files = {name: (library_path(name), seconds.get(name), compiler if name in seconds else None)
+                 for name in to_build}
+    for name, record in files.items():
+        _LIBS[_identity(name)] = _load_library(record[0], name)
+        _LIB_FILES[_identity(name)] = record
+    return outcomes
+
+
+def fill_store(names: Iterable[str], store: Any) -> Dict[str, str]:
+    """Make ``store`` hold the named libraries without loading any (a
+    build host with ``nvcc`` and no card): ``present`` (a verified entry
+    is there), ``loaded`` (copied from this process's loaded library) or
+    ``built`` (``nvcc`` ran and the library was written). Raises if one
+    must be built and ``nvcc`` cannot be found."""
+    with _LOAD_LOCK:
+        outcomes: Dict[str, str] = {}
+        for name in dict.fromkeys(names):
+            if store.holds(library_key(name), deep=True):
+                outcomes[name] = "present"
+            elif _identity(name) in _LIBS:
+                _copy_loaded(name, store)
+                outcomes[name] = "loaded"
+            else:
+                outcomes[name] = "missing"
+        missing = {name: why for name, why in outcomes.items() if why == "missing"}
+        if missing:
+            _build_into(store, missing)
+            outcomes.update(dict.fromkeys(missing, "built"))
+        return outcomes
+
+
+def libraries_for(module: torch.nn.Module, backward: bool = False) -> List[str]:
+    """The libraries that ``module``'s forward launches on the card (and,
+    with ``backward``, its gradient): one per flash dtype its submodules
+    report through ``flash_dtype()``. A dense or LSTM module launches none."""
+    names = set()
+    for sub in module.modules():
+        flash_dtype = getattr(sub, "flash_dtype", None)
+        dtype = flash_dtype() if callable(flash_dtype) else None
+        if dtype is not None:
+            names.add(_KERNEL_FOR_DTYPE[dtype])
             if backward:
-                workspace = getattr(lib, f"gordo_{name}_workspace")
-                workspace.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
-                workspace.restype = ctypes.c_longlong
-            _LIBS[name] = lib
+                names.add(_BWD_FOR_DTYPE[dtype])
+    return sorted(names)
+
+
+def _library(name: str) -> ctypes.CDLL:
+    ident = _identity(name)
+    lib = _LIBS.get(ident)
+    if lib is None:
+        with _LOAD_LOCK:
+            if ident not in _LIBS:
+                _resolve_locked([name], _ACTIVE_STORE[-1] if _ACTIVE_STORE else None)
+            lib = _LIBS[ident]
     return lib
 
 
@@ -249,7 +506,10 @@ def flash_fwd_bf16_single_stage(
     return _launch_flash(q3, k3, v3, scale, "gordo_flash_fwd_bf16_single_stage")
 
 
-def _launch_flash(q3, k3, v3, scale, entry: Optional[str] = None):
+def _launch_flash(q3, k3, v3, scale, entry: Optional[str] = None,
+                  lib: Optional[ctypes.CDLL] = None, count: bool = True):
+    """Check and launch a forward: the process's library of q's dtype, or
+    ``lib`` (a store entry's probe, which is not counted)."""
     for name, t in (("q", q3), ("k", k3), ("v", v3)):
         if t.device.type != "cuda":
             raise ValueError(f"flash_fwd_cuda: {name} is on {t.device}, not CUDA")
@@ -277,7 +537,7 @@ def _launch_flash(q3, k3, v3, scale, entry: Optional[str] = None):
     if bh == 0 or seq == 0:
         raise ValueError(f"flash_fwd_cuda: empty input {tuple(q3.shape)}")
     name = _KERNEL_FOR_DTYPE[q3.dtype]
-    lib = _library(name)
+    lib = lib or _library(name)
     out = torch.empty_like(q3)
     lse = torch.empty((bh, seq), dtype=torch.float32, device=q3.device)
     with torch.cuda.device(q3.device):
@@ -287,7 +547,8 @@ def _launch_flash(q3, k3, v3, scale, entry: Optional[str] = None):
             bh, seq, d, float(scale), stream,
         )
     _raise_on(lib, status, name)
-    _count("flash_fwd", name)
+    if count:
+        _count("flash_fwd", name)
     return out, lse
 
 
@@ -309,6 +570,13 @@ def flash_bwd_cuda(
     tensors: the forward's q, k, v, out and lse, the output cotangent
     ``dout`` and, when given, the lse cotangent ``dlse`` ``(BH, S)`` →
     ``(dq, dk, dv)`` in q's dtype."""
+    return _launch_flash_bwd(q3, k3, v3, out, lse, dout, scale, dlse)
+
+
+def _launch_flash_bwd(q3, k3, v3, out, lse, dout, scale, dlse,
+                      lib: Optional[ctypes.CDLL] = None, count: bool = True):
+    """Check and launch a backward: the process's library of q's dtype, or
+    ``lib`` (a store entry's probe, which is not counted)."""
     tensors = {"q": q3, "k": k3, "v": v3, "out": out, "dout": dout}
     for name, t in tensors.items():
         if t.device.type != "cuda":
@@ -343,7 +611,7 @@ def flash_bwd_cuda(
                 f"{q3.device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
             )
     name = _BWD_FOR_DTYPE[q3.dtype]
-    lib = _library(name)
+    lib = lib or _library(name)
     dq, dk, dv = torch.empty_like(q3), torch.empty_like(q3), torch.empty_like(q3)
     with torch.cuda.device(q3.device):
         nbytes = getattr(lib, f"gordo_{name}_workspace")(bh, seq, d)
@@ -360,5 +628,6 @@ def flash_bwd_cuda(
             bh, seq, d, float(scale), stream,
         )
     _raise_on(lib, status, name)
-    _count("flash_bwd", name)
+    if count:
+        _count("flash_bwd", name)
     return dq, dk, dv

@@ -194,6 +194,12 @@ def flash_block_with_lse(
     return flash_fwd(q3, k3, v3, scale)
 
 
+def launches_kernel(seq: int, block_q: int = _DEF_BLOCK_Q, block_k: int = _DEF_BLOCK_K) -> bool:
+    """Whether :func:`flash_attention` sends a sequence of this length to
+    the kernel (else to :func:`dense_attention`, which fits one tile)."""
+    return seq > min(block_q, block_k)
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -207,7 +213,7 @@ def flash_attention(
     if scale is None:
         scale = q.shape[-1] ** -0.5
     *batch, seq, heads, head_dim = q.shape
-    if seq <= min(block_q, block_k):
+    if not launches_kernel(seq, block_q, block_k):
         return dense_attention(q, k, v, scale)
     bh = heads
     for dim in batch:

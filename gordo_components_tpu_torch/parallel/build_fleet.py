@@ -53,6 +53,7 @@ from ..models.analysis import Analyzed, analyze_model
 from ..models.convert import flax_from_params
 from ..models.transformers import MinMaxScaler, StandardScaler
 from ..observability.registry import REGISTRY
+from ..ops import _kernels
 from ..ops.scaling import ScalerParams
 from ..resilience import faults
 from ..serializer import pipeline_from_definition
@@ -430,10 +431,13 @@ def build_fleet(
     fetch_backoff: Optional[float] = None,
     precision_default: Optional[str] = None,
     precision_map: Optional[Dict[str, str]] = None,
+    compile_cache_store: Any = None,
 ) -> Dict[str, str]:
     """Build every machine on ``device`` (``cuda`` unless the caller says
     ``"cpu"``); returns ``{name: model_dir}`` (a generation root under
-    ``output_dir`` per machine).
+    ``output_dir`` per machine). ``compile_cache_store``: a
+    :class:`~..compile_cache.CompileCacheStore` the training's kernel
+    libraries (forward and backward) resolve through.
 
     **Precision**: ``precision_map`` pins machines to a rung (f32 / bf16 /
     int8), the rest take ``precision_default`` (flag →
@@ -460,6 +464,15 @@ def build_fleet(
     bucket in one stack. ``profile_dir`` wraps the training in
     ``torch.profiler``. Inside a ``torch.distributed`` group of more than
     one rank it raises ``NotImplementedError``: ranks are not ported yet."""
+    with _kernels.use_store(compile_cache_store):
+        return _build_fleet(machines, output_dir, model_register_dir, device, seed, n_splits,
+                            profile_dir, slice_size, fetch_retries, fetch_backoff,
+                            precision_default, precision_map)
+
+
+def _build_fleet(machines, output_dir, model_register_dir, device, seed, n_splits,
+                 profile_dir, slice_size, fetch_retries, fetch_backoff,
+                 precision_default, precision_map) -> Dict[str, str]:
     if _world_size() > 1:
         raise NotImplementedError(_MULTI_PROCESS)
     if slice_size is not None and slice_size < 1:

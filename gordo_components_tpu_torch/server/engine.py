@@ -5,9 +5,11 @@ pipeline at 611-748, ``_Bucket`` at 761-2499 and ``ServingEngine`` at
 2501-3262 and its metrics at 95-190, with the request seams: span
 timelines, the weighted-fair drain and the ``engine-dispatch`` fault
 point; the control loops' seams: traffic notes, ``cost_ledger``, live
-tuning; and the host-RAM spill tier at 526-608, 2560-2584, 2820-2956 and
-3039-3115, without its mesh-shard accounting; without the mesh, hot cache
-and compile cache — ROADMAP.md lists them).
+tuning; the host-RAM spill tier at 526-608, 2560-2584, 2820-2956 and
+3039-3115, without its mesh-shard accounting; and the compile cache's
+counterpart at 1214-1296 and 3192: the kernel libraries each bucket and
+each lazy machine launches, resolved through a store before they first
+run; without the mesh and the hot cache — ROADMAP.md lists them).
 
 Every machine that shares an architecture (the reference's signature:
 config, loss, widths, lookback, lookahead and precision) is stacked into
@@ -125,7 +127,7 @@ from ..models.transformers import MinMaxScaler, StandardScaler
 from ..observability import spans
 from ..observability import traffic as traffic_accounting
 from ..observability.registry import REGISTRY
-from ..ops import windowing
+from ..ops import _kernels, windowing
 from ..ops.scaling import ScalerParams
 from ..resilience import deadline, faults, qos
 from ..serializer.persistence import estimators
@@ -1143,6 +1145,8 @@ class ServingEngine:
     (``context`` is the caller's and rides in the bundle; ``nbytes`` is
     the artifact's size, counted in the cache's byte ledger beside the
     tree). ``host_cache_mb`` defaults to ``GORDO_HOST_CACHE_MB`` (256).
+    ``compile_cache``: the :class:`~..compile_cache.CompileCacheStore` the
+    kernel libraries resolve through (None: the package's build directory).
     """
 
     def __init__(
@@ -1158,8 +1162,17 @@ class ServingEngine:
         device: DeviceLike = None,
         lazy: Optional[Dict[str, Callable[[], Dict[str, Any]]]] = None,
         host_cache_mb: Optional[int] = None,
+        compile_cache: Any = None,
     ):
         self.device = resolve_device(device)
+        # the kernel-library store (compile_cache.CompileCacheStore) this
+        # engine resolves its libraries through; None: the build directory
+        self.compile_cache = compile_cache
+        # library -> what resolving it took (hit, miss, stale, invalid,
+        # loaded, built, cached): the libraries this engine launches
+        self.kernel_libraries: Dict[str, str] = {}
+        # the libraries the eager host-path machines' estimators launch
+        self._host_path_libraries: set = set()
         if fill_window_us is None:
             fill_window_us = _fill_window_us()
         self.fill_window_us = max(0, int(fill_window_us))
@@ -1202,7 +1215,7 @@ class ServingEngine:
             except (ValueError, AttributeError, TypeError) as exc:
                 logger.info("Serving engine skips %r: %s", name, exc)
                 self.skipped[name] = str(exc)
-                self._place_for_host_path(model)
+                self._host_path_libraries.update(self._place_for_host_path(model))
                 continue
             groups.setdefault(sig, []).append((est, entry))
 
@@ -1227,19 +1240,43 @@ class ServingEngine:
                 len(self._by_name), len(self._buckets), self.device,
             )
 
-    def _place_for_host_path(self, model: Any) -> None:
+    def _place_for_host_path(self, model: Any) -> List[str]:
         """A machine the engine cannot lift is scored by the server's host
         path (``model.anomaly`` / ``model.predict``): its estimators go to
         the engine's device once, here, so that path runs on the card and
-        never quietly on the CPU. Its transformers stay numpy."""
+        never quietly on the CPU. Its transformers stay numpy. Returns the
+        kernel libraries its estimators launch there."""
+        names = set()
         for est in estimators(model):
             est.to(self.device)
+            if est.module_ is not None:
+                names.update(_kernels.libraries_for(est.module_))
+        return sorted(names)
 
     # -- public API --------------------------------------------------------------
+    def required_libraries(self) -> List[str]:
+        """The kernel libraries the eager machines launch on the card: the
+        buckets' and the host-path machines' (a dense or LSTM fleet
+        launches none)."""
+        return sorted({name for bucket in self._buckets
+                       for name in _kernels.libraries_for(bucket.template)}
+                      | self._host_path_libraries)
+
+    def _resolve_kernels(self, names: List[str]) -> None:
+        """Load ``names`` through the engine's store before they first run
+        on the card (on the CPU no kernel launches: nothing is resolved)."""
+        names = [name for name in names if name not in self.kernel_libraries]
+        if names and self.device.type == "cuda":
+            self.kernel_libraries.update(_kernels.resolve(names, self.compile_cache))
+
     def warmup(self, rows: Optional[int] = None) -> int:
-        """Score one synthetic request per bucket before traffic arrives: it
-        builds the CUDA kernels' libraries and the cuBLAS handles, so the
-        first real request pays neither. Returns the buckets warmed."""
+        """Resolve the kernel libraries the eager machines launch, the
+        buckets' and the host path's (through the compile-cache store: a
+        warm store loads them with no ``nvcc``), then
+        score one synthetic request per bucket before traffic arrives, which
+        makes the cuBLAS handles, so the first real request pays neither.
+        Returns the buckets warmed."""
+        self._resolve_kernels(self.required_libraries())
         for bucket in self._buckets:
             need = bucket.lookback + (bucket.lookahead or 0)
             n = max(rows or 0, need, 1)
@@ -1363,7 +1400,7 @@ class ServingEngine:
             # estimators on this engine's device; the bundle still caches
             # (the deserialisation is the expensive part either way)
             logger.info("Spill tier serves %r on the host path only: %s", name, exc)
-            self._place_for_host_path(loaded["model"])
+            self._resolve_kernels(self._place_for_host_path(loaded["model"]))
             self._host_only[name] = str(exc)
             bundle = {"entry": None, "sig": None, "scorer": None, "skip": str(exc),
                       "context": loaded.get("context")}
@@ -1371,6 +1408,8 @@ class ServingEngine:
         self._host_only.pop(name, None)
         scorer = self._spill_scorers.get(sig) or self._spill_scorers.setdefault(
             sig, _SpillScorer(est, json.loads(sig)["precision"], self.device))
+        # a lazy machine's libraries are known at its first load
+        self._resolve_kernels(_kernels.libraries_for(scorer.template))
         tree = _entry_host_tree(entry, self.device)
         bundle = {"entry": tree, "sig": sig, "scorer": scorer,
                   "context": loaded.get("context")}
@@ -1587,6 +1626,13 @@ class ServingEngine:
                 "machines": dict(sorted(prec_machines.items())),
                 "requests": dict(sorted(prec_requests.items())),
             },
+            # the kernel-library store's lookup and write counts (None: no
+            # store, the build directory), and what resolving each library
+            # this engine launches took
+            "compile_cache": (
+                dict(self.compile_cache.counters) if self.compile_cache is not None else None
+            ),
+            "kernel_libraries": dict(sorted(self.kernel_libraries.items())),
             # the spill tier: lazy machines, the host cache's economy and
             # the scorers (one per architecture, never per machine)
             "spill": {

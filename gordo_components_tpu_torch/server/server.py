@@ -116,6 +116,15 @@ readable index the boot scans instead. ``POST /reload`` re-reads the index:
 membership changes swap the state, and a lazy machine whose index
 ``generation`` moved has its cached bundle dropped (``refreshed``).
 
+Warm boot (reference ``server.py:483``, ``:546-547``, ``:2340-2370``):
+every state's engine (boot, reload, rollback) resolves the kernel
+libraries it launches through one store, ``compile_cache_store=`` (or
+``GORDO_COMPILE_CACHE_STORE``; ``"off"``: none), by default
+``<models-dir>/.compile-cache/torch-cuda``: a verified entry is loaded
+with no ``nvcc``, any other is built and written back. ``make_server``
+logs the hits and writes, ``/metrics``' engine block carries the counts,
+and the telemetry sampler reads the store's build seconds.
+
 The control loops tick on reads, never on a thread: every ``/metrics``
 scrape ticks the SLO evaluator, then the autopilot, then the telemetry
 warehouse, each gated by its own minimum interval
@@ -161,6 +170,7 @@ import numpy as np
 from .. import precision as precision_mod
 from .. import wire
 from ..autopilot import build_server_autopilot, disabled_snapshot
+from ..compile_cache import resolve_store
 from ..dataset import GordoBaseDataset
 from ..dataset.data_provider.providers import pandas_index_columns
 from ..models.anomaly.diff import DiffBasedAnomalyDetector
@@ -354,7 +364,8 @@ class _ServerState:
     __slots__ = ("machines", "single", "engine", "lazy_names", "_inflight", "_cond")
 
     def __init__(self, machines: Dict[str, _Machine], single: bool, device,
-                 lazy_loaders: Optional[Dict[str, Callable[[], Dict[str, Any]]]] = None):
+                 lazy_loaders: Optional[Dict[str, Callable[[], Dict[str, Any]]]] = None,
+                 compile_cache: Any = None):
         self._inflight = 0
         self._cond = threading.Condition()
         self.machines = machines
@@ -371,6 +382,7 @@ class _ServerState:
                        if m.quantized is not None},
             device=device,
             lazy=lazy_loaders,
+            compile_cache=compile_cache,
         )
         for name, reason in self.engine.skipped.items():
             logger.warning("Machine %r is scored on the host path: %s", name, reason)
@@ -422,7 +434,11 @@ class ModelServer:
     be probed; ``drain_timeout``: how long a reload or a shutdown waits for
     in-flight requests. ``lazy_boot`` (default ``GORDO_LAZY_BOOT``, off)
     boots a models directory from its fleet index, most machines lazy (see
-    the module docstring). :meth:`close` drains and stops the engine.
+    the module docstring). ``compile_cache_store``: the root of the store
+    the kernel libraries resolve through (``"off"``: none); default
+    ``GORDO_COMPILE_CACHE_STORE``, else ``<models_root>/.compile-cache/
+    torch-cuda`` (``compile_cache.resolve_store``). :meth:`close` drains
+    and stops the engine.
     """
 
     def __init__(
@@ -436,6 +452,7 @@ class ModelServer:
         models_root: Optional[str] = None,
         worker_id: Optional[int] = None,
         lazy_boot: Optional[bool] = None,
+        compile_cache_store: Optional[str] = None,
     ):
         self.device = resolve_device(device)
         if worker_id is None:
@@ -479,6 +496,9 @@ class ModelServer:
             self.models_root = None
         else:
             self.models_root = models_dir
+        # the kernel-library store every state's engine (boot, reload,
+        # rollback) resolves its libraries through
+        self.compile_cache = resolve_store(compile_cache_store, self.models_root)
         # before the machines load, so their quarantine events land there
         ledger_dir = os.environ.get("GORDO_LEDGER_DIR")
         if ledger_dir:
@@ -541,7 +561,8 @@ class ModelServer:
             self.telemetry = telemetry_engine.TelemetryWarehouse(
                 directory=warehouse_dir or None,
                 worker=str(self.worker_id) if self.worker_id is not None else "",
-                cost_sampler=lambda: telemetry_engine.sample_costs(self._state.engine),
+                cost_sampler=lambda: telemetry_engine.sample_costs(self._state.engine,
+                                                                   self.compile_cache),
             )
         self.incidents = incidents_engine.IncidentCorrelator(
             directory=os.path.join(ledger_dir, "incidents") if ledger_dir else None,
@@ -657,7 +678,8 @@ class ModelServer:
         warmed up (kernel libraries built, cuBLAS handles made) before it
         takes traffic."""
         state = _ServerState(machines, single=self._single, device=self.device,
-                             lazy_loaders=self._lazy_loaders())
+                             lazy_loaders=self._lazy_loaders(),
+                             compile_cache=self.compile_cache)
         state.engine.warmup()
         # the autopilot's applied values carry over: a new engine reads the
         # environment's, which would revert every adaptation at a reload
@@ -1539,6 +1561,14 @@ def make_server(
     ``server.server_address``); ``options`` go to :class:`ModelServer`.
     ``server_close()`` also drains and closes the engine."""
     app = ModelServer(models_dir, project=project, device=device, **options)
+    cache = app.compile_cache
+    libraries = app.engine.kernel_libraries
+    logger.info(
+        "Serving engine warm: %d kernel librar%s%s", len(libraries),
+        "y" if len(libraries) == 1 else "ies",
+        (f" (compile cache {cache.root}: {cache.counters.get('hit', 0)} hit(s), "
+         f"{cache.counters.get('write', 0)} write(s))" if cache is not None
+         else " (compile cache off)"))
     try:
         httpd = AppHTTPServer((host, port), app)
     except BaseException:

@@ -9,7 +9,9 @@ lazily booted ``ModelServer`` (``device="cpu"``) whose host cache holds
 two of their bundles but not three, sized from the bundle bytes the engine
 reports, as the phase sizes its cap; phase 15's own schedule, asked over
 the server's HTTP handler, moves the cache's counters exactly as
-predicted.
+predicted. Last, the rows phases 3, 14 and 15 hold against the CPU plain
+path: a windowed score over the first and last windows' rows equals the
+whole answer at the rows ``end_rows`` picks.
 """
 
 import json
@@ -17,6 +19,7 @@ import shutil
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -64,6 +67,11 @@ def lazy_root(tmp_path, monkeypatch):
     write_fleet_index(str(root), build_fleet_index(str(root)))
     monkeypatch.setenv("GORDO_TELEMETRY", "0")
     monkeypatch.setenv("GORDO_LEDGER_DIR", str(tmp_path / "ledger"))
+    # another file's fixture may have left these in the process's
+    # environment (tools/capacity_harness sets GORDO_BOOT_EAGER and
+    # GORDO_HOST_CACHE_MB without restoring them)
+    monkeypatch.delenv("GORDO_BOOT_EAGER", raising=False)
+    monkeypatch.delenv("GORDO_HOST_CACHE_MB", raising=False)
     monkeypatch.setattr(ledger, "LEDGER", ledger.ControlLedger())
     yield str(root)
     shutil.rmtree(root, ignore_errors=True)
@@ -91,3 +99,41 @@ def test_the_phase_schedule_moves_a_lazy_servers_cache_as_predicted(lazy_root):
         assert moved == {"hit": 10, "miss": 8, "store": 8, "evict": 6}
     finally:
         server.close()
+
+
+def _windowed(lookback):
+    """A score with one row per window of ``lookback`` rows, each from its
+    window alone (as a PatchTST answer's), in the four answer fields."""
+
+    def score(rows):
+        sums = np.cumsum(np.vstack([np.zeros((1, rows.shape[1])), rows]), axis=0)
+        out = sums[lookback:] - sums[:-lookback]
+        return {field: out * (k + 1) for k, field in enumerate(
+            ("model-input", "model-output", "tag-anomaly-scores", "total-anomaly-score"))}
+
+    return score
+
+
+@pytest.mark.parametrize("lookback,rows", [
+    *[(chip_smoke.LOOKBACK, chip_smoke.LOOKBACK + w - 1) for w in (1, 3, 4, 5, 16, 64)],
+    (1, chip_smoke.SEAMS_ROWS),  # a dense request, shorter than a lookback: whole
+])
+def test_the_cpu_plain_path_holds_the_answers_first_and_last_windows(lookback, rows):
+    windows = rows - lookback + 1
+    # integers: the window sums are exact whichever row they start from
+    X = np.random.default_rng(rows).integers(-50, 50, size=(rows, 2)).astype(np.float64)
+    score = _windowed(lookback)
+    whole = score(X)
+    plain = chip_smoke.cpu_plain_answer(score, X)
+    held = len(plain["model-output"])
+    picked = chip_smoke.end_rows(whole, held)
+    for field, array in plain.items():
+        assert np.array_equal(array, picked[field])
+    answer = len(whole["model-output"])
+    if windows <= chip_smoke.CPU_PLAIN_WINDOWS or rows < chip_smoke.LOOKBACK:
+        assert held == answer
+    else:
+        assert held < answer
+        half = held // 2
+        assert np.array_equal(picked["model-output"][:half], whole["model-output"][:half])
+        assert np.array_equal(picked["model-output"][half:], whole["model-output"][-half:])

@@ -299,23 +299,26 @@ def test_sums_and_means_are_pandas_kahan_sums():
 def test_legacy_resolutions(legacy, modern):
     """Legacy spellings normalize as the reference's; a span is read as
     ``pd.Timedelta`` reads it, which refuses a bare unit ("min") and a
-    calendar offset ("1W"), as the reference's join then does."""
+    calendar offset ("ME", "W-SUN") and reads a numbered week ("1W")."""
     from gordo_components_tpu.dataset.dataset import _normalize_resolution as ref_normalize
 
-    from gordo_components_tpu_torch.dataset.dataset import _normalize_resolution, _span_ns
+    from gordo_components_tpu_torch.dataset.dataset import _normalize_resolution, _timedelta_ns
 
     assert _normalize_resolution(legacy) == ref_normalize(legacy) == modern
     if legacy == "T":
         with pytest.raises(ValueError):
             pd.Timedelta(modern)
         with pytest.raises(ValueError, match="unsupported"):
-            _span_ns(legacy)
+            _timedelta_ns(legacy)
     else:
-        assert _span_ns(legacy) == pd.Timedelta(modern).value
-    for span in ("1.5h", "2D", "90s"):
-        assert _span_ns(span) == pd.Timedelta(span).value
-    with pytest.raises(ValueError, match="unsupported"):
-        _span_ns("1W")
+        assert _timedelta_ns(legacy) == pd.Timedelta(modern).value
+    for span in ("1.5h", "2D", "90s", "1W", "2w", "-3h", "+10min"):
+        assert _timedelta_ns(span) == pd.Timedelta(span).value
+    for calendar in ("ME", "W-SUN", "W"):
+        with pytest.raises(ValueError):
+            pd.Timedelta(calendar)
+        with pytest.raises(ValueError, match="unsupported"):
+            _timedelta_ns(calendar)
 
 
 @pytest.mark.parametrize("text", ["2023-01-01T00:00:00+00:00", "2023-01-01T00:00:00Z",
@@ -650,3 +653,363 @@ def test_dataset_config_round_trips_through_json():
     config = json.loads(json.dumps(dataset.get_metadata()["dataset_config"]))
     again = GordoBaseDataset.from_dict(config)
     np.testing.assert_array_equal(again.get_data()[0], dataset.get_data()[0])
+
+
+# -- calendar resolutions and the remaining aggregations -------------------------
+CALENDARS = ["W", "w", "W-MON", "w-Mon", "W-sun", "W-THU", "2W", "3W-WED", "+2W", "2 W", "ME",
+             "2ME", "12ME", "MS", "3MS", "QE", "QE-JAN", "QE-DEC", "2QE-FEB", "QS", "QS-FEB",
+             "QS-OCT", "2QS", "YE", "YE-JUN", "2YE", "YS", "YS-MAR", "1YS-JAN", "D", "2D",
+             "3d", "24h", "48h", "1.5D", "1440min", "h", "min", "+1D"]
+NEW_AGGREGATIONS = ["prod", "size", "nunique", "sem", "quantile", "ffill", "bfill", "nearest",
+                    "asfreq", "interpolate"]
+REDUCTIONS = NEW_AGGREGATIONS[:5]
+
+
+def _long_series(seed, n_series=2, dense=False):
+    """Irregular points over 15 months with duplicates, NaNs, repeated
+    values (so nunique differs from count) and a gap of weeks; ``dense``:
+    over two days at whole minutes instead (points on the labels, and
+    halfway between two, which ``nearest`` must break as pandas does)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n_series):
+        n = int(rng.integers(200, 600))
+        if dense:
+            seconds = np.sort(rng.integers(0, 2 * 1440, size=n)) * 60
+            seconds[n // 2:] += 3 * 3600  # a gap of hours
+        else:
+            seconds = np.sort(rng.integers(0, 456 * 86400, size=n))
+            seconds[n // 2:] += 40 * 86400  # a gap of weeks
+        seconds[5] = seconds[4]  # a duplicated timestamp
+        ts = np.datetime64("2023-01-03T05:17:00", "ns").astype(np.int64) + \
+            seconds.astype(np.int64) * 1_000_000_000
+        values = np.round(rng.normal(size=n) * 3, 1)  # repeats among the values
+        values[rng.integers(0, n, size=n // 10)] = np.nan
+        out.append((f"t{i}", ts, values))
+    return out
+
+
+def _exact_frames(ref_frame, ref_meta, frame, meta):
+    """Frames equal exactly: the index to the nanosecond, every value as
+    the reference's float64 (NaN where it is NaN)."""
+    assert meta == ref_meta
+    assert frame.columns == list(ref_frame.columns)
+    np.testing.assert_array_equal(frame.index, ref_frame.index.as_unit("ns").asi8)
+    np.testing.assert_array_equal(frame.values, ref_frame.to_numpy(np.float64))
+
+
+def _both(series, *args):
+    """The port's join and the reference's on the same series: both frames,
+    or the exception type each raised (each package's
+    ``InsufficientDataError`` read as the same)."""
+    import warnings
+
+    out = []
+    for join, data in ((join_timeseries, series), (ref_join_timeseries, _ref_series(series))):
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                out.append(join(iter(data), *args))
+        except (InsufficientDataError, RefInsufficientDataError):
+            out.append(InsufficientDataError)
+        except Exception as exc:  # noqa: BLE001 - the type is what is compared
+            out.append(type(exc))
+    return out
+
+
+@pytest.mark.parametrize("resolution", CALENDARS)
+@pytest.mark.parametrize("seed", [0, 1])
+def test_calendar_resolutions_bin_and_label_as_pandas(resolution, seed):
+    """Each calendar alias's bins, closed side, labels and values, and the
+    range slice, exactly as the reference's; ``origin`` mid-day, where
+    pandas ignores it for calendar offsets and days."""
+    start = datetime(2023, 1, 2, 6, tzinfo=UTC)
+    end = datetime(2024, 5, 1, tzinfo=UTC)
+    # one series: a multiple's grid starts at each series' own first
+    # point, so two series rarely share a label
+    ours, theirs = _both(_long_series(seed, 1), start, end, resolution,
+                         ["mean", "count", "max", "size"], "linear_interpolation", None)
+    assert not isinstance(theirs, type), theirs
+    _exact_frames(*theirs, *ours)
+    assert len(ours[0].index) > 0
+
+
+@pytest.mark.parametrize("aggregation", NEW_AGGREGATIONS + [REDUCTIONS, ["mean", "size"],
+                                                           ["quantile", "median", "sem", "std"]])
+@pytest.mark.parametrize("resolution", ["10min", "7h", "W", "ME", "QS"])
+@pytest.mark.parametrize("interpolation", ["linear_interpolation", "ffill", "none"])
+def test_the_remaining_aggregations_equal_the_reference(aggregation, resolution, interpolation):
+    start = datetime(2023, 1, 1, tzinfo=UTC)
+    end = datetime(2024, 6, 1, tzinfo=UTC)
+    # 10min: several points per bin, some on the labels
+    series = _long_series(3, dense=resolution == "10min")
+    ours, theirs = _both(series, start, end, resolution, aggregation, interpolation,
+                         None if resolution in ("W", "ME", "QS") else "8H")
+    assert not isinstance(theirs, type), theirs
+    _exact_frames(*theirs, *ours)
+
+
+@pytest.mark.parametrize("resolution,limit", [
+    ("W", "8H"), ("W-SUN", "8H"), ("ME", "8H"), ("2ME", "8H"), ("QE-JAN", "8H"),
+    ("1W", "8H"), ("2W", "8H"), ("2w", "20D"), ("-2W", "8H"), ("-2W", None), ("0W", "8H"),
+    ("0W", None), ("0ME", None), ("0ME", "8H"), ("-1ME", None), ("-1MS", None),
+    ("-2QS", None), ("-1YS", None), ("-1W-MON", None), ("-1QE", None), ("-3YE", None),
+    ("0QS", None), ("M", None), ("Q", None), ("Y", None), ("A", None), ("me", None),
+    ("Me", None), ("Qe", None), ("qs", None), ("QE-dec", None), ("YE-Dec", None),
+    ("ME-JAN", None), ("MS-FEB", None), ("W-MONDAY", None), ("W-", None), ("QE-XYZ", None),
+    ("1.5W", None), ("0min", None), ("0min", "8H"), ("-10min", None), ("0D", None),
+    ("-1D", None), ("D", "8H"), ("h", "8H"), ("10min", "0min"),
+    ("SMS-1", None), ("SME-28", None), ("SME-X", None), ("B-MON", None), ("CBMS-JAN", None),
+    ("bme", None), ("Bme", None), ("cbme", None), ("BM", None), ("BQ", None), ("BA", None),
+    ("BY", None), ("SM", None), ("-1B", None), ("0B", None), ("0BME", None), ("-1SME", None),
+    ("0SMS", None), ("-2BQS", None), ("B", "8H"), ("SME", "8H"), ("0bh", None),
+    ("-1bh", None), ("0cbh", None), ("BH", None), ("CBH", None), ("Bh", None), ("1.5bh", None),
+    ("bh-x", None), ("bh", "8H"), ("WOM-5MON", None), ("WOM-0MON", None), ("WOM-1mon", None),
+    ("LWOM-X", None), ("LWOM", None), ("WOM", None), ("hye", None), ("HYE-X", None),
+    ("0WOM-1MON", None), ("0HYE", None), ("-2HYS", None), ("lwom-MON", None), ("HYE", "8H"),
+    ("RE", None), ("REQ", None), ("RE-N-JAN", None), ("REQ-N-JAN-MON", None),
+    ("RE-X-JAN-MON", None), ("re-N-JAN-MON", None), ("0RE-N-JAN-MON", None),
+    ("0REQ-N-JAN-MON-1", None), ("RE-N-jan-mon", None), ("RE-N-JAN-MON-1", None),
+    ("REQ-N-JAN-MON-5", None), ("REQ-N-JAN-MON-0", None), ("RE-N-JAN-MON", "8H"),
+    ("-1LWOM-MON", None), ("-1RE-L-JAN-MON", None), ("-1REQ-N-JAN-MON-1", None),
+])
+def test_a_resolution_the_reference_refuses_raises_the_same_type(resolution, limit):
+    start = datetime(2023, 1, 2, tzinfo=UTC)
+    end = datetime(2024, 5, 1, tzinfo=UTC)
+    ours, theirs = _both(_long_series(5, 1), start, end, resolution, "mean",
+                         "linear_interpolation", limit)
+    if isinstance(theirs, type):
+        assert ours is theirs, (ours, theirs)
+    else:
+        _exact_frames(*theirs, *ours)
+
+
+LIST_REDUCTIONS = [["any", "all", "skew", "kurt"], ["skew"], ["kurt", "mean"], ["all"],
+                   ["idxmin", "idxmax", "mean"], ["idxmax"]]
+
+
+@pytest.mark.parametrize("aggregation", LIST_REDUCTIONS)
+@pytest.mark.parametrize("resolution", ["10min", "2h", "D", "W", "ME"])
+@pytest.mark.parametrize("interpolation", ["linear_interpolation", "ffill", "none"])
+def test_the_list_reductions_equal_the_reference(aggregation, resolution, interpolation):
+    """``any``/``all`` (pandas' bools as 1.0/0.0), ``skew``/``kurt`` (its
+    running moments, to the bit) and ``idxmin``/``idxmax`` (the point's
+    timestamp, read as float64; a bin without a number raises
+    ``ValueError`` in both)."""
+    start = datetime(2023, 1, 1, tzinfo=UTC)
+    end = datetime(2024, 6, 1, tzinfo=UTC)
+    series = _long_series(4, dense=resolution in ("10min", "2h", "D"))
+    ours, theirs = _both(series, start, end, resolution, aggregation, interpolation, None)
+    if isinstance(theirs, type):
+        assert ours is theirs, (ours, theirs)
+    else:
+        _exact_frames(*theirs, *ours)
+
+
+def test_idxmin_and_idxmax_give_the_points_timestamps_where_every_bin_has_one():
+    start = datetime(2023, 1, 1, tzinfo=UTC)
+    end = datetime(2024, 6, 1, tzinfo=UTC)
+    ours, theirs = _both(_long_series(3, dense=True), start, end, "D", ["idxmin", "idxmax"],
+                         "linear_interpolation", None)
+    assert not isinstance(theirs, type), theirs
+    _exact_frames(*theirs, *ours)
+    stamps = {int(t) for _, ts, _ in _long_series(3, dense=True) for t in ts}
+    assert len(ours[0].index) and {int(v) for v in ours[0].values.ravel()} <= stamps
+
+
+def test_skew_and_kurt_are_pandas_running_moments_to_the_bit():
+    """Large offsets and repeated values, where a two-pass formula and the
+    running update differ in the last bits."""
+    from gordo_components_tpu_torch.dataset.dataset import _aggregate
+
+    rng = np.random.default_rng(12)
+    for trial in range(60):
+        n = int(rng.integers(4, 300))
+        bins = np.sort(rng.integers(0, max(1, n // int(rng.integers(1, 30))), n))
+        bins -= bins[0]
+        values = rng.normal(size=n) * 1e3 + 1e6 if trial % 2 else np.round(rng.normal(size=n), 1)
+        within = np.arange(n) - np.searchsorted(bins, bins)  # a point's place in its bin
+        index = pd.Timestamp("2023-01-01", tz="UTC") + pd.to_timedelta(
+            bins * 3_600_000 + within, "ms")
+        grouped = pd.Series(values, index=index).resample("h")
+        for method in ("skew", "kurt"):
+            ref = grouped.agg([method])[method].to_numpy()
+            ours = _aggregate(method, bins, values, int(bins[-1]) + 1)
+            np.testing.assert_array_equal(ours, ref)
+
+
+TRANSFORMS = ["ffill", "bfill", "cumsum", "cumprod", "cummin", "cummax", "cumcount", "diff",
+              "shift", "rank", "pct_change", "ngroup", "head", "tail", "nlargest", "nsmallest"]
+
+
+@pytest.mark.parametrize("aggregation", [[m] for m in TRANSFORMS] + [
+    ["mean", "cumsum"], ["rank", "max"], ["nlargest", "nsmallest", "head"],
+    ["cumsum", "skew", "rank"], ["any", "cumsum"], ["cumsum", "all"], ["idxmin", "cumsum"],
+    ["diff", "pct_change", "size"]], ids=str)
+@pytest.mark.parametrize("resolution", ["10min", "D", "W"])
+@pytest.mark.parametrize("interpolation", ["linear_interpolation", "ffill", "none"])
+def test_the_list_transforms_equal_the_reference(aggregation, resolution, interpolation):
+    """The groupby methods that answer per point: their column at the
+    points' timestamps, mixed with reductions the union in pandas' order
+    (labels first, or points first), interpolated by position over that
+    order, and the inner join keeping the first series' order; a bool
+    column given NaNs by the union refuses the linear interpolation with
+    ``TypeError`` in both."""
+    start = datetime(2023, 1, 1, tzinfo=UTC)
+    end = datetime(2024, 6, 1, tzinfo=UTC)
+    series = _long_series(4, dense=resolution != "W")
+    ours, theirs = _both(series, start, end, resolution, aggregation, interpolation,
+                         None if resolution == "W" else "8H")
+    if isinstance(theirs, type):
+        assert ours is theirs, (ours, theirs)
+    else:
+        _exact_frames(*theirs, *ours)
+
+
+BUSINESS = ["B", "b", "2B", "C", "c", "2C", "BME", "2BME", "BMS", "CBME", "CBMS", "2CBMS", "SME",
+            "SMS", "SME-20", "SMS-3", "SME-1", "2SME", "3SMS-27", "BQE", "BQE-FEB", "BQS",
+            "BQS-MAR", "2BQE", "BYE", "BYE-JUN", "BYS", "2BYS-MAR", "bh", "3bh", "8bh", "9bh",
+            "cbh", "2cbh", "HYE", "HYS", "HYE-JAN", "2HYS-MAR", "BHYE", "BHYS-FEB", "WOM-1MON",
+            "WOM-3FRI", "2WOM-4SUN", "LWOM-MON", "3LWOM-WED", "RE-N-JAN-MON", "RE-L-DEC-SUN",
+            "2RE-N-MAR-FRI", "REQ-N-JAN-MON-1", "REQ-L-MAR-FRI-4", "2REQ-N-DEC-SUN-2"]
+
+
+@pytest.mark.parametrize("resolution", BUSINESS)
+@pytest.mark.parametrize("dense", [False, True])
+def test_business_offsets_bin_and_label_as_pandas(resolution, dense):
+    """The business, semi-month and business-hour offsets' bins, closed
+    side, labels and values, over 15 months and, dense, over two days at
+    whole minutes (points on the business hours' edges)."""
+    start = datetime(2023, 1, 2, 6, tzinfo=UTC)
+    end = datetime(2024, 5, 1, tzinfo=UTC)
+    ours, theirs = _both(_long_series(1, 1, dense=dense), start, end, resolution,
+                         ["mean", "count", "max", "size"], "linear_interpolation", None)
+    assert not isinstance(theirs, type), theirs
+    _exact_frames(*theirs, *ours)
+
+
+OFFSET_ANCHORS = {
+    "B": [0], "C": [0], "BME": [0], "BMS": [0], "CBME": [0], "CBMS": [0], "SME": [1, 15, 27],
+    "SMS": [2, 15, 27], "BQE": [1, 2, 3, 12], "BQS": [1, 2, 3, 10], "BYE": [6, 12], "BYS": [1, 3],
+    "HYE": [1, 3, 6, 12], "HYS": [1, 2, 7], "BHYE": [6, 12], "BHYS": [1, 3],
+    "WOM": [0, 6, 9, 20, 27], "LWOM": [0, 3, 6],
+}
+
+
+# pandas' week-of-month offsets refuse n = 0 (the refusal test holds it)
+@pytest.mark.parametrize("kind,anchors,n", [
+    (kind, anchors, n) for kind, anchors in OFFSET_ANCHORS.items() for n in (-3, -1, 0, 1, 2, 5)
+    if n or kind not in ("WOM", "LWOM")])
+def test_business_offset_arithmetic_equals_pandas(kind, anchors, n):
+    from gordo_components_tpu_torch.dataset.dataset import _apply, _Calendar, _on_offset
+
+    offsets = pd.offsets
+    days = pd.date_range("2023-01-01", "2024-12-31", freq="D")
+    for anchor in anchors:
+        off = _Calendar(kind, n, anchor)
+        ref = {"B": lambda: offsets.BusinessDay(n), "C": lambda: offsets.CustomBusinessDay(n),
+               "BME": lambda: offsets.BusinessMonthEnd(n),
+               "BMS": lambda: offsets.BusinessMonthBegin(n),
+               "CBME": lambda: offsets.CustomBusinessMonthEnd(n),
+               "CBMS": lambda: offsets.CustomBusinessMonthBegin(n),
+               "SME": lambda: offsets.SemiMonthEnd(n, day_of_month=anchor),
+               "SMS": lambda: offsets.SemiMonthBegin(n, day_of_month=anchor),
+               "BQE": lambda: offsets.BQuarterEnd(n, startingMonth=anchor),
+               "BQS": lambda: offsets.BQuarterBegin(n, startingMonth=anchor),
+               "BYE": lambda: offsets.BYearEnd(n, month=anchor),
+               "BYS": lambda: offsets.BYearBegin(n, month=anchor),
+               "HYE": lambda: offsets.HalfYearEnd(n, startingMonth=anchor),
+               "HYS": lambda: offsets.HalfYearBegin(n, startingMonth=anchor),
+               "BHYE": lambda: offsets.BHalfYearEnd(n, startingMonth=anchor),
+               "BHYS": lambda: offsets.BHalfYearBegin(n, startingMonth=anchor),
+               "WOM": lambda: offsets.WeekOfMonth(n, week=anchor // 7, weekday=anchor % 7),
+               "LWOM": lambda: offsets.LastWeekOfMonth(n, weekday=anchor)}[kind]()
+        for day in days:
+            assert _apply(off, day.date(), n) == (day + ref).date(), (kind, anchor, n, day)
+            assert _on_offset(off, day.date()) == ref.is_on_offset(day), (kind, anchor, day)
+
+
+@pytest.mark.parametrize("kind,n", [("RE", n) for n in (-3, -1, 1, 2, 5)]
+                         + [("REQ", n) for n in (-1, 1, 2, 5)])
+def test_fiscal_year_and_quarter_arithmetic_equals_pandas(kind, n):
+    """``FY5253`` and ``FY5253Quarter`` (nearest and last, two months, two
+    weekdays, two quarters given the extra week) on every day of three
+    years, a 53-week year among them."""
+    from gordo_components_tpu_torch.dataset.dataset import _apply, _Calendar, _Fiscal, _on_offset
+
+    days = pd.date_range("2021-12-01", "2025-02-10", freq="D")
+    for month in (1, 12):
+        for weekday in (0, 6):
+            for last in (False, True):
+                for quarter in ((0,) if kind == "RE" else (1, 4)):
+                    variation = "last" if last else "nearest"
+                    ref = (pd.offsets.FY5253(n, startingMonth=month, weekday=weekday,
+                                             variation=variation) if kind == "RE" else
+                           pd.offsets.FY5253Quarter(n, startingMonth=month, weekday=weekday,
+                                                    variation=variation,
+                                                    qtr_with_extra_week=quarter))
+                    off = _Calendar(kind, n, _Fiscal(month, weekday, last, quarter))
+                    for day in days:
+                        assert _apply(off, day.date(), n) == (day + ref).date(), (ref, day)
+                        assert _on_offset(off, day.date()) == ref.is_on_offset(day), (ref, day)
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 8, 9, 16, 17, 40])
+def test_business_hour_arithmetic_equals_pandas(n):
+    from gordo_components_tpu_torch.dataset.dataset import _bh_apply, _bh_on_offset, _bh_rollback
+
+    offset = pd.offsets.BusinessHour(n)
+    moments = pd.date_range("2023-01-05", "2023-01-17", freq="17min").append(
+        pd.date_range("2023-01-05", "2023-01-17", freq="h"))
+    for moment in moments:
+        dt = moment.to_pydatetime()
+        assert _bh_apply(dt, n) == (moment + offset).to_pydatetime(), (n, moment)
+        assert _bh_on_offset(dt) == offset.is_on_offset(moment), moment
+        assert _bh_rollback(dt) == offset.rollback(moment).to_pydatetime(), moment
+
+
+@pytest.mark.parametrize("aggregation", [
+    "ohlc", ["mean", "ohlc"], ["ohlc"], "any", "skew", "idxmax", "cumsum", "nth",
+    ["mean", "asfreq"], ["mean", "nearest"], ["mean", "interpolate"], ["mean", "nth"],
+    ["mean", "no-such-method"], "no-such-method",
+    *[[name] for name in ("agg", "apply", "corr", "describe", "ewm", "expanding", "exclusions",
+                          "filter", "groups", "pipe", "rolling", "transform", "value_counts",
+                          "hist", "unique")],
+    "agg", "apply", "groups", "transform", "describe",
+])
+def test_an_aggregation_the_reference_refuses_raises_the_same_type(aggregation):
+    start = datetime(2023, 1, 2, tzinfo=UTC)
+    end = datetime(2024, 5, 1, tzinfo=UTC)
+    ours, theirs = _both(_long_series(6, 1), start, end, "W", aggregation,
+                         "linear_interpolation", None)
+    assert isinstance(theirs, type) and ours is theirs, (ours, theirs)
+
+
+def test_an_error_of_the_aggregation_waits_for_a_series_as_the_references_does():
+    ours, theirs = _both([], START, START + timedelta(days=1), "NOPE", "no-such-method",
+                         "linear_interpolation", None)
+    assert ours is theirs is InsufficientDataError
+
+
+@pytest.mark.parametrize("kind,anchors", [
+    ("W", list(range(7))), ("ME", [0]), ("MS", [0]), ("QE", [1, 2, 3, 12]),
+    ("QS", [1, 2, 3, 10]), ("YE", [6, 12]), ("YS", [1, 3]),
+])
+@pytest.mark.parametrize("n", [-3, -1, 1, 2, 5])
+def test_offset_arithmetic_equals_pandas(kind, anchors, n):
+    """``_apply`` and ``_on_offset`` against pandas' offsets, on every day
+    of two years."""
+    from gordo_components_tpu_torch.dataset.dataset import _apply, _Calendar, _on_offset
+
+    days = pd.date_range("2023-01-01", "2024-12-31", freq="D")
+    for anchor in anchors:
+        off = _Calendar(kind, n, anchor)
+        ref = {"W": lambda: pd.offsets.Week(n, weekday=anchor),
+               "ME": lambda: pd.offsets.MonthEnd(n), "MS": lambda: pd.offsets.MonthBegin(n),
+               "QE": lambda: pd.offsets.QuarterEnd(n, startingMonth=anchor),
+               "QS": lambda: pd.offsets.QuarterBegin(n, startingMonth=anchor),
+               "YE": lambda: pd.offsets.YearEnd(n, month=anchor),
+               "YS": lambda: pd.offsets.YearBegin(n, month=anchor)}[kind]()
+        for day in days:
+            assert _apply(off, day.date(), n) == (day + ref).date(), (kind, anchor, n, day)
+            assert _on_offset(off, day.date()) == ref.is_on_offset(day), (kind, anchor, day)

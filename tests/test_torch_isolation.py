@@ -29,8 +29,8 @@ LAZY_ONLY = ("yaml", "pyarrow", "azure")
 
 def _sources():
     tools = [ROOT / "tools" / name for name in ("torch_slice_profile.py", "flash_kernel_sweep.py")]
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tests" /
-                                          "influx_double.py", *tools]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_phases.py",
+                                          ROOT / "tests" / "influx_double.py", *tools]
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -228,3 +228,14 @@ def test_fleet_entry_points_need_cuda_unless_cpu_is_asked(tmp_path, monkeypatch)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["fleet-build", "--machine-config", str(fleet_file), "--output-dir",
                   str(tmp_path / "out")])
+
+
+def test_the_walk_covers_the_compile_cache_and_chip_smoke():
+    """The compile cache's modules and ``chip_smoke.py`` are among the
+    sources the checks above walk (``chip_smoke.py`` among them for jax,
+    pandas, requests and werkzeug)."""
+    walked = {p.relative_to(ROOT).as_posix() for p in _sources()}
+    assert {f"gordo_components_tpu_torch/compile_cache/{name}.py"
+            for name in ("__init__", "fingerprint", "store", "export")} <= walked
+    assert "chip_smoke.py" in walked
+    assert {"jax", "pandas", "requests", "werkzeug"} <= set(FORBIDDEN)

@@ -121,6 +121,10 @@ def root(fleet_root, tmp_path, monkeypatch):
     monkeypatch.setenv("GORDO_TELEMETRY", "0")
     monkeypatch.setenv("GORDO_HOST_CACHE_MB", "64")
     monkeypatch.delenv("GORDO_LAZY_BOOT", raising=False)
+    # a module of another file that ran earlier in this process may have
+    # left its own eager count behind (tools/capacity_harness sets it
+    # without restoring it): the index's first names would then boot eagerly
+    monkeypatch.delenv("GORDO_BOOT_EAGER", raising=False)
     monkeypatch.delenv("GORDO_FAULTS", raising=False)
     monkeypatch.setattr(ledger, "LEDGER", ledger.ControlLedger())
     monkeypatch.setattr(ref_ledger, "LEDGER", ref_ledger.ControlLedger())

@@ -230,3 +230,46 @@ def test_a_broken_cost_sampler_leaves_an_empty_costs_block():
     clock.now += 5.0
     warehouse.tick()
     assert warehouse.view()["costs"] == {}
+
+
+class _Store:
+    """A duck-typed compile-cache store: ``entries()`` records only."""
+
+    def __init__(self, records):
+        self.records = records
+
+    def entries(self):
+        return list(self.records)
+
+
+class _Engine:
+    def cost_ledger(self):
+        return {"rungs": {"f32": {"machines": 2, "buckets": 1, "device_bytes": 4096,
+                                  "requests": 10.0, "dispatch_seconds_total": 0.5}}}
+
+
+COMPILE_RECORDS = [
+    [],
+    [{"name": "cc-a", "bytes": 1_310_720, "precision": "f32", "compile_seconds": 7.25},
+     {"name": "cc-b", "bytes": 2_000_000, "precision": "bf16", "compile_seconds": 21.5}],
+    [{"name": "cc-a", "bytes": 100, "precision": "f32", "compile_seconds": 3.0},
+     {"name": "cc-b", "bytes": 50, "precision": "f32", "compile_seconds": None},
+     {"name": "cc-c", "bytes": None, "compile_seconds": 2.0},
+     {"name": "cc-d", "bytes": 7, "precision": "", "compile_seconds": 1.0},
+     {"name": "cc-e", "bytes": 9, "precision": "bf16"}],
+]
+
+
+@pytest.mark.parametrize("records", COMPILE_RECORDS, ids=range(len(COMPILE_RECORDS)))
+def test_the_compile_block_matches_the_reference(records):
+    """The port's ``sample_costs`` sums a store's entries as the reference's
+    does, and the layout export reads the per-rung compile seconds."""
+    ours = telemetry.sample_costs(_Engine(), _Store(records))
+    theirs = ref_telemetry.sample_costs(_Engine(), _Store(records))
+    _close(ours, theirs)
+    assert set(ours) == {"engine", "compile"}
+    assert telemetry.sample_costs(None, None) == ref_telemetry.sample_costs(None, None) == {}
+    view = {"worker": "0", "traffic": {}, "costs": ours}
+    rungs = telemetry.build_export(view)["rungs"]
+    assert rungs["f32"]["compile_seconds"] == ours["compile"]["by_precision"].get("f32", 0.0)
+    _close(rungs, ref_telemetry.build_export(view)["rungs"])
