@@ -82,7 +82,9 @@ Phases; any failure exits non-zero before the result line:
    server. The stacked weights must be int8 on the card; lone requests (W =
    1 and 16; 1008 rows), a concurrent W = 16 round over the fleet and one
    fused dispatch of 4 must each match the same artifact at int8 on the CPU
-   plain path within SERVE_RTOL and the same weights served at f32 on the
+   plain path within SERVE_RTOL (a PatchTST answer at its first and last
+   ``CPU_PLAIN_WINDOWS // 2`` windows, as phase 3) and the same weights
+   served at f32 on the
    card within ``precision.error_budget("int8")`` (normalized total-score
    parity); fp32 flash launches = 3 × PatchTST dispatches. Printed: stacked
    bytes at int8 and f32, device memory held after boot, one int8 and one
@@ -362,6 +364,31 @@ Phases; any failure exits non-zero before the result line:
    Printed with the card: every boot's wall from its start to a 200 on
    ``/healthz``, the ``nvcc`` counts, the compile block, the fleet build's
    wall. Its launches are every process's, recorded at exit.
+18. lint and lock witness (``phase_lock_witness``): the port's lint
+   (``gordo_components_tpu_torch.analysis``, stdlib only) over this
+   checkout on the card's host, which has no jax, pandas or ``requests``:
+   0 fresh findings; the baselined count and each checker's seconds are
+   printed. Then a child process (``LW_CHILD``) with ``GORDO_LOCKCHECK=1``
+   in its environment before the port is imported builds an in-process
+   ``ModelServer`` on the card over a lazily booted tree: 8
+   ``dense_ae_10tag`` machines, the full-width slice machine at fp32 (phase
+   3's artifact) and at bf16, eager, and two lazy fp32 slice machines
+   behind a host cache that holds one bundle (so they evict each other),
+   with the kernel-library store under the tree empty at the start (the
+   boot's warm-up resolves the forward libraries through the kernel
+   loader's and the store's locks). 8 client threads score for
+   ``LW_SECONDS``; meanwhile one ``POST /prefetch``, one ``POST /reload``
+   (a dense machine rebuilt in place: a new engine, warmed under the
+   reload lock), and reads of ``/slo``, ``/telemetry`` and ``/autopilot``.
+   The child prints one JSON line: the witness's ``violations()`` and
+   ``report()`` (both must be empty), its ``observed_edges()``, the flash
+   launches per dtype against the PatchTST dispatches of every engine the
+   child ran (3 each), the answers by status (no non-200), the host
+   cache's evictions and prefetches. Phase 3's W = 16 request, asked again
+   of the child, answers within ``FUSED_RTOL`` of phase 3's answer.
+   Printed with the card: the edges that involve ``kernels.*``,
+   ``compile_cache.*``, ``engine.template`` and ``engine.spill``, which
+   only the card takes.
 
 Every phase prints its wall (``phase wall``), and the script its total.
 
@@ -1075,6 +1102,11 @@ def compare_scores(label: str, w: int, payload: dict, plain: dict, rtol: float,
     return worst
 
 
+# phase 3's answers by window count: (rows, the answer's data), which
+# phase 18 asks again of a server under the lock witness
+SERVED = {}
+
+
 def phase_serve(torch, device, tmp: str) -> dict:
     """The main path in float32: the slice machine served over HTTP; each
     dispatch (one per lone request) launches the fp32 kernel once per layer,
@@ -1088,6 +1120,7 @@ def phase_serve(torch, device, tmp: str) -> dict:
     build_artifact(artifact, device)
     print(f"artifact written in {time.perf_counter() - started:.1f} s: {sorted(os.listdir(artifact))}")
     results = serve(artifact, device, WINDOWS, np.random.default_rng(SEED + 1))
+    SERVED.update({w: (X, payload["data"]) for w, (X, payload, _, _) in zip(WINDOWS, results)})
     per_request = [r[2]["flash_fwd_f32"] for r in results]
     if any(r[3] != 1 for r in results) or any(n != SLICE["n_layers"] for n in per_request) or any(
             r[2][n] for r in results for n in ("flash_fwd_bf16", *BWD_KERNELS)):
@@ -1793,11 +1826,14 @@ def phase_int8(torch, device, tmp: str) -> dict:
     for label, name, X, data in served:
         key = (name, X.shape[0], float(X[0, 0]))
         if key not in plain_cache:
-            plain_cache[key] = dict(zip(wire.SCORE_FIELDS, cpu.anomaly(name, X)))
+            # a PatchTST answer's first and last windows, as phase 3 holds it
+            plain_cache[key] = cpu_plain_answer(
+                lambda rows, name=name: dict(zip(wire.SCORE_FIELDS, cpu.anomaly(name, rows))),
+                X)
         plain = plain_cache[key]
         rows = len(plain["total-anomaly-score"])
-        worst = compare_arrays(f"int8 {label} {name}", rows, data, plain, SERVE_RTOL,
-                               tags=X.shape[1])
+        worst = compare_arrays(f"int8 {label} {name}", rows, end_rows(data, rows), plain,
+                               SERVE_RTOL, tags=X.shape[1])
         parity = precision.parity_error(f32.anomaly(name, X).total_anomaly_score,
                                         np.asarray(data["total-anomaly-score"]))
         print(f"int8 {label} {name} {len(X)} rows: card vs CPU at int8, worst relative "
@@ -3861,7 +3897,7 @@ def phase_control(torch, device, tmp: str, card: str) -> dict:
     # a machine-labeled family that ranks the machines in the reverse of
     # their traffic: the scrape keeps the machines the traffic sketch
     # nominates, not this family's own top four
-    index = REGISTRY.gauge("gordo_smoke_control_machine_index",
+    index = REGISTRY.gauge("gordo_server_smoke_machine_index",
                            "chip_smoke phase 13: each served machine's index",
                            labels=("machine",))
     for i, name in enumerate(CONTROL_DENSE + CONTROL_PATCHTST):
@@ -4054,7 +4090,7 @@ def phase_control(torch, device, tmp: str, card: str) -> dict:
     expected_order = sorted(CONTROL_DENSE, key=lambda m: (-sent[m], m))
     top = sorted(sent, key=lambda m: (-sent[m], m))[:CONTROL_CARDINALITY]
     kept = sorted(labels["machine"] for labels, _ in
-                  prometheus.get("gordo_smoke_control_machine_index", ())
+                  prometheus.get("gordo_server_smoke_machine_index", ())
                   if labels["machine"] != "other")
     problems = telemetry_engine.validate_layout_input(export) + \
         telemetry_engine.validate_layout_input(cli["export"])
@@ -6252,6 +6288,297 @@ def phase_warm_boot(torch, device, tmp: str, card: str) -> dict:
     return launches
 
 
+# phase 18: the port's lint on the card's host, and the lock witness over a
+# server on the card
+LW_DENSE = [f"lw-dense-{i}" for i in range(8)]
+LW_F32 = "lw-slice-f32"  # phase 3's artifact
+LW_BF16 = "lw-slice-bf16"  # phase 3b's
+LW_LAZY = ["lw-zlazy-0", "lw-zlazy-1"]  # sorted after the eager machines
+LW_RELOAD = LW_DENSE[0]  # rebuilt in place before POST /reload
+LW_CLIENTS = 8
+LW_SECONDS = 15.0
+LW_WINDOWS = 16  # BH 8192, as phase 2 holds
+LW_ENV = {"GORDO_LOCKCHECK": "1", "GORDO_LAZY_BOOT": "1",
+          "GORDO_BOOT_EAGER": str(len(LW_DENSE) + 2), "GORDO_SLO_EVAL_INTERVAL": "0",
+          "GORDO_AUTOPILOT_INTERVAL": "0", "GORDO_TELEMETRY_INTERVAL": "0"}
+LW_MARK = "lock-witness: "
+LW_FIELDS = ("model-input", "model-output", "tag-anomaly-scores", "total-anomaly-score")
+LW_SHOWN = ("kernels.", "compile_cache.", "engine.template", "engine.spill")
+# edges only the card makes, which the run must show: a bucket's program
+# launching under its template lock, a spilled machine's under the spill
+# lock, the boot's library resolution through the store
+LW_REQUIRED = (("engine.template", "kernels.launch"), ("engine.spill", "kernels.launch"),
+               ("kernels.load", "compile_cache.store"))
+LW_CHILD = r"""
+import json
+import os
+import sys
+import threading
+import time
+
+config = json.load(open(sys.argv[1]))
+from gordo_components_tpu_torch.analysis import lockcheck
+
+if not lockcheck.enabled:
+    sys.exit("GORDO_LOCKCHECK was not set when the port was imported")
+from gordo_components_tpu_torch.ops import _kernels
+from gordo_components_tpu_torch.server.server import ModelServer
+
+server = ModelServer(config["models_dir"], device=config["device"], lazy_boot=True)
+engines = [server.engine]
+bodies = {name: open(path, "rb").read() for name, path in config["bodies"].items()}
+statuses = {}
+tally = threading.Lock()
+HEADERS = {"Content-Type": "application/json"}
+
+
+def ask(method, path, body=b""):
+    response = server.handle(method, path, HEADERS, body)
+    with tally:
+        statuses[str(response.status)] = statuses.get(str(response.status), 0) + 1
+    return response
+
+
+def score(name):
+    return ask("POST", f"/gordo/v0/project/{name}/anomaly/prediction", bodies[name])
+
+
+def client(i, deadline):
+    dense = config["dense"]
+    schedule = []
+    for k in range(len(dense)):
+        schedule += [dense[(i + k) % len(dense)], config["slice"][k % 2]]
+        if k % 2:
+            schedule.append(config["lazy"][(i + k // 2) % 2])
+    k = i
+    while time.monotonic() < deadline:
+        score(schedule[k % len(schedule)])
+        k += 1
+
+
+events = {}
+started = time.monotonic()
+deadline = started + config["seconds"]
+threads = [threading.Thread(target=client, args=(i, deadline)) for i in range(config["clients"])]
+for thread in threads:
+    thread.start()
+reads = 0
+for at, step in ((0.05, "check"), (0.15, "read"), (0.2, "prefetch"), (0.33, "reload"),
+                 (0.5, "read"), (0.8, "read")):
+    time.sleep(max(0.0, started + at * config["seconds"] - time.monotonic()))
+    if step == "check":
+        reply = score(config["check"]["machine"])
+        data = json.loads(reply.body)["data"] if reply.status == 200 else {}
+        import numpy as np
+
+        np.savez(config["check"]["out"], **{field: np.asarray(data[field], np.float64)
+                                            for field in data if field in config["fields"]})
+    elif step == "read":
+        for path in ("/slo", "/telemetry", "/autopilot"):
+            reads += ask("GET", path).status == 200
+    elif step == "prefetch":
+        reply = ask("POST", "/prefetch", json.dumps({"machines": [config["prefetch"]]}).encode())
+        events["prefetch"] = json.loads(reply.body)
+    else:
+        directory = os.path.join(config["models_dir"], config["reload"])
+        later = time.time() + 10
+        for entry in os.scandir(directory):
+            if entry.is_file():
+                os.utime(entry.path, (later, later))
+        reply = ask("POST", "/reload")
+        events["reload"] = json.loads(reply.body)
+        engines.append(server.engine)
+for thread in threads:
+    thread.join()
+server.close()
+
+
+def flash_dispatches(engine, dtype):
+    stats = engine.stats()
+    key = f"{config['shape']}/{dtype}"
+    return (stats["bucket_dispatches"].get(key, {}).get("dispatches", 0)
+            + stats["spill"]["scorer_dispatches"].get(key, 0))
+
+
+cache = {}
+for engine in engines:
+    for field, value in engine.host_cache.stats().items():
+        if field in ("hits", "misses", "evictions", "loads", "prefetches"):
+            cache[field] = cache.get(field, 0) + value
+print(config["mark"] + json.dumps({
+    "violations": lockcheck.violations(),
+    "report": lockcheck.report(),
+    "edges": [[a, b, n] for (a, b), n in sorted(lockcheck.observed_edges().items())],
+    "launches": dict(_kernels.LAUNCHES),
+    "dispatches": {dtype: sum(flash_dispatches(e, dtype) for e in engines)
+                   for dtype in ("float32", "bfloat16")},
+    "statuses": statuses,
+    "reads": reads,
+    "engines": len(engines),
+    "cache": cache,
+    **events,
+}), flush=True)
+"""
+
+
+def lw_lint(card: str) -> dict:
+    """The port's lint over this checkout (stdlib only): 0 fresh findings.
+    Returns {"baselined": n, "seconds": wall, "timings": per checker}."""
+    from gordo_components_tpu_torch.analysis.findings import Baseline
+    from gordo_components_tpu_torch.analysis.runner import BASELINE_RELPATH, run_lint
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    timings = {}
+    started = time.perf_counter()
+    findings = run_lint(root, jobs=1, timings=timings)
+    fresh, baselined = Baseline.load(os.path.join(root, BASELINE_RELPATH)).split(findings)
+    wall = time.perf_counter() - started
+    if fresh:
+        fail("lint: " + "; ".join(f.render().splitlines()[0] for f in fresh[:5]))
+    out = {"baselined": len(baselined), "seconds": round(wall, 3),
+           "timings": {name: round(spent, 3) for name, spent in sorted(timings.items())}}
+    print(f"lint [{card}]: 0 findings, {out['baselined']} baselined, {wall:.2f} s; per "
+          f"checker (s) {json.dumps(out['timings'])}")
+    return out
+
+
+def lw_build(models_dir: str, tmp: str, device) -> dict:
+    """The phase's tree, fleet index included: ``LW_DENSE`` at bench.py's
+    ``dense_ae_10tag`` widths, phase 3's fp32 and phase 3b's bf16 slice
+    machines (built here when those phases did not run), two more fp32
+    slice machines of other seeds. Returns {machine: tags}."""
+    import shutil
+
+    from gordo_components_tpu_torch.store.generations import build_fleet_index, write_fleet_index
+
+    estimator, kwargs, tags = ZOO["dense-ae-10tag"]
+    for i, name in enumerate(LW_DENSE):
+        build_zoo_artifact(os.path.join(models_dir, name), estimator, kwargs, tags, device,
+                           np.random.default_rng(SEED + 18000 + i))
+    for name, source, dtype in ((LW_F32, "turbine-long-window", "float32"),
+                                (LW_BF16, "turbine-long-window-bf16", "bfloat16")):
+        if os.path.isdir(os.path.join(tmp, source)):
+            shutil.copytree(os.path.join(tmp, source), os.path.join(models_dir, name))
+        else:
+            build_artifact(os.path.join(models_dir, name), device, compute_dtype=dtype)
+    for i, name in enumerate(LW_LAZY):
+        build_artifact(os.path.join(models_dir, name), device, seed=SEED + 18100 + i)
+    write_fleet_index(models_dir, build_fleet_index(models_dir))
+    return {**{name: tags for name in LW_DENSE}, **dict.fromkeys([LW_F32, LW_BF16, *LW_LAZY],
+                                                                  N_TAGS)}
+
+
+def lw_cap_mb(models_dir: str, device) -> int:
+    """A host-cache size in MiB that holds one lazy slice bundle and not
+    two, from the bytes the engine reports for each."""
+    from gordo_components_tpu_torch.server.engine import ServingEngine
+    from gordo_components_tpu_torch.server.server import ModelServer
+
+    sizer = ServingEngine({}, lazy={name: ModelServer._lazy_loader(
+        name, os.path.join(models_dir, name)) for name in LW_LAZY}, host_cache_mb=0,
+        device=device)
+    sizes = [sizer._build_bundle(name, sizer._lazy[name])[1] for name in LW_LAZY]
+    sizer.close()
+    cap_mb = math.ceil(1.5 * max(sizes) / 2**20)
+    if not max(sizes) <= cap_mb << 20 < sum(sizes):
+        fail(f"lock witness: a cap of {cap_mb} MiB does not hold one bundle of {sizes} but "
+             "not two")
+    return cap_mb
+
+
+def lw_run_child(config: dict, env: dict, timeout: float = 600.0) -> dict:
+    """Run ``LW_CHILD`` over ``config`` and return its JSON line."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(os.path.dirname(config["check"]["out"]), "lw-config.json")
+    with open(path, "w") as fh:
+        json.dump({**config, "mark": LW_MARK}, fh)
+    proc = subprocess.run([sys.executable, "-c", LW_CHILD, path], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    lines = [line[len(LW_MARK):] for line in proc.stdout.splitlines()
+             if line.startswith(LW_MARK)]
+    if proc.returncode != 0 or len(lines) != 1:
+        fail(f"lock witness: the child exited {proc.returncode}: {proc.stderr[-3000:]}")
+    return json.loads(lines[0])
+
+
+def lw_check(report: dict, n_layers: int = SLICE["n_layers"]) -> dict:
+    """Hold the child's line to the phase's contract; returns the flash
+    launches by kernel."""
+    if report["violations"] or report["report"]:
+        fail(f"lock witness: {len(report['violations'])} violation(s), report "
+             f"{(report['report'] or report['violations'])[:3]}")
+    bad = {status: n for status, n in report["statuses"].items() if status != "200"}
+    if bad or not report["statuses"].get("200"):
+        fail(f"lock witness: answers by status {report['statuses']}")
+    launches = {name: report["launches"].get(name, 0) for name in KERNELS}
+    for dtype, kernel in (("float32", "flash_fwd_f32"), ("bfloat16", "flash_fwd_bf16")):
+        dispatches = report["dispatches"][dtype]
+        if not dispatches or launches[kernel] != n_layers * dispatches:
+            fail(f"lock witness: {launches[kernel]} {kernel} launches for {dispatches} "
+                 f"{dtype} PatchTST dispatches (want {n_layers} each)")
+    if any(launches[name] for name in BWD_KERNELS):
+        fail(f"lock witness: a serving run launched a backward: {launches}")
+    if not report["cache"].get("evictions") or report.get("prefetch", {}).get("unknown", 1):
+        fail(f"lock witness: host cache {report['cache']}, prefetch {report.get('prefetch')}")
+    if LW_RELOAD not in report.get("reload", {}).get("refreshed", []) or report["engines"] != 2:
+        fail(f"lock witness: reload answered {report.get('reload')}")
+    seen = {(a, b) for a, b, _ in report["edges"]}
+    missing = [edge for edge in LW_REQUIRED if edge not in seen]
+    if missing:
+        fail(f"lock witness: edges {missing} were not observed")
+    return launches
+
+
+def phase_lock_witness(torch, device, tmp: str, card: str) -> dict:
+    """The port's lint on this host, then the lock witness over a server
+    on the card (see the module docstring, 18). Returns the phase's flash
+    launches."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    lint = lw_lint(card)
+    if LW_WINDOWS not in SERVED:  # run alone: phase 3 makes its artifact and answer
+        phase_serve(torch, device, tmp)
+    models_dir = os.path.join(tmp, "lock-witness")
+    started = time.perf_counter()
+    tags = lw_build(models_dir, tmp, device)
+    cap_mb = lw_cap_mb(models_dir, device)
+    X, answer = SERVED[LW_WINDOWS]
+    rng = np.random.default_rng(SEED + 18200)
+    bodies = {}
+    for name, n in tags.items():
+        rows = X if name == LW_F32 else sensor_rows(
+            rng, LOOKBACK + LW_WINDOWS - 1 if n == N_TAGS else SEAMS_ROWS, n)
+        bodies[name] = os.path.join(tmp, f"lw-{name}.json")
+        with open(bodies[name], "w") as fh:
+            json.dump({"X": rows.tolist()}, fh)
+    built_s = time.perf_counter() - started
+    config = {"models_dir": models_dir, "device": str(device), "bodies": bodies,
+              "dense": LW_DENSE, "slice": [LW_F32, LW_BF16], "lazy": LW_LAZY,
+              "reload": LW_RELOAD, "prefetch": LW_LAZY[1], "seconds": LW_SECONDS,
+              "clients": LW_CLIENTS, "shape": f"L{LOOKBACK}a0f{N_TAGS}",
+              "fields": list(LW_FIELDS), "check": {"machine": LW_F32,
+                                                 "out": os.path.join(tmp, "lw-check.npz")}}
+    env = {key: value for key, value in os.environ.items() if key not in WB_OFF}
+    env.update(LW_ENV, PYTHONPATH=root, GORDO_HOST_CACHE_MB=str(cap_mb))
+    started = time.perf_counter()
+    report = lw_run_child(config, env)
+    child_s = time.perf_counter() - started
+    launches = lw_check(report)
+    with np.load(config["check"]["out"]) as got:
+        worst = compare_arrays("lock witness", LW_WINDOWS, dict(got), {
+            field: np.asarray(answer[field], np.float64) for field in LW_FIELDS}, FUSED_RTOL)
+    shown = [edge for edge in report["edges"]
+             if any(part.startswith(LW_SHOWN) for part in edge[:2])]
+    print(f"lock witness [{card}]: tree built in {built_s:.1f} s (host cache {cap_mb} MiB); "
+          f"child {child_s:.1f} s, {sum(report['statuses'].values())} answers "
+          f"{report['statuses']}, {report['reads']} control reads, dispatches "
+          f"{report['dispatches']}, launches {launches}, cache {report['cache']}, "
+          f"{len(report['edges'])} edges, 0 violations; the W = {LW_WINDOWS} answer vs phase "
+          f"3's: worst relative difference {worst:.3g} (limit {FUSED_RTOL}); lint "
+          f"{lint['seconds']} s")
+    print(f"lock witness edges (card only) [{card}]: {json.dumps(shown)}")
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -6300,11 +6627,13 @@ def main() -> None:
         spill = timed("15 spill", phase_spill, torch, device, tmp, card)
         fleet_control = timed("16 fleet control", phase_fleet_control, torch, device, tmp, card)
         warm_boot = timed("17 warm boot", phase_warm_boot, torch, device, tmp, card)
+        witness = timed("18 lint and lock witness", phase_lock_witness, torch, device, tmp,
+                        card)
         for name in KERNELS:
             launches[name] += (trained[name] + trained_bf16[name] + built[name]
                                + fleet_built[name] + seams[name] + client[name]
                                + control[name] + tier[name] + spill[name]
-                               + fleet_control[name] + warm_boot[name])
+                               + fleet_control[name] + warm_boot[name] + witness[name])
     print(f"script wall [{card}]: {time.perf_counter() - script_started:.1f} s; phase walls "
           f"{json.dumps(walls)}")
     print(json.dumps({"kernels": [{

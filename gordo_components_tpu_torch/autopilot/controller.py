@@ -37,11 +37,11 @@ from __future__ import annotations
 
 import logging
 import os
-import threading
 import time
 from collections import deque
 from typing import Any, Callable, Dict, List, Optional
 
+from ..analysis import lockcheck
 from ..observability import flightrec
 from ..observability import ledger as control_ledger
 from ..observability.registry import REGISTRY
@@ -133,7 +133,7 @@ class Autopilot:
         )
         self._clock = clock
         self._recorder = recorder
-        self._lock = threading.Lock()
+        self._lock = lockcheck.named_lock("autopilot.state")
         self._enabled = (
             enabled if enabled is not None else enabled_at_boot()
         )
@@ -369,6 +369,7 @@ class Autopilot:
         }
         if extra:
             decision.update(extra)
+        lockcheck.assert_guard("autopilot.state")
         self._decisions.append(decision)
         _M_DECISIONS.labels(actuator, direction, reason).inc()
         logger.info(
@@ -413,7 +414,7 @@ class Autopilot:
                 state = self._state[name]
                 try:
                     value: Optional[int] = int(actuator.read())
-                except Exception:  # noqa: BLE001 - a dark actuator renders as null in the status view
+                except Exception:  # noqa: BLE001  # lint: allow-swallow(status-view actuator read; a dark actuator renders as null and real decisions have their own journal)
                     value = None
                 cooldown_left = 0.0
                 if state.last_applied_at is not None:

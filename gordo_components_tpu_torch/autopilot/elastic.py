@@ -39,6 +39,7 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional
 
+from ..analysis import lockcheck
 from ..router.workers import WorkerSpec
 
 logger = logging.getLogger(__name__)
@@ -78,7 +79,7 @@ class ElasticWorkers:
         self.drain_grace = drain_grace
         self._port_allocator = port_allocator
         self._clock = clock
-        self._lock = threading.Lock()
+        self._lock = lockcheck.named_lock("autopilot.elastic")
         self._op_thread: Optional[threading.Thread] = None
         self._last_op: Optional[Dict[str, object]] = None
 

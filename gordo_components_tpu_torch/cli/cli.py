@@ -1,9 +1,9 @@
 """``python -m gordo_components_tpu_torch.cli``: the ``build``,
 ``fleet-build``, ``rollback``, ``cache``, ``run-server``,
 ``run-fleet-server``, ``run-watchman``, ``trace``, ``slo``, ``tenants``,
-``autopilot``, ``fleet``, ``telemetry``, ``incidents``, ``layout`` and
-``client predict`` commands of the reference's CLI
-(``gordo_components_tpu/cli/cli.py:164-528, 519-831, 894-1530``), on
+``autopilot``, ``fleet``, ``telemetry``, ``incidents``, ``layout``,
+``client predict`` and ``lint`` commands of the reference's CLI
+(``gordo_components_tpu/cli/cli.py:164-528, 519-831, 894-1546``), on
 ``argparse``.
 
 The arguments, environment variables (``MODEL_CONFIG``, ``DATA_CONFIG``,
@@ -78,6 +78,8 @@ client.ClientError`.
     python -m gordo_components_tpu_torch.cli layout explain (PLAN_FILE | --base-url URL)
     python -m gordo_components_tpu_torch.cli layout apply PLAN_FILE --base-url URL
     python -m gordo_components_tpu_torch.cli telemetry traffic|costs --base-url URL
+    python -m gordo_components_tpu_torch.cli lint [--jobs N] [--format json]
+        [--show-baselined] [--write-knob-table]
         [--window SECONDS]
     python -m gordo_components_tpu_torch.cli telemetry export --base-url URL
         [--window 5m] [-o FILE]
@@ -1145,13 +1147,37 @@ def parser() -> argparse.ArgumentParser:
     cp.add_argument("--parallelism", type=int, default=10)
     cp.add_argument("--output-dir", default=None, help="write one score CSV per machine here")
     cp.set_defaults(run=client_predict)
+
+    li = commands.add_parser(
+        "lint", add_help=False,
+        help="the port's invariant linter (lock discipline, guarded state, span seams, "
+             "wire contracts, fault-seam coverage, exception hygiene, metric conventions, "
+             "knob registry); every argument goes to python -m "
+             "gordo_components_tpu_torch.analysis (--help lists them)")
+    li.add_argument("lint_args", nargs=argparse.REMAINDER)
+    li.set_defaults(run=lint)
     return root
+
+
+def lint(args) -> int:
+    """``lint``: run the port's analyzer (stdlib only) with the arguments
+    as given; its exit status: 0 clean, 1 findings, 2 a bad command line."""
+    from ..analysis.runner import main as lint_main
+
+    return lint_main(list(args.lint_args))
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     from ..observability.logsetup import configure_logging
 
-    args = parser().parse_args(argv)
+    root = parser()
+    # ``lint`` hands its options to the analyzer's own parser, including
+    # those argparse would otherwise claim (``--help``, ``--format``)
+    args, extra = root.parse_known_args(argv)
+    if args.command == "lint":
+        args.lint_args = extra + list(args.lint_args)
+    elif extra:
+        root.error("unrecognized arguments: " + " ".join(extra))
     configure_logging(args.log_level, args.log_format)
     return args.run(args)
 

@@ -62,6 +62,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 
 from .. import wire
+from ..analysis import lockcheck
 from ..dataset.data_provider.providers import utc_ns
 from ..observability import flightrec, spans, tracing
 from ..observability.registry import REGISTRY
@@ -231,7 +232,7 @@ class Client:
         self._quota_until: Dict[str, float] = {}
         self.forwarders = forwarders or []
         # the worker pool and every connection it holds, released by close()
-        self._io_lock = threading.Lock()
+        self._io_lock = lockcheck.named_lock("client.io")
         self._pool: Optional[ThreadPoolExecutor] = None
         self._epoch = 0  # bumped by close(): work of an older epoch aborts
         self._local = threading.local()

@@ -43,11 +43,11 @@ import logging
 import os
 import shutil
 import tempfile
-import threading
 import time
 import uuid
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from ..analysis import lockcheck
 from ..observability.registry import REGISTRY
 from ..store.atomic import atomic_commit, sweep_leftovers
 from ..store.errors import StoreError
@@ -94,7 +94,7 @@ _M_LOAD_SECONDS = REGISTRY.histogram(
     "cost that replaces a build",
 )
 
-_PRIVATE_LOCK = threading.Lock()
+_PRIVATE_LOCK = lockcheck.named_lock("compile_cache.private")
 _PRIVATE_DIR: Optional[str] = None
 
 
@@ -136,7 +136,7 @@ class CompileCacheStore:
             "hit": 0, "miss": 0, "stale": 0, "invalid": 0,
             "write": 0, "write_error": 0,
         }
-        self._lock = threading.Lock()
+        self._lock = lockcheck.named_lock("compile_cache.store")
 
     def _entry(self, program_key: Dict[str, Any]) -> Tuple[Dict[str, Any], str]:
         """The full key of ``program_key`` and its entry's directory."""
@@ -283,7 +283,7 @@ class CompileCacheStore:
                     meta = json.load(fh)
                 record["compile_seconds"] = meta.get("compile_seconds")
                 record["created"] = meta.get("created")
-            except Exception:  # noqa: BLE001 - an entry without META.json reports None
+            except Exception:  # noqa: BLE001  # lint: allow-swallow(an entry without a readable META.json sidecar lists compile_seconds None: absence is the signal, and the entry's verified load is the loud path)
                 record["compile_seconds"] = None
             out.append(record)
         return out

@@ -43,12 +43,12 @@ from __future__ import annotations
 import json
 import logging
 import os
-import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from ..analysis import lockcheck
 from ..observability import flightrec
 from ..observability import ledger as control_ledger
 from ..observability.registry import REGISTRY
@@ -432,7 +432,7 @@ class Reconciler:
             else max(0.0, _env_float("GORDO_FLEET_COOLDOWN", 30.0))
         )
         self._recorder = recorder
-        self._lock = threading.Lock()
+        self._lock = lockcheck.named_lock("fleet.reconcile")
         self._wal = _WAL(
             os.path.join(spec_store.dir, RECONCILE_JOURNAL_FILE), clock,
         )
@@ -852,6 +852,7 @@ class Reconciler:
         }
         if extra:
             entry.update(extra)
+        lockcheck.assert_guard("fleet.reconcile")
         self._ring.append(entry)
         _M_REPAIRS.labels(cls, outcome).inc()
         logger.info(

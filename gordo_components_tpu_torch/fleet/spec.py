@@ -28,12 +28,12 @@ from __future__ import annotations
 import json
 import logging
 import os
-import threading
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
 from .. import precision as precision_mod
+from ..analysis import lockcheck
 from ..observability import ledger as control_ledger
 from ..observability.registry import REGISTRY
 from ..resilience import faults
@@ -276,7 +276,7 @@ class SpecStore:
         self.journal_path = os.path.join(self.dir, SPEC_JOURNAL_FILE)
         self.pointer_path = os.path.join(self.dir, SPEC_CURRENT_FILE)
         self._clock = clock
-        self._lock = threading.Lock()
+        self._lock = lockcheck.named_lock("fleet.spec")
         self._records: List[Dict[str, Any]] = []
         self._loaded = False
 
@@ -285,6 +285,7 @@ class SpecStore:
         """(Re)load the record cache from disk: every intact journal
         line in order, a torn FINAL line dropped (the append a crash
         interrupted), then repair the pointer to the journal's truth."""
+        lockcheck.assert_guard("fleet.spec")
         records: List[Dict[str, Any]] = []
         lines: List[str] = []
         if os.path.isfile(self.journal_path):
@@ -362,6 +363,7 @@ class SpecStore:
             _M_REVISION.set(float(last))
 
     def _records_locked(self) -> List[Dict[str, Any]]:
+        lockcheck.assert_guard("fleet.spec")
         if not self._loaded:
             self._replay_locked()
         return self._records
@@ -397,6 +399,7 @@ class SpecStore:
 
     # -- commits -------------------------------------------------------------
     def _append_locked(self, record: Dict[str, Any]) -> None:
+        lockcheck.assert_guard("fleet.spec")
         os.makedirs(self.dir, exist_ok=True)
         target = str(record["revision"])
         # the spec-commit fault seam: `error` models a crash BEFORE the

@@ -62,11 +62,11 @@ def scan_disk_state(
         disk_generations[machine] = entry.get("generation")
         try:
             metadata = _read_metadata(os.path.join(models_root, machine))
-        except Exception:  # noqa: BLE001 - no precision fact beats a wrong one; the artifact's own verified load is the loud path
+        except Exception:  # noqa: BLE001  # lint: allow-swallow(unreadable metadata: no precision fact beats a wrong one; the artifact's own verified load is the loud path)
             metadata = {}
         try:
             disk_precisions[machine] = precision_mod.of_metadata(metadata)
-        except Exception:  # noqa: BLE001 - a machine without a rung stamp contributes no precision divergence
+        except Exception:  # noqa: BLE001  # lint: allow-swallow(metadata without a rung stamp: same contract as above — the machine simply contributes no precision divergence)
             pass
     return disk_generations, disk_precisions
 

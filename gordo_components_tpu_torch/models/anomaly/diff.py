@@ -24,6 +24,7 @@ from ..metrics import METRICS
 from ..models import DenseAutoEncoder
 from ..pipeline import clone_pipeline
 from ..transformers import MinMaxScaler
+from .base import AnomalyDetectorBase
 
 
 def time_series_split(n_samples: int, n_splits: int = 3) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
@@ -121,7 +122,7 @@ class AnomalyFrame(NamedTuple):
         return tuple.__getitem__(self, key)
 
 
-class DiffBasedAnomalyDetector:
+class DiffBasedAnomalyDetector(AnomalyDetectorBase):
     def __init__(
         self,
         base_estimator: Any = None,

@@ -36,6 +36,7 @@ from torch import nn
 
 from ..ops import windowing
 from ..utils.backend import DeviceLike, resolve_device
+from .base import GordoBase
 from .convert import flax_from_params, params_from_flax
 from .factories.transformer import PatchTSTModule
 from .metrics import explained_variance_score
@@ -88,7 +89,7 @@ def init_flax_distributions(module: nn.Module, generator: torch.Generator) -> nn
     return module
 
 
-class BaseTorchEstimator:
+class BaseTorchEstimator(GordoBase):
     """Common state and predict machinery; subclasses set ``lookahead``."""
 
     lookahead: Optional[int] = None  # class-level contract

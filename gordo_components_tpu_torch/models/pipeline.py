@@ -16,6 +16,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from .base import GordoBase
+
 
 def _name_steps(
     steps: Sequence[Union[Tuple[str, Any], Any]]
@@ -33,7 +35,7 @@ def _name_steps(
     return named
 
 
-class Pipeline:
+class Pipeline(GordoBase):
     def __init__(self, steps: Sequence[Union[Tuple[str, Any], Any]]):
         self.steps = _name_steps(steps)
 
@@ -95,7 +97,7 @@ class Pipeline:
         return self
 
 
-class FeatureUnion:
+class FeatureUnion(GordoBase):
     """The transformers' outputs side by side along the feature axis
     (sklearn's ``FeatureUnion``), each block float32 and scaled by its
     name's ``transformer_weights`` entry (1 by default; a weight naming no
@@ -165,7 +167,7 @@ class FeatureUnion:
         return self
 
 
-class TransformedTargetRegressor:
+class TransformedTargetRegressor(GordoBase):
     """``regressor`` fitted on ``transformer``-scaled targets; ``predict``
     inverse-transforms back."""
 

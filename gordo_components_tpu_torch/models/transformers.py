@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..ops import scaling
+from .base import GordoBase
 
 
 def _numpy_params(params: scaling.ScalerParams) -> scaling.ScalerParams:
@@ -26,7 +27,7 @@ def _numpy_params(params: scaling.ScalerParams) -> scaling.ScalerParams:
     )
 
 
-class _BaseScaler:
+class _BaseScaler(GordoBase):
     def __init__(self):
         self.params_: Optional[scaling.ScalerParams] = None
 
@@ -111,7 +112,7 @@ class StandardScaler(_BaseScaler):
         return {"with_mean": self.with_mean, "with_std": self.with_std}
 
 
-class InfImputer:
+class InfImputer(GordoBase):
     """Replace ±inf with the per-feature finite extremes seen at fit time,
     or with the explicit fill values given."""
 
@@ -184,7 +185,7 @@ FUNCTIONS: Dict[str, Callable] = {
 }
 
 
-class FunctionTransformer:
+class FunctionTransformer(GordoBase):
     """A stateless function as a pipeline step (sklearn's
     ``FunctionTransformer`` surface, minus validation knobs)."""
 

@@ -17,10 +17,10 @@ timeline at all); ``GORDO_FLIGHTREC_KEEP`` / ``_SLOW_KEEP`` /
 from __future__ import annotations
 
 import os
-import threading
 from collections import deque
 from typing import Any, Dict, List, Optional
 
+from ..analysis import lockcheck
 from .spans import Timeline
 
 
@@ -53,7 +53,7 @@ class FlightRecorder:
             if enabled is not None
             else os.environ.get("GORDO_FLIGHTREC", "1") != "0"
         )
-        self._lock = threading.Lock()
+        self._lock = lockcheck.named_lock("observability.flightrec")
         self._ring: "deque[Timeline]" = deque(maxlen=self.keep)
         # slowest-since-boot reservoir, kept sorted ascending by duration
         # (insertion is bisect-free: slow_keep is tiny)

@@ -30,10 +30,10 @@ import json
 import logging
 import os
 import re
-import threading
 import time
 from typing import Any, Callable, Dict, List, Optional
 
+from ..analysis import lockcheck
 from . import ledger as ledger_mod
 from .registry import REGISTRY
 
@@ -240,7 +240,7 @@ class IncidentCorrelator:
         self.cooldown = cooldown if cooldown is not None else cooldown_seconds()
         self.keep = keep if keep is not None else keep_reports()
         self._wall = wall
-        self._lock = threading.Lock()
+        self._lock = lockcheck.named_lock("observability.incident")
         self._reports: List[Dict[str, Any]] = []  # oldest-first ring
         self._last_fired: Dict[str, float] = {}
         self._counter = 0
@@ -319,6 +319,7 @@ class IncidentCorrelator:
         now = self._wall() if now is None else now
         objective = str(crossing.get("objective", ""))
         with self._lock:
+            lockcheck.assert_guard("observability.incident")
             last = self._last_fired.get(objective)
             if last is not None and now - last < self.cooldown:
                 self.suppressed += 1

@@ -30,6 +30,7 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from ..analysis import lockcheck
 from .registry import REGISTRY
 
 logger = logging.getLogger(__name__)
@@ -149,7 +150,7 @@ class ControlLedger:
         self.segment_limit = (
             segment_limit if segment_limit is not None else segment_bytes()
         )
-        self._lock = threading.Lock()
+        self._lock = lockcheck.named_lock("observability.ledger")
         # (segment_seq, record_bytes, event) oldest-first — query index
         # and byte ledger share one list so budget trims are exact
         self._index: List[Tuple[int, int, Dict[str, Any]]] = []
@@ -300,6 +301,7 @@ class ControlLedger:
             return None
         try:
             with self._lock:
+                lockcheck.assert_guard("observability.ledger")
                 event: Dict[str, Any] = {
                     "schema": SCHEMA,
                     "seq": self._seq,
@@ -336,6 +338,7 @@ class ControlLedger:
         the event was already counted when first emitted."""
         try:
             with self._lock:
+                lockcheck.assert_guard("observability.ledger")
                 carried = dict(event)
                 carried["seq"] = self._seq
                 self._seq += 1

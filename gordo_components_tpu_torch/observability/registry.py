@@ -26,6 +26,8 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+from ..analysis import lockcheck
+
 INF = float("inf")
 
 MACHINE_LABEL = "machine"
@@ -100,7 +102,7 @@ def bound_machine_cardinality(
     if _traffic_topk_provider is not None:
         try:
             nominated = _traffic_topk_provider(cap)
-        except Exception:  # noqa: BLE001 - a broken sketch must not break rendering
+        except Exception:  # noqa: BLE001  # lint: allow-swallow(a broken traffic sketch must not break metric rendering; the family's own ranking below is the documented fallback)
             nominated = None
     if nominated:
         # the sketch ranks by traffic over every family (at most ``cap``
@@ -172,7 +174,7 @@ class _Metric:
         self.name = name
         self.help = help
         self.labelnames = tuple(labelnames)
-        self._lock = threading.Lock()
+        self._lock = lockcheck.named_lock("observability.series")
 
     def _check_values(self, values: Tuple[str, ...]) -> Tuple[str, ...]:
         if len(values) != len(self.labelnames):
@@ -361,11 +363,11 @@ class Registry:
 
     def __init__(self) -> None:
         self._metrics: Dict[str, _Metric] = {}
-        self._lock = threading.Lock()
+        self._table_lock = lockcheck.named_lock("observability.registry")
 
     def _get_or_create(self, cls, name, help, labelnames, **kwargs) -> Any:
         labelnames = tuple(labelnames)
-        with self._lock:
+        with self._table_lock:
             existing = self._metrics.get(name)
             if existing is not None:
                 if not isinstance(existing, cls) or existing.labelnames != labelnames:
@@ -398,7 +400,7 @@ class Registry:
         return self._get_or_create(Histogram, name, help, labels, buckets=buckets, keep=keep)
 
     def metrics(self) -> List[_Metric]:
-        with self._lock:
+        with self._table_lock:
             return sorted(self._metrics.values(), key=lambda m: m.name)
 
     def snapshot(self) -> Dict[str, Any]:

@@ -31,11 +31,11 @@ from __future__ import annotations
 import logging
 import math
 import os
-import threading
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from ..analysis import lockcheck
 from . import flightrec
 from . import ledger as control_ledger
 from .registry import REGISTRY, Histogram, Registry
@@ -183,7 +183,7 @@ class SLOEvaluator:
         # the incident correlator's entry point (set post-construction
         # by server/router wiring; never called under the SLO lock)
         self.breach_hook = breach_hook
-        self._lock = threading.Lock()
+        self._lock = lockcheck.named_lock("observability.slo")
         # per objective: ring of (t, good, total) cumulative samples,
         # pruned past the slow window — bounded by construction
         self._history: Dict[str, List[Tuple[float, float, float]]] = {
@@ -292,6 +292,7 @@ class SLOEvaluator:
         now = self._clock() if now is None else now
         crossings: List[Dict[str, Any]] = []
         with self._lock:
+            lockcheck.assert_guard("observability.slo")
             self._last_tick = now
             self.ticks += 1
             for objective in self.objectives:

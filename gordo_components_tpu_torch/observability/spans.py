@@ -28,6 +28,7 @@ import time
 from contextvars import ContextVar
 from typing import Any, Dict, Iterator, List, NamedTuple, Optional
 
+from ..analysis import lockcheck
 from . import tracing
 from .registry import REGISTRY
 
@@ -107,7 +108,7 @@ class Timeline:
         self.error = ""
         self.spans: List[Span] = []
         self.events: List[Dict[str, Any]] = []
-        self._lock = threading.Lock()
+        self._lock = lockcheck.named_lock("observability.spans")
 
     # -- recording (any thread) ----------------------------------------------
     def add_span(self, name: str, started: float, duration: float,

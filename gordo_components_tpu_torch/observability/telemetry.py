@@ -32,10 +32,10 @@ from __future__ import annotations
 import json
 import logging
 import os
-import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+from ..analysis import lockcheck
 from . import traffic as traffic_mod
 from .registry import (
     REGISTRY,
@@ -175,7 +175,7 @@ class TelemetryWarehouse:
         self.segment_limit = (
             segment_limit if segment_limit is not None else segment_bytes()
         )
-        self._lock = threading.Lock()
+        self._lock = lockcheck.named_lock("observability.telemetry")
         # (segment_seq, record_bytes, record) oldest-first; the query
         # index and the byte ledger share one list so budget trims are
         # exact on both sides
@@ -318,6 +318,7 @@ class TelemetryWarehouse:
 
     def close(self) -> None:
         with self._lock:
+            lockcheck.assert_guard("observability.telemetry")
             if self._active_fh is not None:
                 self._active_fh.close()
                 self._active_fh = None
@@ -359,6 +360,7 @@ class TelemetryWarehouse:
             except Exception as exc:  # noqa: BLE001 - a broken sampler must not take down the scrape; the gap shows as an empty costs block
                 logger.warning("telemetry: cost sampler failed: %s", exc)
         with self._lock:
+            lockcheck.assert_guard("observability.telemetry")
             last = self._last_tick
             self._last_tick = now
             self._last_wall = wall_now

@@ -26,10 +26,10 @@ from __future__ import annotations
 import heapq
 import math
 import os
-import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+from ..analysis import lockcheck
 from .registry import REGISTRY, set_traffic_topk_provider
 
 # EWMA horizons: label -> seconds. The 1m rate answers "now", the 1h
@@ -228,7 +228,7 @@ class TrafficAccountant:
     ):
         self.horizons = tuple(horizons)
         self._clock = clock
-        self._lock = threading.Lock()
+        self._lock = lockcheck.named_lock("observability.traffic")
         self._sketch = SpaceSaving(
             capacity if capacity is not None else sketch_capacity()
         )
@@ -256,6 +256,7 @@ class TrafficAccountant:
         next tick."""
         group = (bucket, precision)
         with self._lock:
+            lockcheck.assert_guard("observability.traffic")
             self._sketch.offer(machine, n)
             if (
                 machine in self._pending
@@ -277,6 +278,7 @@ class TrafficAccountant:
         first tick only establishes the baseline timestamp."""
         now = self._clock() if now is None else now
         with self._lock:
+            lockcheck.assert_guard("observability.traffic")
             last = self._last_tick
             self._last_tick = now
             if last is None or now <= last:
@@ -367,6 +369,7 @@ class TrafficAccountant:
         """Tests only: drop all accounting (the module singleton is
         process-wide, and smoke phases must not see each other)."""
         with self._lock:
+            lockcheck.assert_guard("observability.traffic")
             self._sketch = SpaceSaving(self._sketch.capacity)
             self._pending.clear()
             self._group_pending.clear()

@@ -45,6 +45,8 @@ from typing import Any, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import torch
 
+from ..analysis import lockcheck
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -77,9 +79,9 @@ KERNEL_NAMES = ("flash_fwd_f32", "flash_fwd_bf16", "flash_bwd_f32", "flash_bwd_b
 LAUNCHES: Dict[str, int] = {
     "flash_fwd": 0, "flash_bwd": 0, **{name: 0 for name in KERNEL_NAMES}
 }
-_LAUNCH_LOCK = threading.Lock()
+_LAUNCH_LOCK = lockcheck.named_lock("kernels.launch")
 _LIBS: Dict[str, ctypes.CDLL] = {}
-_LOAD_LOCK = threading.Lock()
+_LOAD_LOCK = lockcheck.named_lock("kernels.load")
 
 
 def reset_launches() -> None:

@@ -26,11 +26,11 @@ the move in the control ledger.
 
 from __future__ import annotations
 
-import threading
 import time
 from collections import deque
 from typing import Dict, Optional
 
+from ..analysis import lockcheck
 from ..observability import ledger as control_ledger
 from ..observability.registry import REGISTRY
 from . import deadline, qos
@@ -110,7 +110,7 @@ class AdmissionController:
         self.retry_after = retry_after
         self.tenants = tenants
         self._clock = clock
-        self._cond = threading.Condition()
+        self._cond = lockcheck.named_condition("server.admission")
         self._inflight = 0
         self._waiting = 0
         self._waiting_by: Dict[str, int] = {k: 0 for k in qos.CLASSES}
@@ -216,6 +216,7 @@ class AdmissionController:
         applied (clamped) value."""
         level = max(0, min(qos.SHED_MAX, int(level)))
         with self._cond:
+            lockcheck.assert_guard("server.admission")
             previous = self._shed_level
             self._shed_level = level
             self._cond.notify_all()
@@ -253,6 +254,7 @@ class AdmissionController:
         waiters are woken so they shed now instead of burning their full
         queue timeout against a gate that can never admit them."""
         with self._cond:
+            lockcheck.assert_guard("server.admission")
             self._closed = reason
             self._cond.notify_all()
 
@@ -314,6 +316,7 @@ class AdmissionController:
             if self._inflight < limit and not self._higher_waiting_locked(
                 klass
             ):
+                lockcheck.assert_guard("server.admission")
                 self._inflight += 1
                 _M_INFLIGHT.set(self._inflight)
                 _M_ADMISSION.labels("admitted").inc()

@@ -15,10 +15,10 @@ control ledger (actor ``breaker``) after the breaker's lock is released.
 
 from __future__ import annotations
 
-import threading
 import time
 from typing import Callable, Dict
 
+from ..analysis import lockcheck
 from ..observability import ledger as control_ledger
 from ..observability.registry import REGISTRY
 
@@ -82,7 +82,7 @@ class CircuitBreaker:
         self.min_calls = max(1, int(min_calls))
         self.recovery_time = recovery_time
         self._clock = clock
-        self._lock = threading.Lock()
+        self._lock = lockcheck.named_lock("resilience.breaker")
         self._state = CLOSED
         self._outcomes: list = []  # rolling 1/0 window, newest last
         self._opened_at = 0.0
@@ -211,10 +211,10 @@ class BreakerBoard:
     def __init__(self, **defaults):
         self._defaults = defaults
         self._breakers: Dict[str, CircuitBreaker] = {}
-        self._lock = threading.Lock()
+        self._board_lock = lockcheck.named_lock("resilience.breaker_board")
 
     def get(self, name: str, **overrides) -> CircuitBreaker:
-        with self._lock:
+        with self._board_lock:
             breaker = self._breakers.get(name)
             if breaker is None:
                 kwargs = dict(self._defaults)
@@ -225,7 +225,7 @@ class BreakerBoard:
             return breaker
 
     def states(self) -> Dict[str, str]:
-        with self._lock:
+        with self._board_lock:
             return {
                 name: breaker.state
                 for name, breaker in sorted(self._breakers.items())
@@ -235,5 +235,5 @@ class BreakerBoard:
         """Drop a breaker whose downstream no longer exists, so status
         views stop reporting it. A later ``get`` of the name mints a fresh
         closed circuit."""
-        with self._lock:
+        with self._board_lock:
             self._breakers.pop(name, None)

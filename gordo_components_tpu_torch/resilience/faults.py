@@ -37,10 +37,10 @@ from __future__ import annotations
 
 import logging
 import os
-import threading
 import time
 from typing import Any, List, Optional
 
+from ..analysis import lockcheck
 from ..observability import ledger as control_ledger
 from ..observability.registry import REGISTRY
 
@@ -80,7 +80,7 @@ class _Rule:
         return self.target == "*" or (target is not None and self.target == target)
 
 
-_lock = threading.Lock()
+_lock = lockcheck.named_lock("resilience.faults")
 _rules: List[_Rule] = []
 _configured = False  # has configure()/clear() run (beats the lazy env read)
 
@@ -115,6 +115,7 @@ def configure(spec: str) -> int:
     global _configured
     rules = parse_spec(spec)
     with _lock:
+        lockcheck.assert_guard("resilience.faults")
         _rules[:] = rules
         _configured = True
     if rules:

@@ -24,11 +24,11 @@ from __future__ import annotations
 import contextvars
 import math
 import os
-import threading
 import time
 from dataclasses import dataclass, replace
 from typing import Callable, Dict, List, Optional, Tuple
 
+from ..analysis import lockcheck
 from ..observability.registry import REGISTRY
 from ..observability.traffic import SpaceSaving
 
@@ -239,7 +239,7 @@ class TenantTable:
     ):
         specs = list(tenants or [])
         self._clock = clock
-        self._lock = threading.Lock()
+        self._lock = lockcheck.named_lock("resilience.qos")
         self._by_name: Dict[str, TenantSpec] = {t.name: t for t in specs}
         self._by_key: Dict[str, TenantSpec] = {
             t.key: t for t in specs if t.key
@@ -273,6 +273,7 @@ class TenantTable:
         if spec is None:
             spec = self._by_key.get(value)
         with self._lock:
+            lockcheck.assert_guard("resilience.qos")
             self._header_sketch.offer(value if spec is None else spec.name)
         return spec if spec is not None else self.default
 
@@ -284,6 +285,7 @@ class TenantTable:
         if bucket is None:
             return True, 0.0
         with self._lock:
+            lockcheck.assert_guard("resilience.qos")
             if bucket.take():
                 return True, 0.0
             return False, max(0.05, bucket.seconds_until())

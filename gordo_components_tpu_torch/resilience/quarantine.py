@@ -18,10 +18,10 @@ and **suspect** (deadline expiries at dispatch: still served, but named by
 
 from __future__ import annotations
 
-import threading
 import time
 from typing import Any, Dict, Optional
 
+from ..analysis import lockcheck
 from ..observability import ledger as control_ledger
 from ..observability.registry import REGISTRY
 
@@ -43,7 +43,7 @@ class Quarantine:
     def __init__(self, cooldown: float = 30.0, clock=time.monotonic):
         self.cooldown = cooldown
         self._clock = clock
-        self._lock = threading.Lock()
+        self._lock = lockcheck.named_lock("resilience.quarantine")
         self._hard: Dict[str, Dict[str, Any]] = {}
         self._soft: Dict[str, Dict[str, Any]] = {}
 

@@ -41,6 +41,8 @@ import threading
 import time
 from typing import Dict, Iterable, List, Optional, Sequence
 
+from ..analysis import lockcheck
+
 
 
 def _hash64(key: str) -> int:
@@ -299,7 +301,7 @@ class Placement:
         self.hot_window_s = float(hot_window_s)
         self._pinned_hot = set(hot)
         self._clock = clock
-        self._lock = threading.Lock()
+        self._lock = lockcheck.named_lock("router.placement")
         self._rates: Dict[str, _RateWindow] = {}
         self._hot: set = set(self._pinned_hot)
         self._rotation: Dict[str, int] = {}
@@ -343,6 +345,7 @@ class Placement:
         Returns True when any worker's point set changed."""
         changed = False
         with self._lock:
+            lockcheck.assert_guard("router.placement")
             desired = {
                 worker: float(weight)
                 for worker, weight in (weights or {}).items()
@@ -372,6 +375,7 @@ class Placement:
         must flip between sharded and replicated together. Returns True
         when the policy flipped."""
         with self._lock:
+            lockcheck.assert_guard("router.placement")
             was_sharded = self._shard_of is not None
             self._shard_of = shard_of
             self._worker_shards = dict(worker_shards or {})
@@ -383,6 +387,7 @@ class Placement:
         serves — the elastic tier registers new workers here alongside
         their ring join."""
         with self._lock:
+            lockcheck.assert_guard("router.placement")
             if shard is None:
                 self._worker_shards.pop(worker, None)
             else:
@@ -419,6 +424,7 @@ class Placement:
             return
         now = self._clock()
         with self._lock:
+            lockcheck.assert_guard("router.placement")
             window = self._rates.get(machine)
             if window is None:
                 window = self._rates[machine] = _RateWindow(

@@ -30,10 +30,10 @@ The rollout contract:
 from __future__ import annotations
 
 import logging
-import threading
 import time
 from typing import Any, Dict, List, Optional
 
+from ..analysis import lockcheck
 from ..observability import ledger as control_ledger
 from ..observability.registry import REGISTRY
 from ..utils import http
@@ -70,12 +70,12 @@ class RolloutManager:
         self.reload_timeout = reload_timeout
         self.verify_timeout = verify_timeout
         self._session = session if session is not None else http.Session()
-        self._lock = threading.Lock()
+        self._lock = lockcheck.named_lock("router.rollout_state")
         # at most ONE rollout/rollback at a time: the capacity contract
         # ("never dips more than 1/N") and the generation bookkeeping
         # both assume the sweep is the only reload traffic — a second
         # concurrent POST must answer "busy", not interleave
-        self._op_lock = threading.Lock()
+        self._op_lock = lockcheck.named_lock("router.op")
         self._last: Optional[Dict[str, Any]] = None
 
     # -- worker verbs --------------------------------------------------------

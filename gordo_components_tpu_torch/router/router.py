@@ -48,11 +48,11 @@ import logging
 import math
 import os
 import re
-import threading
 import time
 import urllib.parse
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
+from ..analysis import lockcheck
 from ..autopilot import build_router_autopilot, disabled_snapshot
 from ..fleet import reconciler as fleet_reconciler
 from ..fleet.spec import FleetSpec, SpecError
@@ -239,10 +239,10 @@ class FleetRouter:
             models_root=models_root,
         )
         self._models_cache: Optional[List[str]] = None
-        self._models_lock = threading.Lock()
+        self._models_lock = lockcheck.named_lock("router.models")
         # truncated-stitch pull ledger: claims a pending pull exactly
         # once across concurrent /debug readers (never held across HTTP)
-        self._stitch_lock = threading.Lock()
+        self._stitch_lock = lockcheck.named_lock("router.stitch")
         # the tenant table at the fleet's front door — the SAME
         # GORDO_TENANTS spec the workers load, so a name resolves to the
         # same class on both tiers, and unknown names fold into the
@@ -1056,6 +1056,7 @@ class FleetRouter:
                 continue
             if isinstance(models, list):
                 with self._models_lock:
+                    lockcheck.assert_guard("router.models")
                     self._models_cache = sorted(models)
                     return self._models_cache
         with self._models_lock:

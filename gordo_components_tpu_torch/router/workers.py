@@ -22,10 +22,10 @@ import os
 import signal
 import subprocess
 import sys
-import threading
 import time
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
+from ..analysis import lockcheck
 from ..observability.registry import REGISTRY
 from ..utils import http
 
@@ -192,13 +192,14 @@ class WorkerSupervisor:
             raise ValueError(f"duplicate worker names: {names}")
         self.specs = {spec.name: spec for spec in specs}
         self._factory = factory
-        self._lock = threading.Lock()
+        self._lock = lockcheck.named_lock("router.workers")
         self._workers: Dict[str, object] = {}
         self._respawns: Dict[str, int] = {name: 0 for name in self.specs}
 
     # -- lifecycle -----------------------------------------------------------
     def start_all(self) -> None:
         with self._lock:
+            lockcheck.assert_guard("router.workers")
             for name, spec in self.specs.items():
                 if name not in self._workers:
                     worker = self._factory(spec)

@@ -121,6 +121,7 @@ import numpy as np
 import torch
 
 from .. import precision as precision_mod
+from ..analysis import lockcheck
 from ..models.analysis import analyze_model
 from ..models.convert import quantized_params_from_flax
 from ..models.transformers import MinMaxScaler, StandardScaler
@@ -220,7 +221,8 @@ def _fill_window_us() -> int:
     """``GORDO_FILL_WINDOW_US``: the fill window in microseconds; core-aware
     default (250 with 4 or more CPUs, else 1000); 0 disables the wait.
     Requests already queued when a leader drains share its dispatch either
-    way, so this is the reference's ``GORDO_MEGABATCH=0`` too."""
+    way, so 0 also stands for the reference's megabatch switch turned off
+    (a knob the port does not read)."""
     default = 250 if (os.cpu_count() or 1) >= 4 else 1000
     return _env_int("GORDO_FILL_WINDOW_US", default)
 
@@ -517,7 +519,7 @@ class _SpillScorer:
         self._offset = 0 if self.lookahead is None else self.lookback - 1 + self.lookahead
         self.template = _meta_template(est.module_)
         self._score = _make_machine_score(self.lookback, self.lookahead, self.template, precision)
-        self._lock = threading.Lock()
+        self._lock = lockcheck.named_lock("engine.spill")
         # the bucket's key for the same shape, and the dispatches enqueued,
         # so a caller can tie kernel launches to the spill path
         self.shape_key = _shape_key(self.lookback, self.lookahead, self.n_features)
@@ -604,7 +606,7 @@ class _DepthGate:
     __slots__ = ("_depth_cond", "_depth", "_in_use")
 
     def __init__(self, depth: int):
-        self._depth_cond = threading.Condition()
+        self._depth_cond = lockcheck.named_condition("engine.depth")
         self._depth = max(1, int(depth))
         self._in_use = 0
 
@@ -676,10 +678,13 @@ class _Bucket:
         precision: str = "f32",
     ):
         self.template = template
+        # the kernel libraries the program launches on the card, resolved
+        # before a dispatch takes the template lock (ServingEngine._anomaly)
+        self.libraries = _kernels.libraries_for(template)
         # functional_call swaps the template's parameters for a call's
         # duration, and the program runs on leader and collector threads
         # alike: one call at a time per template
-        self._template_lock = threading.Lock()
+        self._template_lock = lockcheck.named_lock("engine.template")
         self.device = device
         self.precision = precision  # one rung per bucket: no program mixes dtypes
         self.lookback = lookback
@@ -708,7 +713,7 @@ class _Bucket:
         # rescored one request per dispatch
         self.fallback_cold_count = 0
         self.retry_isolated_count = 0
-        self._cond = threading.Condition()
+        self._cond = lockcheck.named_condition("engine.bucket_cond")
         self._busy = False
         self._pending: Dict[int, List[_Item]] = {}
         self.dispatch_depth = _dispatch_depth()
@@ -716,7 +721,7 @@ class _Bucket:
         self._fetch_queue: "queue.Queue" = queue.Queue()
         self._collector: Optional[threading.Thread] = None
         # serializes collector handover (spawn / close / enqueue)
-        self._collector_lock = threading.Lock()
+        self._collector_lock = lockcheck.named_lock("engine.collector")
         self._retiring_collector: Optional[threading.Thread] = None
         self.dispatch_count = 0
         self.request_count = 0
@@ -950,7 +955,10 @@ class _Bucket:
         if defer or self._should_pipeline():
             try:
                 with self._collector_lock:
-                    self._ensure_collector()
+                    # spawn-and-enqueue is atomic w.r.t. close(): the job
+                    # either lands ahead of a shutdown sentinel or a fresh
+                    # collector is spawned for it
+                    self._ensure_collector()  # lint: allow-blocking(handover join: the retiring collector exits within its in-flight fetches and never takes this lock, so the join is deadlock-free and rarer than a reload)
                     self._fetch_queue.put(job)
             except BaseException as exc:
                 # a failed spawn fans out like any dispatch failure
@@ -1258,8 +1266,7 @@ class ServingEngine:
         """The kernel libraries the eager machines launch on the card: the
         buckets' and the host-path machines' (a dense or LSTM fleet
         launches none)."""
-        return sorted({name for bucket in self._buckets
-                       for name in _kernels.libraries_for(bucket.template)}
+        return sorted({name for bucket in self._buckets for name in bucket.libraries}
                       | self._host_path_libraries)
 
     def _resolve_kernels(self, names: List[str]) -> None:
@@ -1267,7 +1274,10 @@ class ServingEngine:
         on the card (on the CPU no kernel launches: nothing is resolved)."""
         names = [name for name in names if name not in self.kernel_libraries]
         if names and self.device.type == "cuda":
-            self.kernel_libraries.update(_kernels.resolve(names, self.compile_cache))
+            # a racing resolve of the same library reports "loaded": the
+            # first outcome is the one that says what resolving it took
+            for name, outcome in _kernels.resolve(names, self.compile_cache).items():
+                self.kernel_libraries.setdefault(name, outcome)
 
     def warmup(self, rows: Optional[int] = None) -> int:
         """Resolve the kernel libraries the eager machines launch, the
@@ -1484,6 +1494,10 @@ class ServingEngine:
             deadline.check("engine.dispatch")
             faults.inject("engine-dispatch", name)
             X = faults.corrupt("engine-dispatch", name, X)
+        # a library's first use builds or loads it: here, on the request's
+        # thread, never under the bucket's template lock (a no-op once the
+        # warm-up or an earlier request resolved it)
+        self._resolve_kernels(bucket.libraries)
         return self._chunked_score(
             bucket, X, lambda x_padded, m_valid: bucket.submit(idx, x_padded, m_valid)
         )

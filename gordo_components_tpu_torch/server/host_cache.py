@@ -28,6 +28,7 @@ import time
 from collections import OrderedDict
 from typing import Any, Callable, Dict, Optional, Tuple
 
+from ..analysis import lockcheck
 from ..observability import spans
 from ..observability.registry import REGISTRY
 
@@ -85,7 +86,7 @@ class HostTierCache:
 
     def __init__(self, cap_bytes: int):
         self.cap_bytes = max(0, int(cap_bytes))
-        self._lock = threading.Lock()
+        self._lock = lockcheck.named_lock("engine.host_cache")
         self._entries: "OrderedDict[str, Tuple[Any, int]]" = OrderedDict()
         self._bytes = 0
         # names whose prefetch is queued or loading (claimed under the
@@ -114,6 +115,7 @@ class HostTierCache:
         a hit or a miss."""
         started = time.perf_counter()
         with self._lock:
+            lockcheck.assert_guard("engine.host_cache")
             cached = self._entries.get(name)
             if cached is not None:
                 self._entries.move_to_end(name)
@@ -135,6 +137,7 @@ class HostTierCache:
         """The cached entry without touching the LRU order or the counters:
         probes (``/healthz``) must not move what they report on."""
         with self._lock:
+            lockcheck.assert_guard("engine.host_cache")
             cached = self._entries.get(name)
         return None if cached is None else cached[0]
 
@@ -151,6 +154,7 @@ class HostTierCache:
             return False
         evicted = []
         with self._lock:
+            lockcheck.assert_guard("engine.host_cache")
             old = self._entries.pop(name, None)
             if old is not None:
                 self._bytes -= old[1]
@@ -192,6 +196,7 @@ class HostTierCache:
         """Remove one entry (a machine whose artifact changed generation
         must not serve its old host arrays)."""
         with self._lock:
+            lockcheck.assert_guard("engine.host_cache")
             old = self._entries.pop(name, None)
             if old is not None:
                 self._bytes -= old[1]
@@ -202,6 +207,7 @@ class HostTierCache:
 
     def clear(self) -> None:
         with self._lock:
+            lockcheck.assert_guard("engine.host_cache")
             self._entries.clear()
             self._bytes = 0
         _M_BYTES.set(0)
@@ -215,6 +221,7 @@ class HostTierCache:
         if not self.enabled:
             return False
         with self._lock:
+            lockcheck.assert_guard("engine.host_cache")
             skip = name in self._entries or name in self._inflight
             if not skip:
                 self._inflight.add(name)

@@ -159,7 +159,6 @@ import logging
 import math
 import os
 import re
-import threading
 import time
 import urllib.parse
 from http.server import ThreadingHTTPServer
@@ -169,6 +168,7 @@ import numpy as np
 
 from .. import precision as precision_mod
 from .. import wire
+from ..analysis import lockcheck
 from ..autopilot import build_server_autopilot, disabled_snapshot
 from ..compile_cache import resolve_store
 from ..dataset import GordoBaseDataset
@@ -367,7 +367,7 @@ class _ServerState:
                  lazy_loaders: Optional[Dict[str, Callable[[], Dict[str, Any]]]] = None,
                  compile_cache: Any = None):
         self._inflight = 0
-        self._cond = threading.Condition()
+        self._cond = lockcheck.named_condition("server.state_cond")
         self.machines = machines
         self.single = next(iter(machines.values())) if single else None
         # the fleet index's machines that are not materialised: the engine
@@ -397,10 +397,12 @@ class _ServerState:
 
     def enter(self) -> None:
         with self._cond:
+            lockcheck.assert_guard("server.state_cond")
             self._inflight += 1
 
     def exit(self) -> None:
         with self._cond:
+            lockcheck.assert_guard("server.state_cond")
             self._inflight -= 1
             if self._inflight == 0:
                 self._cond.notify_all()
@@ -488,7 +490,7 @@ class ModelServer:
         # each one's index generation, reload's staleness signal
         self._lazy_dirs: Dict[str, str] = {}
         self._lazy_gens: Dict[str, Any] = {}
-        self._reload_lock = threading.Lock()
+        self._reload_lock = lockcheck.named_lock("server.reload")
         if isinstance(models_dir, Mapping):
             self.models_root = models_root
             self._pinned = dict(models_dir)

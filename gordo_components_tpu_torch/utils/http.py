@@ -18,9 +18,10 @@ from __future__ import annotations
 
 import http.client
 import json
-import threading
 import urllib.parse
 from typing import Any, Dict, List, Mapping, Optional, Tuple
+
+from ..analysis import lockcheck
 
 
 class TransportError(OSError):
@@ -69,7 +70,7 @@ class Session:
     MAX_IDLE = 32
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = lockcheck.named_lock("utils.http")
         self._idle: Dict[Tuple[str, int], List[http.client.HTTPConnection]] = {}
 
     def _checkout(self, key: Tuple[str, int], timeout: float,

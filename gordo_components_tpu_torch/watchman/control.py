@@ -36,6 +36,7 @@ import time
 from collections import deque
 from typing import Any, Callable, Dict, Optional
 
+from ..analysis import lockcheck
 from ..observability.registry import REGISTRY
 from ..resilience import faults
 from ..resilience.admission import DRAINING_HEADER
@@ -120,7 +121,7 @@ class ControlPlane:
         self.quarantine = Quarantine(
             cooldown=quarantine_cooldown, clock=clock
         )
-        self._lock = threading.Lock()
+        self._lock = lockcheck.named_lock("watchman.control")
         self._last: Dict[str, Dict[str, Any]] = {}
         self._events: deque = deque(maxlen=history)
         self._stop = threading.Event()

@@ -36,6 +36,7 @@ import urllib.parse
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List, Mapping, Optional, Sequence, Union
 
+from ..analysis import lockcheck
 from ..observability import exposition
 from ..observability.registry import REGISTRY
 from ..resilience import faults
@@ -107,7 +108,7 @@ class WatchmanServer:
         # one that never failed (the reference's watchman forgot everything
         # between GETs)
         self._last_errors: Dict[str, str] = {}
-        self._errors_lock = threading.Lock()
+        self._errors_lock = lockcheck.named_lock("watchman.errors")
         # one circuit per HOST (base URL), shared by every machine probed
         # there: unreachability is a host property, so a dead host is
         # contained after min_calls timeouts TOTAL, not min_calls × N

@@ -33,6 +33,12 @@ def _sources():
                                           ROOT / "tests" / "influx_double.py", *tools]
 
 
+def test_the_walk_covers_the_lint_and_the_model_contract():
+    walked = {p.relative_to(PORT).as_posix() for p in _sources() if PORT in p.parents}
+    assert {"analysis/runner.py", "analysis/lockcheck.py", "analysis/locks.py",
+            "models/base.py", "models/anomaly/base.py"} <= walked
+
+
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_forbidden_imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
