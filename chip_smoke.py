@@ -143,13 +143,14 @@ Phases; any failure exits non-zero before the result line:
    two sequential stacks of two) in a fresh process: 134 machines
    committed with registry keys and journal records, the PatchTST bucket
    through the fp32 flash kernels once per layer per step for both
-   machines (``fleet_flash_launches``); the same command again resolves
-   every machine cached with no launch; the port's server on the output
+   machines (``fleet_flash_launches``); the same command again, beside
+   the stacking check below, resolves every machine cached with no launch;
+   the port's server on the output
    root answers two machines of each bucket within SERVE_RTOL of each
-   one's own predict on the card; the PatchTST machines fitted alone at
-   M = 1 from the same initial parameters and permutations match the
-   stacked build (losses within TRAIN_RTOL, thresholds within
-   ``FLEET_THRESHOLD_RTOL``). Printed: the process wall, machines per
+   one's own predict on the card; one of the PatchTST machines (phase 19
+   holds both) fitted alone at M = 1 from the same initial parameters and
+   permutations matches the stacked build (losses within TRAIN_RTOL,
+   thresholds within ``FLEET_THRESHOLD_RTOL``). Printed: the process wall, machines per
    hour, each bucket's slice wall, the peak device memory, the launches,
    the generations, the cache hit's wall;
 11. the request seams (``phase_seams``): one server on 24 ``dense_ae_10tag``
@@ -187,8 +188,9 @@ Phases; any failure exits non-zero before the result line:
    for each of ``CLIENT_MACHINES``, each machine in a measurement of its own,
    ``CLIENT_CHUNKS`` x (LOOKBACK + CLIENT_WINDOWS - 1) rows; both slice
    machines built by ``python -m gordo_components_tpu_torch.cli build`` from
-   an ``InfluxDataProvider`` data config, one process after the other, the
-   next machine's points written while a build runs (8 Adam steps each
+   an ``InfluxDataProvider`` data config, each process started once its
+   machine's points are written (the next machine's written while the
+   build before runs, the two builds then overlapping; 8 Adam steps each
    through the fp32 flash kernels); served by the port's server
    in this process and scored by the port's ``Client`` (parallelism
    ``CLIENT_PARALLELISM``, one ``max_interval`` per chunk, the Influx and
@@ -268,7 +270,8 @@ Phases; any failure exits non-zero before the result line:
    ``flash_fwd_bf16`` 3 times per fp32 and bf16 PatchTST dispatch of its
    engines (read off its ``/metrics`` before each reload and its exit).
    Tier B: ``python -m gordo_components_tpu_torch.cli run-fleet-server
-   --workers 2`` boots and answers 10 requests; its workers hold the card's
+   --workers 2``, started beside Tier A's boot and checked before Tier A's
+   first check, boots and answers 10 requests; its workers hold the card's
    device files open and the router none (nor maps libcuda; ``nvidia-smi
    --query-compute-apps=pid`` is printed and, where its pids are this
    namespace's, must list the workers and not the router); SIGTERM exits 0
@@ -368,7 +371,7 @@ Phases; any failure exits non-zero before the result line:
    (``gordo_components_tpu_torch.analysis``, stdlib only) over this
    checkout on the card's host, which has no jax, pandas or ``requests``:
    0 fresh findings; the baselined count and each checker's seconds are
-   printed. Then a child process (``LW_CHILD``) with ``GORDO_LOCKCHECK=1``
+   printed. It runs in a thread beside the witness: a child process (``LW_CHILD``) with ``GORDO_LOCKCHECK=1``
    in its environment before the port is imported builds an in-process
    ``ModelServer`` on the card over a lazily booted tree: 8
    ``dense_ae_10tag`` machines, the full-width slice machine at fp32 (phase
@@ -389,6 +392,35 @@ Phases; any failure exits non-zero before the result line:
    Printed with the card: the edges that involve ``kernels.*``,
    ``compile_cache.*``, ``engine.template`` and ``engine.spill``, which
    only the card takes.
+19. the multi-rank fleet build (``phase_multirank``): ``FLEET_BUILD``'s
+   three buckets with their own kwargs at 16 dense, 4 LSTM and 2
+   full-width PatchTST machines (``MR_COUNTS``), ``--slice-size 8`` (dense
+   trains in two slices; of two ranks each owns one PatchTST machine), this
+   process holding nothing on the card, every build's allocator on
+   expandable segments. (b) first: two rank processes (CLI_RUNNER, a record
+   each) of one gloo group on a free loopback port (once more on a fresh
+   port when rank 0 could not bind it) into root B: both exit 0, their
+   manifests (``fleet_manifest.json``, ``fleet_manifest.p1.json``)
+   partition the fleet into the contiguous blocks of each slice that
+   ``mr_owners`` computes, and each rank's fp32 flash forward and backward
+   launches are ``fleet_flash_launches(rows)`` for its one PatchTST
+   machine. Then (c) two ranks into root C under ``GORDO_SLICE_TIMEOUT_S``
+   at ``MR_WATCHDOG_FACTOR`` x B's worst healthy slice wall (at least
+   ``MR_WATCHDOG_FLOOR_S``): once both ranks' journals show their share of
+   dense slice 0 committed, rank 1 is SIGSTOPped, rank 0 must exit 75 with
+   the watchdog's line within the budget plus ``MR_GRACE_S``, then rank 1
+   is SIGKILLed. Then (a) one ``cli fleet-build`` process into root A,
+   alone on the card (its PatchTST slice stacks both slice machines, about
+   all the card holds beside this process): its launches the same; every
+   machine of B equals A's, its predictions (fixed rows, on the card) and
+   thresholds within ``FLEET_THRESHOLD_RTOL`` and its loss history within
+   ``TRAIN_RTOL`` (for the PatchTST machines, one alone per rank against
+   the stack of both: phase 10's ``stacking_check``, for both). Last, both
+   ranks again on C exit 0, their journals count every machine committed
+   before as ``resumed``, every machine equals A's, and
+   ``.slice_checkpoints`` is gone. Printed with the card: each process's
+   wall, peak device memory and launches, the machines per hour of A and
+   of the pair, B's slice walls, the drill's timings.
 
 Every phase prints its wall (``phase wall``), and the script its total.
 
@@ -1393,7 +1425,7 @@ FLEETS = {
         kind="lstm_symmetric", dims=[32], lookback_window=24), 50, 144, 8, 8),
     "patchtst": (4, "PatchTSTAutoEncoder", None, N_TAGS, LOOKBACK + 15, 4, 2),
 }
-FLEET_ROUNDS = 3
+FLEET_ROUNDS = 2  # cut from 3 to keep the script within its time limit
 # a fused PatchTST dispatch against the same request served alone on the
 # card: float32 both, the same kernels, but batched GEMMs (k machines in one
 # cuBLAS call) sum in another order than single ones (~1e-7 relative per
@@ -2706,24 +2738,26 @@ FLEET_BUILD_SERVED = 2  # machines per bucket asked over HTTP
 FLEET_THRESHOLD_RTOL = 1e-4
 
 
-def fleet_build_config() -> dict:
+def fleet_build_config(counts: dict = None, prefix: str = "", seed: int = SEED + 100,
+                       project: str = "chip-smoke-fleet") -> dict:
     """The phase's fleet config: every machine a TimeSeriesDataset of
     RandomDataProvider series at 10 minutes (``data_config``), its own
-    seed, in the reference's canonical detector config."""
+    seed, in the reference's canonical detector config. ``counts``
+    overrides FLEET_BUILD's machines per bucket (phase 19's fleet)."""
     machines = []
     for bucket, (count, estimator, kwargs, tags, rows, evaluation) in FLEET_BUILD.items():
-        for i in range(count):
+        for i in range((counts or {}).get(bucket, count)):
             machines.append({
-                "name": f"{bucket}-{i:03d}",
+                "name": f"{prefix}{bucket}-{i:03d}",
                 "model": {"DiffBasedAnomalyDetector": {"base_estimator": {
                     "TransformedTargetRegressor": {
                         "regressor": {"Pipeline": {"steps": ["MinMaxScaler",
                                                              {estimator: kwargs}]}},
                         "transformer": "MinMaxScaler"}}}},
-                "dataset": data_config(tags, rows, SEED + 100 + len(machines)),
+                "dataset": data_config(tags, rows, seed + len(machines)),
                 "evaluation": dict(evaluation),
             })
-    return {"project-name": "chip-smoke-fleet", "machines": machines}
+    return {"project-name": project, "machines": machines}
 
 
 def fleet_flash_launches(rows: int) -> dict:
@@ -2757,7 +2791,7 @@ def stacking_check(torch, device, out: str, config: dict) -> None:
     items = [{"machine": FleetMachineConfig(name=m["name"], model_config=m["model"],
                                             data_config=m["dataset"]),
               "dataset": builder._dataset_from_config(m["dataset"])} for m in entries]
-    X, y, w, n_rows, _ = builder._prepare_slice(items, len(items), N_TAGS, N_TAGS, False)
+    X, y, w, n_rows, *_ = builder._prepare_slice(items, len(items), N_TAGS, N_TAGS, False)
     keys = builder.machine_seeds(0, bucket, slice_index, len(items))
     spec = builder._spec_for(analyze_model(pipeline_from_definition(entries[0]["model"])),
                              N_TAGS, N_TAGS, 1, cv_parallel=False)
@@ -2783,7 +2817,9 @@ def stacking_check(torch, device, out: str, config: dict) -> None:
         return [[torch.randperm(padded, generator=gen) for _ in range(spec.epochs)]
                 for gen in (fleet.fit_generator(key, 2), fleet.fit_generator(key, 1))]
 
-    for m, entry in enumerate(entries):
+    # one machine: phase 19 holds both, a rank each, to the same limits,
+    # and the script keeps within its time limit
+    for m, entry in enumerate(entries[:1]):
         alone, wall, peak, retries = timed_fit(slice(m, m + 1), [drawn_perms(int(keys[m]))])
         built = load(os.path.join(out, entry["name"]), device="cpu")
         history = analyze_model(built).estimator.history_
@@ -2849,7 +2885,7 @@ def phase_fleet_build(torch, device, tmp: str) -> dict:
     for its two machines together; the same command again resolves every
     machine cached with no launch; the port's server on the output root
     answers two machines of each bucket within SERVE_RTOL of each one's own
-    predict on the card; the PatchTST machines fitted alone match the
+    predict on the card; a PatchTST machine fitted alone matches the
     stacked build. Returns the launches of the build and the requests."""
     from gordo_components_tpu_torch.ops import _kernels
     from gordo_components_tpu_torch.serializer import load, load_metadata
@@ -2906,7 +2942,24 @@ def phase_fleet_build(torch, device, tmp: str) -> dict:
                 or not np.isfinite(losses).all()):
             fail(f"fleet build: {name} has no finite thresholds or loss history")
 
-    lines, hit_wall, hit, _ = run_cli(tmp, *args)
+    # the same command again (a process resolving every machine cached),
+    # beside the stacking check in this process; fail() in the thread
+    # raises SystemExit, read as a missing result (its message is on stderr)
+    again = {}
+
+    def again_thread():
+        try:
+            again["result"] = run_cli(tmp, *args)
+        except SystemExit:
+            pass
+
+    again_worker = threading.Thread(target=again_thread, name="fleet-build-again")
+    again_worker.start()
+    stacking_check(torch, device, out, config)
+    again_worker.join()
+    if "result" not in again:
+        fail("fleet build again: the process failed")
+    lines, hit_wall, hit, _ = again["result"]
     with open(os.path.join(out, "fleet_manifest.json")) as fh:
         hit_manifest = json.load(fh)
     print(f"fleet build again: {hit_wall:.2f} s, journal {hit_manifest.get('journal')}, "
@@ -2953,7 +3006,6 @@ def phase_fleet_build(torch, device, tmp: str) -> dict:
     if served != per_request:
         fail(f"fleet build served: launches {served}, expected {per_request}")
     torch.cuda.empty_cache()
-    stacking_check(torch, device, out, config)
     return {n: built[n] + served[n] for n in KERNELS}
 
 
@@ -2971,7 +3023,7 @@ SEAMS_WINDOWS = 16  # windows of a PatchTST request
 # the traffic, (clients, requests each): 8 bulk clients, an interactive
 # client on dense machines, one on the PatchTST machines (its requests
 # dispatch alone), and a metered burst of 20 requests sent at once
-SEAMS_TRAFFIC = {"batch": (8, 160), "ops-dense": (1, 120), "ops-patchtst": (1, 60),
+SEAMS_TRAFFIC = {"batch": (8, 80), "ops-dense": (1, 60), "ops-patchtst": (1, 30),
                  "metered": (20, 1)}
 SEAMS_STAGES = ("admission", "queue_wait", "dispatch", "device_execute", "fetch", "score",
                 "encode")
@@ -3488,9 +3540,10 @@ def phase_client(torch, device, tmp: str, kernels: dict, card: str) -> dict:
               for i, name in enumerate(CLIENT_MACHINES)}
     with indexed_lake() as lake:
         # 1-2. the lake, filled through the port's client, and one `cli
-        # build` process per machine. One build at a time (each peaks near
-        # 30 GiB beside what this process holds), the next machine's points
-        # written while the build before runs
+        # build` process per machine, each started once its machine's points
+        # are written (the next machine's written while the build before
+        # runs). Two builds peak near 60 GiB together beside what this
+        # process holds; their fits, the peaks, barely overlap
         influx = dict(host=lake.host, port=lake.port, database="lake")
         writer = MinimalInfluxClient(**influx)
         model_config = slice_definition("flash", **TRAIN_KWARGS)
@@ -3520,13 +3573,13 @@ def phase_client(torch, device, tmp: str, kernels: dict, card: str) -> dict:
                      "flash_bwd_f32": SLICE["n_layers"] * steps}
         torch.cuda.empty_cache()  # the earlier phases' cached blocks, for the builds
         started = time.perf_counter()
-        fills, builds = [fill(0)], []
-        with ThreadPoolExecutor(1) as pool:
+        fills, pending = [fill(0)], []
+        with ThreadPoolExecutor(len(CLIENT_MACHINES)) as pool:
             for i in range(len(CLIENT_MACHINES)):
-                pending = pool.submit(build, i)
+                pending.append(pool.submit(build, i))
                 if i + 1 < len(CLIENT_MACHINES):
                     fills.append(fill(i + 1))
-                builds.append(pending.result())
+            builds = [job.result() for job in pending]
         print(f"client [{card}]: the Influx double filled with {len(CLIENT_MACHINES)} x "
               f"{N_TAGS} tags x {rows} one-minute points ({', '.join(f'{f:.1f}' for f in fills)} "
               f"s a machine) and {len(CLIENT_MACHINES)} machines built by cli build from it in "
@@ -4160,7 +4213,9 @@ TIER_HOT_RPS = 10.0  # the placement's promotion rate (its window is 10 s)
 TIER_HOT_REQUESTS = 240
 TIER_CLIENTS = 4
 TIER_WINDOWS = SEAMS_WINDOWS  # windows of a PatchTST request: BH 8192, as phase 2 holds
-TIER_OVERHEAD = {"dense": 400, "patchtst": 100}  # alternating pairs, routed and direct
+# alternating pairs, routed and direct (cut from 400 and 100 to keep the
+# script within its time limit)
+TIER_OVERHEAD = {"dense": 100, "patchtst": 25}
 TIER_WORKERS = 2
 TIER_PROBE_S = 0.5
 TIER_READY_S = 300.0
@@ -4463,6 +4518,9 @@ def phase_tier(torch, device, tmp: str, card: str) -> dict:
     supervisor, control = router.supervisor, router.control
     front = None
     times = {}
+    # Tier B's process boots beside Tier A's workers and is done with
+    # before Tier A's checks
+    tier_b_state = tier_b_start(models_dir, root, device_arg, set(ports))
     try:
         started = time.perf_counter()
         supervisor.start_all()
@@ -4471,6 +4529,7 @@ def phase_tier(torch, device, tmp: str, card: str) -> dict:
         if len(ready) != TIER_WORKERS:
             fail(f"tier: only {ready} of {TIER_WORKERS} workers booted in {TIER_READY_S:.0f} s: "
                  + factory.tail(factory.incarnations[0]))
+        times.update(tier_b(tier_b_state, encoded, card))
         control.start(interval=TIER_PROBE_S)
         front = make_router_server(router, "127.0.0.1", 0)
         threading.Thread(target=front.serve_forever, daemon=True).start()
@@ -4478,7 +4537,7 @@ def phase_tier(torch, device, tmp: str, card: str) -> dict:
         worker_url = {spec.name: spec.base_url for spec in specs}
         worker_id = {spec.name: str(spec.worker_id) for spec in specs}
         print(f"tier [{card}]: {TIER_WORKERS} workers on the card ready in "
-              f"{times['boot_s']:.1f} s (launched together)")
+              f"{times['boot_s']:.1f} s (launched together, beside Tier B's two)")
 
         # 1. placement and bytes
         worst = {"dense": 0.0, "f32": 0.0, "bf16": 0.0}
@@ -4754,6 +4813,7 @@ def phase_tier(torch, device, tmp: str, card: str) -> dict:
         for name in worker_url:
             factory.bank(factory.live(name))
     finally:
+        tier_b_stop(tier_b_state)
         control.stop()
         supervisor.stop_all(grace=60)
         if front is not None:
@@ -4770,7 +4830,6 @@ def phase_tier(torch, device, tmp: str, card: str) -> dict:
           f"others' records {launches} = {SLICE['n_layers']} x their PatchTST dispatches "
           + json.dumps({os.path.basename(inc["record"]): inc["banked"]
                         for inc in factory.incarnations if not inc["killed"]}))
-    times.update(tier_b(models_dir, root, encoded, card, device_arg))
     print(f"tier [{card}] times: " + json.dumps({k: round(v, 3) for k, v in times.items()})
           + f"; phase wall {time.perf_counter() - phase_started:.1f} s")
     return launches
@@ -4898,18 +4957,16 @@ def tier_nvidia_files(pid: int) -> list:
     return sorted(set(found))
 
 
-def tier_b(models_dir: str, root: str, encoded: dict, card: str, device_arg) -> dict:
-    """Tier B: ``run-fleet-server --workers 2`` as a process. It boots and
-    answers TIER_B_REQUESTS requests, PatchTST among them; both workers hold
-    the card's device files open and the router none (nor maps libcuda or
-    libtorch), and where nvidia-smi reports pids of this namespace it lists
-    both workers and not the router; SIGTERM exits 0 and leaves no worker
-    alive. Returns its boot seconds."""
-    import shutil
-    import signal
-
+def tier_b_start(models_dir: str, root: str, device_arg, taken: set) -> dict:
+    """Tier B's ``run-fleet-server --workers 2`` process, started (it boots
+    beside Tier A's workers, whose ports ``taken`` it leaves alone);
+    ``tier_b`` checks it, ``tier_b_stop`` ends what is left of it."""
     port = free_port()
+    while port in taken:
+        port = free_port()
     worker_base = free_port_run(2)
+    while {worker_base, worker_base + 1} & (taken | {port}):
+        worker_base = free_port_run(2)
     base = f"http://127.0.0.1:{port}"
     log_path = os.path.join(os.path.dirname(models_dir), "tier-b.log")
     log = open(log_path, "wb")
@@ -4922,11 +4979,40 @@ def tier_b(models_dir: str, root: str, encoded: dict, card: str, device_arg) -> 
     env = {**os.environ, "PYTHONPATH": root,
            "GORDO_LEDGER_DIR": os.path.join(os.path.dirname(models_dir), "tier-b-ledger")}
     env.pop("GORDO_FAULTS", None)
+    started = time.perf_counter()
     proc = subprocess.Popen(argv, cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT)
-    workers = []
+    return {"proc": proc, "log": log, "log_path": log_path, "base": base, "started": started,
+            "workers": []}
+
+
+def tier_b_stop(state: dict) -> None:
+    proc = state["proc"]
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    for pid in state["workers"]:
+        try:
+            os.kill(pid, 9)
+        except ProcessLookupError:
+            pass
+    state["log"].close()
+
+
+def tier_b(state: dict, encoded: dict, card: str) -> dict:
+    """Tier B (``tier_b_start``): ``run-fleet-server --workers 2`` as a
+    process. It boots and answers TIER_B_REQUESTS requests, PatchTST among
+    them; both workers hold the card's device files open and the router
+    none (nor maps libcuda or libtorch), and where nvidia-smi reports pids
+    of this namespace it lists both workers and not the router; SIGTERM
+    exits 0 and leaves no worker alive. Returns its boot seconds (from its
+    start, beside Tier A's boot)."""
+    import shutil
+    import signal
+
+    proc, base, log_path = state["proc"], state["base"], state["log_path"]
 
     def tail():
-        log.flush()
+        state["log"].flush()
         with open(log_path, "rb") as fh:
             return fh.read()[-3000:].decode(errors="replace")
 
@@ -4940,8 +5026,9 @@ def tier_b(models_dir: str, root: str, encoded: dict, card: str, device_arg) -> 
                 return False
             return status == 200 and json.loads(raw).get("status") == "ok"
 
-        boot = tier_wait(up, TIER_READY_S, "run-fleet-server's workers", poll=0.2)
-        workers = tier_children(proc.pid)
+        tier_wait(up, TIER_READY_S, "run-fleet-server's workers", poll=0.2)
+        boot = time.perf_counter() - state["started"]
+        workers = state["workers"] = tier_children(proc.pid)
         if len(workers) != 2:
             fail(f"tier B: the router has children {workers}")
         asked = (TIER_DENSE[:TIER_B_REQUESTS - 2] + TIER_PATCHTST)[:TIER_B_REQUESTS]
@@ -4983,15 +5070,7 @@ def tier_b(models_dir: str, root: str, encoded: dict, card: str, device_arg) -> 
               f"{smi_note}; SIGTERM exit 0, no worker left")
         return {"tier_b_boot_s": boot}
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-        for pid in workers:
-            try:
-                os.kill(pid, 9)
-            except ProcessLookupError:
-                pass
-        log.close()
+        tier_b_stop(state)
 
 
 SPILL_DENSE = [f"spill-dense-{i:02d}" for i in range(64)]
@@ -6530,11 +6609,10 @@ def lw_check(report: dict, n_layers: int = SLICE["n_layers"]) -> dict:
 
 
 def phase_lock_witness(torch, device, tmp: str, card: str) -> dict:
-    """The port's lint on this host, then the lock witness over a server
+    """The port's lint on this host, beside the lock witness over a server
     on the card (see the module docstring, 18). Returns the phase's flash
     launches."""
     root = os.path.dirname(os.path.abspath(__file__))
-    lint = lw_lint(card)
     if LW_WINDOWS not in SERVED:  # run alone: phase 3 makes its artifact and answer
         phase_serve(torch, device, tmp)
     models_dir = os.path.join(tmp, "lock-witness")
@@ -6559,9 +6637,27 @@ def phase_lock_witness(torch, device, tmp: str, card: str) -> dict:
                                                  "out": os.path.join(tmp, "lw-check.npz")}}
     env = {key: value for key, value in os.environ.items() if key not in WB_OFF}
     env.update(LW_ENV, PYTHONPATH=root, GORDO_HOST_CACHE_MB=str(cap_mb))
+    # the lint (host only) runs in a thread while this process only waits on
+    # the witness's child (beside this process's own Python work it would
+    # share the interpreter lock and save nothing); fail() there raises
+    # SystemExit, read as a missing result (its message is on stderr already)
+    linted = {}
+
+    def lint_thread():
+        try:
+            linted["out"] = lw_lint(card)
+        except SystemExit:
+            pass
+
+    lint_worker = threading.Thread(target=lint_thread, name="lint")
+    lint_worker.start()
     started = time.perf_counter()
     report = lw_run_child(config, env)
     child_s = time.perf_counter() - started
+    lint_worker.join()
+    if "out" not in linted:
+        fail("lint: see above")
+    lint = linted["out"]
     launches = lw_check(report)
     with np.load(config["check"]["out"]) as got:
         worst = compare_arrays("lock witness", LW_WINDOWS, dict(got), {
@@ -6576,6 +6672,388 @@ def phase_lock_witness(torch, device, tmp: str, card: str) -> dict:
           f"3's: worst relative difference {worst:.3g} (limit {FUSED_RTOL}); lint "
           f"{lint['seconds']} s")
     print(f"lock witness edges (card only) [{card}]: {json.dumps(shown)}")
+    return launches
+
+
+# phase 19: the fleet build as two ranks of one gloo group on this card.
+# FLEET_BUILD's three buckets with their own kwargs at 16 dense, 4 LSTM and
+# 2 full-width PatchTST machines, in slices of 8: dense trains in two
+# slices, and each rank owns one PatchTST machine
+MR_COUNTS = {"dense": 16, "lstm": 4, "patchtst": 2}
+MR_SLICE = 8
+MR_WORLD = 2
+MR_PREFIX = "mr-"
+MR_GRACE_S = 15.0  # rank 0's exit after its watchdog's budget, at most
+MR_RUN_TIMEOUT_S = 600.0
+MR_WATCHDOG_FLOOR_S = 20.0
+MR_WATCHDOG_FACTOR = 1.1  # the drill's budget over B's worst healthy slice wall
+MR_DEVICE_ARGS = ()  # the card; a CPU rehearsal passes ("--device", "cpu")
+
+
+def mr_owners(config: dict) -> dict:
+    """Each machine's rank: within its bucket (fleet order) slices of
+    MR_SLICE, each padded to a multiple of the ranks, rank r owning the
+    r-th contiguous block of every slice."""
+    by_bucket = {}
+    for machine in config["machines"]:
+        by_bucket.setdefault(machine["name"][len(MR_PREFIX):].rsplit("-", 1)[0], []).append(
+            machine["name"])
+    owners = {}
+    for names in by_bucket.values():
+        eff = min(MR_SLICE, len(names))
+        block = -(-eff // MR_WORLD)
+        for j, name in enumerate(names):
+            owners[name] = (j % eff) // block
+    return owners
+
+
+def mr_start(tmp: str, config_path: str, root: str, label: str, env: dict,
+             world: int = MR_WORLD) -> list:
+    """The rank processes of ``cli fleet-build`` (CLI_RUNNER, a record and a
+    log each) on one coordinator port; ``world`` 1: one process, no group."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    port = free_port()
+    ranks = []
+    for rank in range(world):
+        record = os.path.join(tmp, f"mr-{label}-rank{rank}.json")
+        log = os.path.join(tmp, f"mr-{label}-rank{rank}.log")
+        if os.path.exists(record):
+            os.remove(record)
+        args = ["fleet-build", "--machine-config", config_path, "--output-dir", root,
+                "--slice-size", str(MR_SLICE), "--no-serving-cache", *MR_DEVICE_ARGS]
+        if world > 1:
+            args += ["--coordinator-address", f"127.0.0.1:{port}", "--num-processes",
+                     str(world), "--process-id", str(rank)]
+        fh = open(log, "w")
+        proc = subprocess.Popen([sys.executable, "-c", CLI_RUNNER, record, *args], cwd=repo,
+                                stdout=fh, stderr=subprocess.STDOUT,
+                                env={**env, "PYTHONPATH": repo})
+        fh.close()
+        entry = {"rank": rank, "proc": proc, "record": record, "log": log,
+                 "started": time.perf_counter(), "wall": None}
+
+        def watch(entry=entry):  # the exit's time, whenever it is read
+            entry["proc"].wait()
+            entry["ended"] = time.perf_counter()
+
+        threading.Thread(target=watch, daemon=True).start()
+        ranks.append(entry)
+    return ranks
+
+
+def mr_tail(rank: dict, n: int = 3000) -> str:
+    with open(rank["log"]) as fh:
+        return fh.read()[-n:]
+
+
+def mr_bind_failed(ranks: list) -> bool:
+    """Rank 0 could not listen on the chosen port (taken after it was
+    found free)."""
+    code = ranks[0]["proc"].poll()
+    return code not in (None, 0) and "EADDRINUSE" in mr_tail(ranks[0], 20000)
+
+
+def mr_stop(ranks: list) -> None:
+    for rank in ranks:
+        if rank["proc"].poll() is None:
+            rank["proc"].kill()
+        rank["proc"].wait()
+
+
+def mr_wait(ranks: list, timeout: float) -> str:
+    """Wait for every rank; "bind" when rank 0 could not listen (the rest
+    are killed), else "done". Fails past ``timeout``."""
+    deadline = time.monotonic() + timeout
+    while True:
+        for rank in ranks:
+            if rank["wall"] is None and rank["proc"].poll() is not None:
+                rank["wall"] = rank.get("ended", time.perf_counter()) - rank["started"]
+        if all(rank["wall"] is not None for rank in ranks):
+            return "done"
+        if mr_bind_failed(ranks):
+            mr_stop(ranks)
+            return "bind"
+        if time.monotonic() > deadline:
+            mr_stop(ranks)
+            fail("multi-rank: ranks still running after "
+                 f"{timeout:.0f} s:\n" + "\n".join(mr_tail(r) for r in ranks))
+        time.sleep(0.05)
+
+
+def mr_run(tmp: str, config_path: str, root: str, label: str, env: dict,
+           world: int = MR_WORLD) -> list:
+    """Every rank to its end, on a fresh port once more if rank 0 could
+    not bind its first; fails unless all exit 0. Returns the ranks with
+    their walls, launches and peak device bytes."""
+    for attempt in range(2):
+        ranks = mr_start(tmp, config_path, root, label, env, world)
+        if mr_wait(ranks, MR_RUN_TIMEOUT_S) == "bind" and attempt == 0:
+            print(f"multi-rank {label}: rank 0 could not bind its port; retrying once")
+            continue
+        break
+    return mr_records(label.upper(), ranks)
+
+
+def mr_records(label: str, ranks: list) -> list:
+    """Fails unless every process exited 0 with its record; adds each one's
+    launches and peak device bytes."""
+    bad = [rank for rank in ranks
+           if rank["proc"].returncode != 0 or not os.path.exists(rank["record"])]
+    if bad:
+        fail(f"multi-rank {label}: exits {[rank['proc'].returncode for rank in ranks]}\n"
+             + "\n".join(f"rank {rank['rank']}: {mr_tail(rank, 1500)}" for rank in bad))
+    for rank in ranks:
+        with open(rank["record"]) as fh:
+            record = json.load(fh)
+        rank["launches"], rank["peak"] = record["launches"], record["peak_bytes"]
+    return ranks
+
+
+def mr_manifests(root: str) -> list:
+    out = []
+    for rank in range(MR_WORLD):
+        name = "fleet_manifest.json" if rank == 0 else f"fleet_manifest.p{rank}.json"
+        with open(os.path.join(root, name)) as fh:
+            out.append(json.load(fh))
+    return out
+
+
+def mr_outputs(root: str, config: dict, device) -> dict:
+    """Each machine of ``root``: its predictions on fixed rows on the card,
+    its thresholds and its loss history."""
+    import torch
+
+    from gordo_components_tpu_torch.serializer import load, load_metadata
+
+    rng = np.random.default_rng(SEED + 1900)
+    out = {}
+    for machine in config["machines"]:
+        name = machine["name"]
+        _, _, kwargs, tags, _, _ = FLEET_BUILD[name[len(MR_PREFIX):].rsplit("-", 1)[0]]
+        X = sensor_rows(rng, kwargs.get("lookback_window", 1) + 15, tags)
+        model = load(os.path.join(root, name), device=device)
+        pred = np.asarray(model.predict(X), np.float64)
+        del model
+        detector = load_metadata(os.path.join(root, name))["model"]["model_builder_metadata"]
+        history = re.findall(r'"loss": \[([^\]]*)\]', json.dumps(detector))
+        out[name] = (pred, np.append(detector["tag_thresholds"], detector["total_threshold"]),
+                     np.array([float(v) for v in history[0].split(",")] if history else []))
+    # the builds that follow need the card's memory back: two slice-machine
+    # fits take all but a few GiB of it
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mr_compare(label: str, got: dict, want: dict) -> tuple:
+    """Every machine's outputs (``mr_outputs``) against the one-rank
+    build's: predictions relative to max(1, max |prediction|) and
+    thresholds (relative, floor 1e-6) within FLEET_THRESHOLD_RTOL, the loss
+    history within TRAIN_RTOL (as phase 10's ``stacking_check``). Returns
+    the worst of each."""
+    worst = np.zeros(3)
+    for name, (pred, thresholds, losses) in got.items():
+        ref_pred, ref_thresholds, ref_losses = want[name]
+        pred_rel = np.abs(pred - ref_pred).max() / max(1.0, np.abs(ref_pred).max())
+        thr_rel = (np.abs(thresholds - ref_thresholds)
+                   / np.maximum(np.abs(ref_thresholds), 1e-6)).max()
+        loss_rel = (np.abs(losses - ref_losses).max() / np.abs(ref_losses).max()
+                    if ref_losses.size and losses.shape == ref_losses.shape else np.inf)
+        if (pred.shape != ref_pred.shape or not np.isfinite(pred).all()
+                or not pred_rel <= FLEET_THRESHOLD_RTOL or not thr_rel <= FLEET_THRESHOLD_RTOL
+                or not loss_rel <= TRAIN_RTOL):
+            fail(f"multi-rank {label}: {name} departs from the one-rank build (predictions "
+                 f"{pred_rel:.3g}, thresholds {thr_rel:.3g}, limit {FLEET_THRESHOLD_RTOL}; "
+                 f"loss {loss_rel:.3g}, limit {TRAIN_RTOL})")
+        worst = np.maximum(worst, (pred_rel, thr_rel, loss_rel))
+    return tuple(worst)
+
+
+def mr_committed(root: str) -> dict:
+    """rank -> the machines its journal records committed."""
+    from gordo_components_tpu_torch.store import journal as store_journal
+
+    out = {}
+    for rank in range(MR_WORLD):
+        path = store_journal.journal_path(root, rank)
+        names = set()
+        if os.path.exists(path):
+            with open(path) as fh:
+                for line in fh:
+                    try:
+                        record = json.loads(line)
+                    except ValueError:
+                        continue  # a line being written
+                    if record.get("event") == store_journal.EVENT_COMMITTED:
+                        names.add(record.get("machine"))
+        out[rank] = names
+    return out
+
+
+def mr_wedge(tmp: str, config_path: str, root: str, env: dict, owners: dict,
+             timeout_s: float) -> dict:
+    """Two ranks under GORDO_SLICE_TIMEOUT_S; once both journals show their
+    share of dense slice 0 committed, SIGSTOP rank 1: rank 0 must exit 75
+    with the watchdog's line within the budget plus MR_GRACE_S. Then
+    SIGKILL rank 1. Returns what the drill saw."""
+    import signal
+
+    slice0 = {rank: {f"{MR_PREFIX}dense-{i:03d}" for i in range(MR_SLICE)
+                     if owners[f"{MR_PREFIX}dense-{i:03d}"] == rank} for rank in range(MR_WORLD)}
+    drill_env = {**env, "GORDO_SLICE_TIMEOUT_S": f"{timeout_s:.0f}"}
+    for attempt in range(2):
+        ranks = mr_start(tmp, config_path, root, "wedge", drill_env)
+        deadline = time.monotonic() + MR_RUN_TIMEOUT_S
+        while True:
+            committed = mr_committed(root)
+            if all(slice0[rank] <= committed[rank] for rank in range(MR_WORLD)):
+                break
+            if mr_bind_failed(ranks) and attempt == 0:
+                break
+            if any(r["proc"].poll() is not None for r in ranks) or time.monotonic() > deadline:
+                mr_stop(ranks)
+                fail("multi-rank wedge: a rank ended before dense slice 0 was committed:\n"
+                     + "\n".join(mr_tail(r) for r in ranks))
+            time.sleep(0.05)
+        if mr_bind_failed(ranks) and attempt == 0:
+            mr_stop(ranks)
+            print("multi-rank wedge: rank 0 could not bind its port; retrying once")
+            continue
+        break
+    os.kill(ranks[1]["proc"].pid, signal.SIGSTOP)
+    stopped = time.perf_counter()
+    at_stop = sum(len(names) for names in mr_committed(root).values())
+    try:
+        code = ranks[0]["proc"].wait(timeout=timeout_s + MR_GRACE_S)
+    except subprocess.TimeoutExpired:
+        code = None
+    exit_s = time.perf_counter() - stopped
+    os.kill(ranks[1]["proc"].pid, signal.SIGKILL)
+    mr_stop(ranks)
+    log = mr_tail(ranks[0], 20000)
+    if code != 75 or "Fleet slice watchdog" not in log or "exiting 75" not in log:
+        fail(f"multi-rank wedge: rank 0 exit {code} {exit_s:.1f} s after rank 1 stopped "
+             f"(budget {timeout_s:.0f} s + {MR_GRACE_S:.0f}):\n{log[-3000:]}")
+    # rank 0 commits on until its next collective: count at the end
+    return {"exit_s": exit_s, "code": code, "rank1": ranks[1]["proc"].returncode,
+            "at_stop": at_stop,
+            "committed": {rank: sorted(names) for rank, names in mr_committed(root).items()},
+            "watchdog": [line for line in log.splitlines() if "Fleet slice watchdog" in line][0]}
+
+
+def phase_multirank(torch, device, tmp: str, card: str) -> dict:
+    """The fleet build as two ranks on this card (see the module
+    docstring, 19). Returns the launches of every process that ran to its
+    end."""
+    import gc
+
+    from gordo_components_tpu_torch.serializer import load_metadata
+
+    phase_started = time.perf_counter()
+    # each rank's PatchTST fit needs about half the card: this process must
+    # hold nothing, and the builds' allocators grow segments in place
+    # instead of stranding a few GiB each in fragments
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"multi-rank: this process holds {torch.cuda.memory_reserved() / 2**30:.2f} GiB of "
+          f"the card before the builds ({torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"allocated)")
+    config = fleet_build_config(MR_COUNTS, MR_PREFIX, SEED + 1900, "chip-smoke-multirank")
+    names = [m["name"] for m in config["machines"]]
+    owners = mr_owners(config)
+    config_path = os.path.join(tmp, "mr-fleet.json")
+    with open(config_path, "w") as fh:
+        json.dump(config, fh)
+    env = {**os.environ, "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+    roots = {key: os.path.join(tmp, f"mr-{key}") for key in "ABC"}
+
+    # (b) two ranks, first: the drill's budget comes from their slice walls
+    ranks = mr_run(tmp, config_path, roots["B"], "b", env)
+    manifests = mr_manifests(roots["B"])
+    owned = {rank: sorted(m["machines"]) for rank, m in enumerate(manifests)}
+    want = {rank: sorted(n for n in names if owners[n] == rank) for rank in range(MR_WORLD)}
+    if owned != want or any(m["journal"] != {"resumed": 0, "torn": 0, "rebuilt": len(want[r])}
+                            for r, m in enumerate(manifests)):
+        fail(f"multi-rank B: manifests {owned} (want {want}), journals "
+             f"{[m.get('journal') for m in manifests]}")
+    metas = {n: load_metadata(os.path.join(roots["B"], n)) for n in names}
+    rows = max(metas[n]["dataset"]["x_shape"][0] for n in names if "-patchtst-" in n)
+    expected = fleet_flash_launches(rows)
+    for rank in ranks:
+        if rank["launches"] != expected:
+            fail(f"multi-rank B: rank {rank['rank']} launched {rank['launches']}, expected "
+                 f"{expected} for its one PatchTST machine")
+    pair_wall = max(rank["wall"] for rank in ranks)
+    slice_walls = {}
+    for name in names:
+        fleet_meta = metas[name]["model"]["fleet"]
+        key = f"{name[len(MR_PREFIX):].rsplit('-', 1)[0]}/{fleet_meta['slice']}"
+        slice_walls[key] = max(slice_walls.get(key, 0.0), fleet_meta["slice_duration_s"])
+    print(f"multi-rank [{card}]: two ranks (B): "
+          + "; ".join(f"rank {r['rank']} {r['wall']:.2f} s, peak {r['peak'] / 2**30:.2f} GiB, "
+                      f"launches {r['launches']}, {len(owned[r['rank']])} machines"
+                      for r in ranks)
+          + f"; the pair {3600 * len(names) / pair_wall:.0f} machines per hour; slice walls "
+          f"(bucket/slice: s) {json.dumps({k: round(v, 2) for k, v in slice_walls.items()})}")
+
+    # (c) the wedge drill; its ranks are gone before A starts
+    budget = max(MR_WATCHDOG_FLOOR_S,
+                 math.ceil(MR_WATCHDOG_FACTOR * max(slice_walls.values())))
+    drill = mr_wedge(tmp, config_path, roots["C"], env, owners, budget)
+    resumed = len(set().union(*drill["committed"].values()))
+    print(f"multi-rank wedge [{card}]: GORDO_SLICE_TIMEOUT_S={budget:.0f} "
+          f"({MR_WATCHDOG_FACTOR} x the worst healthy slice wall of B); rank 1 stopped with "
+          f"{drill['at_stop']} machines committed, {resumed} at the end "
+          f"({ {r: len(n) for r, n in drill['committed'].items()} } by rank); rank 0 exited "
+          f"{drill['code']} {drill['exit_s']:.1f} s later; rank 1 SIGKILLed "
+          f"({drill['rank1']}); "
+          f"{drill['watchdog'][drill['watchdog'].index('Fleet slice watchdog'):][:120]}")
+
+    # (a) one rank, alone on the card: its PatchTST slice stacks both slice
+    # machines, twice a rank's memory, and leaves no room for another build
+    (one,) = mr_run(tmp, config_path, roots["A"], "a", env, world=1)
+    with open(os.path.join(roots["A"], "fleet_manifest.json")) as fh:
+        built = json.load(fh)["machines"]
+    if sorted(built) != sorted(names) or one["launches"] != expected:
+        fail(f"multi-rank A: {len(built)} machines, launches {one['launches']} (expected "
+             f"{expected})")
+    want = mr_outputs(roots["A"], config, device)
+    worst_b = mr_compare("B", mr_outputs(roots["B"], config, device), want)
+    print(f"multi-rank [{card}]: one rank (A) {one['wall']:.2f} s in the process, alone on the "
+          f"card, peak {one['peak'] / 2**30:.2f} GiB, launches {one['launches']}, "
+          f"{3600 * len(names) / one['wall']:.0f} machines per hour (the pair: "
+          f"{3600 * len(names) / pair_wall:.0f}); B vs A: predictions "
+          f"{worst_b[0]:.3g}, thresholds {worst_b[1]:.3g} (limit {FLEET_THRESHOLD_RTOL}), "
+          f"losses {worst_b[2]:.3g} (limit {TRAIN_RTOL})")
+
+    # (c) the re-run of both ranks on C
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"multi-rank: this process holds {torch.cuda.memory_reserved() / 2**30:.2f} GiB of "
+          f"the card before the re-run")
+    rerun = mr_run(tmp, config_path, roots["C"], "c", {**env, "GORDO_SLICE_TIMEOUT_S": "900"})
+    manifests = mr_manifests(roots["C"])
+    if any(m["journal"]["resumed"] != resumed for m in manifests):
+        fail(f"multi-rank C: journals {[m['journal'] for m in manifests]}, {resumed} resumed "
+             "expected")
+    checkpoints = os.path.join(roots["C"], ".slice_checkpoints")
+    if os.path.isdir(checkpoints) and os.listdir(checkpoints):
+        fail(f"multi-rank C: checkpoints left: {os.listdir(checkpoints)}")
+    for rank in rerun:
+        if rank["launches"] != expected:
+            fail(f"multi-rank C: rank {rank['rank']} launched {rank['launches']}, expected "
+                 f"{expected}")
+    worst_c = mr_compare("C", mr_outputs(roots["C"], config, device), want)
+    print(f"multi-rank re-run [{card}]: "
+          + "; ".join(f"rank {r['rank']} {r['wall']:.2f} s, journal "
+                      f"{manifests[r['rank']]['journal']}" for r in rerun)
+          + f"; C vs A: predictions {worst_c[0]:.3g}, thresholds {worst_c[1]:.3g}, losses "
+          f"{worst_c[2]:.3g}; phase wall {time.perf_counter() - phase_started:.1f} s")
+    launches = dict(one["launches"])
+    for rank in ranks + rerun:
+        for name in KERNELS:
+            launches[name] += rank["launches"][name]
     return launches
 
 
@@ -6629,11 +7107,14 @@ def main() -> None:
         warm_boot = timed("17 warm boot", phase_warm_boot, torch, device, tmp, card)
         witness = timed("18 lint and lock witness", phase_lock_witness, torch, device, tmp,
                         card)
+        multirank = timed("19 multi-rank fleet build", phase_multirank, torch, device, tmp,
+                          card)
         for name in KERNELS:
             launches[name] += (trained[name] + trained_bf16[name] + built[name]
                                + fleet_built[name] + seams[name] + client[name]
                                + control[name] + tier[name] + spill[name]
-                               + fleet_control[name] + warm_boot[name] + witness[name])
+                               + fleet_control[name] + warm_boot[name] + witness[name]
+                               + multirank[name])
     print(f"script wall [{card}]: {time.perf_counter() - script_started:.1f} s; phase walls "
           f"{json.dumps(walls)}")
     print(json.dumps({"kernels": [{

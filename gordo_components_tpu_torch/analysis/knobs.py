@@ -112,6 +112,22 @@ KNOBS: Dict[str, Knob] = dict(
               "fleet build: per-machine data-fetch retries before "
               "zero-weight isolation",
               "build"),
+        _knob("GORDO_COORDINATOR", "unset", "str",
+              "`fleet-build` of several ranks: the gloo group's coordinator "
+              "`host:port`, where rank 0 listens (`--coordinator-address`)",
+              "build"),
+        _knob("GORDO_NUM_PROCESSES", "unset", "int",
+              "`fleet-build` of several ranks: the group's size "
+              "(`--num-processes`)",
+              "build"),
+        _knob("GORDO_PROCESS_ID", "unset", "int",
+              "`fleet-build` of several ranks: this process's rank "
+              "(`--process-id`)",
+              "build"),
+        _knob("GORDO_SLICE_TIMEOUT_S", "unset", "float",
+              "`fleet-build` of several ranks: seconds a slice may take before "
+              "the watchdog exits the rank with 75 (retryable); unset, none",
+              "build"),
         _knob("GORDO_COMPILE_CACHE", "unset", "path",
               "`build` / `fleet-build`: the kernel-library store a fit "
               "resolves its flash libraries through "

@@ -97,6 +97,9 @@ LOCK_RANKS: Dict[str, int] = {
     "engine.depth": 78,         # _DepthGate._depth_cond: the dispatch
                                 # depth's permit count (a leaf)
     "engine.host_cache": 84,    # host_cache.py LRU dict + byte ledger
+    "fleet.checkpoint": 85,     # build_fleet.py _SliceCheckpointer: its
+                                # writer thread and deferred error (a leaf,
+                                # taken by the build and the writer alone)
     # -- kernel libraries
     "compile_cache.store": 87,  # store.py per-store outcome counters
     "compile_cache.private": 88,  # store.py this process's library dir
@@ -189,6 +192,7 @@ LOCK_ATTRS: Dict[Tuple[str, str], str] = {
     ("ops/_kernels.py", "_LOAD_LOCK"): "kernels.load",
     ("compile_cache/store.py", "_lock"): "compile_cache.store",
     ("compile_cache/store.py", "_PRIVATE_LOCK"): "compile_cache.private",
+    ("parallel/build_fleet.py", "_lock"): "fleet.checkpoint",
     ("utils/http.py", "_lock"): "utils.http",
 }
 
@@ -252,6 +256,9 @@ GUARDED_FIELDS: Dict[Tuple[str, str], str] = {
     ("fleet/spec.py", "_records"): "fleet.spec",
     ("fleet/reconciler.py", "_ring"): "fleet.reconcile",
     ("fleet/reconciler.py", "_steps"): "fleet.reconcile",
+    # the slice checkpointer's writer thread and its deferred error
+    ("parallel/build_fleet.py", "_thread"): "fleet.checkpoint",
+    ("parallel/build_fleet.py", "_error"): "fleet.checkpoint",
 }
 
 

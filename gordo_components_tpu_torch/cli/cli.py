@@ -12,8 +12,9 @@ The arguments, environment variables (``MODEL_CONFIG``, ``DATA_CONFIG``,
 ``GORDO_MAX_INFLIGHT``, ``GORDO_TENANTS``, ``GORDO_FAULTS``) and exit codes
 are the reference's: 0 ok, 2 a bad command line, 64 a bad config
 (permanent), 66 data unavailable or short (retryable), 70 a deterministic
-device failure (an out-of-memory on the card), 75 another device failure
-(retryable), 1 anything else. Configs are JSON, or YAML read through
+device failure (an out-of-memory on the card), 75 another device failure,
+a failed collective of a build of several ranks or its tripped slice
+watchdog (retryable), 1 anything else. Configs are JSON, or YAML read through
 ``yaml`` (imported only there). ``--device`` picks the card (default) or
 the CPU; there is no silent fallback. ``run-server`` offers the flags
 whose machinery the port has, ``--worker-id`` among them, and
@@ -48,7 +49,8 @@ client.ClientError`.
     python -m gordo_components_tpu_torch.cli fleet-build --machine-config FLEET \\
         --output-dir OUT [--model-register-dir REG] [--n-splits 3] [--seed 0] \\
         [--slice-size 256] [--precision int8] [--precision-map a=f32,b=int8] \\
-        [--no-serving-cache] [--compile-cache-dir DIR|off] [--device cpu]
+        [--no-serving-cache] [--compile-cache-dir DIR|off] [--device cpu] \\
+        [--coordinator-address HOST:PORT --num-processes N --process-id R]
     python -m gordo_components_tpu_torch.cli rollback [--list] MODEL_DIR
     python -m gordo_components_tpu_torch.cli cache list --store STORE
     python -m gordo_components_tpu_torch.cli cache warm --models-dir DIR [--store STORE]
@@ -194,17 +196,42 @@ def build(args: argparse.Namespace) -> int:
 def fleet_build(args: argparse.Namespace) -> int:
     """Build a whole fleet from its YAML: machines bucketed, each bucket
     trained as one stacked program on the card, each machine committed as
-    its own generation; prints ``{name: model_dir}`` as JSON."""
+    its own generation; prints ``{name: model_dir}`` as JSON. With
+    ``--coordinator-address`` (or ``--num-processes`` under torchrun's
+    environment) the build runs as one rank of several, each building its
+    own block of every slice; a failed collective or a tripped slice
+    watchdog exits 75 (retryable)."""
     import torch
 
     from ..dataset.dataset import InsufficientDataError
     from ..parallel import FleetMachineConfig, build_fleet
+    from ..parallel.distributed import RankFailure, initialize_multihost, world_size
     from ..precision import parse_precision_map
     from ..workflow import NormalizedConfig
 
     # a device runtime failure other than an out-of-memory (torch >= 2.8)
     device_errors = tuple(e for e in (getattr(torch, "AcceleratorError", None),) if e)
+    # a collective that failed: a dead peer, a broken transport
+    rank_errors = (RankFailure,) + tuple(
+        e for e in (getattr(torch.distributed, "DistError", None),) if e)
+    multi_rank = args.coordinator_address is not None or args.num_processes is not None
+    if args.process_id is not None and not multi_rank:
+        # a bare rank would run a whole one-rank build on every process:
+        # duplicated training and racing writes
+        logger.error("--process-id needs --coordinator-address and/or --num-processes")
+        return EXIT_USAGE
     try:
+        if multi_rank:
+            initialize_multihost(args.coordinator_address, args.num_processes, args.process_id)
+        multi_rank = world_size() > 1
+        if multi_rank and args.n_devices is not None:
+            logger.warning("--n-devices is ignored in a build of several ranks: each rank "
+                           "drives one device")
+        elif args.n_devices is not None and args.n_devices != 1:
+            # the reference's fleet_mesh refuses more devices than exist: a
+            # process of the port drives one, and more cards mean more ranks
+            raise ValueError(f"Requested {args.n_devices} devices, but a process of the port "
+                             "drives one; run one rank per card (--num-processes) instead")
         config = NormalizedConfig(_load_config(args.machine_config, "machine-config"))
         machines = [
             FleetMachineConfig(name=m.name, model_config=m.model, data_config=m.dataset,
@@ -233,15 +260,17 @@ def fleet_build(args: argparse.Namespace) -> int:
         logger.error("Out of device memory in fleet build: %s — exiting permanent code %d "
                      "(restarts cannot help)", exc, EXIT_PERMANENT)
         return EXIT_PERMANENT
-    except device_errors as exc:
-        logger.error("Device failure in fleet build: %s — exiting retryable code %d; a "
-                     "restarted run resumes from the registry and the journal",
-                     exc, EXIT_RETRYABLE)
+    except rank_errors + device_errors as exc:
+        logger.error("%s in fleet build: %s — exiting retryable code %d; a restarted run "
+                     "resumes from the registry, the journals and the slice checkpoints",
+                     "Rank failure" if isinstance(exc, rank_errors) else "Device failure", exc,
+                     EXIT_RETRYABLE)
         return EXIT_RETRYABLE
-    if args.serving_cache and results:
+    if args.serving_cache and results and not multi_rank:
         # the serving builds, paid here, once, into the store a server over
         # this tree defaults to; best effort: a failed export costs the
-        # first boot its builds, never the build its artifacts
+        # first boot its builds, never the build its artifacts. A build of
+        # several ranks skips it (each rank holds only its own block)
         from ..compile_cache import default_root, export_serving_cache
 
         try:
@@ -854,10 +883,7 @@ def parser() -> argparse.ArgumentParser:
 
     f = commands.add_parser(
         "fleet-build", help="build a whole fleet: machines bucketed and trained as stacked "
-                            "programs on the card",
-        epilog="Not offered yet: --coordinator-address, --num-processes, --process-id and "
-               "--n-devices (multi-process ranks over torch.distributed, ROADMAP Queue 1 "
-               "item 10).")
+                            "programs on the card")
     f.add_argument("--machine-config", required=True,
                    help="fleet YAML/JSON (machines + globals): a file path or a string")
     f.add_argument("--output-dir", default=env("OUTPUT_DIR"), required=not env("OUTPUT_DIR"))
@@ -865,7 +891,22 @@ def parser() -> argparse.ArgumentParser:
     f.add_argument("--n-splits", type=int, default=3,
                    help="CV folds for machines that set no evaluation.n_splits of their own "
                         "(default 3)")
+    f.add_argument("--n-devices", type=int, default=None,
+                   help="devices of this process's share of the fleet axis: 1 (a process "
+                        "drives one card; more cards mean more ranks). Ignored with several "
+                        "ranks")
     f.add_argument("--seed", type=int, default=0)
+    f.add_argument("--coordinator-address", default=env("GORDO_COORDINATOR"),
+                   help="a build of several ranks: the gloo group's host:port, where rank 0 "
+                        "listens; run the same command once per rank, each with its "
+                        "--process-id. Each rank fetches, trains and commits its own block "
+                        "of every slice (output and registry directories shared). Omitted "
+                        "with --num-processes: torchrun's environment (MASTER_ADDR, ...)")
+    f.add_argument("--num-processes", type=int,
+                   default=env("GORDO_NUM_PROCESSES"), help="the group's size")
+    f.add_argument("--process-id", type=int, default=env("GORDO_PROCESS_ID"),
+                   help="this process's rank (needs --coordinator-address or "
+                        "--num-processes)")
     f.add_argument("--slice-size", type=int, default=256,
                    help="machines per slice of a bucket; each slice's artifacts land as it "
                         "finishes; 0 disables slicing (default 256)")

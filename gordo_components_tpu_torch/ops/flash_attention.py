@@ -171,6 +171,36 @@ def _flash_fwd_backward(ctx, dout, dlse):
 _flash_fwd_op.register_autograd(_flash_fwd_backward, setup_context=_flash_fwd_setup_context)
 
 
+def flash_fwd_flops(q_shape, k_shape, *args, **kwargs) -> int:
+    """Operations of one ``gordo::flash_fwd`` call: the two products
+    ``q·kᵀ`` and ``p·v``, 4·BH·S_q·S_k·D (the softmax is not counted, as
+    for PyTorch's own attention)."""
+    bh, s_q, d = q_shape
+    return 4 * bh * s_q * k_shape[1] * d
+
+
+def flash_bwd_flops(q_shape, k_shape, *args, **kwargs) -> int:
+    """Operations of one ``gordo::flash_bwd`` call: its five products (the
+    scores again, ``dv``, ``dp``, ``dq``, ``dk``), 10·BH·S_q·S_k·D."""
+    bh, s_q, d = q_shape
+    return 10 * bh * s_q * k_shape[1] * d
+
+
+def _register_flop_formulas() -> None:
+    """Give ``torch.utils.flop_counter.FlopCounterMode`` the two operators'
+    counts, so that a count is the same whether the kernel or its plain
+    version runs (and on the meta device, where neither does)."""
+    from torch.utils.flop_counter import flop_registry, register_flop_formula
+
+    for op, formula in ((torch.ops.gordo.flash_fwd, flash_fwd_flops),
+                        (torch.ops.gordo.flash_bwd, flash_bwd_flops)):
+        if op not in flop_registry:
+            register_flop_formula(op)(formula)
+
+
+_register_flop_formulas()
+
+
 def flash_fwd(
     q3: torch.Tensor, k3: torch.Tensor, v3: torch.Tensor, scale: float
 ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -48,6 +48,7 @@ bucket pays the plain activation memory of its stack.
 from __future__ import annotations
 
 import copy
+import logging
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -56,12 +57,13 @@ import torch
 from ..models.factories.spec import apply_updates
 from ..models.models import init_flax_distributions
 from ..models.modules import KeyStream
-from ..models.train import make_loss_fn
+from ..models.train import make_batch_step, make_loss_fn
 from ..ops import windowing
 from ..ops.scaling import ScalerParams
 from ..utils.backend import DeviceLike, resolve_device
 from .mesh import pad_to_multiple
 
+logger = logging.getLogger(__name__)
 _EPS = 1e-12
 Params = Dict[str, torch.Tensor]
 
@@ -505,3 +507,76 @@ def train_fleet_arrays(
         tag_thresholds=tag_thresholds,
         total_threshold=total_threshold,
     )
+
+
+def fleet_flops_accounting(
+    spec: FleetSpec,
+    n_machines: int,
+    n_rows: int,
+    n_features: int,
+    n_targets: int,
+) -> Optional[dict]:
+    """Operation count of one bucket's stacked build (the reference's
+    ``fleet_flops_accounting``): the operations of one stacked mini-batch
+    step (:func:`..models.train.make_batch_step` over the template mapped
+    with ``torch.func.vmap`` across ``n_machines``) and of one batch-wide
+    predict chunk, each counted by ``torch.utils.flop_counter.
+    FlopCounterMode`` on the meta device (no memory, no kernel), times the
+    program's trip counts, which are the reference's arithmetic:
+    ``train_steps = (n_splits + 1) · epochs · steps_per_epoch`` and
+    ``predict_chunks = (n_splits + 1) · steps_per_epoch`` batch-wide chunks
+    (the program may run wider ones; the count is linear in width).
+
+    The counter counts matrix products, convolutions and attention
+    (``gordo::flash_fwd``/``flash_bwd`` through their registered formulas,
+    whichever of kernel or plain version would run); elementwise work,
+    the optimizer's update, scalers, folds and thresholds count nothing,
+    so the total slightly undercounts. Dropout is not drawn (it adds no
+    product). Returns None, with a warning, when the probe fails, else
+    ``{"train_step_flops", "train_steps", "predict_chunk_flops",
+    "predict_chunks", "total_flops"}``."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    L, la = spec.lookback_window, spec.lookahead
+    if la is None:
+        n_samples, x_elem = n_rows, (n_features,)
+    else:
+        n_samples, x_elem = windowing.n_windows(n_rows, L, la), (L, n_features)
+    steps_per_epoch = pad_to_multiple(n_samples, spec.batch_size) // spec.batch_size
+    n_fits = spec.n_splits + 1
+    train_steps = n_fits * spec.epochs * steps_per_epoch
+    predict_chunks = n_fits * steps_per_epoch
+    try:
+        template = _template(spec.module)
+        meta = torch.device("meta")
+        params = {name: torch.empty((n_machines, *p.shape), device=meta,
+                                    dtype=p.dtype).requires_grad_()
+                  for name, p in template.named_parameters()}
+        forward = torch.func.vmap(
+            lambda p, x: torch.func.functional_call(template, p, (x,)))
+
+        def apply_stacked(p, x, generator):
+            return forward(p, x)
+
+        step = make_batch_step(apply_stacked, spec.optimizer, loss=spec.loss)
+        x = torch.empty((n_machines, spec.batch_size, *x_elem), device=meta)
+        y = torch.empty((n_machines, spec.batch_size, n_targets), device=meta)
+        w = torch.empty((n_machines, spec.batch_size), device=meta)
+        opt_state = spec.optimizer.init(list(params.values()))
+        with FlopCounterMode(display=False) as counter:
+            step(params, opt_state, (x, y, w, None))
+        train_step_flops = counter.get_total_flops()
+        with FlopCounterMode(display=False) as counter, torch.no_grad():
+            forward({n: v.detach() for n, v in params.items()}, x)
+        predict_chunk_flops = counter.get_total_flops()
+    except Exception:  # noqa: BLE001 - a measurement aid never fails its caller
+        logger.warning("fleet_flops_accounting probe failed; the build's operation count "
+                       "is unreported", exc_info=True)
+        return None
+    return {
+        "train_step_flops": train_step_flops,
+        "train_steps": train_steps,
+        "predict_chunk_flops": predict_chunk_flops,
+        "predict_chunks": predict_chunks,
+        "total_flops": train_step_flops * train_steps + predict_chunk_flops * predict_chunks,
+    }

@@ -266,10 +266,23 @@ def test_a_flaky_machine_is_retried_then_isolated(tmp_path):
 
 
 def test_multi_process_builds_are_not_ported_yet(tmp_path, monkeypatch):
+    """Ported since: inside a group of 2 ranks (its collectives stubbed as
+    a peer that agrees), rank 1 builds only its block of the slice (3 dense
+    machines pad to 4: rank 1 owns dense-2 and a padding machine) and
+    writes its own manifest and journal; a bad slice size still fails
+    first."""
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda *a: 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        _build(_fleet()[:1], tmp_path)
+    monkeypatch.setattr(torch.distributed, "get_rank", lambda *a: 1)
+    dist = importlib.import_module("gordo_components_tpu_torch.parallel.distributed")
+    monkeypatch.setattr(dist, "allgather_ints", lambda values: np.asarray([values, values]))
+    monkeypatch.setattr(dist, "barrier", lambda: None)
+    results = _build(_fleet()[:3], tmp_path)
+    assert results == {"dense-2": str(tmp_path / "dense-2")}
+    assert not (tmp_path / builder.MANIFEST_FILE).exists()
+    with open(tmp_path / "fleet_manifest.p1.json") as fh:
+        assert sorted(json.load(fh)["machines"]) == ["dense-2"]
+    assert os.path.exists(store_journal.journal_path(str(tmp_path), 1))
     monkeypatch.undo()
     with pytest.raises(ValueError, match="slice_size"):
         _build(_fleet()[:1], tmp_path, slice_size=0)

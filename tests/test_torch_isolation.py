@@ -36,7 +36,7 @@ def _sources():
 def test_the_walk_covers_the_lint_and_the_model_contract():
     walked = {p.relative_to(PORT).as_posix() for p in _sources() if PORT in p.parents}
     assert {"analysis/runner.py", "analysis/lockcheck.py", "analysis/locks.py",
-            "models/base.py", "models/anomaly/base.py"} <= walked
+            "models/base.py", "models/anomaly/base.py", "parallel/distributed.py"} <= walked
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -160,9 +160,12 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(tmp_path, monkeypatch):
     from gordo_components_tpu_torch.cli import cli
     from gordo_components_tpu_torch.server.server import make_server
 
+    from gordo_components_tpu_torch.parallel import global_fleet_devices
+
     for entry in (lambda: load(str(tmp_path)), lambda: ServingEngine({}),
                   lambda: ModelServer(str(tmp_path)), lambda: make_server(str(tmp_path), port=0),
-                  lambda: cli.main(["run-server", "--models-dir", str(tmp_path), "--port", "0"])):
+                  lambda: cli.main(["run-server", "--models-dir", str(tmp_path), "--port", "0"]),
+                  global_fleet_devices):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             entry()
     # an estimator given weights without a device: set_state, then predict
