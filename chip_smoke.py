@@ -127,9 +127,10 @@ Phases; any failure exits non-zero before the result line:
    slice machine (64 tags, ``TRAIN_ROWS`` joined rows, ``build_only``: 8
    Adam steps, 3 fp32 forward and backward launches each) into a
    generation root with a registry; the same command again must be a cache
-   hit (no launch, no new generation), ``--precision int8`` must commit
-   ``gen-0002`` with the int8 sidecar under another key, ``rollback`` must
-   restore ``gen-0001`` and ``rollback --list`` report it, and the port's
+   hit (no launch, no new generation; it runs beside the next build),
+   ``--precision int8`` must commit ``gen-0002`` with the int8 sidecar
+   under another key, ``rollback`` must restore ``gen-0001`` and
+   ``rollback --list`` (beside the served request below) report it, and the port's
    server on the models directory must serve the machine from its root,
    a W = 16 response within SERVE_RTOL of the CPU plain path. Printed: each
    build's wall by phase, the joined rows, the build's peak device memory,
@@ -256,13 +257,14 @@ Phases; any failure exits non-zero before the result line:
    ``fetch``) inside it, and a stitch merged; the aggregate ``/metrics``'s
    scoring counters equal the workers' sum (plus the router's own),
    ``/telemetry`` merges both workers, ``/slo`` answers on all three; a
-   worker SIGTERMed while ``TIER_SLOW``'s request is in flight answers
-   ``/healthz`` 503 ``draining``, its request 200, and is respawned in its
-   slot; a worker SIGKILLed is ejected and respawned; a new generation of
-   ``TIER_RELOAD`` committed through the store is adopted by ``POST
-   /reload`` (canary, then sweep) and undone by ``POST /rollback``, each
-   answer against the CPU; the elastic seam boots a third worker that
-   answers its share and retires it ring first; 4 paced dense clients see no
+   new generation of ``TIER_RELOAD`` committed through the store is
+   adopted by ``POST /reload`` (canary, then sweep) and undone by ``POST
+   /rollback``, each answer against the CPU; a worker SIGTERMed while
+   ``TIER_SLOW``'s request is in flight answers ``/healthz`` 503
+   ``draining``, its request 200, and is respawned in its slot, while the
+   elastic seam boots a third worker beside it; a worker SIGKILLed is
+   ejected and respawned; the third worker answers its share and retires
+   ring first; 4 paced dense clients see no
    non-200 through drain, crash, reload and the elastic seam; ``run-watchman``
    over the router reports all 27 machines healthy, then, under a ``probe``
    fault, that one machine unhealthy with the fault's message; every worker
@@ -341,7 +343,7 @@ Phases; any failure exits non-zero before the result line:
    spilled, its ``flash_fwd_bf16`` 3 per bf16 one. Printed with the card:
    each step's convergence seconds, the longest scrape (a reload) and the
    rollback's wall, a hit's wall.
-17. warm boot (``phase_warm_boot``): phases 1-16 run with the
+17. warm boot (``phase_warm_boot``): the other phases run with the
    kernel-library store off (``WB_OFF``), as they did before it; this
    phase serves a models tree of the full-width slice machine at fp32 and
    at bf16 by fresh ``cli run-server`` processes over the store the tree
@@ -353,21 +355,25 @@ Phases; any failure exits non-zero before the result line:
    16 requests bit for bit as the cold boot did, and its ``/telemetry``
    compile block holds both entries with fp32 and bf16 build seconds,
    which the layout export's rungs carry; a flipped bit in the fp32
-   entry's library reads invalid, is rebuilt (one ``nvcc``) and written
-   back, and the answers keep their bits; under ``CUDA_KERNEL_DEBUG=1`` the boot's own
+   entry's library (a boot beside the warm one, over hard links of the
+   models and a copy of the store, with its own ``nvcc`` log) reads
+   invalid, is rebuilt (one ``nvcc``) and written back, and the answers
+   keep their bits; under ``CUDA_KERNEL_DEBUG=1`` the boot's own
    resolution (``_kernels.resolve``, in this process) makes 2 new entries,
    never a stale hit; ``cli cache list`` marks the entries
    ``current``/``verified``, ``cli cache purge --stale`` removes a damaged
    bf16 entry and the debug ones and leaves the current fp32 entry and a
    reference-format ``cc-*`` entry beside the port's subdirectory; ``cli
    fleet-build`` of two narrow PatchTST machines (129 patches), run beside
-   the flipped boot and the debug build with a log of its own, compiles
-   the fp32 forward and backward for its fit and nothing for its serving
-   export, and a boot over its output compiles nothing and reads a hit.
+   the cold, warm and flipped boots with a log of its own, compiles the
+   fp32 forward and backward for its fit and nothing for its serving
+   export, and a boot over its output (beside the debug build and the
+   cache verbs) compiles nothing and reads a hit.
    Printed with the card: every boot's wall from its start to a 200 on
    ``/healthz``, the ``nvcc`` counts, the compile block, the fleet build's
    wall. Its launches are every process's, recorded at exit.
-18. lint and lock witness (``phase_lock_witness``): the port's lint
+18. lint and lock witness (``phase_lock_witness``, in a thread beside
+   phase 16 once its fleet is up): the port's lint
    (``gordo_components_tpu_torch.analysis``, stdlib only) over this
    checkout on the card's host, which has no jax, pandas or ``requests``:
    0 fresh findings; the baselined count and each checker's seconds are
@@ -421,8 +427,49 @@ Phases; any failure exits non-zero before the result line:
    ``.slice_checkpoints`` is gone. Printed with the card: each process's
    wall, peak device memory and launches, the machines per hour of A and
    of the pair, B's slice walls, the drill's timings.
+20. the fleet-sharded serving mesh (``phase_mesh``, in a thread beside
+   phase 19's wedge drill, whose ranks sit mostly idle): one models root of the
+   full-width slice machine in fp32 and in bf16 and four
+   ``dense_ae_10tag`` machines (hard links of phase 14's artifacts,
+   renamed ``MESH_SLICE``/``MESH_DENSE`` so that each of the two shards
+   owns one slice machine and two dense ones), served by ``cli
+   run-fleet-server --workers 2 --mesh-shards 2`` as a process
+   (``FLEET_RUNNER`` records each worker process's launches); meanwhile an
+   in-process single-host server over the same root answers each machine
+   once (npz). Checked: the router holds no device file and maps neither
+   libcuda nor libtorch, each worker holds the card's; each worker's
+   ``/healthz`` ``mesh`` block is shard i of 2 owning
+   ``plan.owned(...)`` (its ``machines``, and its
+   ``gordo_mesh_shard_machines``); every machine's answer through the
+   router carries ``X-Gordo-Shard`` and ``X-Gordo-Worker`` of its plan's
+   owner and equals the single-host answer byte for byte, and each
+   worker's ``gordo_mesh_requests_total{path="owned"}`` counts its
+   machines' requests; the bf16 slice machine asked of the other shard
+   straight (a miss, then a hit) and, with the owner of the fp32 one
+   SIGKILLed, the fp32 one through the router (a miss, then a hit) are
+   answered by the other shard, byte for byte the single-host answer (the
+   tolerance phase 15 holds a spilled answer to: none), its
+   ``path="fallback"`` count +2 and ``mesh_fallback`` in its timeline;
+   the owner, respawned, answers again; every worker process's
+   ``flash_fwd_f32`` launches are 3 per fp32 slice dispatch, stacked or
+   spilled, its ``flash_fwd_bf16`` 3 per bf16 one. Printed with the card:
+   the boot, the owner's way back, the single-host, owned and fallback
+   (miss, hit) walls per rung, the dispatches and launches.
 
 Every phase prints its wall (``phase wall``), and the script its total.
+The script runs in 1200 s at most, build included, and aims at 1000: for
+that, work that would wait runs beside other work, every check kept
+(phases 9b, 14, 17, 18 beside 16, 20 beside 19's drill; PERF.md §5 lists
+each cut). After phase 2, phases 11, 13, 14, 15 and 17 run in a second
+process of this script (``--side``, ``SIDE_PHASES``) beside phases 3-9b,
+12 and 16 in this one, in order 3-9b, 12, 16 (18 beside it); phases 10
+and 19 (20 beside its drill), which need about all of the card, run once
+both are done. The side's stdout follows this process's phases. A thread
+samples the card's memory in use (every process on it), and its peak
+during each phase is printed before the script's wall; each phase's start
+goes to stderr, and every thread's stack too after ``DUMP_STACKS_S``.
+This process's allocator runs on expandable segments, so that
+it gives the card back before phase 19's builds.
 
 The line before last is ``nvidia-smi``'s name and power limit; the one
 before that the kernels' JSON record; the last line is the result.
@@ -2645,11 +2692,30 @@ def phase_cli_build(torch, device, tmp: str) -> dict:
     if built != per_build:
         fail(f"cli build: launches {built}, expected {per_build}")
 
+    # the cache hit runs beside the int8 build, which commits gen-0002 at its
+    # end, long after the hit's process is done; a generation the hit made
+    # would be f32
+    trace_dir = os.path.join(tmp, "cli-trace")
+    int8_run = {}
+
+    def int8_build():
+        # a thread: fail() raises SystemExit here, which the caller reads as
+        # a missing result (its message is on stderr already)
+        try:
+            int8_run["result"] = run_cli(tmp, *build_args, "--precision", "int8", "--trace-dir",
+                                         trace_dir, record_name="cli-int8-record.json")
+        except SystemExit:
+            pass
+
+    int8_thread = threading.Thread(target=int8_build, name="cli-int8-build")
+    int8_thread.start()
     out, hit_wall, hit, _ = run_cli(tmp, *build_args)
-    print(f"cli build again: a cache hit in {hit_wall:.2f} s (the build: {wall:.2f} s), "
-          f"printed {out}, generations {list_generations(root)}, launches {hit}")
-    if out != [root] or list_generations(root) != ["gen-0001"] or any(hit.values()) \
-            or hit_wall >= wall:
+    after_hit = list_generations(root)
+    print(f"cli build again: a cache hit in {hit_wall:.2f} s (the build: {wall:.2f} s; beside "
+          f"the int8 build), printed {out}, generations {after_hit}, launches {hit}")
+    if out != [root] or after_hit[:1] != ["gen-0001"] or any(
+            load_metadata(os.path.join(root, g))["precision"] != "int8" for g in after_hit[1:]) \
+            or any(hit.values()) or hit_wall >= wall:
         fail("cli build again: not a cache hit")
 
     # the commit alone: the same artifact through commit_generation, timed here
@@ -2661,9 +2727,10 @@ def phase_cli_build(torch, device, tmp: str) -> dict:
           f"{time.perf_counter() - started:.3f} s")
     del model
 
-    trace_dir = os.path.join(tmp, "cli-trace")
-    out, int8_wall, int8_launches, _ = run_cli(tmp, *build_args, "--precision", "int8",
-                                               "--trace-dir", trace_dir)
+    int8_thread.join()
+    if "result" not in int8_run:
+        fail("cli build --precision int8 failed")
+    out, int8_wall, int8_launches, _ = int8_run["result"]
     int8_meta = load_metadata(root)
     with open(os.path.join(trace_dir, "trace.json")) as fh:
         traced = json.load(fh)["traceEvents"]
@@ -2681,13 +2748,20 @@ def phase_cli_build(torch, device, tmp: str) -> dict:
         fail("cli build --precision int8: no int8 generation gen-0002 under a new key")
 
     out, _, _, _ = run_cli(tmp, "rollback", root)
-    listed, _, _, _ = run_cli(tmp, "rollback", "--list", root)
-    status = json.loads("\n".join(listed))
-    print(f"cli rollback: {out}; rollback --list: {json.dumps(status)}")
-    if out != [gen1] or current_generation(root) != "gen-0001" or status != {
-            "generation": "gen-0001", "generations": ["gen-0001", "gen-0002"],
-            "verified": True, "error": None}:
+    if out != [gen1] or current_generation(root) != "gen-0001":
         fail("cli rollback: CURRENT is not back on gen-0001")
+    # rollback --list (a process) runs beside the served check below
+    listed_run = {}
+
+    def rollback_list():
+        try:
+            listed_run["result"] = run_cli(tmp, "rollback", "--list", root,
+                                           record_name="cli-list-record.json")
+        except SystemExit:
+            pass
+
+    list_thread = threading.Thread(target=rollback_list, name="cli-rollback-list")
+    list_thread.start()
 
     httpd = make_server(models_dir, port=0, device=device)
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
@@ -2706,6 +2780,14 @@ def phase_cli_build(torch, device, tmp: str) -> dict:
         thread.join(timeout=30)
     if status != 200 or generation != "gen-0001":
         fail(f"cli build served: HTTP {status}, generation {generation}")
+    list_thread.join()
+    if "result" not in listed_run:
+        fail("cli rollback --list failed")
+    listed = json.loads("\n".join(listed_run["result"][0]))
+    print(f"cli rollback: {out}; rollback --list: {json.dumps(listed)}")
+    if listed != {"generation": "gen-0001", "generations": ["gen-0001", "gen-0002"],
+                  "verified": True, "error": None}:
+        fail("cli rollback --list: CURRENT is not back on gen-0001")
     cpu = ServingEngine({SLICE_MACHINE: load(root, device="cpu")}, device="cpu")
     plain = dict(zip(wire.SCORE_FIELDS, cpu.anomaly(SLICE_MACHINE, X)))
     cpu.close()
@@ -2892,8 +2974,11 @@ def phase_fleet_build(torch, device, tmp: str) -> dict:
     from gordo_components_tpu_torch.server.server import make_server
     from gordo_components_tpu_torch.store.generations import list_generations
 
+    import gc
+
     probe_stacked_gradients(torch, device)
     # the CLI process needs ~71 GiB of the card: this one must hold nothing
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     print(f"fleet build: this process holds {torch.cuda.memory_reserved() / 2**30:.2f} GiB "
@@ -4498,9 +4583,21 @@ def phase_tier(torch, device, tmp: str, card: str) -> dict:
     bodies.update({name: sensor_rows(rng, LOOKBACK + TIER_WINDOWS - 1)
                    for name in TIER_PATCHTST + [TIER_BF16]})
     encoded = {name: json.dumps({"X": X.tolist()}).encode() for name, X in bodies.items()}
-    plain = tier_cpu_answers(models_dir, bodies, TIER_MACHINES)
-    print(f"tier: {len(TIER_MACHINES)} machines built and scored on the CPU plain path in "
-          f"{time.perf_counter() - phase_started:.1f} s")
+    print(f"tier: {len(TIER_MACHINES)} machines built in {time.perf_counter() - phase_started:.1f} "
+          f"s; their CPU plain answers are computed beside the workers' boot")
+    plain_run = {}
+
+    def cpu_plain():
+        # a thread: fail() raises SystemExit here, which the caller reads as
+        # a missing result (its message is on stderr already)
+        try:
+            started = time.perf_counter()
+            plain_run["answers"] = tier_cpu_answers(models_dir, bodies, TIER_MACHINES)
+            plain_run["s"] = time.perf_counter() - started
+        except SystemExit:
+            pass
+
+    plain_thread = threading.Thread(target=cpu_plain, name="tier-cpu-plain")
 
     for key in ("GORDO_AUTOPILOT", "GORDO_FAULTS", "GORDO_LEDGER_DIR", "GORDO_TELEMETRY_DIR"):
         os.environ.pop(key, None)
@@ -4524,6 +4621,7 @@ def phase_tier(torch, device, tmp: str, card: str) -> dict:
     try:
         started = time.perf_counter()
         supervisor.start_all()
+        plain_thread.start()
         ready = supervisor.wait_ready(timeout=TIER_READY_S)
         times["boot_s"] = time.perf_counter() - started
         if len(ready) != TIER_WORKERS:
@@ -4536,8 +4634,13 @@ def phase_tier(torch, device, tmp: str, card: str) -> dict:
         base = f"http://127.0.0.1:{front.server_address[1]}"
         worker_url = {spec.name: spec.base_url for spec in specs}
         worker_id = {spec.name: str(spec.worker_id) for spec in specs}
+        plain_thread.join()
+        if "answers" not in plain_run:
+            fail("tier: the CPU plain answers failed")
+        plain = plain_run["answers"]
         print(f"tier [{card}]: {TIER_WORKERS} workers on the card ready in "
-              f"{times['boot_s']:.1f} s (launched together, beside Tier B's two)")
+              f"{times['boot_s']:.1f} s (launched together, beside Tier B's two and the CPU "
+              f"plain answers, {plain_run['s']:.1f} s)")
 
         # 1. placement and bytes
         worst = {"dense": 0.0, "f32": 0.0, "bf16": 0.0}
@@ -4652,8 +4755,48 @@ def phase_tier(torch, device, tmp: str, card: str) -> dict:
               f"router's own); /telemetry holds {sorted(tiers)}; /slo answers on the router and "
               f"each worker")
 
-        # 5. graceful drain under dense traffic
+        # 7. rolling reload, then rollback (before 5 and 6: the ring holds
+        # the two workers the checks name)
         dense_traffic = [m for m in TIER_DENSE if m != TIER_SLOW]
+        for name in worker_url:
+            factory.bank(factory.live(name))
+        tier_commit_reload(models_dir, device)
+        fresh = tier_cpu_answers(models_dir, bodies, [TIER_RELOAD])[TIER_RELOAD]
+        with TierClients(base, dense_traffic, encoded) as clients:
+            started = time.perf_counter()
+            status, _, raw, _ = http("POST", base + "/reload", b"")
+            times["reload_s"] = time.perf_counter() - started
+        clients.check("reload")
+        result = json.loads(raw)
+        if status != 200 or result.get("aborted") or result.get("canary") != sorted(worker_url)[0] \
+                or list(result["workers"]) != sorted(worker_url) \
+                or not all(w["ok"] for w in result["workers"].values()):
+            fail(f"tier reload: HTTP {status} {json.dumps(result)[:600]}")
+        for url in [base, *worker_url.values()]:
+            status, _, raw, _ = http("POST", f"{url}/gordo/v0/project/{TIER_RELOAD}/anomaly/"
+                                             "prediction", encoded[TIER_RELOAD])
+            tier_check_scores(f"reload {url}", status, raw, fresh, tags[TIER_RELOAD], SERVE_RTOL)
+        for name in worker_url:
+            factory.bank(factory.live(name))
+        started = time.perf_counter()
+        status, _, raw, _ = http("POST", base + "/rollback", b"")
+        times["rollback_s"] = time.perf_counter() - started
+        rolled = json.loads(raw)
+        if status != 200 or rolled.get("aborted") or TIER_RELOAD not in rolled.get("restored", {}):
+            fail(f"tier rollback: HTTP {status} {json.dumps(rolled)[:600]}")
+        for url in [base, *worker_url.values()]:
+            status, _, raw, _ = http("POST", f"{url}/gordo/v0/project/{TIER_RELOAD}/anomaly/"
+                                             "prediction", encoded[TIER_RELOAD])
+            tier_check_scores(f"rollback {url}", status, raw, plain[TIER_RELOAD],
+                              tags[TIER_RELOAD], SERVE_RTOL)
+        print(f"tier [{card}] reload: canary {result['canary']} then {sorted(result['workers'])}, "
+              f"{times['reload_s']:.2f} s, clients {len(clients.statuses)} requests all 200; "
+              f"{TIER_RELOAD} answers its new generation on both workers; rollback in "
+              f"{times['rollback_s']:.2f} s restores the old answers")
+
+        # 5. graceful drain under dense traffic, the elastic seam's third
+        # worker booting beside the victim's respawn (8 checks it)
+        elastic = router.autopilot.elastic
         victim = router.placement.replica_set(TIER_SLOW)[0]
         inc = factory.live(victim)
         factory.bank(inc)
@@ -4671,6 +4814,7 @@ def phase_tier(torch, device, tmp: str, card: str) -> dict:
             time.sleep(0.5)  # the slow request now sleeps in its dispatch's fault
             terminated = time.perf_counter()
             os.kill(inc["worker"].pid, signal.SIGTERM)
+            added = elastic.apply_target(TIER_WORKERS + 1)
             seen = {}
 
             def draining():
@@ -4695,6 +4839,10 @@ def phase_tier(torch, device, tmp: str, card: str) -> dict:
                 (control.last_probe(victim) or {}).get("state") == "ok",
                 TIER_READY_S, f"{victim} ready again", poll=0.05)
             slow_thread.join(timeout=30)
+            if not elastic.join(timeout=TIER_READY_S) or \
+                    (elastic.last_op() or {}).get("state") != "spawned":
+                fail(f"tier elastic: spawn of {added}: {elastic.last_op()}")
+            times["elastic_spawn_s"] = time.perf_counter() - terminated
             placed = next(m for m in dense_traffic if not router.placement.is_hot(m)
                           and router.placement.replica_set(m)[0] == victim)
             status, headers, _, _ = http("POST", f"{base}/gordo/v0/project/{placed}/anomaly/"
@@ -4739,52 +4887,9 @@ def phase_tier(torch, device, tmp: str, card: str) -> dict:
               f"{times['eject_s']:.2f} s, ready {times['crash_respawn_ready_s']:.2f} s later; "
               f"clients {len(clients.statuses)} requests, all 200")
 
-        # 7. rolling reload, then rollback
-        for name in worker_url:
-            factory.bank(factory.live(name))
-        tier_commit_reload(models_dir, device)
-        fresh = tier_cpu_answers(models_dir, bodies, [TIER_RELOAD])[TIER_RELOAD]
+        # 8. the elastic seam: the third worker, spawned at 5's SIGTERM,
+        # answers its share and retires ring first
         with TierClients(base, dense_traffic, encoded) as clients:
-            started = time.perf_counter()
-            status, _, raw, _ = http("POST", base + "/reload", b"")
-            times["reload_s"] = time.perf_counter() - started
-        clients.check("reload")
-        result = json.loads(raw)
-        if status != 200 or result.get("aborted") or result.get("canary") != sorted(worker_url)[0] \
-                or list(result["workers"]) != sorted(worker_url) \
-                or not all(w["ok"] for w in result["workers"].values()):
-            fail(f"tier reload: HTTP {status} {json.dumps(result)[:600]}")
-        for url in [base, *worker_url.values()]:
-            status, _, raw, _ = http("POST", f"{url}/gordo/v0/project/{TIER_RELOAD}/anomaly/"
-                                             "prediction", encoded[TIER_RELOAD])
-            tier_check_scores(f"reload {url}", status, raw, fresh, tags[TIER_RELOAD], SERVE_RTOL)
-        for name in worker_url:
-            factory.bank(factory.live(name))
-        started = time.perf_counter()
-        status, _, raw, _ = http("POST", base + "/rollback", b"")
-        times["rollback_s"] = time.perf_counter() - started
-        rolled = json.loads(raw)
-        if status != 200 or rolled.get("aborted") or TIER_RELOAD not in rolled.get("restored", {}):
-            fail(f"tier rollback: HTTP {status} {json.dumps(rolled)[:600]}")
-        for url in [base, *worker_url.values()]:
-            status, _, raw, _ = http("POST", f"{url}/gordo/v0/project/{TIER_RELOAD}/anomaly/"
-                                             "prediction", encoded[TIER_RELOAD])
-            tier_check_scores(f"rollback {url}", status, raw, plain[TIER_RELOAD],
-                              tags[TIER_RELOAD], SERVE_RTOL)
-        print(f"tier [{card}] reload: canary {result['canary']} then {sorted(result['workers'])}, "
-              f"{times['reload_s']:.2f} s, clients {len(clients.statuses)} requests all 200; "
-              f"{TIER_RELOAD} answers its new generation on both workers; rollback in "
-              f"{times['rollback_s']:.2f} s restores the old answers")
-
-        # 8. the elastic seam
-        elastic = router.autopilot.elastic
-        with TierClients(base, dense_traffic, encoded) as clients:
-            started = time.perf_counter()
-            added = elastic.apply_target(TIER_WORKERS + 1)
-            if not elastic.join(timeout=TIER_READY_S) or \
-                    (elastic.last_op() or {}).get("state") != "spawned":
-                fail(f"tier elastic: spawn of {added}: {elastic.last_op()}")
-            times["elastic_spawn_s"] = time.perf_counter() - started
             share = [m for m in TIER_MACHINES if not router.placement.is_hot(m)
                      and router.placement.replica_set(m)[0] == added]
             new_id = str(supervisor.specs[added].worker_id)
@@ -4802,9 +4907,10 @@ def phase_tier(torch, device, tmp: str, card: str) -> dict:
             if not elastic.join(timeout=120) or (elastic.last_op() or {}).get("state") != "retired":
                 fail(f"tier elastic: retire of {added}: {elastic.last_op()}")
         clients.check("elastic")
-        print(f"tier [{card}] elastic: {added} booted and joined the ring in "
-              f"{times['elastic_spawn_s']:.2f} s, answered its {len(share)} machines, retired "
-              f"ring first; clients {len(clients.statuses)} requests all 200")
+        print(f"tier [{card}] elastic: {added} booted beside the drain's respawn and joined "
+              f"the ring {times['elastic_spawn_s']:.2f} s after the SIGTERM, answered its "
+              f"{len(share)} machines, retired ring first; clients {len(clients.statuses)} "
+              f"requests all 200")
 
         # 9. the watchman
         tier_watchman(base, root)
@@ -5749,10 +5855,12 @@ def fc_expected(torch, device, eager_dir: str, encoded: dict) -> dict:
         torch.cuda.synchronize()
 
 
-def phase_fleet_control(torch, device, tmp: str, card: str) -> dict:
+def phase_fleet_control(torch, device, tmp: str, card: str, beside=None) -> dict:
     """The declarative fleet reconciler, the layout compiler and ``/layout``
-    on the card (see the module docstring, 16). Returns the flash launches
-    of the fleet's worker processes."""
+    on the card (see the module docstring, 16). ``beside`` (phase 18), if
+    given, runs in a thread from the moment the fleet is up (its ports
+    bound) until the phase ends. Returns the flash launches of the fleet's
+    worker processes."""
     import signal
 
     from gordo_components_tpu_torch.server.engine import ServingEngine
@@ -5824,6 +5932,9 @@ def phase_fleet_control(torch, device, tmp: str, card: str) -> dict:
         boot = tier_wait(up, TIER_READY_S, "run-fleet-server's workers", poll=0.2)
         children = tier_children(proc.pid)
         walls = {"boot_s": boot}
+        if beside is not None:
+            beside_thread = threading.Thread(target=beside, name="beside-fleet-control")
+            beside_thread.start()
 
         # 2. no spec yet
         status_body = fc_get(base + "/fleet")
@@ -5980,6 +6091,8 @@ def phase_fleet_control(torch, device, tmp: str, card: str) -> dict:
         if problems:
             fail(f"fleet control: {problems}")
         print(f"fleet control [{card}]: {json.dumps({'walls': walls, 'dispatches': banked, 'launches': launches, 'paced_requests': len(clients.statuses), 'phase_s': time.perf_counter() - phase_started})}")
+        if beside is not None:
+            beside_thread.join()
         return launches
     finally:
         if proc.poll() is None:
@@ -6000,7 +6113,7 @@ def phase_fleet_control(torch, device, tmp: str, card: str) -> dict:
 WB_MACHINES = {"wb-slice-f32": ("float32", None), "wb-slice-bf16": ("bfloat16", "bf16")}
 WB_WINDOWS = 16
 WB_READY_S = 300.0
-# the store off for phases 1-16, which go on as they were: every process
+# the store off for every phase but 17, which go on as they were: every process
 # builds into the package's build directory
 WB_OFF = {"GORDO_COMPILE_CACHE_STORE": "off", "GORDO_COMPILE_CACHE": "off"}
 # fleet-build --serving-cache: two narrow PatchTST machines whose 129
@@ -6188,16 +6301,19 @@ def phase_warm_boot(torch, device, tmp: str, card: str) -> dict:
     tree and the kernel-library store under it. The cold boot runs nvcc for
     exactly the two forward libraries and writes both; a warm boot with no
     nvcc to be found (so it runs none) reads two hits and answers bit for
-    bit what the cold boot did; a flipped bit in the fp32 entry reads
-    invalid, is rebuilt and written back; under CUDA_KERNEL_DEBUG the
+    bit what the cold boot did; a flipped bit in the fp32 entry (of a copy
+    of the store, booted beside the warm boot) reads invalid, is rebuilt
+    and written back; under CUDA_KERNEL_DEBUG the
     boot's resolution makes two new entries, never a stale hit;
     ``cache list`` marks the entries, ``cache purge --stale`` removes a
     damaged entry and the debug ones and leaves the current ones and a
     reference-format entry beside the store; ``fleet-build`` (its serving
     export on by default) over two narrow PatchTST machines, beside the
-    flipped boot and the debug build, makes the next boot over its output
-    run no nvcc; the telemetry's compile block shows fp32 and bf16 build
+    cold, warm and flipped boots, makes the next boot over its output (run
+    beside the debug build and the cache verbs) run no nvcc; the telemetry's compile block shows fp32 and bf16 build
     seconds. Returns the launches of every process."""
+    import shutil
+
     from gordo_components_tpu_torch.compile_cache import CompileCacheStore, default_root
     from gordo_components_tpu_torch.ops import _kernels
 
@@ -6255,10 +6371,43 @@ def phase_warm_boot(torch, device, tmp: str, card: str) -> dict:
         except SystemExit:
             pass
 
+    # fleet-build --serving-cache runs beside the cold, warm and flipped
+    # boots (its own store, its own nvcc log): their walls are taken beside
+    # it
+    fleet_thread = threading.Thread(target=fleet_build, name="wb-fleet-build")
+    fleet_thread.start()
     cold = boot("cold", env)
     if sorted(cold["nvcc"]) != sorted(f"{n}.cu" for n in wanted):
         fail(f"warm boot cold: nvcc compiled {cold['nvcc']}, expected the libraries {wanted}")
     wb_counts("cold", cold, {"miss": 2, "write": 2}, {f32: "miss", bf16: "miss"})
+
+    # the flipped boot runs beside the warm one, over a tree of its own:
+    # hard links of the models, a copy of the store with a bit flipped in
+    # the fp32 entry's library, its own nvcc log and ledger
+    flipped_models = os.path.join(wb, "models-flipped")
+    for name in WB_MACHINES:
+        shutil.copytree(os.path.join(models, name), os.path.join(flipped_models, name),
+                        copy_function=os.link)
+    flipped_store = default_root(flipped_models)
+    shutil.copytree(store, flipped_store)
+    flip_a_bit(os.path.join(store_entry(flipped_store, f32), "library.so"))
+    flipped_log = os.path.join(wb, "flipped-nvcc.log")
+    write_nvcc_wrapper(os.path.join(wb, "flipped-bin"), _kernels._nvcc(), flipped_log)
+    flipped_env = {**env, "PATH": os.path.join(wb, "flipped-bin") + os.pathsep
+                   + os.environ.get("PATH", ""),
+                   "GORDO_LEDGER_DIR": os.path.join(wb, "flipped-ledger")}
+    flipped_run = {}
+
+    def flipped_boot():
+        # a thread: fail() raises SystemExit here, which the caller reads as
+        # a missing result (its message is on stderr already)
+        try:
+            flipped_run["result"] = wb_boot(wb, flipped_models, "flipped", flipped_env, bodies)
+        except SystemExit:
+            pass
+
+    flipped_thread = threading.Thread(target=flipped_boot, name="wb-flipped-boot")
+    flipped_thread.start()
     # no nvcc can be found: the boot serves only if it needs none
     warm = boot("warm", env_without_nvcc(env, os.path.join(wb, "no-cuda")), telemetry=True)
     if warm["nvcc"]:
@@ -6271,18 +6420,45 @@ def phase_warm_boot(torch, device, tmp: str, card: str) -> dict:
             or not all(warm["rungs"][r]["compile_seconds"] == by_rung[r] for r in ("f32", "bf16")):
         fail(f"warm boot telemetry: compile block {compile_block}, export rungs "
              f"{ {r: v.get('compile_seconds') for r, v in warm['rungs'].items()} }")
-
-    # fleet-build --serving-cache runs beside the next boot and the debug
-    # build (its own store, its own nvcc log): their walls are taken beside
-    # it
-    fleet_thread = threading.Thread(target=fleet_build, name="wb-fleet-build")
-    fleet_thread.start()
-    flip_a_bit(os.path.join(store_entry(store, f32), "library.so"))
-    healed = boot("flipped", env)
+    flipped_thread.join()
+    if "result" not in flipped_run:
+        fail("warm boot: the flipped boot failed")
+    healed = flipped_run["result"]
+    healed["nvcc"] = nvcc_compiled(flipped_log)
+    for name in KERNELS:
+        launches[name] += healed["launches"][name]
+    boots["flipped"] = healed
     if healed["nvcc"] != [f"{f32}.cu"]:
         fail(f"warm boot flipped: nvcc compiled {healed['nvcc']}, expected {f32} alone")
     wb_counts("flipped", healed, {"invalid": 1, "hit": 1, "write": 1}, {f32: "invalid", bf16: "hit"})
     wb_same_bits("flipped", healed, cold["scores"])
+
+    # fleet-build --serving-cache: the export after the commits fills the
+    # store a server over the output defaults to; the boot over it runs
+    # beside the debug build and the cache verbs
+    fleet_thread.join()
+    if "result" not in fleet_run:
+        fail("warm boot: fleet-build failed")
+    _, fleet_wall, fleet_launches, _ = fleet_run["result"]
+    fleet_nvcc = nvcc_compiled(fleet_log)
+    for name in KERNELS:
+        launches[name] += fleet_launches[name]
+    if sorted(fleet_nvcc) != ["flash_bwd_f32.cu", "flash_fwd_f32.cu"]:
+        fail(f"warm boot fleet-build: nvcc compiled {fleet_nvcc}, expected the fp32 forward "
+             f"and backward (the fit's) and nothing for the export")
+    fleet_bodies = {name: json.dumps({"X": sensor_rows(
+        rng, WB_FLEET_SLICE["lookback_window"] + WB_WINDOWS - 1, WB_FLEET_TAGS).tolist()}).encode()
+        for name in WB_FLEET}
+    fleet_served = {}
+
+    def fleet_boot():
+        try:
+            fleet_served["result"] = wb_boot(wb, out, "fleet", fleet_env, fleet_bodies)
+        except SystemExit:
+            pass
+
+    fleet_boot_thread = threading.Thread(target=fleet_boot, name="wb-fleet-boot")
+    fleet_boot_thread.start()
 
     # a CUDA_KERNEL_DEBUG build, resolved in this process by the boot's own
     # call (_kernels.resolve) with the wrapper first on PATH
@@ -6327,22 +6503,10 @@ def phase_warm_boot(torch, device, tmp: str, card: str) -> dict:
         fail(f"warm boot cache purge --stale: removed {purged['removed']}, left {left}, the "
              f"reference-format entry {'kept' if os.path.isdir(reference) else 'removed'}")
 
-    # fleet-build --serving-cache: the export after the commits fills the
-    # store a server over the output defaults to
-    fleet_thread.join()
-    if "result" not in fleet_run:
-        fail("warm boot: fleet-build failed")
-    _, fleet_wall, fleet_launches, _ = fleet_run["result"]
-    fleet_nvcc = nvcc_compiled(fleet_log)
-    for name in KERNELS:
-        launches[name] += fleet_launches[name]
-    if sorted(fleet_nvcc) != ["flash_bwd_f32.cu", "flash_fwd_f32.cu"]:
-        fail(f"warm boot fleet-build: nvcc compiled {fleet_nvcc}, expected the fp32 forward "
-             f"and backward (the fit's) and nothing for the export")
-    fleet_bodies = {name: json.dumps({"X": sensor_rows(
-        rng, WB_FLEET_SLICE["lookback_window"] + WB_WINDOWS - 1, WB_FLEET_TAGS).tolist()}).encode()
-        for name in WB_FLEET}
-    served = wb_boot(wb, out, "fleet", fleet_env, fleet_bodies)
+    fleet_boot_thread.join()
+    if "result" not in fleet_served:
+        fail("warm boot: the boot over fleet-build's output failed")
+    served = fleet_served["result"]
     for name in KERNELS:
         launches[name] += served["launches"][name]
     if nvcc_compiled(fleet_log) != fleet_nvcc:
@@ -6352,6 +6516,7 @@ def phase_warm_boot(torch, device, tmp: str, card: str) -> dict:
     if not served["launches"]["flash_fwd_f32"]:
         fail("warm boot fleet: the served PatchTST machines launched no flash_fwd_f32")
 
+
     walls = ", ".join(f"{label} {b['boot_s']:.2f} s" for label, b in boots.items())
     print(f"warm boot [{card}]: boot walls (start to /healthz 200) {walls}; nvcc "
           f"invocations cold {len(cold['nvcc'])}, warm (no nvcc on the host) "
@@ -6360,8 +6525,8 @@ def phase_warm_boot(torch, device, tmp: str, card: str) -> dict:
           f"boot's bit for bit; compile block keys {compile_block['keys']}, bytes "
           f"{compile_block['bytes_total']}, seconds by rung {by_rung}")
     print(f"warm boot [{card}]: fleet-build with the serving export {fleet_wall:.2f} s, "
-          f"beside the flipped boot and the debug build (nvcc {fleet_nvcc}), the boot over "
-          f"its output {served['boot_s']:.2f} s with "
+          f"beside the cold, warm and flipped boots (nvcc {fleet_nvcc}), the boot over its "
+          f"output, beside the debug build and the cache verbs, {served['boot_s']:.2f} s with "
           f"{served['compile_cache']['hit']} hit and no nvcc; cache purge --stale removed "
           f"{len(purged['removed'])} and kept {kept} and {REFERENCE_ENTRY}")
     return launches
@@ -6941,10 +7106,13 @@ def mr_wedge(tmp: str, config_path: str, root: str, env: dict, owners: dict,
             "watchdog": [line for line in log.splitlines() if "Fleet slice watchdog" in line][0]}
 
 
-def phase_multirank(torch, device, tmp: str, card: str) -> dict:
+def phase_multirank(torch, device, tmp: str, card: str, beside_drill=None) -> dict:
     """The fleet build as two ranks on this card (see the module
-    docstring, 19). Returns the launches of every process that ran to its
-    end."""
+    docstring, 19). ``beside_drill`` (phase 20), if given, runs in a thread
+    beside the wedge drill, whose ranks sit mostly idle (one stopped, the
+    other blocked until its watchdog fires), and is done before A, which
+    needs the card alone. Returns the launches of every process that ran
+    to its end."""
     import gc
 
     from gordo_components_tpu_torch.serializer import load_metadata
@@ -7000,7 +7168,17 @@ def phase_multirank(torch, device, tmp: str, card: str) -> dict:
     # (c) the wedge drill; its ranks are gone before A starts
     budget = max(MR_WATCHDOG_FLOOR_S,
                  math.ceil(MR_WATCHDOG_FACTOR * max(slice_walls.values())))
+    beside = None
+    if beside_drill is not None:
+        beside = threading.Thread(target=beside_drill, name="beside-the-drill")
+        beside.start()
     drill = mr_wedge(tmp, config_path, roots["C"], env, owners, budget)
+    if beside is not None:
+        beside.join()
+        # what ran beside the drill in this process goes back to the card
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
     resumed = len(set().union(*drill["committed"].values()))
     print(f"multi-rank wedge [{card}]: GORDO_SLICE_TIMEOUT_S={budget:.0f} "
           f"({MR_WATCHDOG_FACTOR} x the worst healthy slice wall of B); rank 1 stopped with "
@@ -7057,7 +7235,498 @@ def phase_multirank(torch, device, tmp: str, card: str) -> dict:
     return launches
 
 
+# phase 20: the fleet-sharded serving mesh. Two shards over one models root:
+# the two full-width slice machines (fp32 and bf16) and four dense ones,
+# hard links of phase 14's artifacts where that phase built them. The
+# names are pinned so that each shard owns one slice machine and two dense
+# ones (tests/test_torch_chip_smoke_mesh.py finds them): the plan is a pure
+# function of the names
+MESH_SHARDS = 2
+MESH_SLICE = {"float32": "mesh-slice-f32-a", "bfloat16": "mesh-slice-bf16"}
+MESH_DENSE = [f"mesh-dense-{i}" for i in range(4)]
+MESH_WINDOWS = TIER_WINDOWS  # windows of a PatchTST request: BH 8192, as phase 2 holds
+# each machine's artifact in phase 14's models root
+MESH_SOURCES = {MESH_SLICE["float32"]: TIER_PATCHTST[0], MESH_SLICE["bfloat16"]: TIER_BF16,
+                **{name: TIER_DENSE[2 + i] for i, name in enumerate(MESH_DENSE)}}
+
+
+def mesh_build(models_dir: str, tier_dir: str, device) -> dict:
+    """The phase's models root: each machine a hard-linked copy of its
+    phase 14 artifact (``MESH_SOURCES``), or built here when that phase did
+    not run. Returns {machine: tags}."""
+    import shutil
+
+    estimator, kwargs, dense_tags = ZOO["dense-ae-10tag"]
+    tags = {}
+    for i, (name, source) in enumerate(sorted(MESH_SOURCES.items())):
+        dest = os.path.join(models_dir, name)
+        dtype = next((d for d, n in MESH_SLICE.items() if n == name), None)
+        tags[name] = dense_tags if dtype is None else N_TAGS
+        if os.path.isdir(os.path.join(tier_dir, source)):
+            shutil.copytree(os.path.join(tier_dir, source), dest, copy_function=os.link)
+        elif dtype is None:
+            build_zoo_artifact(dest, estimator, kwargs, dense_tags, device,
+                               np.random.default_rng(SEED + 20000 + i))
+        else:
+            build_artifact(dest, device, compute_dtype=dtype, seed=SEED + 20100 + i)
+    return tags
+
+
+def mesh_ask(url: str, name: str, body: bytes, trace: str = None) -> tuple:
+    """A request asking for npz: (payload, answering shard, answering
+    worker, wall ms)."""
+    from gordo_components_tpu_torch import wire
+
+    headers = {"Accept": wire.NPZ_CONTENT_TYPE}
+    if trace is not None:
+        headers["X-Gordo-Trace-Id"] = trace
+    status, reply, raw, ms = http("POST", f"{url}/gordo/v0/project/{name}/anomaly/prediction",
+                                  body, headers)
+    if status != 200:
+        fail(f"mesh: {name} answered HTTP {status} {raw[:300]!r}")
+    return decode(reply, raw), reply.get("X-Gordo-Shard"), reply.get("X-Gordo-Worker"), ms
+
+
+def mesh_counts(url: str) -> dict:
+    """A worker's gordo_mesh_requests_total by path, and its
+    gordo_mesh_shard_machines."""
+    samples = tier_prometheus(url + "/metrics?format=prometheus")
+    counts = {"owned": 0.0, "fallback": 0.0}
+    for labels, value in samples.get("gordo_mesh_requests_total", []):
+        counts[labels["path"]] = counts.get(labels["path"], 0.0) + value
+    counts["machines"] = sum(v for _, v in samples.get("gordo_mesh_shard_machines", []))
+    return counts
+
+
+def mesh_expected(torch, device, models_dir: str, encoded: dict) -> dict:
+    """A single-host eager server's lone answers on the card (npz) over the
+    same root, and their walls: {machine: (payload, ms)}."""
+    from gordo_components_tpu_torch.server.server import make_server
+
+    saved = os.environ.get("GORDO_TELEMETRY")
+    os.environ["GORDO_TELEMETRY"] = "0"
+    httpd = make_server(models_dir, port=0, device=device)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        if httpd.model_server.mesh_shard is not None:
+            fail("mesh: the single-host server runs as a shard")
+        expected = {}
+        for name in sorted(encoded):
+            payload, shard, _, ms = mesh_ask(url, name, encoded[name])
+            if shard is not None:
+                fail(f"mesh: the single-host server stamped X-Gordo-Shard {shard}")
+            expected[name] = (payload, ms)
+        return expected
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+        httpd.model_server.close()
+        if saved is None:
+            os.environ.pop("GORDO_TELEMETRY", None)
+        else:
+            os.environ["GORDO_TELEMETRY"] = saved
+        torch.cuda.synchronize()
+
+
+def mesh_worker_pid(router_pid: int, worker_id: int) -> int:
+    """The pid of the router's worker process of slot ``worker_id``."""
+    for pid in tier_children(router_pid):
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as fh:
+                argv = fh.read().decode(errors="replace").split("\0")
+        except OSError:
+            continue
+        if "--worker-id" in argv and argv[argv.index("--worker-id") + 1] == str(worker_id):
+            return pid
+    fail(f"mesh: no worker process of slot {worker_id} under the router {router_pid}")
+
+
+def phase_mesh(torch, device, tmp: str, card: str) -> dict:
+    """The fleet-sharded serving mesh on the card (see the module docstring,
+    20). Returns the flash launches of the mesh's worker processes."""
+    import signal
+
+    from gordo_components_tpu_torch.parallel.shard_plan import FleetShardPlan
+
+    phase_started = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    device_arg = "cpu" if device.type == "cpu" else None
+    models_dir = os.path.join(tmp, "mesh")
+    tags = mesh_build(models_dir, os.path.join(tmp, "tier"), device)
+    names = sorted(tags)
+    plan = FleetShardPlan(MESH_SHARDS)
+    owner = plan.assign(names)
+    slice_owner = {dtype: owner[name] for dtype, name in MESH_SLICE.items()}
+    if plan.policy(len(names)) != "sharded" or sorted(slice_owner.values()) != list(
+            range(MESH_SHARDS)):
+        fail(f"mesh: the plan is {plan.policy(len(names))} and puts the slice machines on shards "
+             f"{slice_owner}")
+    rng = np.random.default_rng(SEED + 20400)
+    encoded = {name: json.dumps({"X": sensor_rows(
+        rng, LOOKBACK + MESH_WINDOWS - 1 if n == N_TAGS else SEAMS_ROWS, n).tolist()}).encode()
+        for name, n in tags.items()}
+
+    records = os.path.join(tmp, "mesh-records")
+    os.makedirs(records, exist_ok=True)
+    port = free_port()
+    worker_base = free_port_run(MESH_SHARDS)
+    base = f"http://127.0.0.1:{port}"
+    workers = [f"http://127.0.0.1:{worker_base + i}" for i in range(MESH_SHARDS)]
+    log_path = os.path.join(tmp, "mesh.log")
+    log = open(log_path, "wb")
+    argv = [sys.executable, "-c", FLEET_RUNNER, records, CLI_RUNNER, "run-fleet-server",
+            "--models-dir", models_dir, "--workers", str(MESH_SHARDS), "--mesh-shards",
+            str(MESH_SHARDS), "--host", "127.0.0.1", "--port", str(port), "--worker-base-port",
+            str(worker_base), "--probe-interval", str(TIER_PROBE_S)]
+    if device_arg is not None:
+        argv += ["--device", device_arg]
+    env = {**os.environ, "PYTHONPATH": root, "GORDO_TELEMETRY": "0",
+           "GORDO_LEDGER_DIR": os.path.join(tmp, "mesh-ledger")}
+    for key in ("GORDO_FAULTS", "GORDO_LAZY_BOOT", "GORDO_BOOT_EAGER", "GORDO_HOST_CACHE_MB",
+                "GORDO_MESH_SHARDS", "GORDO_MESH_SHARD", "GORDO_MESH_MIN_SHARD_MACHINES"):
+        env.pop(key, None)
+    started = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT)
+    children = []
+
+    def tail():
+        log.flush()
+        with open(log_path, "rb") as fh:
+            return fh.read()[-3000:].decode(errors="replace")
+
+    try:
+        # the single-host answers, while the mesh's workers boot
+        expected = mesh_expected(torch, device, models_dir, encoded)
+
+        def up():
+            if proc.poll() is not None:
+                fail(f"mesh: run-fleet-server exited {proc.returncode}: {tail()}")
+            try:
+                status, _, raw, _ = http("GET", base + "/healthz")
+            except OSError:
+                return False
+            return status == 200 and json.loads(raw).get("status") == "ok"
+
+        tier_wait(up, TIER_READY_S, "the mesh's workers", poll=0.2)
+        walls = {"boot_s": round(time.perf_counter() - started, 3)}
+        children = tier_children(proc.pid)
+        maps = ""
+        try:
+            with open(f"/proc/{proc.pid}/maps") as fh:
+                maps = fh.read()
+        except OSError:
+            pass
+        if tier_nvidia_files(proc.pid) or "libcuda" in maps or "libtorch" in maps:
+            fail(f"mesh: the router holds {tier_nvidia_files(proc.pid)} or maps libcuda or "
+                 f"libtorch")
+        if device.type == "cuda" and not all(tier_nvidia_files(pid) for pid in children):
+            fail(f"mesh: a worker of {children} holds no device file of the card")
+
+        # 1. each worker's slice of the layout
+        for shard, url in enumerate(workers):
+            health = fc_get(url + "/healthz")
+            owned = plan.owned(names, shard)
+            want = {"shard": shard, "shards": MESH_SHARDS, "owned": len(owned),
+                    "remote_or_lazy": len(names) - len(owned)}
+            if health.get("mesh") != want or health.get("machines") != owned or \
+                    mesh_counts(url)["machines"] != len(owned):
+                fail(f"mesh: worker {shard}'s /healthz mesh {health.get('mesh')} and machines "
+                     f"{health.get('machines')}, gauge {mesh_counts(url)['machines']}; the plan "
+                     f"{want}, {owned}")
+        counts = [mesh_counts(url) for url in workers]
+        banked = [fc_dispatches(url) for url in workers]
+
+        # 2. the owned rung: every machine through the router from its owner
+        owned_ms = {}
+        for name in names:
+            payload, shard, worker, ms = mesh_ask(base, name, encoded[name])
+            if shard != str(owner[name]) or worker != str(owner[name]):
+                fail(f"mesh owned: {name} answered by shard {shard} (worker {worker}), the plan's "
+                     f"owner is {owner[name]}")
+            spill_same_bits(f"owned {name}", payload, expected[name][0], "mesh")
+            owned_ms[name] = round(ms, 3)
+        moved = [{k: mesh_counts(url)[k] - counts[s][k] for k in ("owned", "fallback")}
+                 for s, url in enumerate(workers)]
+        want_moved = [{"owned": float(sum(owner[n] == s for n in names)), "fallback": 0.0}
+                      for s in range(MESH_SHARDS)]
+        if moved != want_moved:
+            fail(f"mesh owned: gordo_mesh_requests_total moved {moved}, want {want_moved}")
+        print(f"mesh [{card}]: run-fleet-server --workers {MESH_SHARDS} --mesh-shards "
+              f"{MESH_SHARDS} ready in {walls['boot_s']:.2f} s (the single-host server's answers "
+              f"taken meanwhile); the plan {plan.counts(names)} machines per shard, slice "
+              f"machines on shards {slice_owner}; every machine answered by its owner through "
+              f"the router, byte for byte the single-host answer, counted owned {moved}")
+
+        # 3. the fallback rung of the bf16 slice machine, asked of the other
+        # shard straight: a miss, then a hit
+        fallback_ms = {}
+        name = MESH_SLICE["bfloat16"]
+        other = 1 - owner[name]
+        before = mesh_counts(workers[other])
+        cache = fc_cache(workers[other])
+        walls_bf16 = []
+        for _ in range(2):
+            payload, shard, _, ms = mesh_ask(workers[other], name, encoded[name])
+            if shard != str(other):
+                fail(f"mesh fallback: {name} asked of shard {other} answered as {shard}")
+            spill_same_bits(f"fallback {name}", payload, expected[name][0], "mesh")
+            walls_bf16.append(round(ms, 3))
+        cache_moved = {k: fc_cache(workers[other])[k] - cache[k] for k in ("hits", "misses")}
+        after = mesh_counts(workers[other])
+        # a miss counts miss, store and hit (the load, then the lookup that
+        # scores), the hit one hit
+        if after["fallback"] - before["fallback"] != 2 or cache_moved != {"hits": 2,
+                                                                          "misses": 1}:
+            fail(f"mesh fallback: {name} moved shard {other}'s fallback count by "
+                 f"{after['fallback'] - before['fallback']}, its cache by {cache_moved}")
+        fallback_ms["bf16"] = walls_bf16
+
+        # 4. the owner of the fp32 slice machine SIGKILLed: the other shard
+        # answers it through the router before the owner is back
+        name = MESH_SLICE["float32"]
+        victim, survivor = owner[name], 1 - owner[name]
+        banked[victim] = fc_dispatches(workers[victim])
+        before = mesh_counts(workers[survivor])
+        os.kill(mesh_worker_pid(proc.pid, victim), signal.SIGKILL)
+        killed = time.perf_counter()
+        walls_f32 = []
+        for i in range(2):
+            payload, shard, worker, ms = mesh_ask(base, name, encoded[name], f"mesh-fallback-{i}")
+            if (shard, worker) != (str(survivor), str(survivor)):
+                fail(f"mesh fallback: with shard {victim} down, {name} answered by shard {shard} "
+                     f"(worker {worker})")
+            spill_same_bits(f"fallback {name}", payload, expected[name][0], "mesh")
+            walls_f32.append(round(ms, 3))
+        fallback_ms["f32"] = walls_f32
+        events = [e.get("name") for e in fc_get(
+            f"{workers[survivor]}/debug/requests/mesh-fallback-0").get("events", [])]
+        moved = mesh_counts(workers[survivor])["fallback"] - before["fallback"]
+        if "mesh_fallback" not in events or moved != 2:
+            fail(f"mesh fallback: shard {survivor}'s timeline events {events}, its fallback "
+                 f"count moved by {moved}")
+
+        def owner_answers():
+            if proc.poll() is not None:
+                fail(f"mesh: run-fleet-server exited {proc.returncode}: {tail()}")
+            payload, shard, _, _ = mesh_ask(base, name, encoded[name])
+            if shard != str(victim):
+                return False
+            spill_same_bits(f"respawned {name}", payload, expected[name][0], "mesh")
+            return True
+
+        def victim_up():
+            try:
+                return http("GET", workers[victim] + "/healthz")[0] == 200
+            except OSError:
+                return False
+
+        tier_wait(victim_up, TIER_READY_S, f"shard {victim}'s respawn", poll=0.2)
+        tier_wait(owner_answers, 60, f"shard {victim} answering {name} again", poll=0.5)
+        walls["owner_back_s"] = round(time.perf_counter() - killed, 3)
+        print(f"mesh [{card}] fallback: {MESH_SLICE['bfloat16']} asked of shard "
+              f"{1 - owner[MESH_SLICE['bfloat16']]} straight and {name} through the router with "
+              f"shard {victim} SIGKILLed, each a miss then a hit, byte for byte the "
+              f"single-host answer (tolerance 0: phase 15 holds a spilled answer to the eager "
+              f"one's bytes), X-Gordo-Shard the other shard, its fallback count +2, "
+              f"mesh_fallback in its timeline; shard {victim} respawned and answering "
+              f"{name} again {walls['owner_back_s']:.2f} s after the kill")
+
+        # 5. the launches: 3 per slice dispatch, stacked or spilled, per process
+        finals = [fc_dispatches(url) for url in workers]
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(timeout=120)
+        if code != 0:
+            fail(f"mesh: run-fleet-server exited {code} on SIGTERM: {tail()}")
+        alive = [pid for pid in tier_children(proc.pid) + children
+                 if os.path.exists(f"/proc/{pid}")]
+        if alive:
+            fail(f"mesh: workers {alive} outlived the router")
+        incarnations = []
+        for shard in range(MESH_SHARDS):
+            found = sorted((f for f in os.listdir(records) if f.startswith(f"worker-{shard}-")),
+                           key=lambda f: int(f[:-5].rsplit("-", 1)[1]))
+            if len(found) != 1:
+                fail(f"mesh: launch records {found} for worker-{shard}")
+            if shard == victim:
+                # the SIGKILLed incarnation writes no record: the one found
+                # is its respawn's
+                incarnations.append({"name": f"worker-{shard}", "record": "", "killed": True,
+                                     "banked": banked[shard]})
+            incarnations.append({"name": f"worker-{shard}",
+                                 "record": os.path.join(records, found[0]),
+                                 "banked": finals[shard], "killed": False})
+        launches, problems = tier_launch_sums(incarnations)
+        if problems:
+            fail("mesh launches: " + "; ".join(problems))
+        if device.type == "cuda" and not (launches["flash_fwd_f32"] and launches["flash_fwd_bf16"]):
+            fail(f"mesh launches: {launches}, both forward kernels expected")
+        single_ms = {dtype: round(expected[n][1], 3) for dtype, n in MESH_SLICE.items()}
+        print(f"mesh [{card}]: " + json.dumps({
+            "walls": walls,
+            "slice_ms": {"single_host": single_ms,
+                         "owned": {d: owned_ms[n] for d, n in MESH_SLICE.items()},
+                         "fallback_miss_hit": fallback_ms},
+            "dispatches": {f"worker-{s}": finals[s] for s in range(MESH_SHARDS)},
+            "killed_dispatches": banked[victim], "launches": launches,
+            "phase_s": round(time.perf_counter() - phase_started, 1)}))
+        return launches
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        for pid in children + tier_children(proc.pid):
+            try:
+                os.kill(pid, 9)
+            except ProcessLookupError:
+                pass
+        log.close()
+
+
+# phases 11, 13, 14, 15 and 17 run in a second process of this script
+# (``--side TMP``) beside phases 3-9b, 12 and 16 (18 beside it) in this one.
+# They share the temporary directory (each phase keeps to subdirectories of
+# its own; phase 20 reads phase 14's artifacts later) and none of them
+# depends on another's state in the process. The side holds none of the
+# phases that fill most of the card (8, 9b and 12's builds stay here), and
+# phases 10 and 19, which need about all of it, run after both.
+SIDE_PHASES = ("11 seams", "13 control", "14 tier", "15 spill", "17 warm boot")
+SIDE_IN, SIDE_OUT, SIDE_STDOUT = "side-in.json", "side-out.json", "side-stdout.txt"
+SIDE_STOP_S = 30.0  # a stopped side's phases clean up their servers in this
+# every thread's stack goes to stderr this long after the start, in both
+# processes: where a run outlives its limit (1200 s), the stack shows where
+DUMP_STACKS_S = 1140.0
+CARD_POLL_S = 0.25  # the card-wide memory sampler's period
+
+
+class CardMemory:
+    """Samples the card's memory in use (``cudaMemGetInfo``: every process
+    on the card, this one and the side's and their servers) every
+    ``CARD_POLL_S`` in a daemon thread; ``peak(t0, t1)`` is the most in use
+    between two ``time.time()`` stamps, in GiB."""
+
+    def __init__(self, torch):
+        self._torch, self._samples, self._stop = torch, [], threading.Event()
+        self._thread = threading.Thread(target=self._run, name="card-memory", daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while not self._stop.wait(CARD_POLL_S):
+            free, total = self._torch.cuda.mem_get_info()
+            self._samples.append((time.time(), total - free))
+
+    def peak(self, t0: float, t1: float) -> float:
+        used = [u for t, u in list(self._samples) if t0 <= t <= t1]
+        return round(max(used) / 2**30, 2) if used else 0.0
+
+    def close(self):
+        self._stop.set()
+        self._thread.join()
+
+
+def side_main(tmp: str) -> None:
+    """The side process: ``SIDE_PHASES`` one after another, with the card's
+    name and phase 2's record from ``SIDE_IN``; writes each phase's launches,
+    wall and span (``time.time()``) to ``SIDE_OUT``. Its stdout is a file the
+    main process prints after it; its stderr is the main process's."""
+    import faulthandler
+    import signal
+
+    faulthandler.dump_traceback_later(DUMP_STACKS_S, exit=False)
+    # a SIGTERM from the main process runs every phase's clean-up
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    import torch
+
+    from gordo_components_tpu_torch.utils.backend import resolve_device
+
+    with open(os.path.join(tmp, SIDE_IN)) as fh:
+        given = json.load(fh)
+    # phase 2's record through JSON: phase 11 reads its slice-shape times
+    # (``shape_ms``'s keys are strings here)
+    kernels = given["kernels"]
+    device = resolve_device(None)
+    card = given["card"]
+    phases = {"11 seams": (phase_seams, (torch, device, tmp, kernels, card)),
+              "13 control": (phase_control, (torch, device, tmp, card)),
+              "14 tier": (phase_tier, (torch, device, tmp, card)),
+              "15 spill": (phase_spill, (torch, device, tmp, card)),
+              "17 warm boot": (phase_warm_boot, (torch, device, tmp, card))}
+    out = {"launches": {}, "walls": {}, "spans": {}}
+    for label in SIDE_PHASES:
+        phase, args = phases[label]
+        print(f"chip_smoke: side phase {label} started", file=sys.stderr, flush=True)
+        started, stamp = time.perf_counter(), time.time()
+        out["launches"][label] = phase(*args)
+        out["walls"][label] = round(time.perf_counter() - started, 1)
+        out["spans"][label] = (stamp, time.time())
+        print(f"phase wall {label} (side): {out['walls'][label]:.1f} s", flush=True)
+    with open(os.path.join(tmp, SIDE_OUT), "w") as fh:
+        json.dump(out, fh)
+
+
+def side_start(tmp: str, card: str, kernels: dict) -> subprocess.Popen:
+    """Start the side process in a session of its own (its servers with it)."""
+    with open(os.path.join(tmp, SIDE_IN), "w") as fh:
+        json.dump({"card": card, "kernels": kernels}, fh, default=float)
+    stdout = open(os.path.join(tmp, SIDE_STDOUT), "wb")
+    try:
+        return subprocess.Popen([sys.executable, os.path.abspath(__file__), "--side", tmp],
+                                cwd=os.path.dirname(os.path.abspath(__file__)),
+                                stdout=stdout, start_new_session=True)
+    finally:
+        stdout.close()
+
+
+def side_tail(tmp: str, n: int = 3000) -> str:
+    with open(os.path.join(tmp, SIDE_STDOUT), "rb") as fh:
+        return fh.read()[-n:].decode(errors="replace")
+
+
+def side_check(side: subprocess.Popen, tmp: str) -> None:
+    """Fail now if the side process has already failed."""
+    if side.poll() not in (None, 0):
+        fail(f"the side process (phases {', '.join(SIDE_PHASES)}) exited {side.returncode}; "
+             f"its stdout ends: {side_tail(tmp)}")
+
+
+def side_join(side: subprocess.Popen, tmp: str) -> dict:
+    """Wait for the side, print its stdout, return what it wrote."""
+    side.wait()
+    side_check(side, tmp)
+    with open(os.path.join(tmp, SIDE_STDOUT), "rb") as fh:
+        sys.stdout.write(fh.read().decode(errors="replace"))
+    with open(os.path.join(tmp, SIDE_OUT)) as fh:
+        return json.load(fh)
+
+
+def side_stop(side: subprocess.Popen) -> None:
+    """Stop the side and whatever of its session is left: SIGTERM (its
+    phases' clean-up runs), then SIGKILL."""
+    import signal
+
+    if side.poll() is None:
+        try:
+            os.killpg(side.pid, signal.SIGTERM)
+            side.wait(timeout=SIDE_STOP_S)
+        except (ProcessLookupError, subprocess.TimeoutExpired):
+            pass
+    try:
+        os.killpg(side.pid, signal.SIGKILL)
+    except (ProcessLookupError, PermissionError):
+        pass
+    side.wait()
+
+
 def main() -> None:
+    import faulthandler
+
+    faulthandler.dump_traceback_later(DUMP_STACKS_S, exit=False)
+    # this process's allocator gives back what it no longer uses: phase 19's
+    # builds need the card but for a few GiB, and a fixed segment that keeps
+    # one small live block would hold its whole size
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     try:
         import torch
     except ImportError:
@@ -7069,52 +7738,107 @@ def main() -> None:
     except ImportError as exc:
         fail(f"run from the root of a checkout: {exc}")
     device = resolve_device(None)
-    # phases 1-16 run as they did before the store: phase 17 measures it
+    # the other phases run as they did before the store: phase 17 measures
+    # it (the side process inherits this)
     os.environ.update(WB_OFF)
     script_started = time.perf_counter()
-    walls = {}
+    walls, spans = {}, {}
+    side = None
 
     def timed(label, phase, *args):
-        started = time.perf_counter()
+        if side is not None:
+            side_check(side, tmp)
+        print(f"chip_smoke: phase {label} started", file=sys.stderr, flush=True)
+        started, stamp = time.perf_counter(), time.time()
         result = phase(*args)
         walls[label] = round(time.perf_counter() - started, 1)
+        spans[label] = (stamp, time.time())
         print(f"phase wall {label}: {walls[label]:.1f} s")
         return result
 
     card = timed("1 environment", phase_environment)
     kernels = timed("2 kernels", phase_kernels, torch, device)
+    memory = CardMemory(torch)
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
-        launches = timed("3 serve", phase_serve, torch, device, tmp)
-        launches["flash_fwd_bf16"] = timed("3b serve bf16", phase_serve_bf16, torch, device,
-                                           tmp)["flash_fwd_bf16"]
-        timed("4 zoo", phase_zoo, torch, device, tmp)
-        launches["flash_fwd_f32"] += timed("5 fleet", phase_fleet, torch, device,
-                                           tmp)["flash_fwd_f32"]
-        launches["flash_fwd_f32"] += timed("6 int8", phase_int8, torch, device,
-                                           tmp)["flash_fwd_f32"]
-        timed("7 surface", phase_surface, torch, device, tmp)
-        trained = timed("8 train", phase_train, torch, device, tmp)["launches"]
-        trained_bf16 = timed("8b train bf16", phase_train_bf16, torch, device)
-        timed("9 build", phase_build, torch, device, tmp)
-        built = timed("9b cli build", phase_cli_build, torch, device, tmp)
-        fleet_built = timed("10 fleet build", phase_fleet_build, torch, device, tmp)
-        seams = timed("11 seams", phase_seams, torch, device, tmp, kernels, card)
-        client = timed("12 client", phase_client, torch, device, tmp, kernels, card)
-        control = timed("13 control", phase_control, torch, device, tmp, card)
-        tier = timed("14 tier", phase_tier, torch, device, tmp, card)
-        spill = timed("15 spill", phase_spill, torch, device, tmp, card)
-        fleet_control = timed("16 fleet control", phase_fleet_control, torch, device, tmp, card)
-        warm_boot = timed("17 warm boot", phase_warm_boot, torch, device, tmp, card)
-        witness = timed("18 lint and lock witness", phase_lock_witness, torch, device, tmp,
-                        card)
-        multirank = timed("19 multi-rank fleet build", phase_multirank, torch, device, tmp,
-                          card)
+        side = side_start(tmp, card, kernels)
+        try:
+            launches = timed("3 serve", phase_serve, torch, device, tmp)
+            launches["flash_fwd_bf16"] = timed("3b serve bf16", phase_serve_bf16, torch, device,
+                                               tmp)["flash_fwd_bf16"]
+            timed("4 zoo", phase_zoo, torch, device, tmp)
+            launches["flash_fwd_f32"] += timed("5 fleet", phase_fleet, torch, device,
+                                               tmp)["flash_fwd_f32"]
+            launches["flash_fwd_f32"] += timed("6 int8", phase_int8, torch, device,
+                                               tmp)["flash_fwd_f32"]
+            timed("7 surface", phase_surface, torch, device, tmp)
+            trained = timed("8 train", phase_train, torch, device, tmp)["launches"]
+            trained_bf16 = timed("8b train bf16", phase_train_bf16, torch, device)
+            timed("9 build", phase_build, torch, device, tmp)
+            built = timed("9b cli build", phase_cli_build, torch, device, tmp)
+            client = timed("12 client", phase_client, torch, device, tmp, kernels, card)
+            witness_run = {}
+
+            def witness_beside_fleet_control():
+                # phase 18 in a thread beside phase 16, once its fleet is up:
+                # fail() raises SystemExit here, which is read below as a
+                # missing result
+                started, stamp = time.perf_counter(), time.time()
+                try:
+                    witness_run["launches"] = phase_lock_witness(torch, device, tmp, card)
+                except SystemExit:
+                    pass
+                label = "18 lint and lock witness (beside 16)"
+                walls[label] = round(time.perf_counter() - started, 1)
+                spans[label] = (stamp, time.time())
+                print(f"phase wall {label}: {walls[label]:.1f} s")
+
+            fleet_control = timed("16 fleet control", phase_fleet_control, torch, device, tmp,
+                                  card, witness_beside_fleet_control)
+            if "launches" not in witness_run:
+                fail("phase 18 (lint and lock witness) failed")
+            witness = witness_run["launches"]
+            concurrent_s = time.perf_counter() - script_started
+            sided = side_join(side, tmp)
+            joined_s = time.perf_counter() - script_started
+            walls.update({f"{label} (side)": wall for label, wall in sided["walls"].items()})
+            spans.update({f"{label} (side)": tuple(span) for label, span in
+                          sided["spans"].items()})
+            print(f"side process [{card}]: phases {', '.join(SIDE_PHASES)} beside this "
+                  f"process's 3-9b, 12 and 16; this process's were done at "
+                  f"{concurrent_s:.1f} s of the script, the side's joined at {joined_s:.1f} s")
+            fleet_built = timed("10 fleet build", phase_fleet_build, torch, device, tmp)
+            mesh_run = {}
+
+            def mesh_beside_the_drill():
+                # phase 20 in a thread beside phase 19's wedge drill: fail()
+                # raises SystemExit here, which is read below as a missing
+                # result
+                started, stamp = time.perf_counter(), time.time()
+                try:
+                    mesh_run["launches"] = phase_mesh(torch, device, tmp, card)
+                except SystemExit:
+                    pass
+                label = "20 mesh (beside 19's wedge drill)"
+                walls[label] = round(time.perf_counter() - started, 1)
+                spans[label] = (stamp, time.time())
+                print(f"phase wall {label}: {walls[label]:.1f} s")
+
+            multirank = timed("19 multi-rank fleet build", phase_multirank, torch, device, tmp,
+                              card, mesh_beside_the_drill)
+            if "launches" not in mesh_run:
+                fail("phase 20 (the mesh) failed")
+            mesh = mesh_run["launches"]
+        finally:
+            side_stop(side)
+            memory.close()
+        side_launches = sided["launches"]
         for name in KERNELS:
             launches[name] += (trained[name] + trained_bf16[name] + built[name]
-                               + fleet_built[name] + seams[name] + client[name]
-                               + control[name] + tier[name] + spill[name]
-                               + fleet_control[name] + warm_boot[name] + witness[name]
-                               + multirank[name])
+                               + fleet_built[name] + client[name] + fleet_control[name]
+                               + witness[name] + multirank[name] + mesh[name]
+                               + sum(side_launches[label][name] for label in SIDE_PHASES))
+    print(f"card memory in use [{card}], peak GiB during each phase (every process on the "
+          f"card): {json.dumps({label: memory.peak(*span) for label, span in spans.items()})}")
     print(f"script wall [{card}]: {time.perf_counter() - script_started:.1f} s; phase walls "
           f"{json.dumps(walls)}")
     print(json.dumps({"kernels": [{
@@ -7134,4 +7858,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--side"]:
+        side_main(sys.argv[2])
+    else:
+        main()

@@ -366,9 +366,20 @@ KNOBS: Dict[str, Knob] = dict(
               "(micro-burst absorption)",
               "serving"),
         _knob("GORDO_MESH_SHARDS", "0", "int",
-              "multi-host serving mesh: not ported; a value above 0 makes "
-              "`run-fleet-server` exit 2 (`--mesh-shards`)",
-              "serving"),
+              "fleet-sharded serving mesh: total shard count the stacked "
+              "fleet partitions across by ring position; 0 = single-host "
+              "serving (`--mesh-shards` on `run-server` / "
+              "`run-fleet-server`)", "serving"),
+        _knob("GORDO_MESH_SHARD", "worker-id mod shards", "int",
+              "mesh serving: THIS process's shard id (0-based); each "
+              "shard stacks only its owned machines and serves the rest "
+              "through the spill fallback rung (`--mesh-shard` on "
+              "`run-server`)", "serving"),
+        _knob("GORDO_MESH_MIN_SHARD_MACHINES", "2×shards", "int",
+              "mesh serving's declared layout policy: fleets smaller "
+              "than this stay replicated on every shard (the split would "
+              "cost more than it frees); larger fleets shard by ring "
+              "position", "serving"),
         _knob("GORDO_QOS_DEFAULT_CLASS", "standard", "str",
               "priority class for bare requests and undeclared tenants "
               "(`interactive`/`standard`/`bulk`)",

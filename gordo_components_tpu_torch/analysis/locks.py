@@ -52,6 +52,7 @@ LOCK_RANKS: Dict[str, int] = {
                                 # which nest into every admin lock below
     "autopilot.state": 12,      # controller.py _lock: tick/decision state
     "autopilot.elastic": 13,    # elastic.py _lock: one scale op at a time
+    "parallel.shard_plan": 14,  # shard_plan.py plan cache (boot/reload/router)
     "router.op": 15,            # rollout.py _op_lock: one rollout/rollback
     "fleet.spec": 16,           # spec.py _lock: journal cache + commits
                                 # (reconciler rollback nests under 11/15)
@@ -193,6 +194,7 @@ LOCK_ATTRS: Dict[Tuple[str, str], str] = {
     ("compile_cache/store.py", "_lock"): "compile_cache.store",
     ("compile_cache/store.py", "_PRIVATE_LOCK"): "compile_cache.private",
     ("parallel/build_fleet.py", "_lock"): "fleet.checkpoint",
+    ("parallel/shard_plan.py", "_PLAN_LOCK"): "parallel.shard_plan",
     ("utils/http.py", "_lock"): "utils.http",
 }
 
@@ -235,6 +237,8 @@ GUARDED_FIELDS: Dict[Tuple[str, str], str] = {
     ("router/placement.py", "_rotation"): "router.placement",
     ("router/placement.py", "_hot"): "router.placement",
     ("router/placement.py", "_worker_shards"): "router.placement",
+    # the process-wide serving-mesh layout-plan cache
+    ("parallel/shard_plan.py", "_PLAN_CACHE"): "parallel.shard_plan",
     ("router/workers.py", "_workers"): "router.workers",
     ("router/workers.py", "_respawns"): "router.workers",
     # SLO burn-rate history + breach edge state

@@ -31,7 +31,7 @@ CHECKER = "metrics-conventions"
 COMPONENTS = (
     "server", "engine", "client", "build", "builds", "fleet", "watchman",
     "router", "resilience", "store", "compile_cache", "span", "stage",
-    "slo", "autopilot", "telemetry", "tenant", "incident",
+    "slo", "autopilot", "mesh", "telemetry", "tenant", "incident",
 )
 
 # the port's label allowlist: low-cardinality enums only. ``machine``/
@@ -45,13 +45,14 @@ COMPONENTS = (
 # is the three-value interactive/standard/bulk enum.
 # ``actor`` is the control ledger's closed writer enum — unknown actors
 # fold into 'operator' before the label is minted.
+# ``shard`` is bounded by the serving mesh's declared shard count.
 ALLOWED_LABELS = frozenset(
     {
         "endpoint", "status", "kind", "outcome", "path", "event", "phase",
         "reason", "stage", "name", "trigger", "format", "worker",
         "machine", "cause", "point", "to", "where", "error",
         "window", "precision", "actuator", "direction",
-        "tenant", "class", "actor",
+        "tenant", "class", "actor", "shard",
     }
 )
 

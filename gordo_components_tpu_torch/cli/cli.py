@@ -23,9 +23,13 @@ fleet tier's workers inherit; it needs ``--models-dir``, whose
 ``FLEET_INDEX.json`` then names the fleet) and ``--compile-cache-store``
 (the kernel-library store, :mod:`..compile_cache`, which ``fleet-build
 --serving-cache`` fills and ``cache list|warm|purge`` manage; ``build`` and
-``fleet-build`` fit through ``--compile-cache-dir``); the reference's shard
-mode, megabatch and mesh flags are not offered (ROADMAP.md). ``run-fleet-server`` spawns ``--workers`` such
-servers (``--device`` passed on) behind a router that never touches the
+``fleet-build`` fit through ``--compile-cache-dir``) and ``--mesh-shards``/
+``--mesh-shard`` (one shard of a fleet-sharded serving mesh, exported as
+``GORDO_MESH_SHARDS``/``GORDO_MESH_SHARD``); the reference's host-sharded
+``--shard-fleet`` and its megabatch flags are not offered (ROADMAP.md).
+``run-fleet-server`` spawns ``--workers`` such servers (``--device``
+passed on; with ``--mesh-shards N`` worker i serves shard i mod N, and
+more shards than workers exits 2) behind a router that never touches the
 card; SIGTERM drains the router, then each worker, and leaves no worker
 behind. ``run-watchman`` probes each machine's ``/healthz`` at a target
 URL (``GORDO_FAULTS='probe:<machine>:error'`` fails one probe on
@@ -58,11 +62,12 @@ client.ClientError`.
     python -m gordo_components_tpu_torch.cli run-server (--model-dir DIR ... |
         --models-dir DIR) [--host H] [--port N] [--project P] [--max-inflight N]
         [--tenants SPEC] [--faults SPEC] [--worker-id N] [--lazy-boot]
-        [--compile-cache-store STORE|off] [--device cpu]
+        [--compile-cache-store STORE|off] [--mesh-shards N [--mesh-shard I]]
+        [--device cpu]
     python -m gordo_components_tpu_torch.cli run-fleet-server --models-dir DIR
         [--workers 2] [--host H] [--port 5555] [--worker-base-port 5600]
         [--project P] [--replicas 2] [--hot-rps 50] [--probe-interval 2]
-        [--max-inflight N] [--tenants SPEC] [--device cpu]
+        [--max-inflight N] [--tenants SPEC] [--mesh-shards N] [--device cpu]
     python -m gordo_components_tpu_torch.cli run-watchman --project P --machine M ...
         --target-url URL [--host H] [--port 5556] [--manifest FILE]
     python -m gordo_components_tpu_torch.cli run-watchman --watch --manifest FILE
@@ -333,6 +338,11 @@ def run_server(args: argparse.Namespace) -> int:
     if args.lazy_boot is not None:
         # exported, so that every reload's state and a tier's workers agree
         os.environ["GORDO_LAZY_BOOT"] = "1" if args.lazy_boot else "0"
+    # exported, so that every reload re-derives the partition this boot used
+    if args.mesh_shards is not None:
+        os.environ["GORDO_MESH_SHARDS"] = str(args.mesh_shards)
+    if args.mesh_shard is not None:
+        os.environ["GORDO_MESH_SHARD"] = str(args.mesh_shard)
     lazy_boot = os.environ.get("GORDO_LAZY_BOOT", "0").strip().lower() in (
         "1", "true", "on", "yes")
     if lazy_boot and not args.models_dir:
@@ -432,17 +442,19 @@ def run_fleet_server(args: argparse.Namespace) -> int:
     traffic by consistent-hash machine→worker placement. Worker health
     probes drive breaker/quarantine-based eject + respawn; ``POST /reload``
     canaries one worker then sweeps the rest, and ``POST /rollback`` swaps
-    ``CURRENT`` fleet-wide before re-adopting. This process never touches
-    the card."""
+    ``CURRENT`` fleet-wide before re-adopting. ``--mesh-shards N`` makes
+    it a fleet-sharded mesh: worker i serves shard i mod N and the router
+    prefers each machine's owning shard. This process never touches the
+    card."""
     from ..resilience import qos
-    from ..router import MESH_NOT_PORTED
     from ..router import run_fleet_server as serve_fleet
 
     if args.workers < 1:
         logger.error("--workers must be >= 1")
         return EXIT_USAGE
-    if args.mesh_shards:
-        logger.error("--mesh-shards %d: %s", args.mesh_shards, MESH_NOT_PORTED)
+    if args.mesh_shards and args.mesh_shards > args.workers:
+        logger.error("--mesh-shards (%d) needs at least that many --workers to cover every "
+                     "shard (got %d)", args.mesh_shards, args.workers)
         return EXIT_USAGE
     worker_args: List[str] = []
     if args.max_inflight is not None:
@@ -466,6 +478,7 @@ def run_fleet_server(args: argparse.Namespace) -> int:
         hot_rps=args.hot_rps,
         probe_interval=args.probe_interval,
         worker_args=worker_args,
+        mesh_shards=args.mesh_shards,
         device=args.device,
     )
     return 0
@@ -976,6 +989,15 @@ def parser() -> argparse.ArgumentParser:
                         "<models-dir>/.compile-cache/torch-cuda when --models-dir is given, "
                         "the store fleet-build fills, so a boot, a reload and a rollback run "
                         "no nvcc against a warm store")
+    s.add_argument("--mesh-shards", type=int, default=env("GORDO_MESH_SHARDS"),
+                   help="fleet-sharded serving mesh: the shard count the fleet's stacked "
+                        "machines partition across by ring position; this process stacks "
+                        "only its owned machines and serves the rest through the spill "
+                        "fallback rung. 0 or unset: single-host serving (default: "
+                        "GORDO_MESH_SHARDS)")
+    s.add_argument("--mesh-shard", type=int, default=env("GORDO_MESH_SHARD"),
+                   help="this process's shard (0-based) of the --mesh-shards mesh (default: "
+                        "GORDO_MESH_SHARD, else the worker id mod the shards)")
     s.add_argument("--device", default=None,
                    help="cuda (default) or cpu; there is no silent fallback")
     s.set_defaults(run=run_server)
@@ -984,8 +1006,7 @@ def parser() -> argparse.ArgumentParser:
         "run-fleet-server", help="the horizontal serving tier: a router over supervised "
                                  "worker server processes",
         epilog="Not offered: --megabatch/--no-megabatch (the port's run-server has no such "
-               "flag). --mesh-shards above 0 exits 2: mesh serving needs several cards "
-               "(ROADMAP Queue 1 item 10).")
+               "flag).")
     fs.add_argument("--models-dir", required=True,
                     help="directory whose immediate subdirectories are model dirs; every "
                          "worker serves this tree")
@@ -1011,7 +1032,12 @@ def parser() -> argparse.ArgumentParser:
                     help="the tenant table (see run-server), exported as GORDO_TENANTS so "
                          "the router and every worker load the same table")
     fs.add_argument("--mesh-shards", type=int, default=int(env("GORDO_MESH_SHARDS") or 0),
-                    help="mesh serving: not ported; any value above 0 exits 2")
+                    help="fleet-sharded serving mesh: partition the fleet's stacked machines "
+                         "across this many shards; worker i serves shard i mod shards and "
+                         "the router prefers each machine's owning shard, falling back to "
+                         "another worker's spill tier when the owner is down. 0 (default: "
+                         "GORDO_MESH_SHARDS, else 0): the replicated tier. More shards than "
+                         "--workers exits 2")
     fs.add_argument("--device", default=None,
                     help="passed on to every worker: cuda (default) or cpu; the router "
                          "itself never touches the card")
@@ -1146,9 +1172,9 @@ def parser() -> argparse.ArgumentParser:
 
     ca = commands.add_parser(
         "cache", help="the kernel-library store (built CUDA libraries beside the models)",
-        epilog="Not offered on 'warm': --shard-fleet (mesh serving needs several cards, "
-               "ROADMAP Queue 1 item 10) and --rows (a library does not depend on a "
-               "request's rows; 'warm' needs no card).")
+        epilog="Not offered on 'warm': --shard-fleet (the host-sharded engine variant "
+               "it warms comes with the next slice, ROADMAP Queue 1 item 10) and --rows (a "
+               "library does not depend on a request's rows; 'warm' needs no card).")
     cache_commands = ca.add_subparsers(dest="cache_command", required=True)
     cl = cache_commands.add_parser("list", help="entries as JSON: key, size, verified, and "
                                                 "current (this process's backend)")

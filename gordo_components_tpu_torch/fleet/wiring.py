@@ -12,10 +12,10 @@ measured-capacity feed.
 Where the port differs, by design: observation and the ``/layout``
 posts go through the port's HTTP client (:class:`~..utils.http.Session`),
 the artifacts' precision rungs are read from their ``metadata.json``
-without the serializer (the router's process never imports ``torch``),
-and the port's router has no mesh, so ``observed.mesh_shards`` is None
-and the ``mesh`` class never diverges, as in a reference router without
-one.
+without the serializer (the router's process never imports ``torch``).
+``observed.mesh_shards`` is the router's (None without a mesh, so the
+``mesh`` class never diverges there) and the ``mesh`` class repairs
+through the router's ``mesh_refresh``.
 
 ``GORDO_FLEET=0`` is the hard kill switch (no reconciler is
 constructed; ``/fleet`` answers ``hard_off``). Constructed reconcilers
@@ -149,7 +149,7 @@ def build_router_reconciler(
             worker_generations=worker_generations,
             disk_generations=disk_generations,
             disk_precisions=disk_precisions,
-            mesh_shards=None,
+            mesh_shards=getattr(router, "mesh_shards", None),
             elastic_busy=(
                 pilot.elastic.busy()
                 if pilot is not None and hasattr(pilot, "elastic")
@@ -195,6 +195,14 @@ def build_router_reconciler(
         return generations_mod.pin_generation(
             os.path.join(models_root, machine), gen
         )
+
+    def mesh_refresh() -> None:
+        # bound lazily: assemble_fleet attaches router.mesh_refresh
+        # AFTER the router (and this reconciler) is constructed
+        fn = getattr(router, "mesh_refresh", None)
+        if fn is None:
+            raise RuntimeError("router has no mesh layout to refresh")
+        fn()
 
     def apply_worker_layout(
         worker: str, plan: Optional[Dict[str, Any]]
@@ -276,8 +284,7 @@ def build_router_reconciler(
         rebuild=rebuild,
         reload_worker=router.rollout.reload_worker,
         verify_worker=router.rollout.verify_worker,
-        # no mesh: the mesh class never diverges, nothing to refresh
-        mesh_refresh=None,
+        mesh_refresh=mesh_refresh,
         set_worker_bounds=(
             (lambda lo, hi: pilot.set_bounds("workers", lo, hi))
             if pilot is not None else None

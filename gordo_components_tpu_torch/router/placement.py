@@ -1,8 +1,8 @@
 """Consistent-hash machine→worker placement with hot-machine replication
-(the port's copy of ``gordo_components_tpu/router/placement.py``; the
-reference's ``lockcheck.named_lock`` is a plain ``threading.Lock``, and
-nothing in the port sets a mesh yet: ``set_mesh`` and its seams are kept
-for ROADMAP Queue 1 item 10).
+(the port's copy of ``gordo_components_tpu/router/placement.py``). A
+fleet-sharded mesh router (``router.assemble_fleet(mesh_shards=N)``) sets
+the shard table through ``set_mesh``; the elastic tier records a new
+worker's shard through ``mesh_shard_for`` and ``set_worker_shard``.
 
 Why placement instead of round-robin: every worker process owns its own
 serving engine — device-resident stacked params, per-bucket megabatch

@@ -111,7 +111,7 @@ _PASS_RESPONSE_HEADERS = (
     "Retry-After",
     DRAINING_HEADER,
     "X-Gordo-Worker",
-    # which mesh shard answered (no worker of the port sets it yet)
+    # which mesh shard answered (a worker of a fleet-sharded mesh sets it)
     "X-Gordo-Shard",
 )
 _DROP_FORWARD_HEADERS = frozenset(
@@ -221,6 +221,13 @@ class FleetRouter:
         self.supervisor = supervisor
         self.control = control
         self.placement = placement or Placement(sorted(supervisor.specs))
+        # assemble_fleet installs a callback that re-derives the mesh
+        # layout policy (sharded vs replicated) after /reload: fleet
+        # membership can cross the sharding threshold at runtime
+        self.mesh_refresh = None
+        # the shard count a mesh router was assembled with (None: no
+        # mesh), the reconciler's observed mesh_shards
+        self.mesh_shards: Optional[int] = None
         self.project = project
         self.models_root = models_root
         self.forward_timeout = forward_timeout
@@ -511,7 +518,16 @@ class FleetRouter:
         if endpoint == "reload":
             if request.method != "POST":
                 return _json({"error": "POST required"}, status=405)
-            return _json(self.rollout.rolling_reload())
+            result = self.rollout.rolling_reload()
+            if self.mesh_refresh is not None:
+                # the adopted generation may have crossed the sharding
+                # threshold: re-derive the layout policy the workers'
+                # rescans just re-derived on their side
+                try:
+                    self.mesh_refresh()
+                except Exception:  # noqa: BLE001 - the reload itself succeeded
+                    logger.exception("Mesh layout refresh after reload failed")
+            return _json(result)
         if endpoint == "rollback":
             if request.method != "POST":
                 return _json({"error": "POST required"}, status=405)
@@ -1084,7 +1100,7 @@ def make_router_server(router: FleetRouter, host: str = "127.0.0.1",
 def _stitch_lane(worker_name: str, remote: Dict[str, Any]) -> str:
     """Process-lane name for a stitched worker timeline: a worker that
     stamps a mesh shard into its timeline meta renders one lane PER
-    SHARD (no worker of the port does yet)."""
+    SHARD."""
     meta = remote.get("meta")
     shard = meta.get("shard") if isinstance(meta, dict) else None
     if shard is None:

@@ -6,10 +6,12 @@ pipeline at 611-748, ``_Bucket`` at 761-2499 and ``ServingEngine`` at
 timelines, the weighted-fair drain and the ``engine-dispatch`` fault
 point; the control loops' seams: traffic notes, ``cost_ledger``, live
 tuning; the host-RAM spill tier at 526-608, 2560-2584, 2820-2956 and
-3039-3115, without its mesh-shard accounting; and the compile cache's
-counterpart at 1214-1296 and 3192: the kernel libraries each bucket and
-each lazy machine launches, resolved through a store before they first
-run; without the mesh and the hot cache — ROADMAP.md lists them).
+3039-3115, with the fleet-sharded mesh's accounting at 168-181,
+2538-2559, 2698-2700, 2967-2969, 3050-3070 and 3197-3208; and the compile
+cache's counterpart at 1214-1296 and 3192: the kernel libraries each
+bucket and each lazy machine launches, resolved through a store before
+they first run; without the host-sharded mode and the hot cache —
+ROADMAP.md lists them).
 
 Every machine that shares an architecture (the reference's signature:
 config, loss, widths, lookback, lookahead and precision) is stacked into
@@ -175,6 +177,20 @@ _M_MEGA_EVENTS = REGISTRY.counter(
     "request per dispatch), retry_isolated (fetch failure rescored one "
     "request at a time)",
     labels=("event",),
+)
+_M_MESH_REQUESTS = REGISTRY.counter(
+    "gordo_mesh_requests_total",
+    "Requests scored by a mesh-sharded engine, by rung: owned = served "
+    "from this shard's stacked fleet; fallback = a machine another shard "
+    "owns, served here through the host-RAM spill tier — the ladder rung "
+    "that keeps a dead shard's machines answering",
+    labels=("shard", "path"),
+)
+_M_MESH_MACHINES = REGISTRY.gauge(
+    "gordo_mesh_shard_machines",
+    "Machines this shard owns in its stacked serving engine (mesh-sharded "
+    "mode; every other machine serves via the fallback rung)",
+    labels=("shard",),
 )
 
 
@@ -1155,6 +1171,10 @@ class ServingEngine:
     tree). ``host_cache_mb`` defaults to ``GORDO_HOST_CACHE_MB`` (256).
     ``compile_cache``: the :class:`~..compile_cache.CompileCacheStore` the
     kernel libraries resolve through (None: the package's build directory).
+    ``mesh_shard``: ``(shard, shards)`` when the engine is one shard of a
+    fleet-sharded serving mesh, and ``mesh_remote`` the lazy machines other
+    shards own: requests count in ``gordo_mesh_requests_total`` by rung
+    (``owned``, or ``fallback`` with a ``mesh_fallback`` span event).
     """
 
     def __init__(
@@ -1171,8 +1191,23 @@ class ServingEngine:
         lazy: Optional[Dict[str, Callable[[], Dict[str, Any]]]] = None,
         host_cache_mb: Optional[int] = None,
         compile_cache: Any = None,
+        mesh_shard: Optional[Tuple[int, int]] = None,
+        mesh_remote: Optional[Iterable[str]] = None,
     ):
         self.device = resolve_device(device)
+        # ``(shard_id, n_shards)`` when this engine is one shard of a
+        # fleet-sharded serving mesh: its eager ``models`` are the machines
+        # the shard plan's ring assigns here, and the other shards'
+        # machines are ``lazy``, reachable through the spill tier as the
+        # fallback rung. An accounting tag only: the data plane is the
+        # single-host engine over the owned subset.
+        self.mesh_shard = (
+            (int(mesh_shard[0]), int(mesh_shard[1])) if mesh_shard is not None else None
+        )
+        # the machines OTHER shards own (served here only through the
+        # fallback rung); an owned machine that is lazy (an index boot) is
+        # not in it: the owner is serving it
+        self.mesh_remote = frozenset(mesh_remote or ())
         # the kernel-library store (compile_cache.CompileCacheStore) this
         # engine resolves its libraries through; None: the build directory
         self.compile_cache = compile_cache
@@ -1247,6 +1282,8 @@ class ServingEngine:
                 "Serving engine: %d machine(s) in %d bucket(s) on %s",
                 len(self._by_name), len(self._buckets), self.device,
             )
+        if self.mesh_shard is not None:
+            _M_MESH_MACHINES.labels(str(self.mesh_shard[0])).set(len(self._by_name))
 
     def _place_for_host_path(self, model: Any) -> List[str]:
         """A machine the engine cannot lift is scored by the server's host
@@ -1482,6 +1519,9 @@ class ServingEngine:
         # one note per request (not per chunk or dispatch), under the
         # serving bucket's shape and rung
         traffic_accounting.note(name, bucket=bucket.shape_key, precision=bucket.precision)
+        if self.mesh_shard is not None:
+            # this shard owns the machine: the steady-state rung
+            _M_MESH_REQUESTS.labels(str(self.mesh_shard[0]), "owned").inc()
         return self._anomaly(bucket, idx, name, X)
 
     def _anomaly(self, bucket: _Bucket, idx: int, name: str, X) -> ScoreResult:
@@ -1511,6 +1551,18 @@ class ServingEngine:
             deadline.check("engine.dispatch")
             faults.inject("engine-dispatch", name)
             X = faults.corrupt("engine-dispatch", name, X)
+        if self.mesh_shard is not None:
+            shard = self.mesh_shard[0]
+            if name in self.mesh_remote:
+                # the fallback rung: another shard owns this machine and it
+                # is served here (its owner is down, or the router chose
+                # this worker), so say so in the series and the timeline
+                _M_MESH_REQUESTS.labels(str(shard), "fallback").inc()
+                spans.event("mesh_fallback", machine=name, shard=shard)
+            else:
+                # this shard's own machine through the spill tier (a lazy
+                # boot): the owner is serving it
+                _M_MESH_REQUESTS.labels(str(shard), "owned").inc()
         bundle = self.spill_bundle(name)
         scorer: Optional[_SpillScorer] = bundle["scorer"]
         if scorer is None:
@@ -1647,6 +1699,18 @@ class ServingEngine:
                 dict(self.compile_cache.counters) if self.compile_cache is not None else None
             ),
             "kernel_libraries": dict(sorted(self.kernel_libraries.items())),
+            # the serving mesh: which shard this engine is, what it owns
+            # eagerly and how many machines it serves only as the fallback
+            # rung (None: single-host serving)
+            "mesh": (
+                {
+                    "shard": self.mesh_shard[0],
+                    "shards": self.mesh_shard[1],
+                    "owned_machines": len(self._by_name),
+                    "remote_machines": len(self.mesh_remote),
+                }
+                if self.mesh_shard is not None else None
+            ),
             # the spill tier: lazy machines, the host cache's economy and
             # the scorers (one per architecture, never per machine)
             "spill": {

@@ -3,8 +3,8 @@ the routes at 108-160, ``_ServerState`` at 275-420, the control loops'
 wiring at 657-795, ``reload`` at 796-1040, the request wrapper at
 1253-1432, the handlers at 1470-1866 and the scoring path at 1868-2248,
 with lazy fleet boot at 435-470, 570-655 and 1122-1200, ``/prefetch`` at
-1741-1754, the host path at 2010-2024 and 2170-2200, and ``/layout`` at
-678-682, 998-1006 and 1755-1816).
+1741-1754, the host path at 2010-2024 and 2170-2200, ``/layout`` at
+678-682, 998-1006 and 1755-1816, and the fleet-sharded mesh's partition).
 
 Built on the standard library's ``ThreadingHTTPServer``: no web framework.
 Routes, each also under ``/gordo/v0/<project>/<machine>/`` where marked:
@@ -115,6 +115,21 @@ answers from the host cache, or as ``lazy``, and never loads it. With no
 readable index the boot scans instead. ``POST /reload`` re-reads the index:
 membership changes swap the state, and a lazy machine whose index
 ``generation`` moved has its cached bundle dropped (``refreshed``).
+
+The fleet-sharded serving mesh (reference ``server.py:436-543``,
+``:609-614``, ``:851-880``, ``:1048-1117``, ``:1346-1350``, ``:1380-1383``,
+``:1563-1575``): a server given ``mesh_shards`` and a shard
+(``run-server --mesh-shards N --mesh-shard i``, or ``GORDO_MESH_SHARDS``
+and ``GORDO_MESH_SHARD``, else its worker id mod N) over a models root
+applies the shard plan (``parallel/shard_plan.py``): once the fleet holds
+at least ``GORDO_MESH_MIN_SHARD_MACHINES`` machines (default 2N) only the
+machines its shard owns by ring position load eagerly, and every other
+machine goes behind the spill tier exactly as a lazy one does, the
+fallback rung that answers for a dead owner. Every reload re-derives the
+partition. Answers carry ``X-Gordo-Shard: <i>``, timelines ``shard``, and
+``/healthz`` a ``mesh`` block (``shard``, ``shards``, ``owned``,
+``remote_or_lazy``); the engine counts ``gordo_mesh_requests_total`` by
+rung, ``owned`` or ``fallback``.
 
 Warm boot (reference ``server.py:483``, ``:546-547``, ``:2340-2370``):
 every state's engine (boot, reload, rollback) resolves the kernel
@@ -365,7 +380,8 @@ class _ServerState:
 
     def __init__(self, machines: Dict[str, _Machine], single: bool, device,
                  lazy_loaders: Optional[Dict[str, Callable[[], Dict[str, Any]]]] = None,
-                 compile_cache: Any = None):
+                 compile_cache: Any = None, mesh_shard: Optional[Tuple[int, int]] = None,
+                 mesh_remote: Optional[set] = None):
         self._inflight = 0
         self._cond = lockcheck.named_condition("server.state_cond")
         self.machines = machines
@@ -383,6 +399,12 @@ class _ServerState:
             device=device,
             lazy=lazy_loaders,
             compile_cache=compile_cache,
+            # this process's (shard, shards) in a serving mesh: the eager
+            # machines are its owned slice, and mesh_remote names the other
+            # shards' machines behind the spill fallback rung (an owned lazy
+            # machine stays "owned" in the accounting)
+            mesh_shard=mesh_shard,
+            mesh_remote=mesh_remote,
         )
         for name, reason in self.engine.skipped.items():
             logger.warning("Machine %r is scored on the host path: %s", name, reason)
@@ -439,8 +461,12 @@ class ModelServer:
     the module docstring). ``compile_cache_store``: the root of the store
     the kernel libraries resolve through (``"off"``: none); default
     ``GORDO_COMPILE_CACHE_STORE``, else ``<models_root>/.compile-cache/
-    torch-cuda`` (``compile_cache.resolve_store``). :meth:`close` drains
-    and stops the engine.
+    torch-cuda`` (``compile_cache.resolve_store``). ``mesh_shards`` /
+    ``mesh_shard`` (defaults ``GORDO_MESH_SHARDS`` / ``GORDO_MESH_SHARD``, the
+    shard falling back to ``worker_id`` mod shards): this process is shard
+    ``mesh_shard`` of a fleet-sharded serving mesh (see the module
+    docstring); 0 shards is single-host serving. :meth:`close` drains and
+    stops the engine.
     """
 
     def __init__(
@@ -455,6 +481,8 @@ class ModelServer:
         worker_id: Optional[int] = None,
         lazy_boot: Optional[bool] = None,
         compile_cache_store: Optional[str] = None,
+        mesh_shards: Optional[int] = None,
+        mesh_shard: Optional[int] = None,
     ):
         self.device = resolve_device(device)
         if worker_id is None:
@@ -498,6 +526,7 @@ class ModelServer:
             self.models_root = None
         else:
             self.models_root = models_dir
+        self._resolve_mesh(mesh_shards, mesh_shard)
         # the kernel-library store every state's engine (boot, reload,
         # rollback) resolves its libraries through
         self.compile_cache = resolve_store(compile_cache_store, self.models_root)
@@ -522,6 +551,9 @@ class ModelServer:
         else:
             machines = {}
             eager_dirs, lazy_dirs, lazy_gens = self._partition()
+            # machines other shards own never load here: they go behind the
+            # spill tier (the fallback rung), loaders built like any lazy one's
+            self._mesh_partition(eager_dirs, lazy_dirs, lazy_gens)
             self._lazy_dirs = lazy_dirs
             self._lazy_gens = {name: lazy_gens.get(name) for name in lazy_dirs}
             for name, path in eager_dirs.items():
@@ -618,6 +650,102 @@ class ModelServer:
                 lazy[name] = path
         return eager, lazy, gens
 
+    # -- the fleet-sharded serving mesh ------------------------------------------
+    def _resolve_mesh(self, mesh_shards: Optional[int], mesh_shard: Optional[int]) -> None:
+        """This process's place in the serving mesh: ``mesh_shards`` (default
+        ``GORDO_MESH_SHARDS``) and ``mesh_shard`` (default ``GORDO_MESH_SHARD``,
+        else the worker id mod the shards). It serves single-host, as without
+        a mesh, when no shard is named, when the shard lies outside the mesh,
+        or without a models root to partition (one artifact, or machines
+        named explicitly with no root: registration overrides the layout)."""
+        from ..parallel import shard_plan
+
+        if mesh_shards is None:
+            mesh_shards = shard_plan.mesh_shards_env()
+        if mesh_shard is None:
+            mesh_shard = shard_plan.mesh_shard_env()
+        self.mesh_shards = max(0, int(mesh_shards or 0))
+        self.mesh_shard: Optional[int] = None
+        self._mesh_plan = None
+        # machines OTHER shards own, moved behind the spill tier by
+        # _mesh_partition: the engine's owned-vs-fallback boundary
+        self._mesh_remote: set = set()
+        if not self.mesh_shards:
+            return
+        if not self.models_root:
+            logger.warning("Mesh serving needs --models-dir (a rescannable fleet root); "
+                           "explicitly registered machines serve single-host")
+            self.mesh_shards = 0
+            return
+        if mesh_shard is None and self.worker_id is not None:
+            mesh_shard = shard_plan.worker_shard(self.worker_id, self.mesh_shards)
+        if mesh_shard is None:
+            logger.warning("GORDO_MESH_SHARDS=%d but neither GORDO_MESH_SHARD nor a worker "
+                           "id names this process's shard; serving single-host",
+                           self.mesh_shards)
+            self.mesh_shards = 0
+        elif not 0 <= int(mesh_shard) < self.mesh_shards:
+            logger.warning("GORDO_MESH_SHARD=%s outside the %d-shard mesh; serving "
+                           "single-host", mesh_shard, self.mesh_shards)
+            self.mesh_shards = 0
+        else:
+            self.mesh_shard = int(mesh_shard)
+            self._mesh_plan = shard_plan.resolve_plan(self.mesh_shards)
+
+    def _mesh_tuple(self) -> Optional[Tuple[int, int]]:
+        """(shard, shards) when this server is one shard of a serving mesh,
+        else None: the engine's accounting tag."""
+        if self._mesh_plan is None or self.mesh_shard is None:
+            return None
+        return (self.mesh_shard, self.mesh_shards)
+
+    def _mesh_partition(self, eager_dirs: Dict[str, str], lazy_dirs: Dict[str, str],
+                        lazy_gens: Dict[str, Any]) -> None:
+        """Apply the shard plan to a resolved fleet: machines other shards own
+        move from the eager set behind the host-RAM spill tier (the fallback
+        rung: still servable here if their owner dies, at spill cost instead
+        of an error). The declared policy keeps a small fleet replicated
+        everywhere; each moved machine's artifact mtime is its staleness
+        signal, so a reload drops a rebuilt machine's cached bundle. A
+        machine registered outside ``models_root`` stays eager whatever shard
+        owns it: a rescan cannot find its directory, so behind the
+        (rescan-rebuilt) lazy set it would drop at the first reload.
+        ``self._mesh_remote`` records the moved names."""
+        self._mesh_remote = set()
+        if self._mesh_plan is None or self.mesh_shard is None:
+            return
+        from ..parallel.shard_plan import POLICY_SHARDED
+
+        fleet = sorted(set(eager_dirs) | set(lazy_dirs))
+        if self._mesh_plan.policy(len(fleet)) != POLICY_SHARDED:
+            logger.info("Mesh serving: %d-machine fleet below the sharding threshold (%d): "
+                        "replicated on every shard", len(fleet),
+                        self._mesh_plan.min_shard_machines)
+            return
+        root_real = os.path.realpath(self.models_root) + os.sep
+        moved = 0
+        for name in sorted(eager_dirs):
+            if self._mesh_plan.shard_of(name) == self.mesh_shard:
+                continue
+            path = eager_dirs[name]
+            if not (os.path.realpath(path) + os.sep).startswith(root_real):
+                continue  # pinned outside the root: registration wins
+            eager_dirs.pop(name)
+            lazy_dirs[name] = path
+            try:
+                lazy_gens[name] = _artifact_mtime(path)
+            except OSError:
+                lazy_gens.setdefault(name, None)
+            self._mesh_remote.add(name)
+            moved += 1
+        # lazily registered machines other shards own (an index boot) are
+        # remote too: the accounting boundary is ownership, not the tier
+        self._mesh_remote.update(name for name in lazy_dirs
+                                 if self._mesh_plan.shard_of(name) != self.mesh_shard)
+        logger.info("Mesh-sharded serving: shard %d/%d owns %d of %d machine(s); %d reachable "
+                    "via the spill fallback rung", self.mesh_shard, self.mesh_shards,
+                    len(eager_dirs), len(fleet), moved)
+
     def _lazy_loaders(self) -> Dict[str, Callable[[], Dict[str, Any]]]:
         """A loader per lazy machine, fresh for each state: a reload's new
         engine starts with a cold host cache, so no bundle of a dropped
@@ -681,7 +809,9 @@ class ModelServer:
         takes traffic."""
         state = _ServerState(machines, single=self._single, device=self.device,
                              lazy_loaders=self._lazy_loaders(),
-                             compile_cache=self.compile_cache)
+                             compile_cache=self.compile_cache,
+                             mesh_shard=self._mesh_tuple(),
+                             mesh_remote=set(self._mesh_remote))
         state.engine.warmup()
         # the autopilot's applied values carry over: a new engine reads the
         # environment's, which would revert every adaptation at a reload
@@ -798,6 +928,11 @@ class ModelServer:
             for name in state.machines:
                 if name in new_lazy:  # materialised: stays eager
                     seen[name] = new_lazy.pop(name)
+            # the rescan re-derives the SAME partition: machines other shards
+            # own go back behind the spill tier, a pinned in-root machine too
+            # once the partition re-homes it (the fleet crossed the sharding
+            # threshold), which would otherwise be served twice
+            self._mesh_partition(seen, new_lazy, new_gens)
             added: List[str] = []
             refreshed: List[str] = []
             errors: Dict[str, str] = {}
@@ -917,6 +1052,10 @@ class ModelServer:
             if self.worker_id is not None:
                 # which fleet slot answered: a router's placement checks read it
                 response.headers["X-Gordo-Worker"] = str(self.worker_id)
+            if self.mesh_shard is not None:
+                # which mesh shard answered: the owner in steady state; another
+                # shard than the plan's owner means the fallback rung served it
+                response.headers["X-Gordo-Shard"] = str(self.mesh_shard)
             if self.admission.closed is not None:
                 response.headers[DRAINING_HEADER] = "1"
             elapsed = time.perf_counter() - started
@@ -935,6 +1074,9 @@ class ModelServer:
                 timeline.meta["tenant"] = tenant_spec.name
                 if self.worker_id is not None:
                     timeline.meta["worker"] = self.worker_id
+                if self.mesh_shard is not None:
+                    # the router's stitched lane renders per shard
+                    timeline.meta["shard"] = self.mesh_shard
                 timeline.finish(status=str(status), error=f"HTTP {status}" if status >= 500 else "")
                 # only when the caller negotiated it; past the size cap the
                 # truncation marker says to pull /debug/requests/<trace_id>
@@ -1252,6 +1394,18 @@ class ModelServer:
                 "suspect": suspects,
                 "device": str(self.device),
                 "worker_id": self.worker_id,
+                # this process's slice of the serving mesh: owned machines
+                # stack eagerly, the rest serve through the spill fallback
+                # rung (null: single-host)
+                "mesh": (
+                    {
+                        "shard": self.mesh_shard,
+                        "shards": self.mesh_shards,
+                        "owned": len(state.machines),
+                        "remote_or_lazy": len(state.lazy_names),
+                    }
+                    if self.mesh_shard is not None else None
+                ),
                 "machines": sorted(state.machines),
                 # machines the engine cannot lift, with the reason: the host
                 # path scores them

@@ -36,7 +36,8 @@ def _sources():
 def test_the_walk_covers_the_lint_and_the_model_contract():
     walked = {p.relative_to(PORT).as_posix() for p in _sources() if PORT in p.parents}
     assert {"analysis/runner.py", "analysis/lockcheck.py", "analysis/locks.py",
-            "models/base.py", "models/anomaly/base.py", "parallel/distributed.py"} <= walked
+            "models/base.py", "models/anomaly/base.py", "parallel/distributed.py",
+            "parallel/shard_plan.py"} <= walked
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))

@@ -16,7 +16,8 @@ device="cpu")`` in threads): a quiesced worker answers ``/healthz`` 503
 the survivor, 200. Last the parts the port adds or leaves out: a stale
 kept-alive connection is replayed once without counting against the
 breaker, ``/fleet`` equals the reference's disabled snapshot and
-``/fleet/apply`` answers 409, and ``mesh_shards > 0`` is refused.
+and ``/fleet/apply`` answers 409. The mesh router's cases are in
+``tests/test_torch_mesh_serving.py``.
 """
 
 import json
@@ -646,12 +647,3 @@ def test_fleet_answers_the_reference_disabled_snapshot(router_base):
     assert applied.json()["enabled"] is False and "not constructed" in applied.json()["error"]
     assert http.get(f"{base}/fleet/status", timeout=5).status_code == 409
 
-
-def test_mesh_shards_are_refused():
-    spec = WorkerSpec("worker-0", 0, "127.0.0.1", _free_port())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        assemble_fleet([spec], lambda s: _ThreadWorker(s, None), mesh_shards=2)
-    from gordo_components_tpu_torch.cli.cli import main
-
-    assert main(["run-fleet-server", "--models-dir", "/nonexistent", "--mesh-shards", "2",
-                 "--device", "cpu"]) == 2
