@@ -411,8 +411,11 @@ Phases; any failure exits non-zero before the result line:
    ``mr_owners`` computes, and each rank's fp32 flash forward and backward
    launches are ``fleet_flash_launches(rows)`` for its one PatchTST
    machine. Then (c) two ranks into root C under ``GORDO_SLICE_TIMEOUT_S``
-   at ``MR_WATCHDOG_FACTOR`` x B's worst healthy slice wall (at least
-   ``MR_WATCHDOG_FLOOR_S``): once both ranks' journals show their share of
+   at ``MR_WATCHDOG_FACTOR`` x the worst healthy span the watchdog guards
+   in B (each rank logs at DEBUG the plan's agreement and each slice's fit,
+   artifacts and checkpoint; at least ``MR_WATCHDOG_FLOOR_S``), each
+   rank's first machine of dense slice 1 fetched ``MR_HOLD_S`` late (a
+   ``data-fetch`` latency fault, inside the budget): once both ranks' journals show their share of
    dense slice 0 committed, rank 1 is SIGSTOPped, rank 0 must exit 75 with
    the watchdog's line within the budget plus ``MR_GRACE_S``, then rank 1
    is SIGKILLed. Then (a) one ``cli fleet-build`` process into root A,
@@ -455,12 +458,44 @@ Phases; any failure exits non-zero before the result line:
    spilled, its ``flash_fwd_bf16`` 3 per bf16 one. Printed with the card:
    the boot, the owner's way back, the single-host, owned and fallback
    (miss, hit) walls per rung, the dispatches and launches.
+21. the host-sharded capacity mode and the partial residency tier
+   (``phase_shard``, in the side process after 14, 15 and 17, whose
+   artifacts it hard-links: ``SHARD_SOURCES``, the fp32 and the bf16 slice
+   machine, 12 ``dense_ae_10tag`` machines and the int8 one, renamed). (a)
+   ``cli cache warm --shard-fleet`` fills the store under the tree (both
+   forward libraries written, in this process: copies of the libraries
+   the earlier phases loaded); then a fresh ``cli run-server
+   --shard-fleet`` process (CLI_RUNNER records its launches) with no
+   ``nvcc`` on its PATH boots on store hits alone, while an in-process
+   single-host server over the same artifacts answers each machine once
+   (npz). Checked: ``/metrics`` ``shard_mesh_devices`` 1, megabatching
+   off, the store's counts all hits; each machine asked 3 times with the
+   same rows (cold, cold and promote, hot), every answer byte for byte the
+   single-host one (the tolerance of phases 15 and 20: none);
+   ``gordo_engine_requests_total{path}`` moved by 2 cold and 1 hot per
+   machine, less the bucket's first machine's warm-up hit (``SHARD_BUCKETS``
+   machines answer cold once and hot twice, as in the reference), and
+   ``gordo_engine_hot_cache_events_total{promote}`` by the machines; a
+   ``POST /reload`` with ``SHARD_ADDED`` joined keeps shard mode and the
+   new machine answers the single-host bytes; the process's forward
+   launches are 3 per fp32 and per bf16 slice dispatch. (b) in this process,
+   ``ServingEngine(megabatch_residency=4)`` over the 12 dense machines and
+   the fp32 slice machine: machines promote on their second hit, never
+   more than 4 resident, a fifth kept out by the freshness guard; a resident
+   machine's lone answer and a fused resident batch of 4 equal the cold
+   path's bits for the same batch (its lone answers within FUSED_RTOL);
+   ``apply_tuning(megabatch_residency=8)`` answers 8 (``residency_resize``
+   +1); ``pin_residency`` seeds a pinned machine, whose next cold hit
+   promotes it; the slice machine (a full bucket) answers the single-host
+   bytes, 3 fp32 launches per dispatch. Printed with the card: the store's
+   warm, the boot, the reload, the cold, cold and hot walls of a W = 16
+   slice request beside the single-host one, each promotion's wall.
 
 Every phase prints its wall (``phase wall``), and the script its total.
 The script runs in 1200 s at most, build included, and aims at 1000: for
 that, work that would wait runs beside other work, every check kept
 (phases 9b, 14, 17, 18 beside 16, 20 beside 19's drill; PERF.md §5 lists
-each cut). After phase 2, phases 11, 13, 14, 15 and 17 run in a second
+each cut). After phase 2, phases 11, 13, 14, 15, 17 and 21 run in a second
 process of this script (``--side``, ``SIDE_PHASES``) beside phases 3-9b,
 12 and 16 in this one, in order 3-9b, 12, 16 (18 beside it); phases 10
 and 19 (20 beside its drill), which need about all of the card, run once
@@ -477,6 +512,7 @@ before that the kernels' JSON record; the last line is the result.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -533,7 +569,11 @@ SERVE_RTOL = 1e-4
 BF16_SERVE_RTOL = 5e-2
 
 
+FAILED_WITH = []  # fail()'s messages in this process: the side reports the last
+
+
 def fail(message: str) -> None:
+    FAILED_WITH.append(message)
     print(f"chip_smoke: FAILED: {message}", file=sys.stderr, flush=True)
     sys.exit(1)
 
@@ -6196,13 +6236,12 @@ def wb_boot(tmp: str, models_dir: str, label: str, env: dict, bodies: dict,
     import signal
 
     root = os.path.dirname(os.path.abspath(__file__))
-    port = free_port()
-    base = f"http://127.0.0.1:{port}"
+    base = None  # the server binds its own port (see shard_server) and logs it
     record = os.path.join(tmp, f"wb-{label}.json")
     log_path = os.path.join(tmp, f"wb-{label}.log")
     log = open(log_path, "wb")
     argv = [sys.executable, "-c", CLI_RUNNER, record, "run-server", "--models-dir", models_dir,
-            "--host", "127.0.0.1", "--port", str(port)]
+            "--host", "127.0.0.1", "--port", "0"]
     started = time.perf_counter()
     proc = subprocess.Popen(argv, cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT)
 
@@ -6213,8 +6252,13 @@ def wb_boot(tmp: str, models_dir: str, label: str, env: dict, bodies: dict,
 
     try:
         def up():
+            nonlocal base
             if proc.poll() is not None:
                 fail(f"warm boot {label}: run-server exited {proc.returncode}: {tail()}")
+            log.flush()
+            base = base or served_url(log_path)
+            if base is None:
+                return False
             try:
                 return http("GET", base + "/healthz")[0] == 200
             except OSError:
@@ -6851,7 +6895,8 @@ MR_PREFIX = "mr-"
 MR_GRACE_S = 15.0  # rank 0's exit after its watchdog's budget, at most
 MR_RUN_TIMEOUT_S = 600.0
 MR_WATCHDOG_FLOOR_S = 20.0
-MR_WATCHDOG_FACTOR = 1.1  # the drill's budget over B's worst healthy slice wall
+MR_WATCHDOG_FACTOR = 1.1  # the drill's budget over B's worst healthy watched span
+MR_HOLD_S = 5.0  # the drill's late fetch of dense slice 1, inside its budget
 MR_DEVICE_ARGS = ()  # the card; a CPU rehearsal passes ("--device", "cpu")
 
 
@@ -7065,7 +7110,16 @@ def mr_wedge(tmp: str, config_path: str, root: str, env: dict, owners: dict,
 
     slice0 = {rank: {f"{MR_PREFIX}dense-{i:03d}" for i in range(MR_SLICE)
                      if owners[f"{MR_PREFIX}dense-{i:03d}"] == rank} for rank in range(MR_WORLD)}
-    drill_env = {**env, "GORDO_SLICE_TIMEOUT_S": f"{timeout_s:.0f}"}
+    # each rank's first machine of dense slice 1 is fetched MR_HOLD_S late
+    # (a latency fault): both ranks then wait inside slice 1's budget, so
+    # the stop below lands mid-build however slowly this process polls
+    # (without it, a starved poll can see slice 0 only once a small fleet
+    # is done, and rank 0 exits 0)
+    slice1 = [f"{MR_PREFIX}dense-{i:03d}" for i in range(MR_SLICE, 2 * MR_SLICE)]
+    held = [next(name for name in slice1 if owners[name] == rank) for rank in range(MR_WORLD)]
+    drill_env = {**env, "GORDO_SLICE_TIMEOUT_S": f"{timeout_s:.0f}",
+                 "GORDO_FAULTS": ";".join(f"data-fetch:{name}:latency:{MR_HOLD_S}"
+                                          for name in held)}
     for attempt in range(2):
         ranks = mr_start(tmp, config_path, root, "wedge", drill_env)
         deadline = time.monotonic() + MR_RUN_TIMEOUT_S
@@ -7137,7 +7191,8 @@ def phase_multirank(torch, device, tmp: str, card: str, beside_drill=None) -> di
     roots = {key: os.path.join(tmp, f"mr-{key}") for key in "ABC"}
 
     # (b) two ranks, first: the drill's budget comes from their slice walls
-    ranks = mr_run(tmp, config_path, roots["B"], "b", env)
+    # and the spans their watchdogs log at DEBUG
+    ranks = mr_run(tmp, config_path, roots["B"], "b", {**env, "GORDO_LOG_LEVEL": "DEBUG"})
     manifests = mr_manifests(roots["B"])
     owned = {rank: sorted(m["machines"]) for rank, m in enumerate(manifests)}
     want = {rank: sorted(n for n in names if owners[n] == rank) for rank in range(MR_WORLD)}
@@ -7165,9 +7220,16 @@ def phase_multirank(torch, device, tmp: str, card: str, beside_drill=None) -> di
           + f"; the pair {3600 * len(names) / pair_wall:.0f} machines per hour; slice walls "
           f"(bucket/slice: s) {json.dumps({k: round(v, 2) for k, v in slice_walls.items()})}")
 
-    # (c) the wedge drill; its ranks are gone before A starts
+    # (c) the wedge drill; its ranks are gone before A starts. The budget
+    # is sized from the spans the watchdog guards in B (the plan's
+    # agreement, and each slice's fit, artifacts and checkpoint), which
+    # B's ranks log at DEBUG; a slice's training wall alone is shorter
+    spans = [float(m.group(1)) for rank in ranks for m in re.finditer(
+        r"Fleet slice span: .* took ([0-9.]+)s", mr_tail(rank, 1 << 24))]
+    if not spans:
+        fail("multi-rank B: its ranks logged no watched span")
     budget = max(MR_WATCHDOG_FLOOR_S,
-                 math.ceil(MR_WATCHDOG_FACTOR * max(slice_walls.values())))
+                 math.ceil(MR_WATCHDOG_FACTOR * max(max(slice_walls.values()), max(spans))))
     beside = None
     if beside_drill is not None:
         beside = threading.Thread(target=beside_drill, name="beside-the-drill")
@@ -7181,7 +7243,8 @@ def phase_multirank(torch, device, tmp: str, card: str, beside_drill=None) -> di
         torch.cuda.empty_cache()
     resumed = len(set().union(*drill["committed"].values()))
     print(f"multi-rank wedge [{card}]: GORDO_SLICE_TIMEOUT_S={budget:.0f} "
-          f"({MR_WATCHDOG_FACTOR} x the worst healthy slice wall of B); rank 1 stopped with "
+          f"({MR_WATCHDOG_FACTOR} x the worst healthy span the watchdog guards in B, "
+          f"{max(spans):.2f} s); rank 1 stopped with "
           f"{drill['at_stop']} machines committed, {resumed} at the end "
           f"({ {r: len(n) for r, n in drill['committed'].items()} } by rank); rank 0 exited "
           f"{drill['code']} {drill['exit_s']:.1f} s later; rank 1 SIGKILLed "
@@ -7585,15 +7648,408 @@ def phase_mesh(torch, device, tmp: str, card: str) -> dict:
         log.close()
 
 
-# phases 11, 13, 14, 15 and 17 run in a second process of this script
+SHARD_DENSE = [f"shard-dense-{i:02d}" for i in range(12)]
+SHARD_SLICE = {"float32": "shard-slice-f32", "bfloat16": "shard-slice-bf16"}
+SHARD_INT8 = "shard-int8"
+SHARD_ADDED = "shard-dense-added"  # joins the tree before the reload
+SHARD_WINDOWS = TIER_WINDOWS  # windows of a PatchTST request: BH 8192, as phase 2 holds
+SHARD_RESIDENCY = 4  # part (b)'s megabatch_residency: 12 dense machines make a partial bucket
+SHARD_RESIZED = 8
+SHARD_BUCKETS = 4  # dense f32, dense int8, the fp32 and the bf16 slice machine
+# each machine's artifact: (phase root, name there); built here when absent
+SHARD_SOURCES = {SHARD_SLICE["float32"]: ("tier", TIER_PATCHTST[0]),
+                 SHARD_SLICE["bfloat16"]: ("tier", TIER_BF16),
+                 SHARD_INT8: ("spill", SPILL_INT8),
+                 SHARD_ADDED: ("tier", TIER_DENSE[14]),
+                 **{name: ("tier", TIER_DENSE[2 + i]) for i, name in enumerate(SHARD_DENSE)}}
+
+
+def shard_build(root: str, tmp: str, device) -> dict:
+    """Every machine of the phase under ``root``: a hard-linked copy of its
+    phase 14 or 15 artifact (``SHARD_SOURCES``), or built here when that
+    phase did not run. Returns {machine: tags}."""
+    import shutil
+
+    estimator, kwargs, dense_tags = ZOO["dense-ae-10tag"]
+    tags = {}
+    for i, (name, (phase, source)) in enumerate(sorted(SHARD_SOURCES.items())):
+        dest = os.path.join(root, name)
+        dtype = next((d for d, n in SHARD_SLICE.items() if n == name), None)
+        tags[name] = dense_tags if dtype is None else N_TAGS
+        if os.path.isdir(os.path.join(tmp, phase, source)):
+            shutil.copytree(os.path.join(tmp, phase, source), dest, copy_function=os.link)
+        elif dtype is None:
+            build_zoo_artifact(dest, estimator, kwargs, dense_tags, device,
+                               np.random.default_rng(SEED + 21000 + i),
+                               precision="int8" if name == SHARD_INT8 else None)
+        else:
+            build_artifact(dest, device, compute_dtype=dtype, seed=SEED + 21100 + i)
+    return tags
+
+
+def shard_expected(torch, device, models_dir: str, encoded: dict) -> dict:
+    """A single-host eager server's lone answers on the card (npz) over
+    ``models_dir``, and their walls: {machine: (payload, ms)}."""
+    from gordo_components_tpu_torch.server.server import make_server
+
+    saved = os.environ.get("GORDO_TELEMETRY")
+    os.environ["GORDO_TELEMETRY"] = "0"
+    httpd = make_server(models_dir, port=0, device=device)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        if httpd.model_server.engine.stats()["shard_mesh_devices"]:
+            fail("shard: the single-host server runs in shard mode")
+        return {name: mesh_ask(url, name, encoded[name])[::3] for name in sorted(encoded)}
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+        httpd.model_server.close()
+        if saved is None:
+            os.environ.pop("GORDO_TELEMETRY", None)
+        else:
+            os.environ["GORDO_TELEMETRY"] = saved
+        torch.cuda.synchronize()
+
+
+def shard_series(url: str) -> dict:
+    """A server's gordo_engine_requests_total by path and its
+    gordo_engine_hot_cache_events_total by event."""
+    samples = tier_prometheus(url + "/metrics?format=prometheus")
+    out = {}
+    for series, label in (("gordo_engine_requests_total", "path"),
+                          ("gordo_engine_hot_cache_events_total", "event")):
+        for labels, value in samples.get(series, []):
+            out[labels[label]] = out.get(labels[label], 0.0) + value
+    return out
+
+
+def shard_server(tmp: str, models_dir: str, env: dict, device_arg) -> tuple:
+    """``run-server --shard-fleet`` over ``models_dir`` as a process (through
+    CLI_RUNNER, which records its launches), on a port the server binds
+    itself (``--port 0``): a port picked free here and bound after the
+    boot's ~20 s can be taken in between by the other process's servers
+    and clients. (process, record, log path, started)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    record = os.path.join(tmp, "shard-server.json")
+    log_path = os.path.join(tmp, "shard-server.log")
+    argv = [sys.executable, "-c", CLI_RUNNER, record, "run-server", "--models-dir", models_dir,
+            "--shard-fleet", "--host", "127.0.0.1", "--port", "0"]
+    if device_arg is not None:
+        argv += ["--device", device_arg]
+    with open(log_path, "wb") as log:
+        proc = subprocess.Popen(argv, cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT)
+    return proc, record, log_path, time.perf_counter()
+
+
+def served_url(log_path: str):
+    """The base url a ``run-server`` process logged once it was listening
+    (``Serving [...] on http://HOST:PORT``), or None before that."""
+    with open(log_path, "rb") as fh:
+        found = re.search(rb"Serving \[.*?\] on (http://[0-9.]+:[0-9]+)", fh.read())
+    return found[1].decode() if found else None
+
+
+def shard_partial(torch, device, models_dir: str, encoded: dict, expected: dict,
+                  card: str) -> dict:
+    """Part (b): the partial residency tier in this process on the card.
+    Returns its launches."""
+    from gordo_components_tpu_torch import wire
+    from gordo_components_tpu_torch.observability.registry import REGISTRY
+    from gordo_components_tpu_torch.ops import _kernels
+    from gordo_components_tpu_torch.server.engine import ServingEngine, _Item
+    from gordo_components_tpu_torch.server.server import _Machine
+
+    names = SHARD_DENSE + [SHARD_SLICE["float32"]]
+    machines = {name: _Machine(name, os.path.join(models_dir, name)) for name in names}
+    events = REGISTRY.counter("gordo_engine_megabatch_events_total", "", labels=("event",))
+    before = dict(events.collect())
+    _kernels.reset_launches()
+    engine = ServingEngine({n: m.model for n, m in machines.items()},
+                           precisions={n: m.precision for n, m in machines.items()},
+                           device=device, megabatch_residency=SHARD_RESIDENCY, fill_window_us=0)
+    try:
+        bucket, _ = engine._by_name[SHARD_DENSE[0]]
+        if bucket._mega_full or not engine._by_name[SHARD_SLICE["float32"]][0]._mega_full:
+            fail("shard partial: the dense bucket is not partial, or the slice machine's not full")
+        engine.warmup()
+        promotion_s = []
+        promote = bucket._maybe_promote_mega
+
+        def timed_promote(items):
+            with bucket._mega_lock:
+                resident = len(bucket._mega_slots)
+            started = time.perf_counter()
+            promote(items)
+            with bucket._mega_lock:
+                grew = len(bucket._mega_slots) > resident
+            if grew:
+                promotion_s.append(time.perf_counter() - started)
+
+        bucket._maybe_promote_mega = timed_promote
+        rows = {name: np.asarray(json.loads(encoded[name])["X"], np.float32) for name in names}
+        lone = {}
+        for name in SHARD_DENSE[:5]:
+            for hit in range(2):  # cold, then cold and promote
+                scored = engine.anomaly(name, rows[name])
+                engine.quiesce()
+                lone.setdefault(name, scored)
+                with bucket._mega_lock:
+                    resident = sorted(bucket.names[i] for i in bucket._mega_slots)
+                if len(resident) > SHARD_RESIDENCY:
+                    fail(f"shard partial: {len(resident)} resident machines past the cap")
+        if resident != SHARD_DENSE[:SHARD_RESIDENCY]:
+            fail(f"shard partial: resident {resident}, want the first {SHARD_RESIDENCY} "
+                 f"promoted (the freshness guard keeps them)")
+        mega_before = engine.stats()["megabatch"]["requests"]
+        again = engine.anomaly(SHARD_DENSE[0], rows[SHARD_DENSE[0]])
+        if engine.stats()["megabatch"]["requests"] != mega_before + 1 or any(
+                np.asarray(a).tobytes() != np.asarray(b).tobytes()
+                for a, b in zip(again, lone[SHARD_DENSE[0]])):
+            fail("shard partial: a resident machine's lone answer is not the cold one's bits")
+        # a fused resident batch against the cold path's answer to that batch
+        fused = {}
+        for path in ("mega", "cold"):
+            items = []
+            for name in SHARD_DENSE[:SHARD_RESIDENCY]:
+                x, m_valid = engine._prepare(bucket, rows[name])
+                items.append(_Item(engine._by_name[name][1], x, m_valid))
+            count = bucket.mega_dispatch_count
+            if path == "mega":
+                bucket._dispatch(items[0].x.shape[0], items, defer=False)
+            else:
+                bucket._dispatch_cold(items[0].x.shape[0], items, defer=False)
+            if not all(it.done.wait(60) and it.error is None for it in items) or (
+                    bucket.mega_dispatch_count != count + (path == "mega")):
+                fail(f"shard partial: the {path} batch of {len(items)} failed or went elsewhere")
+            fused[path] = [[np.asarray(a) for a in it.result] for it in items]
+        for name, mega, cold in zip(SHARD_DENSE, fused["mega"], fused["cold"]):
+            if any(a.tobytes() != b.tobytes() for a, b in zip(mega, cold)):
+                fail(f"shard partial: {name} in the fused resident batch differs from the cold "
+                     f"batch's bits")
+            for a, b in zip(mega, lone[name]):
+                if not np.allclose(a, np.asarray(b), rtol=FUSED_RTOL, atol=FUSED_RTOL):
+                    fail(f"shard partial: {name} fused differs from its lone answer past "
+                         f"FUSED_RTOL")
+        # the live cap, and a layout pin
+        applied = engine.apply_tuning(megabatch_residency=SHARD_RESIZED)
+        if applied != {"megabatch_residency": SHARD_RESIZED} or engine.stats()["megabatch"][
+                "resident_machines"] != 1:  # the slice machine's full bucket
+            fail(f"shard partial: apply_tuning answered {applied}, "
+                 f"{engine.stats()['megabatch']['resident_machines']} resident after it")
+        pinned_name = SHARD_DENSE[5]
+        pin = engine.pin_residency([pinned_name])
+        if pin != {"pinned": 1, "resident": 0, "seeded": 1, "unknown": []}:
+            fail(f"shard partial: pin_residency answered {pin}")
+        engine.anomaly(pinned_name, rows[pinned_name])
+        engine.quiesce()
+        with bucket._mega_lock:
+            if engine._by_name[pinned_name][1] not in bucket._mega_slots:
+                fail("shard partial: the pinned machine's next cold hit did not promote it")
+        moved = {key[0]: value - before.get(key, 0.0) for key, value in events.collect().items()}
+        if moved.get("residency_resize") != 1 or moved.get("promote") != SHARD_RESIDENCY + 1:
+            fail(f"shard partial: megabatch events moved {moved}")
+        # the slice machine's full bucket: mega dispatches, 3 launches each
+        slice_name = SHARD_SLICE["float32"]
+        for _ in range(2):
+            scored = engine.anomaly(slice_name, rows[slice_name])
+            for field, array in zip(wire.SCORE_FIELDS, scored):
+                want = np.asarray(expected[slice_name][0]["data"][field])
+                if np.asarray(array).tobytes() != want.tobytes():
+                    fail(f"shard partial: {slice_name} {field} differs from the single-host "
+                         f"server's answer")
+        engine.quiesce()
+        torch.cuda.synchronize()
+        dispatches = spill_flash_dispatches(engine.stats(), "float32")
+        launches = {n: _kernels.LAUNCHES[n] for n in KERNELS}
+        if launches != {**NO_LAUNCHES, "flash_fwd_f32": SLICE["n_layers"] * dispatches}:
+            fail(f"shard partial launches: {launches} for {dispatches} fp32 slice dispatches")
+        stats = engine.stats()["megabatch"]
+        print(f"shard [{card}] (b) partial residency: megabatch_residency {SHARD_RESIDENCY} over "
+              f"{len(SHARD_DENSE)} dense machines and the slice machine; the first "
+              f"{SHARD_RESIDENCY} promoted on their second hit, the fifth kept out by the "
+              f"freshness guard; a fused resident batch of {SHARD_RESIDENCY} equals the cold "
+              f"batch bit for bit and its lone answers within FUSED_RTOL; apply_tuning "
+              f"answered {SHARD_RESIZED}, the pin promoted on its next hit; events {moved}; "
+              f"promotion walls (ms) {[round(s * 1e3, 3) for s in promotion_s]}; mega "
+              f"{stats['dispatches']} dispatches / {stats['requests']} requests; launches "
+              f"{launches}")
+        return launches
+    finally:
+        engine.close()
+
+
+def phase_shard(torch, device, tmp: str, card: str) -> dict:
+    """The host-sharded capacity mode and the partial residency tier on the
+    card (see the module docstring, 21). Returns the flash launches of the
+    shard server's process and of part (b)."""
+    import shutil
+    import signal
+
+    phase_started = time.perf_counter()
+    device_arg = "cpu" if device.type == "cpu" else None
+    on_card = device.type == "cuda"
+    base_dir = os.path.join(tmp, "shard")
+    expected_dir = os.path.join(base_dir, "expected")
+    models_dir = os.path.join(base_dir, "models")
+    os.makedirs(models_dir, exist_ok=True)
+    tags = shard_build(expected_dir, tmp, device)
+    for name in tags:
+        if name != SHARD_ADDED:
+            shutil.copytree(os.path.join(expected_dir, name), os.path.join(models_dir, name),
+                            copy_function=os.link)
+    served = sorted(n for n in tags if n != SHARD_ADDED)
+    rng = np.random.default_rng(SEED + 21400)
+    encoded = {name: json.dumps({"X": sensor_rows(
+        rng, LOOKBACK + SHARD_WINDOWS - 1 if n == N_TAGS else SEAMS_ROWS, n).tolist()}).encode()
+        for name, n in sorted(tags.items())}
+    walls = {}
+    env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__)),
+           "GORDO_TELEMETRY": "0", "GORDO_LEDGER_DIR": os.path.join(base_dir, "ledger")}
+    for key in ("GORDO_COMPILE_CACHE_STORE", "GORDO_COMPILE_CACHE", "GORDO_FAULTS",
+                "GORDO_LAZY_BOOT", "GORDO_MEGABATCH", "GORDO_SERVE_HOT_CACHE",
+                "GORDO_MESH_SHARDS", "GORDO_MESH_SHARD"):
+        env.pop(key, None)
+    libraries = {}
+    if on_card:
+        # (a) the store first: cache warm --shard-fleet (the reference's
+        # command line; the libraries stored are the plain warm's), run in
+        # this process (its libraries, loaded by the earlier phases, are
+        # copied in; a process that loaded none builds them)
+        from gordo_components_tpu_torch.ops import _kernels
+
+        started = time.perf_counter()
+        before = dict(_kernels.LAUNCHES)
+        summary = json.loads(cli_output("cache", "warm", "--models-dir", models_dir,
+                                        "--shard-fleet"))
+        warm_launches = {n: _kernels.LAUNCHES[n] - before[n] for n in KERNELS}
+        walls["cache_warm_s"] = round(time.perf_counter() - started, 3)
+        libraries = dict.fromkeys(expected_forward_libraries(("float32", "bfloat16")), "hit")
+        if (summary["machines"], summary["buckets"], summary["skipped"]) != (
+                len(served), SHARD_BUCKETS, {}) or any(warm_launches.values()) or \
+                summary["cache"].get("write", 0) != len(libraries):
+            fail(f"shard: cache warm --shard-fleet summary {summary}, launches {warm_launches}")
+        # a boot that needed nvcc fails here: there is none on its PATH
+        env = env_without_nvcc(env, os.path.join(base_dir, "no-nvcc"))
+    proc, record, log_path, started = shard_server(base_dir, models_dir, env, device_arg)
+    url = None
+
+    def tail():
+        with open(log_path, "rb") as fh:
+            return fh.read()[-3000:].decode(errors="replace")
+
+    try:
+        # the single-host answers while the shard server boots
+        expected = shard_expected(torch, device, expected_dir, encoded)
+
+        def up():
+            nonlocal url
+            if proc.poll() is not None:
+                fail(f"shard: run-server --shard-fleet exited {proc.returncode}: {tail()}")
+            url = url or served_url(log_path)
+            if url is None:
+                return False
+            try:
+                return http("GET", url + "/healthz")[0] == 200
+            except OSError:
+                return False
+
+        tier_wait(up, TIER_READY_S, "run-server --shard-fleet", poll=0.05)
+        walls["boot_s"] = round(time.perf_counter() - started, 3)
+        engine = fc_get(url + "/metrics")["engine"]
+        counters = {key: 0 for key in ("hit", "miss", "stale", "invalid", "write",
+                                       "write_error")}
+        counters["hit"] = len(libraries)
+        if engine["shard_mesh_devices"] != 1 or engine["megabatch"]["enabled"] or \
+                engine["machines"] != len(served) or engine["buckets"] != SHARD_BUCKETS:
+            fail(f"shard: /metrics shard_mesh_devices {engine['shard_mesh_devices']}, megabatch "
+                 f"{engine['megabatch']}, machines {engine['machines']}, buckets "
+                 f"{engine['buckets']}")
+        if on_card and (engine["compile_cache"] != counters
+                        or engine["kernel_libraries"] != libraries):
+            fail(f"shard: the boot's store counts {engine['compile_cache']}, libraries "
+                 f"{engine['kernel_libraries']}; want {counters}, {libraries} (no nvcc)")
+        before = shard_series(url)
+        slice_ms = {dtype: [] for dtype in SHARD_SLICE}
+        for _ in range(3):  # cold, cold and promote, hot
+            for name in served:
+                payload, _, _, ms = mesh_ask(url, name, encoded[name])
+                spill_same_bits(f"{name}", payload, expected[name][0], "shard")
+                for dtype, slice_name in SHARD_SLICE.items():
+                    if name == slice_name:
+                        slice_ms[dtype].append(round(ms, 3))
+        after = shard_series(url)
+        moved = {key: after.get(key, 0.0) - before.get(key, 0.0)
+                 for key in ("cold", "hot", "mega", "promote", "evict", "demote")}
+        # the warm-up request was each bucket's first machine's first cold
+        # hit (as in the reference): those answer cold once and hot twice
+        want = {"cold": 2 * len(served) - SHARD_BUCKETS, "hot": len(served) + SHARD_BUCKETS,
+                "mega": 0, "promote": len(served), "evict": 0, "demote": 0}
+        engine = fc_get(url + "/metrics")["engine"]
+        if moved != {k: float(v) for k, v in want.items()} or (
+                engine["hot_machines"], engine["hot_requests"]) != (len(served), want["hot"]):
+            fail(f"shard: the three rounds moved {moved}, hot {engine['hot_machines']} machines "
+                 f"{engine['hot_requests']} requests; want {want}")
+        banked = fc_dispatches(url)
+        # a reload keeps shard mode: one machine joins the tree
+        shutil.copytree(os.path.join(expected_dir, SHARD_ADDED),
+                        os.path.join(models_dir, SHARD_ADDED), copy_function=os.link)
+        status, _, raw, reload_ms = http("POST", url + "/reload", b"")
+        reloaded = json.loads(raw) if status == 200 else {}
+        engine = fc_get(url + "/metrics")["engine"]
+        if reloaded.get("added") != [SHARD_ADDED] or engine["shard_mesh_devices"] != 1 or \
+                engine["machines"] != len(tags) or engine["megabatch"]["enabled"]:
+            fail(f"shard reload: HTTP {status} {raw[:300]!r}; shard_mesh_devices "
+                 f"{engine['shard_mesh_devices']}, machines {engine['machines']}")
+        payload = mesh_ask(url, SHARD_ADDED, encoded[SHARD_ADDED])[0]
+        spill_same_bits(f"reloaded {SHARD_ADDED}", payload, expected[SHARD_ADDED][0], "shard")
+        reloaded_banked = fc_dispatches(url)
+        banked = {rung: banked[rung] + reloaded_banked[rung] for rung in banked}
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(timeout=120)
+        if code != 0:
+            fail(f"shard: run-server --shard-fleet exited {code} on SIGTERM: {tail()}")
+        launches, problems = tier_launch_sums([{"name": "shard-server", "record": record,
+                                                "banked": banked, "killed": False}])
+        if problems:
+            fail("shard launches: " + "; ".join(problems))
+        print(f"shard [{card}] (a) run-server --shard-fleet over {len(served)} machines in "
+              f"{SHARD_BUCKETS} buckets: " + json.dumps({
+                  "walls": walls, "reload_ms": round(reload_ms, 3),
+                  "slice_ms_cold_cold_hot": slice_ms,
+                  "single_host_ms": {d: round(expected[n][1], 3)
+                                     for d, n in SHARD_SLICE.items()},
+                  "moved": moved, "dispatches": banked, "launches": launches,
+                  "store": libraries}))
+        print(f"shard [{card}] (a): "
+              + ("no nvcc on the boot's PATH, its libraries store hits; " if on_card else "")
+              + f"/metrics shard_mesh_devices 1, megabatching off; every machine asked 3 times, "
+              f"each answer byte for byte the single-host server's (tolerance 0, as phases 15 "
+              f"and 20), {int(moved['promote'])} promotions; a reload kept shard mode")
+        partial = shard_partial(torch, device, expected_dir, encoded, expected, card)
+        for name in KERNELS:
+            launches[name] += partial[name]
+        print(f"shard [{card}]: phase {round(time.perf_counter() - phase_started, 1)} s")
+        return launches
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+# phases 11, 13, 14, 15, 17 and 21 run in a second process of this script
 # (``--side TMP``) beside phases 3-9b, 12 and 16 (18 beside it) in this one.
 # They share the temporary directory (each phase keeps to subdirectories of
-# its own; phase 20 reads phase 14's artifacts later) and none of them
+# its own; phases 20 and 21 read phase 14's artifacts later, 21 phase 15's
+# too) and none of them
 # depends on another's state in the process. The side holds none of the
 # phases that fill most of the card (8, 9b and 12's builds stay here), and
 # phases 10 and 19, which need about all of it, run after both.
-SIDE_PHASES = ("11 seams", "13 control", "14 tier", "15 spill", "17 warm boot")
+SIDE_PHASES = ("11 seams", "13 control", "14 tier", "15 spill", "17 warm boot", "21 shard")
 SIDE_IN, SIDE_OUT, SIDE_STDOUT = "side-in.json", "side-out.json", "side-stdout.txt"
+SIDE_FAILED = "side-failed.txt"  # the side's failing phase and why, for the main's message
 SIDE_STOP_S = 30.0  # a stopped side's phases clean up their servers in this
 # every thread's stack goes to stderr this long after the start, in both
 # processes: where a run outlives its limit (1200 s), the stack shows where
@@ -7626,6 +8082,32 @@ class CardMemory:
         self._thread.join()
 
 
+def memory_in_use(torch) -> str:
+    """The card's memory in use (every process on it) once this process
+    holds a context, and the host's available memory, for a phase's start
+    line."""
+    parts = []
+    if torch.cuda.is_initialized():
+        free, total = torch.cuda.mem_get_info()
+        parts.append(f"the card's memory {(total - free) / 2**30:.1f} of "
+                     f"{total / 2**30:.1f} GiB in use")
+    try:
+        with open("/proc/meminfo") as fh:
+            info = dict(line.split(":", 1) for line in fh)
+        parts.append(f"{int(info['MemAvailable'].split()[0]) / 2**20:.1f} GiB of the host's "
+                     f"memory available")
+    except (OSError, KeyError, ValueError):
+        pass
+    return ", ".join(parts)
+
+
+def release_cached(torch) -> None:
+    """After a phase: what its engines cached goes back to the card, where
+    the other process's phases and the next phase's servers need it."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def side_main(tmp: str) -> None:
     """The side process: ``SIDE_PHASES`` one after another, with the card's
     name and phase 2's record from ``SIDE_IN``; writes each phase's launches,
@@ -7635,6 +8117,9 @@ def side_main(tmp: str) -> None:
     import signal
 
     faulthandler.dump_traceback_later(DUMP_STACKS_S, exit=False)
+    faulthandler.enable()  # a fatal signal prints every thread's stack
+    # each line reaches the file as printed: a side that dies leaves its tail
+    sys.stdout.reconfigure(line_buffering=True)
     # a SIGTERM from the main process runs every phase's clean-up
     signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
     import torch
@@ -7652,13 +8137,27 @@ def side_main(tmp: str) -> None:
               "13 control": (phase_control, (torch, device, tmp, card)),
               "14 tier": (phase_tier, (torch, device, tmp, card)),
               "15 spill": (phase_spill, (torch, device, tmp, card)),
-              "17 warm boot": (phase_warm_boot, (torch, device, tmp, card))}
+              "17 warm boot": (phase_warm_boot, (torch, device, tmp, card)),
+              "21 shard": (phase_shard, (torch, device, tmp, card))}
     out = {"launches": {}, "walls": {}, "spans": {}}
     for label in SIDE_PHASES:
         phase, args = phases[label]
-        print(f"chip_smoke: side phase {label} started", file=sys.stderr, flush=True)
+        print(f"chip_smoke: side phase {label} started ({memory_in_use(torch)})",
+              file=sys.stderr, flush=True)
         started, stamp = time.perf_counter(), time.time()
-        out["launches"][label] = phase(*args)
+        try:
+            out["launches"][label] = phase(*args)
+        except BaseException as exc:
+            # the main process ends its own message with this: the stderr
+            # the side shares with it may have scrolled past the cause
+            import traceback
+
+            reason = (FAILED_WITH[-1] if isinstance(exc, SystemExit) and FAILED_WITH
+                      else "".join(traceback.format_exception(exc))[-2000:])
+            with open(os.path.join(tmp, SIDE_FAILED), "w") as fh:
+                fh.write(f"side phase {label}: {reason}")
+            raise
+        release_cached(torch)
         out["walls"][label] = round(time.perf_counter() - started, 1)
         out["spans"][label] = (stamp, time.time())
         print(f"phase wall {label} (side): {out['walls'][label]:.1f} s", flush=True)
@@ -7685,10 +8184,17 @@ def side_tail(tmp: str, n: int = 3000) -> str:
 
 
 def side_check(side: subprocess.Popen, tmp: str) -> None:
-    """Fail now if the side process has already failed."""
+    """Fail now if the side process has already failed; the message ends
+    with the side's failing phase and its reason."""
     if side.poll() not in (None, 0):
-        fail(f"the side process (phases {', '.join(SIDE_PHASES)}) exited {side.returncode}; "
-             f"its stdout ends: {side_tail(tmp)}")
+        try:
+            with open(os.path.join(tmp, SIDE_FAILED)) as fh:
+                reason = fh.read()
+        except OSError:
+            reason = "no phase reported a failure (killed by a signal?)"
+        fail(f"the side process's stdout ends: {side_tail(tmp)}\n"
+             f"chip_smoke: the side process (phases {', '.join(SIDE_PHASES)}) exited "
+             f"{side.returncode}: {reason}")
 
 
 def side_join(side: subprocess.Popen, tmp: str) -> dict:
@@ -7723,6 +8229,7 @@ def main() -> None:
     import faulthandler
 
     faulthandler.dump_traceback_later(DUMP_STACKS_S, exit=False)
+    faulthandler.enable()  # a fatal signal prints every thread's stack
     # this process's allocator gives back what it no longer uses: phase 19's
     # builds need the card but for a few GiB, and a fixed segment that keeps
     # one small live block would hold its whole size
@@ -7748,9 +8255,11 @@ def main() -> None:
     def timed(label, phase, *args):
         if side is not None:
             side_check(side, tmp)
-        print(f"chip_smoke: phase {label} started", file=sys.stderr, flush=True)
+        print(f"chip_smoke: phase {label} started ({memory_in_use(torch)})", file=sys.stderr,
+              flush=True)
         started, stamp = time.perf_counter(), time.time()
         result = phase(*args)
+        release_cached(torch)
         walls[label] = round(time.perf_counter() - started, 1)
         spans[label] = (stamp, time.time())
         print(f"phase wall {label}: {walls[label]:.1f} s")

@@ -144,10 +144,25 @@ KNOBS: Dict[str, Knob] = dict(
               "bounded in-flight device dispatches per bucket; 1 = serial "
               "bit-identical comparison mode",
               "engine"),
+        _knob("GORDO_MEGABATCH", "1", "bool",
+              "cross-machine fused dispatch (replicated engines only; "
+              "`0`/`off` disables, `--no-megabatch` on `run-server`)",
+              "engine"),
         _knob("GORDO_FILL_WINDOW_US", "250 µs (≥4 CPUs) / 1000 µs", "int",
-              "bounded fill window a leader holds open when it observes "
-              "concurrency; `0` = drain-only fusion (the `fill_window_us` "
-              "keyword of `ServingEngine` overrides it)",
+              "bounded fill window a megabatching leader holds open when it "
+              "observes concurrency; `0` = drain-only fusion (the "
+              "`fill_window_us` keyword of `ServingEngine` overrides it)",
+              "engine"),
+        _knob("GORDO_MEGABATCH_RESIDENCY", "128", "int",
+              "machines per bucket resident in the megabatch tier; buckets "
+              "at/under the cap are fully resident from boot, in larger ones "
+              "a machine is admitted after 2 cold hits; `0` disables "
+              "megabatching",
+              "engine"),
+        _knob("GORDO_SERVE_HOT_CACHE", "16", "int",
+              "shard mode (`run-server --shard-fleet`): machines per bucket "
+              "keeping a hot copy on the dispatch device (skips the gather "
+              "and the shard lock); 0 disables",
               "engine"),
         _knob("GORDO_HOST_CACHE_MB", "256", "int",
               "host-RAM spill tier: megabytes of deserialized pre-stacked "

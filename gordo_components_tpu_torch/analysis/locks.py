@@ -97,6 +97,8 @@ LOCK_RANKS: Dict[str, int] = {
                                 # architecture's spill program
     "engine.depth": 78,         # _DepthGate._depth_cond: the dispatch
                                 # depth's permit count (a leaf)
+    "engine.hot": 80,           # _Bucket._hot_lock shard-mode hot cache
+    "engine.mega": 82,          # _Bucket._mega_lock residency routing
     "engine.host_cache": 84,    # host_cache.py LRU dict + byte ledger
     "fleet.checkpoint": 85,     # build_fleet.py _SliceCheckpointer: its
                                 # writer thread and deferred error (a leaf,
@@ -105,7 +107,11 @@ LOCK_RANKS: Dict[str, int] = {
     "compile_cache.store": 87,  # store.py per-store outcome counters
     "compile_cache.private": 88,  # store.py this process's library dir
     "kernels.launch": 89,       # ops/_kernels.py _LAUNCH_LOCK: launch counts
-    "utils.http": 90,           # utils/http.py pooled idle connections
+    # the process-global shard-mode lock (the reference's rank): taken
+    # under engine.template for a cold dispatch's gather (and alone for a
+    # hot promotion's), never across a kernel launch
+    "engine.shard_dispatch": 90,
+    "utils.http": 91,           # utils/http.py pooled idle connections
     # innermost: written from under nearly every lock above
     "observability.flightrec": 93,  # flightrec.py recent/slow/error rings
     "observability.spans": 94,  # spans.py one request's timeline
@@ -136,7 +142,10 @@ HOT_LOCKS = frozenset(
         "engine.template",
         "engine.spill",
         "engine.depth",
+        "engine.hot",
+        "engine.mega",
         "engine.host_cache",
+        "engine.shard_dispatch",
         "kernels.launch",
         "utils.http",
         "observability.flightrec",
@@ -153,7 +162,10 @@ HOT_LOCKS = frozenset(
 # files (every module calls its lock ``_lock``) are resolved by the
 # file suffix, which is why the mapping is keyed this way.
 LOCK_ATTRS: Dict[Tuple[str, str], str] = {
+    ("server/engine.py", "_SHARD_DISPATCH_LOCK"): "engine.shard_dispatch",
     ("server/engine.py", "_cond"): "engine.bucket_cond",
+    ("server/engine.py", "_hot_lock"): "engine.hot",
+    ("server/engine.py", "_mega_lock"): "engine.mega",
     ("server/engine.py", "_collector_lock"): "engine.collector",
     ("server/engine.py", "_template_lock"): "engine.template",
     ("server/engine.py", "_lock"): "engine.spill",
@@ -210,6 +222,11 @@ LOCK_ATTRS: Dict[Tuple[str, str], str] = {
 # publication); deliberate lock-free reads carry
 # ``# lint: allow-unguarded(<reason>)`` — the reason is mandatory.
 GUARDED_FIELDS: Dict[Tuple[str, str], str] = {
+    # engine bucket state: the shard-mode hot cache, the megabatch
+    # residency slot table and the layout plan's pins
+    ("server/engine.py", "_hot"): "engine.hot",
+    ("server/engine.py", "_mega_slots"): "engine.mega",
+    ("server/engine.py", "_mega_pinned"): "engine.mega",
     # host-RAM spill tier: the LRU dict, its byte ledger, and the
     # in-flight prefetch claims
     ("server/host_cache.py", "_entries"): "engine.host_cache",

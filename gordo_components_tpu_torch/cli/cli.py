@@ -25,10 +25,14 @@ fleet tier's workers inherit; it needs ``--models-dir``, whose
 --serving-cache`` fills and ``cache list|warm|purge`` manage; ``build`` and
 ``fleet-build`` fit through ``--compile-cache-dir``) and ``--mesh-shards``/
 ``--mesh-shard`` (one shard of a fleet-sharded serving mesh, exported as
-``GORDO_MESH_SHARDS``/``GORDO_MESH_SHARD``); the reference's host-sharded
-``--shard-fleet`` and its megabatch flags are not offered (ROADMAP.md).
+``GORDO_MESH_SHARDS``/``GORDO_MESH_SHARD``) and ``--shard-fleet`` (the
+host-sharded capacity mode: every bucket's stack split over the visible
+cards, megabatching off) and ``--megabatch/--no-megabatch`` (exported as
+``GORDO_MEGABATCH``, so that every reload agrees); ``cache warm`` accepts
+``--shard-fleet`` as the reference does, and stores the same libraries
+with it or without it.
 ``run-fleet-server`` spawns ``--workers`` such servers (``--device``
-passed on; with ``--mesh-shards N`` worker i serves shard i mod N, and
+passed on, ``GORDO_MEGABATCH`` inherited; with ``--mesh-shards N`` worker i serves shard i mod N, and
 more shards than workers exits 2) behind a router that never touches the
 card; SIGTERM drains the router, then each worker, and leaves no worker
 behind. ``run-watchman`` probes each machine's ``/healthz`` at a target
@@ -58,12 +62,13 @@ client.ClientError`.
     python -m gordo_components_tpu_torch.cli rollback [--list] MODEL_DIR
     python -m gordo_components_tpu_torch.cli cache list --store STORE
     python -m gordo_components_tpu_torch.cli cache warm --models-dir DIR [--store STORE]
+        [--shard-fleet]
     python -m gordo_components_tpu_torch.cli cache purge --store STORE [--stale]
     python -m gordo_components_tpu_torch.cli run-server (--model-dir DIR ... |
         --models-dir DIR) [--host H] [--port N] [--project P] [--max-inflight N]
         [--tenants SPEC] [--faults SPEC] [--worker-id N] [--lazy-boot]
         [--compile-cache-store STORE|off] [--mesh-shards N [--mesh-shard I]]
-        [--device cpu]
+        [--shard-fleet] [--megabatch|--no-megabatch] [--device cpu]
     python -m gordo_components_tpu_torch.cli run-fleet-server --models-dir DIR
         [--workers 2] [--host H] [--port 5555] [--worker-base-port 5600]
         [--project P] [--replicas 2] [--hot-rps 50] [--probe-interval 2]
@@ -343,6 +348,10 @@ def run_server(args: argparse.Namespace) -> int:
         os.environ["GORDO_MESH_SHARDS"] = str(args.mesh_shards)
     if args.mesh_shard is not None:
         os.environ["GORDO_MESH_SHARD"] = str(args.mesh_shard)
+    # the engine reads it at construction: exported, so that the boot and
+    # every reload's engine agree
+    if args.megabatch is not None:
+        os.environ["GORDO_MEGABATCH"] = "1" if args.megabatch else "0"
     lazy_boot = os.environ.get("GORDO_LAZY_BOOT", "0").strip().lower() in (
         "1", "true", "on", "yes")
     if lazy_boot and not args.models_dir:
@@ -359,7 +368,8 @@ def run_server(args: argparse.Namespace) -> int:
         return EXIT_USAGE
     options = {"project": args.project, "max_inflight": args.max_inflight,
                "worker_id": args.worker_id, "lazy_boot": lazy_boot,
-               "compile_cache_store": args.compile_cache_store}
+               "compile_cache_store": args.compile_cache_store,
+               "shard_fleet": args.shard_fleet}
     if not resolved:
         target = args.models_dir  # a fleet: reload rescans it
     elif len(resolved) == 1 and not args.models_dir:
@@ -411,7 +421,8 @@ def cache_list(args: argparse.Namespace) -> int:
 
 def cache_warm(args: argparse.Namespace) -> int:
     """Fill the store for every model under ``--models-dir`` off the
-    serving path and print the summary."""
+    serving path and print the summary (``--shard-fleet`` changes nothing:
+    a kernel library does not depend on the engine variant)."""
     from ..compile_cache import default_root, export_serving_cache
     from ..store.generations import scan_models_dir
 
@@ -998,6 +1009,16 @@ def parser() -> argparse.ArgumentParser:
     s.add_argument("--mesh-shard", type=int, default=env("GORDO_MESH_SHARD"),
                    help="this process's shard (0-based) of the --mesh-shards mesh (default: "
                         "GORDO_MESH_SHARD, else the worker id mod the shards)")
+    s.add_argument("--shard-fleet", action="store_true",
+                   help="the host-sharded capacity mode: split every bucket's stacked "
+                        "machines over all visible cards (for fleets whose stack exceeds one "
+                        "card), at the cost of a gather per cold dispatch; machines asked "
+                        "repeatedly keep a hot copy (GORDO_SERVE_HOT_CACHE); megabatching is "
+                        "off")
+    s.add_argument("--megabatch", action=argparse.BooleanOptionalAction, default=None,
+                   help="cross-machine megabatching: concurrent requests for different "
+                        "machines fuse into one dispatch through the resident stack (default "
+                        "on; always off with --shard-fleet); overrides GORDO_MEGABATCH")
     s.add_argument("--device", default=None,
                    help="cuda (default) or cpu; there is no silent fallback")
     s.set_defaults(run=run_server)
@@ -1005,8 +1026,8 @@ def parser() -> argparse.ArgumentParser:
     fs = commands.add_parser(
         "run-fleet-server", help="the horizontal serving tier: a router over supervised "
                                  "worker server processes",
-        epilog="Not offered: --megabatch/--no-megabatch (the port's run-server has no such "
-               "flag).")
+        epilog="Not offered: --megabatch/--no-megabatch (the workers inherit "
+               "GORDO_MEGABATCH from this process's environment).")
     fs.add_argument("--models-dir", required=True,
                     help="directory whose immediate subdirectories are model dirs; every "
                          "worker serves this tree")
@@ -1172,9 +1193,8 @@ def parser() -> argparse.ArgumentParser:
 
     ca = commands.add_parser(
         "cache", help="the kernel-library store (built CUDA libraries beside the models)",
-        epilog="Not offered on 'warm': --shard-fleet (the host-sharded engine variant "
-               "it warms comes with the next slice, ROADMAP Queue 1 item 10) and --rows (a "
-               "library does not depend on a request's rows; 'warm' needs no card).")
+        epilog="Not offered on 'warm': --rows (a library does not depend on a request's "
+               "rows; 'warm' needs no card).")
     cache_commands = ca.add_subparsers(dest="cache_command", required=True)
     cl = cache_commands.add_parser("list", help="entries as JSON: key, size, verified, and "
                                                 "current (this process's backend)")
@@ -1189,6 +1209,10 @@ def parser() -> argparse.ArgumentParser:
     cw.add_argument("--store", default=None,
                     help="store root (default: <models-dir>/.compile-cache/torch-cuda, "
                          "run-server's default)")
+    cw.add_argument("--shard-fleet", action="store_true",
+                    help="accepted for the reference's command line; a no-op (a kernel "
+                         "library does not depend on the engine variant, so a run-server "
+                         "--shard-fleet boot finds the same libraries either way)")
     cw.set_defaults(run=cache_warm)
     cg = cache_commands.add_parser("purge", help="delete entries and sweep crash debris")
     cg.add_argument("--store", required=True, help="store root")

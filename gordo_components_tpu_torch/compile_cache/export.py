@@ -12,10 +12,11 @@ boot's own rule (``ServingEngine.required_libraries``: the buckets' and
 the host-path machines'). :func:`~..ops._kernels.fill_store` then makes
 the store hold each: already there, copied from a library this process
 loaded, or built with ``nvcc``. No card is needed, and what is stored
-does not depend on a request's rows (the reference's ``rows`` and
-``shard_fleet`` warm-up options have no counterpart). Best effort end to
-end: a failed export costs the next boot its builds, never the build its
-artifacts.
+does not depend on a request's rows or on the engine variant (the
+reference's ``rows`` and ``shard_fleet`` warm-up options have no
+counterpart: a ``run-server --shard-fleet`` boot over this store runs no
+``nvcc``). Best effort end to end: a failed export costs the next boot its
+builds, never the build its artifacts.
 """
 
 from __future__ import annotations

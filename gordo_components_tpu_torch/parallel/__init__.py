@@ -29,6 +29,7 @@ _EXPORTS = {
     "fleet_flops_accounting": "fleet",
     "train_fleet_arrays": "fleet",
     "fleet_devices": "mesh",
+    "fleet_mesh": "mesh",
     "pad_to_multiple": "mesh",
 }
 

@@ -711,26 +711,36 @@ class _SliceWatchdog:
         if timeout_s is None:
             raw = os.environ.get(SLICE_TIMEOUT_ENV, "")
             timeout_s = float(raw) if raw else 0.0
+        self.multi_rank = bool(multi_rank)
         self.armed = bool(multi_rank and timeout_s > 0)
         self.timeout_s = timeout_s
         self.rank = rank
         self._timer: Optional[threading.Timer] = None
         self._where = ""
+        self._started: Optional[float] = None
 
     def start(self, where: str) -> None:
-        """Arm a fresh budget for one slice iteration (a no-op unarmed)."""
-        if not self.armed:
-            return
+        """Arm a fresh budget for one slice iteration (a no-op unarmed; a
+        build of several ranks times the span all the same)."""
         self.stop()
         self._where = where
+        self._started = time.perf_counter()
+        if not self.armed:
+            return
         self._timer = threading.Timer(self.timeout_s, self._trip)
         self._timer.daemon = True
         self._timer.start()
 
     def stop(self) -> None:
+        """End the span; a build of several ranks logs what it took at
+        DEBUG, the healthy walls a budget is sized from (armed or not)."""
         if self._timer is not None:
             self._timer.cancel()
             self._timer = None
+        if self._started is not None and self.multi_rank:
+            logger.debug("Fleet slice span: %s took %.3fs on rank %d", self._where,
+                        time.perf_counter() - self._started, self.rank)
+        self._started = None
 
     def _trip(self) -> None:
         try:

@@ -1,17 +1,19 @@
 """Stacked multi-machine serving engine (port of
 ``gordo_components_tpu/server/engine.py``: the knobs at 273-349,
 ``ScoreResult`` … ``_make_machine_score`` at 210-253 and 352-523, the
-pipeline at 611-748, ``_Bucket`` at 761-2499 and ``ServingEngine`` at
+pipeline at 611-748, ``_Bucket`` at 750-2499 and ``ServingEngine`` at
 2501-3262 and its metrics at 95-190, with the request seams: span
 timelines, the weighted-fair drain and the ``engine-dispatch`` fault
 point; the control loops' seams: traffic notes, ``cost_ledger``, live
 tuning; the host-RAM spill tier at 526-608, 2560-2584, 2820-2956 and
 3039-3115, with the fleet-sharded mesh's accounting at 168-181,
-2538-2559, 2698-2700, 2967-2969, 3050-3070 and 3197-3208; and the compile
+2538-2559, 2698-2700, 2967-2969, 3050-3070 and 3197-3208; the compile
 cache's counterpart at 1214-1296 and 3192: the kernel libraries each
 bucket and each lazy machine launches, resolved through a store before
-they first run; without the host-sharded mode and the hot cache —
-ROADMAP.md lists them).
+they first run; the megabatch residency tier at 894-933, 1098-1212,
+1556-1646, 2127-2278 and 2295-2392; and the host-sharded capacity mode
+with its hot cache at 846-893, 1060-1107, 1298-1335, 1679-1788,
+1871-2070 and 2394-2499).
 
 Every machine that shares an architecture (the reference's signature:
 config, loss, widths, lookback, lookahead and precision) is stacked into
@@ -38,15 +40,50 @@ behind the work and a CUDA event behind that; the fetch stage (a
 per-bucket collector thread when there is more work to overlap with,
 inline otherwise) waits on the event and fans results out. In-flight
 depth is bounded (``GORDO_DISPATCH_DEPTH``). A bounded fill window
-(``GORDO_FILL_WINDOW_US``) lets a leader that sees concurrency collect
-submits across machines before its first drain; an idle request never
-waits. On one device every machine of a bucket is resident from boot, so
-there is no residency tier: the reference's capped resident stack and its
-promotion exist for a mesh, where the fused program is replicated and
-the cold one sharded (ROADMAP.md, shard mode). A fused dispatch that
-fails, at enqueue or at fetch, is rescored one request per dispatch, so a
-bad machine fails only its own waiters. Every dispatch, stack upload and
-fetch runs on the device's current stream.
+(``GORDO_FILL_WINDOW_US``; megabatching engines only) lets a leader that
+sees concurrency collect submits across machines before its first drain;
+an idle request never waits. A dispatch of several requests that fails, at
+enqueue or at fetch, on any path, is rescored one request per cold
+dispatch, so a bad machine or an out-of-memory batch fails only its own
+waiters. Every dispatch, stack upload and fetch runs on the device's
+current stream.
+
+Three paths, one closure (``_Bucket._program``, which gathers k machines
+from a stack and scores them): the **cold** and the **mega** path gather
+by machine index from the bucket's stack; the **hot** path (shard mode)
+scores one machine's own copy. The mega path (replicated engines,
+``megabatch=``, default ``GORDO_MEGABATCH``) is the reference's megabatch
+residency tier: a bucket of at most ``megabatch_residency`` machines
+(default ``GORDO_MEGABATCH_RESIDENCY``, 128) is fully resident and every
+batch routes mega. A larger bucket starts with no resident machine: a
+machine is admitted on its second cold hit, an LRU evicts past the cap
+unless its victim served within the freshness window or is pinned by a
+layout plan (``pin_residency``), and a machine whose fused dispatch failed
+is demoted and re-admitted after ``2·8^demotions`` hits. A batch routes
+mega only when every machine in it is resident. The reference keeps a
+capped copy of the resident machines on the device, since XLA compiles a
+program per stack shape; here the whole stack is on the device already and
+an eager program compiles nothing, so a slot is the machine's own row of
+the stack and residency is bookkeeping: the admissions, the counts and the
+live cap (``set_mega_cap``) are the reference's, and the answers are the
+cold path's bits.
+
+Shard mode (``mesh=``, :func:`~..parallel.mesh.fleet_mesh`, the host-sharded
+capacity mode for a fleet whose stack does not fit one device): each
+bucket's stack is built on the host, padded to a multiple of the devices
+by repeating entry 0 (never dispatched) and split into one contiguous
+chunk per device; it is never whole on one device. The cold program turns
+each machine index into (chunk, row), gathers the machines' slices on their
+chunks' devices and brings them to the dispatch device (the mesh's first),
+under the process-wide shard lock (``engine.shard_dispatch``, which spans
+engine generations); megabatching is off. The hot cache
+(``hot_cap``, default ``GORDO_SERVE_HOT_CACHE``, 16) keeps a copy of a
+machine's slice on the dispatch device from its second cold hit on, so a
+pure batch of it skips the gather and the shard lock; the promotion runs
+on the fetch stage after the waiters are released, with the residency
+tier's backoff and freshness rules, and a hot dispatch that fails (at
+enqueue or at fetch) demotes its machine and is rescored cold. Answers
+equal the single-device engine's bit for bit for the same batch.
 
 Rows are padded to a power of two of at least ``min_rows_bucket`` (the
 reference's shape rule, and the key by which requests fuse), but a
@@ -116,6 +153,7 @@ import queue
 import threading
 import time
 import weakref
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterable, List, NamedTuple, Optional, Tuple
 
@@ -131,6 +169,7 @@ from ..observability import spans
 from ..observability import traffic as traffic_accounting
 from ..observability.registry import REGISTRY
 from ..ops import _kernels, windowing
+from ..parallel.mesh import pad_to_multiple
 from ..ops.scaling import ScalerParams
 from ..resilience import deadline, faults, qos
 from ..serializer.persistence import estimators
@@ -140,10 +179,7 @@ from .host_cache import HostTierCache
 logger = logging.getLogger(__name__)
 
 # -- engine telemetry (the reference's series; the process-wide registry,
-# so a scrape survives a reload's engine swap). Every dispatch of the port
-# runs the one fused program, so its path label is "mega" throughout and
-# the reference's gordo_engine_megabatch_fused_requests would repeat
-# gordo_engine_dispatch_batch_size.
+# so a scrape survives a reload's engine swap)
 _M_DISPATCH_BATCH = REGISTRY.histogram(
     "gordo_engine_dispatch_batch_size",
     "Requests coalesced into one device dispatch (micro-batching)",
@@ -151,8 +187,21 @@ _M_DISPATCH_BATCH = REGISTRY.histogram(
 )
 _M_REQUESTS = REGISTRY.counter(
     "gordo_engine_requests_total",
-    "Requests scored on device, by dispatch path",
+    "Requests scored on device, by dispatch path (cold = gathered from the "
+    "bucket's stack, mega = the resident stack, hot = a shard-mode hot "
+    "copy, spill = the host-RAM spill tier)",
     labels=("path",),
+)
+_M_HOT_EVENTS = REGISTRY.counter(
+    "gordo_engine_hot_cache_events_total",
+    "Hot-machine cache lifecycle: promote, evict, demote (dispatch "
+    "failure), backoff_defer (re-promotion blocked by demotion backoff)",
+    labels=("event",),
+)
+_M_MEGA_BATCH = REGISTRY.histogram(
+    "gordo_engine_megabatch_fused_requests",
+    "Requests fused into one cross-machine megabatch dispatch",
+    buckets=(1, 2, 4, 8, 16, 32, 64, 128),
 )
 _M_MEGA_MACHINES = REGISTRY.histogram(
     "gordo_engine_megabatch_fused_machines",
@@ -173,9 +222,11 @@ _M_PRECISION = REGISTRY.counter(
 )
 _M_MEGA_EVENTS = REGISTRY.counter(
     "gordo_engine_megabatch_events_total",
-    "Fused-path repairs: fallback_cold (enqueue failure rescored one "
-    "request per dispatch), retry_isolated (fetch failure rescored one "
-    "request at a time)",
+    "Megabatch residency and repair lifecycle: promote, evict, demote, "
+    "backoff_defer (re-promotion blocked by demotion backoff), "
+    "residency_resize, fallback_cold (enqueue failure rescored one request "
+    "per cold dispatch), retry_isolated (fetch failure rescored one request "
+    "at a time)",
     labels=("event",),
 )
 _M_MESH_REQUESTS = REGISTRY.counter(
@@ -225,20 +276,37 @@ def _dispatch_depth() -> int:
     return _env_int("GORDO_DISPATCH_DEPTH", default, minimum=1)
 
 
-# the reference's default GORDO_MEGABATCH_RESIDENCY: the resident cap a
-# fleet at or under it reports. On one card every machine is resident, so
-# the port's cap is the larger of this and its machine count, and nothing
-# moves it (``apply_tuning(megabatch_residency=...)`` answers None, as the
-# reference's fully resident engine does)
-_RESIDENCY_CAP = 128
+# ONE lock per PROCESS for shard-mode gathers, as the reference's for its
+# sharded executions: it spans engine generations (a reload warms a new
+# engine while the old one serves), so it cannot live on an engine. The hot
+# cache exists to skip it.
+_SHARD_DISPATCH_LOCK = lockcheck.named_lock("engine.shard_dispatch")
+
+
+def _megabatch_enabled() -> bool:
+    """``GORDO_MEGABATCH``: cross-machine fused dispatch through the
+    resident stack (replicated engines; shard mode never megabatches). Any
+    of 0/false/off/no disables; everything else, unset included, enables."""
+    raw = os.environ.get("GORDO_MEGABATCH")
+    if raw is None:
+        return True
+    return raw.strip().lower() not in ("0", "false", "off", "no")
+
+
+def _megabatch_residency_cap() -> int:
+    """``GORDO_MEGABATCH_RESIDENCY``: machines per bucket resident in the
+    megabatch tier (default 128). A bucket at or under it is fully resident
+    from boot; in a larger one a machine is admitted on its second cold
+    hit. 0 disables megabatching; a non-integer falls back to the
+    default."""
+    return _env_int("GORDO_MEGABATCH_RESIDENCY", 128)
 
 
 def _fill_window_us() -> int:
     """``GORDO_FILL_WINDOW_US``: the fill window in microseconds; core-aware
     default (250 with 4 or more CPUs, else 1000); 0 disables the wait.
     Requests already queued when a leader drains share its dispatch either
-    way, so 0 also stands for the reference's megabatch switch turned off
-    (a knob the port does not read)."""
+    way. Only megabatching engines wait."""
     default = 250 if (os.cpu_count() or 1) >= 4 else 1000
     return _env_int("GORDO_FILL_WINDOW_US", default)
 
@@ -587,13 +655,15 @@ class _Item:
 
 
 class _Dispatch:
-    """One in-flight dispatch: its enqueued (not yet fetched) outputs and
-    what the fetch stage needs to fan them out."""
+    """One in-flight dispatch: its path (``cold``, ``hot`` or ``mega``), its
+    enqueued (not yet fetched) outputs and what the fetch stage needs to
+    fan them out."""
 
-    __slots__ = ("rows", "items", "outputs", "started", "enqueued")
+    __slots__ = ("kind", "rows", "items", "outputs", "started", "enqueued", "hot_idx")
 
-    def __init__(self, rows: int, items: List[_Item], outputs, started: float,
-                 enqueued: float):
+    def __init__(self, kind: str, rows: int, items: List[_Item], outputs, started: float,
+                 enqueued: float, hot_idx: Optional[int] = None):
+        self.kind = kind
         self.rows = rows
         self.items = items
         self.outputs = outputs  # (host tensors, CUDA event or None)
@@ -601,6 +671,7 @@ class _Dispatch:
         # perf_counter when the enqueue returned: the device_execute span
         # runs from here to the start of the fetch
         self.enqueued = enqueued
+        self.hot_idx = hot_idx  # the machine a hot dispatch scored
 
 
 class _Stop:
@@ -680,7 +751,9 @@ def _collector_loop(bucket_ref: "weakref.ref", fetch_queue: "queue.Queue"):
 
 
 class _Bucket:
-    """One architecture's stacked machines, on one device."""
+    """One architecture's stacked machines: on one device (replicated), or
+    in one chunk per device of a shard-mode ``mesh`` (see the module
+    docstring)."""
 
     def __init__(
         self,
@@ -692,6 +765,10 @@ class _Bucket:
         device: torch.device,
         fill_window_s: float = 0.0,
         precision: str = "f32",
+        mesh: Optional[List[torch.device]] = None,
+        hot_cap: int = 0,
+        megabatch: bool = False,
+        mega_cap: int = 0,
     ):
         self.template = template
         # the kernel libraries the program launches on the card, resolved
@@ -709,24 +786,80 @@ class _Bucket:
         # [i, i + offset]; 0 for a flat (one row per score) model
         self._offset = 0 if lookahead is None else lookback - 1 + lookahead
         self.max_batch = max_batch
-        self.names = [e.name for e in entries]
+        self.names = [e.name for e in entries]  # the real machines, never the padding
         self.n_features = int(entries[0].sx.scale.shape[0])
         # the bucket's shape in traffic accounting's groups (one value per
         # bucket, so bounded by construction)
         self.shape_key = _shape_key(lookback, lookahead, self.n_features)
-        # stack on the host, place on the device once
+        self.mesh = list(mesh) if mesh else None
+        # shard mode: ``chunks[c]`` holds rows [c·chunk, (c+1)·chunk) of the
+        # padded stack on ``mesh[c]``, and ``stacked`` is None
+        self.chunks: Optional[List[Dict[str, Any]]] = None
+        self._chunk = 0
+        if self.mesh is not None:
+            # pad with entry 0 so the machine axis splits evenly; a padded
+            # row is never dispatched (only real indices are)
+            n_pad = pad_to_multiple(len(entries), len(self.mesh))
+            entries = entries + [entries[0]] * (n_pad - len(entries))
+            self._chunk = n_pad // len(self.mesh)
+        # stack on the host, place on the device(s) once
         host = _tree_map(lambda *leaves: torch.stack(leaves), *[e.tree() for e in entries])
-        self.stacked = _tree_map(lambda a: a.to(device), host)
+        if self.mesh is None:
+            self.stacked = _tree_map(lambda a: a.to(device), host)
+        else:
+            # each chunk is a copy of its own (a CPU chunk too), so the
+            # whole stack never sits on one device
+            size = self._chunk
+            self.chunks = [
+                _tree_map(lambda a, c=c, dev=dev: a[c * size:(c + 1) * size].to(dev, copy=True),
+                          host)
+                for c, dev in enumerate(self.mesh)
+            ]
+            self.stacked = None
         del host
         self._score = _make_machine_score(lookback, lookahead, template, precision)
         self._batched = torch.func.vmap(self._score)
-        self._fill_s = max(0.0, fill_window_s)
+        # (path, padded rows, k) of every dispatch this bucket ran, warm-ups
+        # included: the reference's compiled programs, which an eager program
+        # does not have; a new shape still pays its first allocations
+        self._programs: set = set()
+        # shard-mode hot cache: machine -> a copy of its slice (a stack of
+        # height one) on the dispatch device. Routing (the leader) and
+        # promotion and demotion (the fetch stage) take ``_hot_lock``; the
+        # promotion's gather runs outside it.
+        self._hot_cap = int(hot_cap) if self.mesh is not None else 0
+        self._hot: "OrderedDict[int, Any]" = OrderedDict()
+        self._hot_hits: Dict[int, int] = {}
+        self._hot_last_use: Dict[int, int] = {}  # idx -> dispatch_count
+        self._hot_demotions: Dict[int, int] = {}
+        self._hot_lock = lockcheck.named_lock("engine.hot")
+        self.hot_request_count = 0
+        # the megabatch residency tier (replicated engines only): the
+        # resident machines in LRU order, each served from its own row of
+        # ``stacked`` (slot = machine). Routing reads them under
+        # ``_mega_lock``; every mutation runs on the one thread that runs
+        # _complete, under it too.
+        self._mega_enabled = bool(megabatch) and self.mesh is None and mega_cap > 0
+        self._mega_cap = int(mega_cap)
+        self._mega_full = self._mega_enabled and len(self.names) <= self._mega_cap
+        self._mega_lock = lockcheck.named_lock("engine.mega")
+        self._mega_slots: "OrderedDict[int, None]" = OrderedDict()
+        if self._mega_full:
+            self._mega_slots.update((i, None) for i in range(len(self.names)))
+        self._mega_hits: Dict[int, int] = {}
+        self._mega_last_use: Dict[int, int] = {}
+        self._mega_demotions: Dict[int, int] = {}
+        # the layout plan's pins: seeded hit counters promote a pinned
+        # machine on its next cold hit, and eviction skips it
+        self._mega_pinned: set = set()
+        # the fill window engages only under megabatching
+        self._fill_s = max(0.0, fill_window_s) if self._mega_enabled else 0.0
         self._filling = False  # a leader is inside its fill window
         self.fill_timeout_count = 0
         self.fill_size_count = 0
-        # fused-batch repairs, under the reference's names: a batch that
-        # failed at enqueue (fallback_cold) or at fetch (retry_isolated) is
-        # rescored one request per dispatch
+        # repairs of a dispatch of several requests (mega or cold), under the
+        # reference's names: one that failed at enqueue (fallback_cold) or at
+        # fetch (retry_isolated) is rescored one request per cold dispatch
         self.fallback_cold_count = 0
         self.retry_isolated_count = 0
         self._cond = lockcheck.named_condition("engine.bucket_cond")
@@ -741,36 +874,112 @@ class _Bucket:
         self._retiring_collector: Optional[threading.Thread] = None
         self.dispatch_count = 0
         self.request_count = 0
+        self.mega_dispatch_count = 0
+        self.mega_request_count = 0
         self.max_batch_seen = 0
+        # dispatches of the warm-ups of the hot and mega paths, which score
+        # no request (the launches they make are the bucket's all the same)
+        self.warm_dispatch_count = 0
         # seconds from each dispatch's enqueue to its fetched outputs, summed:
         # the cost ledger's per-rung latency numerator
         self.dispatch_seconds_total = 0.0
 
     def stacked_nbytes(self) -> int:
-        """Device bytes held by this bucket's stacked tree (int8 weights
-        count one byte each)."""
-        return sum(a.numel() * a.element_size() for a in _tree_leaves(self.stacked))
+        """Device bytes held by this bucket's stack: every chunk in shard
+        mode, padding included (int8 weights count one byte each)."""
+        trees = self.chunks if self.chunks is not None else [self.stacked]
+        return sum(_tree_nbytes(tree) for tree in trees)
 
     # -- the program -----------------------------------------------------------
-    def _program(self, idxs: List[int], xs: np.ndarray):
-        """The bucket's one program: machines ``idxs`` of the stack scored
-        on their rows ``xs`` (k, n, F) in one dispatch; device outputs with
-        a leading k axis, not yet computed. k > 1 requests run under
-        ``vmap`` over the machines gathered by ``index_select``, so each
-        layer is one batched kernel for all k. A lone request runs
-        unbatched on views of its machine's slices: there a product keeps
-        its bias in the GEMM, where under ``vmap`` each bias is its own
-        pass over the activations."""
+    def _program(self, idxs: List[int], xs: np.ndarray, stack=None):
+        """The bucket's one program: machines ``idxs`` of ``stack`` (the
+        bucket's own stack when None) scored on their rows ``xs`` (k, n, F)
+        in one dispatch; device outputs with a leading k axis, not yet
+        computed. k > 1 requests run under ``vmap`` over the machines
+        gathered by ``index_select``, so each layer is one batched kernel
+        for all k. A lone request runs unbatched on views of its machine's
+        slices: there a product keeps its bias in the GEMM, where under
+        ``vmap`` each bias is its own pass over the activations. The cold
+        path of shard mode gathers from the chunks (``_gather``) first."""
         # grad mode is thread-local, so each call enters inference mode
         with self._template_lock, torch.inference_mode():
             rows = _to_device(xs, self.device)
+            if stack is None and self.chunks is not None:
+                machines = self._gather(idxs)  # (k, ...) in batch order
+            else:
+                stack = self.stacked if stack is None else stack
+                if len(idxs) == 1:
+                    i = int(idxs[0])
+                    machines = _tree_map(lambda a: a[i:i + 1], stack)
+                else:
+                    idx = _to_device(np.asarray(idxs, np.int64), self.device)
+                    machines = _tree_map(lambda a: a.index_select(0, idx), stack)
             if len(idxs) == 1:
-                i = int(idxs[0])
-                machine = _tree_map(lambda a: a[i], self.stacked)
+                machine = _tree_map(lambda a: a[0], machines)
                 return tuple(t.unsqueeze(0) for t in self._score(machine, rows[0]))
-            idx = _to_device(np.asarray(idxs, np.int64), self.device)
-            machines = _tree_map(lambda a: a.index_select(0, idx), self.stacked)
             return self._batched(machines, rows)
+
+    def _gather(self, idxs: List[int]) -> Dict[str, Any]:
+        """Shard mode: the k machines ``idxs`` as a stack of height k on the
+        dispatch device, in batch order. Each machine index is a (chunk,
+        row); each chunk's rows are gathered by ``index_select`` (a copy)
+        on its device and brought over, under the process-wide shard lock
+        (only this window of the dispatch runs under it)."""
+        by_chunk: Dict[int, List[Tuple[int, int]]] = {}
+        for position, idx in enumerate(idxs):
+            chunk, row = divmod(int(idx), self._chunk)
+            by_chunk.setdefault(chunk, []).append((position, row))
+        order: List[int] = []
+        with _SHARD_DISPATCH_LOCK:
+            parts = []
+            for chunk in sorted(by_chunk):
+                picks = by_chunk[chunk]
+                sel = _to_device(np.asarray([row for _, row in picks], np.int64),
+                                 self.mesh[chunk])
+                parts.append(_tree_map(lambda a: a.index_select(0, sel).to(self.device),
+                                       self.chunks[chunk]))
+                order.extend(position for position, _ in picks)
+        gathered = parts[0] if len(parts) == 1 else _tree_map(
+            lambda *leaves: torch.cat(leaves), *parts)
+        if order != sorted(order):
+            # concatenated in chunk order: put the machines in batch order
+            back = _to_device(np.argsort(np.asarray(order)).astype(np.int64), self.device)
+            gathered = _tree_map(lambda a: a.index_select(0, back), gathered)
+        return gathered
+
+    def _gather_machine(self, idx: int) -> Dict[str, Any]:
+        """One machine's slice as a stack of height one on the dispatch
+        device, a copy (the hot cache's entry), under the shard lock."""
+        chunk, row = divmod(int(idx), self._chunk)
+        with _SHARD_DISPATCH_LOCK:
+            return _tree_map(lambda a: a[row:row + 1].to(self.device, copy=True),
+                             self.chunks[chunk])
+
+    def _warm(self, kind: str, rows: int, n: int, stack) -> None:
+        """One synthetic lone dispatch of ``n`` zero rows through the first
+        machine of ``stack`` (None: the bucket's own), fetched; ``rows`` is
+        the padded row bucket the key names."""
+        xs = np.zeros((1, n, self.n_features), np.float32)
+        self._host(self._enqueue([0], xs, stack))
+        self.warm_dispatch_count += 1
+        self._programs.add((kind, rows, 1))
+
+    def warmup_hot(self, rows: int, n: int) -> None:
+        """Shard mode: pay the hot path's one-time costs before traffic, one
+        promotion gather and one hot dispatch at the warmed row bucket. The
+        gathered copy is dropped: promotion still takes two cold hits."""
+        if not self._hot_cap:
+            return
+        self._warm("hot", rows, n, self._gather_machine(0))
+
+    def warmup_mega(self, rows: int, n: int) -> None:
+        """A partial bucket boots with no resident machine, so its warm-up
+        request scores cold: one synthetic mega dispatch of its first
+        machine records the mega path's shape too, as the reference's
+        warm-up does. A full bucket's warm-up request already ran it."""
+        if not self._mega_enabled or self._mega_full:
+            return
+        self._warm("mega", rows, n, None)
 
     # -- request path ----------------------------------------------------------
     def submit(self, idx: int, x: np.ndarray, m_valid: int) -> ScoreResult:
@@ -902,12 +1111,12 @@ class _Bucket:
         n = max(it.m_valid for it in items) + self._offset
         return np.stack([it.x[:n] for it in items])
 
-    def _enqueue(self, idxs: List[int], xs: np.ndarray):
-        """Run the program and enqueue its outputs' copy to pinned host
-        memory behind it, then a CUDA event behind that; returns
-        ``(host tensors, event)`` (the event is None on the CPU, where the
-        work is done on return)."""
-        outputs = self._program(idxs, xs)
+    def _enqueue(self, idxs: List[int], xs: np.ndarray, stack=None):
+        """Run the program (over ``stack``, else the bucket's own) and
+        enqueue its outputs' copy to pinned host memory behind it, then a
+        CUDA event behind that; returns ``(host tensors, event)`` (the
+        event is None on the CPU, where the work is done on return)."""
+        outputs = self._program(idxs, xs) if stack is None else self._program(idxs, xs, stack)
         if self.device.type != "cuda":
             return outputs, None
         host = tuple(t.to("cpu", non_blocking=True) for t in outputs)
@@ -924,45 +1133,140 @@ class _Bucket:
         return tuple(t.numpy() for t in host)
 
     def _dispatch(self, rows: int, items: List[_Item], defer: bool) -> None:
+        """Route one drained batch: mega when every machine in it is
+        resident; hot when it is a pure batch of one machine with a hot
+        copy (shard mode); else cold."""
+        if self._mega_enabled and self._mega_route(items):
+            self._dispatch_mega(rows, items, defer)
+            return
+        hot = None
+        idx0 = items[0].idx
+        if self._hot_cap and all(it.idx == idx0 for it in items):
+            with self._hot_lock:
+                hot = self._hot.get(idx0)
+                if hot is not None:
+                    self._hot.move_to_end(idx0)  # LRU touch
+        if hot is not None:
+            self._dispatch_hot(rows, idx0, hot, items, defer)
+        else:
+            self._dispatch_cold(rows, items, defer)
+
+    def _mega_route(self, items: List[_Item]) -> bool:
+        """Whether every item's machine is resident (then each is touched
+        in the LRU)."""
+        with self._mega_lock:
+            if any(it.idx not in self._mega_slots for it in items):
+                return False
+            for it in items:
+                self._mega_slots.move_to_end(it.idx)  # LRU touch
+        return True
+
+    def _enqueued(self, kind: str, rows: int, items: List[_Item], enqueue, defer: bool,
+                  hot_idx: Optional[int] = None) -> Optional[Exception]:
+        """Acquire an in-flight slot, run ``enqueue()`` and hand the dispatch
+        to its fetch stage. An ``Exception`` at enqueue is returned (the slot
+        released) for the caller's repair; an interrupt fails the waiters."""
         acquired = False
         try:
-            xs = self._batch_inputs(items)
             self._inflight_slots.acquire()  # backpressure: bounded depth
             acquired = True
             started = time.perf_counter()
-            outputs = self._enqueue([it.idx for it in items], xs)
+            outputs = enqueue()
         except Exception as exc:
             if acquired:
                 self._inflight_slots.release()
-            if len(items) == 1:
-                spans.event_into(items[0].ctx, "dispatch_error", error=type(exc).__name__)
-                self._fail(items, exc)
-                return
-            # one request's failure must not fail the batch's other
-            # waiters: dispatch each request alone, once
-            logger.exception(
-                "fused dispatch of %d requests failed at enqueue; "
-                "rescoring one request per dispatch", len(items),
-            )
-            self.fallback_cold_count += 1
-            _M_MEGA_EVENTS.labels("fallback_cold").inc()
-            for it in items:
-                spans.event_into(it.ctx, "megabatch_fallback_cold", error=type(exc).__name__)
-                self._dispatch(rows, [it], defer)
-            return
+            return exc
         except BaseException as exc:  # interrupt/exit: surface, don't retry
             if acquired:
                 self._inflight_slots.release()
             self._fail(items, exc)
-            return
+            return None
         enqueued = time.perf_counter()
+        self._programs.add((kind, rows, len(items)))
         machines = len({it.idx for it in items})
         for it in items:
             # the leader may be another request's thread: each item's own
             # timeline gets the span
-            spans.record_into(it.ctx, "dispatch", started, enqueued - started,
+            spans.record_into(it.ctx, "dispatch", started, enqueued - started, path=kind,
                               batch=len(items), machines=machines)
-        self._finish(_Dispatch(rows, items, outputs, started, enqueued), defer)
+        self._finish(_Dispatch(kind, rows, items, outputs, started, enqueued, hot_idx), defer)
+        return None
+
+    def _dispatch_cold(self, rows: int, items: List[_Item], defer: bool) -> None:
+        try:
+            xs = self._batch_inputs(items)
+        except Exception as exc:
+            self._fail(items, exc)
+            return
+        exc = self._enqueued("cold", rows, items,
+                             lambda: self._enqueue([it.idx for it in items], xs), defer)
+        if exc is None:
+            return
+        if len(items) == 1:
+            # a lone request's enqueue failure surfaces on its waiter
+            spans.event_into(items[0].ctx, "dispatch_error", error=type(exc).__name__,
+                             path="cold")
+            self._fail(items, exc)
+            return
+        # one bad machine (or a batch too large for the device) must not fail
+        # the other machines' waiters: each request is rescored in a cold
+        # dispatch of its own
+        logger.exception("cold dispatch of %d request(s) failed at enqueue; rescoring one "
+                         "request per cold dispatch", len(items), exc_info=exc)
+        self._fall_back_cold(rows, items, exc, defer)
+
+    def _fall_back_cold(self, rows: int, items: List[_Item], exc: Exception,
+                        defer: bool) -> None:
+        """Rescore a batch that failed at enqueue one request per cold
+        dispatch."""
+        self.fallback_cold_count += 1
+        _M_MEGA_EVENTS.labels("fallback_cold").inc()
+        for it in items:
+            spans.event_into(it.ctx, "megabatch_fallback_cold", error=type(exc).__name__)
+        for it in items:
+            self._dispatch_cold(rows, [it], defer)
+
+    def _dispatch_mega(self, rows: int, items: List[_Item], defer: bool) -> None:
+        try:
+            xs = self._batch_inputs(items)
+        except Exception as exc:
+            self._fail(items, exc)
+            return
+        exc = self._enqueued("mega", rows, items,
+                             lambda: self._enqueue([it.idx for it in items], xs), defer)
+        if exc is None:
+            return
+        # the fused path must never fail a request the cold path could
+        # serve: its machines leave residency (they re-earn it under
+        # backoff) and each request is rescored in a cold dispatch of its
+        # own, so one bad machine fails only its own waiters
+        logger.exception(
+            "megabatch dispatch of %d request(s) failed at enqueue; demoting its "
+            "machines and rescoring one request per cold dispatch", len(items),
+            exc_info=exc)
+        for idx in {it.idx for it in items}:
+            self._mega_demote(idx)
+        self._fall_back_cold(rows, items, exc, defer)
+
+    def _dispatch_hot(self, rows: int, idx: int, tree, items: List[_Item],
+                      defer: bool) -> None:
+        try:
+            xs = self._batch_inputs(items)
+        except Exception as exc:
+            self._fail(items, exc)
+            return
+        exc = self._enqueued("hot", rows, items,
+                             lambda: self._enqueue([0] * len(items), xs, tree), defer,
+                             hot_idx=idx)
+        if exc is None:
+            return
+        # a failing hot copy must not keep failing its machine's pure
+        # batches while the cold path could serve them: demote it (its
+        # re-promotion backs off) and score the same items cold
+        logger.exception("hot-cache dispatch failed for machine idx %d; demoting the hot "
+                         "copy and retrying on the cold path", idx, exc_info=exc)
+        self._demote(idx)
+        self._dispatch_cold(rows, items, defer)
 
     def _finish(self, job: _Dispatch, defer: bool) -> None:
         """Route one enqueued dispatch to its fetch stage: the collector when
@@ -1031,7 +1335,7 @@ class _Bucket:
 
     def quiesce(self) -> None:
         """Block until every dispatch enqueued so far is fetched and fanned
-        out."""
+        out, the promotions that ride the fetch stage included."""
         self._fetch_queue.join()
 
     def _fetch(self, job: _Dispatch):
@@ -1053,27 +1357,44 @@ class _Bucket:
         for it in job.items:
             # enqueue to fetch start: the window the device computes in
             spans.record_into(it.ctx, "device_execute", job.enqueued,
-                              fetch_started - job.enqueued)
+                              fetch_started - job.enqueued, path=job.kind)
         try:
             x_tail, pred, scaled, total = self._fetch(job)
         except Exception as exc:
-            if len(job.items) > 1:
-                # a fused execution is all or nothing: rescore each request
-                # in its own dispatch, so one bad machine fails only its own
-                # waiters
+            if job.kind == "hot":
+                # the enqueue-time contract, caught at the fetch: demote the
+                # hot copy and rescore the same items cold, on this thread
+                logger.exception("hot-cache fetch failed for machine idx %d; demoting the "
+                                 "hot copy and retrying on the cold path", job.hot_idx)
+                for it in job.items:
+                    spans.event_into(it.ctx, "hot_fetch_failed_retry_cold",
+                                     error=type(exc).__name__)
+                self._demote(job.hot_idx)
+                self._retry_cold_sync(job.items)
+                return
+            if job.kind == "mega" or len(job.items) > 1:
+                # a fused execution is all or nothing: a mega batch's
+                # machines leave residency first (the culprit may be one
+                # machine or the program), then each request is rescored in
+                # its own cold dispatch, so one bad machine (or a batch too
+                # large for the device) fails only its own waiters
                 logger.exception(
-                    "fused dispatch of %d requests failed at fetch; rescoring "
-                    "one request per dispatch", len(job.items),
+                    "%s fetch failed for a %d-request batch; rescoring one request per "
+                    "cold dispatch", job.kind, len(job.items),
                 )
                 self.retry_isolated_count += 1
                 _M_MEGA_EVENTS.labels("retry_isolated").inc()
                 for it in job.items:
                     spans.event_into(it.ctx, "megabatch_fetch_failed_retry_isolated",
                                      error=type(exc).__name__)
-                self._retry_isolated_sync(job.items)
+                if job.kind == "mega":
+                    for idx in {it.idx for it in job.items}:
+                        self._mega_demote(idx)
+                self._retry_isolated_sync(job.items, f"{job.kind}-fetch-failure")
                 return
             for it in job.items:
-                spans.event_into(it.ctx, "fetch_error", error=type(exc).__name__)
+                spans.event_into(it.ctx, "fetch_error", error=type(exc).__name__,
+                                 path=job.kind)
             self._fail(job.items, exc)
             return
         except BaseException as exc:
@@ -1082,43 +1403,232 @@ class _Bucket:
         fetched = time.perf_counter()
         for it in job.items:
             spans.record_into(it.ctx, "fetch", fetch_started, fetched - fetch_started,
-                              batch=len(job.items))
+                              path=job.kind, batch=len(job.items))
         self.dispatch_seconds_total += fetched - job.started
         try:
             # results are filled before any accounting: a fill failure
             # errors the waiters without counting them as served
             self._fill_results(job.items, x_tail, pred, scaled, total)
-            self._account(len(job.items))
-            _M_MEGA_MACHINES.observe(len({it.idx for it in job.items}))
+            self._account(len(job.items), job.kind)
+            if job.kind == "mega":
+                _M_MEGA_BATCH.observe(len(job.items))
+                _M_MEGA_MACHINES.observe(len({it.idx for it in job.items}))
+                with self._mega_lock:
+                    for idx in {it.idx for it in job.items}:
+                        self._mega_last_use[idx] = self.dispatch_count
+                        self._pay_down_demotions(self._mega_demotions, idx)
+            elif job.kind == "hot":
+                with self._hot_lock:
+                    self._hot_last_use[job.hot_idx] = self.dispatch_count
+                    self._pay_down_demotions(self._hot_demotions, job.hot_idx)
         except BaseException as exc:
             for it in job.items:
                 it.error = exc
         finally:
             for it in job.items:
                 it.done.set()
+        if job.kind != "cold" or not job.items or job.items[0].error is not None:
+            return
+        # after the waiters are released: a failed promotion never turns
+        # their success into an error, and is retried by the next cold hit.
+        # Cold successes feed both caches (hot is shard mode's, mega the
+        # replicated engine's: at most one is live)
+        self._promote_after(job.items)
 
-    def _retry_isolated_sync(self, items: List[_Item]) -> None:
-        """Rescore a failed fused batch ONE request at a time, synchronously
-        on the collector. A sticky device fault fails each request once and
-        ends the loop: nothing is retried twice."""
+    def _promote_after(self, items: List[_Item]) -> None:
+        try:
+            self._maybe_promote(items)
+        except Exception:
+            logger.exception("hot-cache promotion failed (serving unaffected)")
+        try:
+            self._maybe_promote_mega(items)
+        except Exception:
+            logger.exception("megabatch residency promotion failed (serving unaffected)")
+
+    def _score_sync(self, items: List[_Item], retry: str) -> None:
+        """Score ``items`` in one cold dispatch, synchronously on this
+        thread (a repair path, not the pipeline), fill and account them;
+        raises what the dispatch raised."""
+        started = time.perf_counter()
+        outputs = self._enqueue([it.idx for it in items], self._batch_inputs(items))
+        enqueued = time.perf_counter()
+        x_tail, pred, scaled, total = self._host(outputs)
+        fetched = time.perf_counter()
+        for it in items:
+            spans.record_into(it.ctx, "dispatch", started, enqueued - started, path="cold",
+                              retry=retry)
+            spans.record_into(it.ctx, "fetch", enqueued, fetched - enqueued, path="cold",
+                              retry=retry)
+        self.dispatch_seconds_total += fetched - started
+        self._fill_results(items, x_tail, pred, scaled, total)
+        self._account(len(items), "cold")
+
+    def _retry_cold_sync(self, items: List[_Item]) -> None:
+        """The cold retry of a hot dispatch that failed at fetch: the same
+        batch in one cold dispatch, then the cold path's promotion
+        accounting (the demoted machine starts re-earning its copy)."""
+        try:
+            self._score_sync(items, "hot-fetch-failure")
+        except BaseException as exc:
+            for it in items:
+                it.error = exc
+        finally:
+            for it in items:
+                it.done.set()
+        if items and items[0].error is None:
+            self._promote_after(items)
+
+    def _retry_isolated_sync(self, items: List[_Item], retry: str) -> None:
+        """Rescore a batch that failed at fetch ONE request at a time in
+        cold dispatches, synchronously on the collector. A sticky device
+        fault fails each request once and ends the loop: nothing is retried
+        twice. A request whose own retry fails leaves residency too."""
         for item in items:
             try:
-                started = time.perf_counter()
-                outputs = self._enqueue([item.idx], self._batch_inputs([item]))
-                enqueued = time.perf_counter()
-                x_tail, pred, scaled, total = self._host(outputs)
-                fetched = time.perf_counter()
-                spans.record_into(item.ctx, "dispatch", started, enqueued - started,
-                                  retry="megabatch-fetch-failure")
-                spans.record_into(item.ctx, "fetch", enqueued, fetched - enqueued,
-                                  retry="megabatch-fetch-failure")
-                self.dispatch_seconds_total += fetched - started
-                self._fill_results([item], x_tail, pred, scaled, total)
-                self._account(1)
+                self._score_sync([item], retry)
             except BaseException as exc:
                 item.error = exc
+                spans.event_into(item.ctx, "megabatch_isolated_retry_failed",
+                                 error=type(exc).__name__)
+                try:
+                    self._mega_demote(item.idx)
+                except Exception:  # pragma: no cover - bookkeeping only
+                    logger.exception("megabatch demotion failed")
             finally:
                 item.done.set()
+
+    # -- residency: the hot cache and the megabatch tier ---------------------
+    # a full cache evicts its LRU entry for a new promotion only when that
+    # entry has not served within the freshness window, measured in the
+    # bucket's dispatches and scaled with its fleet (uniform round-robin over
+    # M machines touches each entry every ~M dispatches); 0 disables the
+    # guard (tests)
+    _HOT_EVICT_AFTER = 64
+
+    def _hot_evict_window(self) -> int:
+        if not self._HOT_EVICT_AFTER:
+            return 0
+        return max(self._HOT_EVICT_AFTER, 2 * len(self.names))
+
+    @staticmethod
+    def _pay_down_demotions(demotions: Dict[int, int], idx: int) -> None:
+        """A successful serve pays one demotion of a machine's backoff down
+        (hot or mega): a transient failure does not escalate its threshold
+        for good, a machine that keeps failing never gets here. Callers
+        hold the matching lock."""
+        count = demotions.get(idx)
+        if count:
+            if count > 1:
+                demotions[idx] = count - 1
+            else:
+                del demotions[idx]
+
+    def _demote(self, idx: int) -> None:
+        with self._hot_lock:
+            lockcheck.assert_guard("engine.hot")
+            self._hot.pop(idx, None)
+            self._hot_last_use.pop(idx, None)
+            self._hot_hits.pop(idx, None)
+            self._hot_demotions[idx] = self._hot_demotions.get(idx, 0) + 1
+        _M_HOT_EVENTS.labels("demote").inc()
+
+    def _maybe_promote(self, items: List[_Item]) -> None:
+        """After a successful cold dispatch (shard mode): a machine's second
+        cold hit gets it a hot copy (``2·8^demotions`` hits after
+        demotions); a full cache evicts its LRU entry unless that entry is
+        fresh. The gather runs outside the hot lock (under the shard lock,
+        see _gather_machine)."""
+        if not self._hot_cap:
+            return
+        for idx in {it.idx for it in items}:
+            with self._hot_lock:
+                if idx in self._hot:
+                    # served through a mixed (cold) batch: its traffic is live
+                    self._hot.move_to_end(idx)
+                    self._hot_last_use[idx] = self.dispatch_count
+                    continue
+                hits = self._hot_hits.get(idx, 0) + 1
+                self._hot_hits[idx] = hits
+                if hits < 2 * (8 ** self._hot_demotions.get(idx, 0)):
+                    if self._hot_demotions.get(idx):
+                        _M_HOT_EVENTS.labels("backoff_defer").inc()
+                    continue
+                if len(self._hot) >= self._hot_cap:
+                    victim = next(iter(self._hot))
+                    age = self.dispatch_count - self._hot_last_use.get(victim, 0)
+                    if age < self._hot_evict_window():
+                        continue  # the working set is live: do not thrash it
+                    self._hot.pop(victim)
+                    self._hot_last_use.pop(victim, None)
+                    # an evicted machine re-earns its promotion from zero
+                    self._hot_hits.pop(victim, None)
+                    _M_HOT_EVENTS.labels("evict").inc()
+            tree = self._gather_machine(idx)
+            with self._hot_lock:
+                lockcheck.assert_guard("engine.hot")
+                self._hot[idx] = tree
+                self._hot_last_use[idx] = self.dispatch_count
+            _M_HOT_EVENTS.labels("promote").inc()
+
+    def _mega_demote(self, idx: int) -> None:
+        """Take a machine out of megabatch residency (its fused serve
+        failed): its traffic routes cold and re-earns a slot under
+        backoff."""
+        with self._mega_lock:
+            lockcheck.assert_guard("engine.mega")
+            if idx not in self._mega_slots:
+                return
+            del self._mega_slots[idx]
+            self._mega_last_use.pop(idx, None)
+            self._mega_hits.pop(idx, None)
+            self._mega_demotions[idx] = self._mega_demotions.get(idx, 0) + 1
+        _M_MEGA_EVENTS.labels("demote").inc()
+        spans.event("megabatch_residency", action="demote",
+                    machine=self.names[idx] if idx < len(self.names) else idx)
+
+    def _maybe_promote_mega(self, items: List[_Item]) -> None:
+        """After a successful cold dispatch: megabatch residency, the hot
+        cache's policy with the reference's counts. A machine is admitted on
+        its second cold hit (``2·8^demotions`` after demotions); a partial
+        bucket at its cap evicts its stale, unpinned LRU resident first. A
+        full bucket only re-admits machines demoted by failures. Admission
+        moves no bytes: a slot is the machine's own row of the stack."""
+        if not self._mega_enabled:
+            return
+        for idx in {it.idx for it in items}:
+            with self._mega_lock:
+                lockcheck.assert_guard("engine.mega")
+                if idx in self._mega_slots:
+                    # a resident machine served through a mixed cold batch
+                    self._mega_slots.move_to_end(idx)
+                    self._mega_last_use[idx] = self.dispatch_count
+                    continue
+                hits = self._mega_hits.get(idx, 0) + 1
+                self._mega_hits[idx] = hits
+                if hits < 2 * (8 ** self._mega_demotions.get(idx, 0)):
+                    if self._mega_demotions.get(idx):
+                        _M_MEGA_EVENTS.labels("backoff_defer").inc()
+                    continue
+                if not self._mega_full and len(self._mega_slots) >= self._mega_cap:
+                    # the LRU victim, skipping the plan's pinned residents
+                    victim = next((v for v in self._mega_slots if v not in self._mega_pinned),
+                                  None)
+                    if victim is None:
+                        continue  # every slot is pinned: stay cold
+                    age = self.dispatch_count - self._mega_last_use.get(victim, 0)
+                    if age < self._hot_evict_window() and idx not in self._mega_pinned:
+                        continue  # the working set is live: do not thrash it
+                    del self._mega_slots[victim]
+                    self._mega_last_use.pop(victim, None)
+                    self._mega_hits.pop(victim, None)
+                    _M_MEGA_EVENTS.labels("evict").inc()
+                    spans.event("megabatch_residency", action="evict",
+                                machine=self.names[victim])
+                self._mega_slots[idx] = None
+                self._mega_last_use[idx] = self.dispatch_count
+                self._mega_hits.pop(idx, None)
+            _M_MEGA_EVENTS.labels("promote").inc()
+            spans.event("megabatch_residency", action="promote", machine=self.names[idx])
 
     # -- live tuning and accounting --------------------------------------------
     def set_dispatch_depth(self, depth: int) -> int:
@@ -1127,14 +1637,68 @@ class _Bucket:
         return self._inflight_slots.resize(depth)
 
     def set_fill_window(self, seconds: float) -> float:
-        self._fill_s = max(0.0, float(seconds))
+        """Retarget the fill window live; off for a bucket that never
+        megabatches, the constructor's rule."""
+        self._fill_s = max(0.0, float(seconds)) if self._mega_enabled else 0.0
         return self._fill_s
 
-    def _account(self, k: int) -> None:
+    def set_mega_cap(self, cap: int) -> Optional[int]:
+        """Retarget a partial bucket's residency cap live; None for a full
+        (or non-megabatching) bucket, which has no cap to turn. A resize
+        resets residency and the mega path's shapes, as the reference's
+        (whose resident stack's height is the cap): machines re-earn their
+        slots by the promotion path."""
+        if not self._mega_enabled or self._mega_full:
+            return None
+        cap = max(1, int(cap))
+        with self._mega_lock:
+            lockcheck.assert_guard("engine.mega")
+            if cap == self._mega_cap:
+                return cap
+            self._mega_cap = cap
+            self._mega_slots.clear()
+            self._mega_hits.clear()
+            self._mega_last_use.clear()
+        self._programs = {key for key in self._programs if key[0] != "mega"}
+        _M_MEGA_EVENTS.labels("residency_resize").inc()
+        spans.event("megabatch_residency", action="resize", cap=cap)
+        return cap
+
+    def pin_mega(self, idxs: Iterable[int]) -> Dict[str, int]:
+        """Install the layout plan's pins for this bucket, REPLACING the
+        previous set (``()`` clears it). A pin does no stack work: a pinned
+        machine that is not resident gets its hit counter seeded to one
+        below its threshold, so its next cold hit promotes it, and eviction
+        skips pinned residents. A full bucket only records the set."""
+        valid = {int(idx) for idx in idxs if 0 <= int(idx) < len(self.names)}
+        seeded = 0
+        with self._mega_lock:
+            lockcheck.assert_guard("engine.mega")
+            self._mega_pinned = valid
+            if not self._mega_enabled or self._mega_full:
+                resident = len(valid)
+            else:
+                resident = 0
+                for idx in sorted(valid):
+                    if idx in self._mega_slots:
+                        resident += 1
+                        continue
+                    threshold = 2 * (8 ** self._mega_demotions.get(idx, 0))
+                    if self._mega_hits.get(idx, 0) < threshold - 1:
+                        self._mega_hits[idx] = threshold - 1
+                        seeded += 1
+        return {"pinned": len(valid), "resident": resident, "seeded": seeded}
+
+    def _account(self, k: int, path: str = "cold") -> None:
         self.dispatch_count += 1
         self.request_count += k
+        if path == "hot":
+            self.hot_request_count += k
+        elif path == "mega":
+            self.mega_dispatch_count += 1
+            self.mega_request_count += k
         self.max_batch_seen = max(self.max_batch_seen, k)
-        _M_REQUESTS.labels("mega").inc(k)
+        _M_REQUESTS.labels(path).inc(k)
         _M_PRECISION.labels(self.precision).inc(k)
         _M_DISPATCH_BATCH.observe(k)
 
@@ -1152,7 +1716,8 @@ class _Bucket:
 
 class ServingEngine:
     """Stacked buckets from loaded models, scored by machine name on one
-    device, and the spill tier for machines registered lazily.
+    device (or, in shard mode, over the devices of ``mesh``), and the spill
+    tier for machines registered lazily.
 
     ``models``: ``{machine_name: loaded model}`` (weights anywhere: the
     engine stacks them on the host and places one copy on ``device``). A
@@ -1175,6 +1740,14 @@ class ServingEngine:
     fleet-sharded serving mesh, and ``mesh_remote`` the lazy machines other
     shards own: requests count in ``gordo_mesh_requests_total`` by rung
     (``owned``, or ``fallback`` with a ``mesh_fallback`` span event).
+    ``mesh``: a :func:`~..parallel.mesh.fleet_mesh` device list, the
+    host-sharded capacity mode (each bucket's stack split over its devices,
+    scored on its first, which is the engine's device; megabatching off);
+    ``hot_cap`` (default ``GORDO_SERVE_HOT_CACHE``, 16) bounds its hot
+    cache per bucket. ``megabatch`` (default ``GORDO_MEGABATCH``, on) and
+    ``megabatch_residency`` (default ``GORDO_MEGABATCH_RESIDENCY``, 128):
+    the replicated engine's fused path and its resident machines per
+    bucket (see the module docstring).
     """
 
     def __init__(
@@ -1193,7 +1766,21 @@ class ServingEngine:
         compile_cache: Any = None,
         mesh_shard: Optional[Tuple[int, int]] = None,
         mesh_remote: Optional[Iterable[str]] = None,
+        mesh: Optional[List[torch.device]] = None,
+        hot_cap: Optional[int] = None,
+        megabatch: Optional[bool] = None,
+        megabatch_residency: Optional[int] = None,
     ):
+        # shard mode: the stacks spread over ``mesh`` and dispatch on its
+        # first device, which is the engine's
+        self.mesh = list(mesh) if mesh else None
+        if self.mesh is not None:
+            first = self.mesh[0]
+            given = resolve_device(device) if device is not None else first
+            # "cuda" names the current card, which is index 0 of the mesh
+            if (given.type, given.index or 0) != (first.type, first.index or 0):
+                raise ValueError(f"device {device} is not the mesh's first device {first}")
+            device = first
         self.device = resolve_device(device)
         # ``(shard_id, n_shards)`` when this engine is one shard of a
         # fleet-sharded serving mesh: its eager ``models`` are the machines
@@ -1216,9 +1803,22 @@ class ServingEngine:
         self.kernel_libraries: Dict[str, str] = {}
         # the libraries the eager host-path machines' estimators launch
         self._host_path_libraries: set = set()
+        # cross-machine megabatching: replicated engines only, and the fill
+        # window exists for it (0 without it)
+        if megabatch is None:
+            megabatch = _megabatch_enabled()
+        if megabatch_residency is None:
+            megabatch_residency = _megabatch_residency_cap()
         if fill_window_us is None:
             fill_window_us = _fill_window_us()
-        self.fill_window_us = max(0, int(fill_window_us))
+        self.megabatch_residency = max(0, int(megabatch_residency))
+        self.megabatch = bool(megabatch) and self.mesh is None and self.megabatch_residency > 0
+        self.fill_window_us = max(0, int(fill_window_us)) if self.megabatch else 0
+        # shard mode's hot cache per bucket (0 disables; a replicated engine
+        # has no gather to skip and ignores it)
+        if hot_cap is None:
+            hot_cap = _env_int("GORDO_SERVE_HOT_CACHE", 16)
+        self.hot_cap = max(0, int(hot_cap))
         self.max_batch = max_batch
         self.min_rows_bucket = min_rows_bucket
         # requests longer than this score in overlapping chunks
@@ -1273,6 +1873,10 @@ class ServingEngine:
                 device=self.device,
                 fill_window_s=self.fill_window_us / 1e6,
                 precision=json.loads(sig)["precision"],
+                mesh=self.mesh,
+                hot_cap=self.hot_cap,
+                megabatch=self.megabatch,
+                mega_cap=self.megabatch_residency,
             )
             self._buckets.append(bucket)
             for i, (_, entry) in enumerate(members):
@@ -1321,8 +1925,10 @@ class ServingEngine:
         buckets' and the host path's (through the compile-cache store: a
         warm store loads them with no ``nvcc``), then
         score one synthetic request per bucket before traffic arrives, which
-        makes the cuBLAS handles, so the first real request pays neither.
-        Returns the buckets warmed."""
+        makes the cuBLAS handles, so the first real request pays neither;
+        in shard mode one promotion gather and one hot dispatch too, and in
+        a partial bucket one mega dispatch (``warmup_hot``,
+        ``warmup_mega``). Returns the buckets warmed."""
         self._resolve_kernels(self.required_libraries())
         for bucket in self._buckets:
             need = bucket.lookback + (bucket.lookahead or 0)
@@ -1330,6 +1936,10 @@ class ServingEngine:
             # not through anomaly(): a warm-up is no traffic to account
             self._anomaly(bucket, 0, bucket.names[0],
                           np.zeros((n, bucket.n_features), np.float32))
+            padded = _round_up_pow2(n, self.min_rows_bucket)
+            with torch.inference_mode():
+                bucket.warmup_hot(padded, n)
+                bucket.warmup_mega(padded, n)
         return len(self._buckets)
 
     def close(self) -> None:
@@ -1345,17 +1955,13 @@ class ServingEngine:
             bucket.quiesce()
         self.host_cache.quiesce()
 
-    @property
-    def residency_cap(self) -> int:
-        return max(_RESIDENCY_CAP, len(self._by_name))
-
     def current_tuning(self) -> Dict[str, int]:
         return {
             "dispatch_depth": (
                 self._buckets[0].dispatch_depth if self._buckets else _dispatch_depth()
             ),
             "fill_window_us": self.fill_window_us,
-            "megabatch_residency": self.residency_cap,
+            "megabatch_residency": self.megabatch_residency,
         }
 
     def apply_tuning(
@@ -1365,8 +1971,10 @@ class ServingEngine:
         megabatch_residency: Optional[int] = None,
     ) -> Dict[str, Any]:
         """Retarget the data-plane knobs of a running engine (the autopilot's
-        seam); returns what was applied. Every machine is resident, so a
-        residency value changes nothing and answers None."""
+        seam); returns what was applied. The fill window stays 0 on an
+        engine that does not megabatch; a residency value resets the partial
+        buckets' residency at the new cap and answers it, or None when no
+        bucket is partial (nothing to turn)."""
         applied: Dict[str, Any] = {}
         if dispatch_depth is not None:
             depth = max(1, int(dispatch_depth))
@@ -1374,37 +1982,49 @@ class ServingEngine:
                 bucket.set_dispatch_depth(depth)
             applied["dispatch_depth"] = depth
         if fill_window_us is not None:
-            us = max(0, int(fill_window_us))
+            us = max(0, int(fill_window_us)) if self.megabatch else 0
             self.fill_window_us = us
             for bucket in self._buckets:
                 bucket.set_fill_window(us / 1e6)
             applied["fill_window_us"] = us
         if megabatch_residency is not None:
-            applied["megabatch_residency"] = None
+            cap = max(1, int(megabatch_residency))
+            results = [bucket.set_mega_cap(cap) for bucket in self._buckets]
+            if any(result is not None for result in results):
+                self.megabatch_residency = cap
+                applied["megabatch_residency"] = cap
+            else:
+                applied["megabatch_residency"] = None
         return applied
 
     def pin_residency(self, names: Iterable[str]) -> Dict[str, Any]:
         """Install a layout plan's resident set, REPLACING the previous one
-        (``pin_residency(())`` clears it), as the reference's fully resident
-        engine does: every eager machine already holds its stacked slot, so
-        the pins are recorded and all of them count as resident, none is
-        seeded. Names the engine does not serve eagerly (lazy machines,
-        typos, machines gone from the store) are reported in ``unknown``,
-        never fatal: the plan degrades."""
-        pinned = set()
+        (``pin_residency(())`` clears it): each name's bucket gets its pins
+        (``_Bucket.pin_mega``; a bucket with no planned name is cleared).
+        ``resident`` counts the pinned machines resident now, ``seeded`` the
+        ones whose next cold hit promotes them. Names the engine does not
+        serve eagerly (lazy machines, typos, machines gone from the store)
+        are reported in ``unknown``, never fatal: the plan degrades."""
+        per_bucket: Dict[int, List[int]] = {}
         unknown: List[str] = []
+        pinned_names = set()
         for name in names:
-            if name in self._by_name:
-                pinned.add(name)
-            else:
+            entry = self._by_name.get(name)
+            if entry is None:
                 unknown.append(name)
-        self.residency_pins = tuple(sorted(pinned))
-        return {
-            "pinned": len(pinned),
-            "resident": len(pinned),
-            "seeded": 0,
-            "unknown": sorted(unknown),
-        }
+                continue
+            bucket, idx = entry
+            per_bucket.setdefault(id(bucket), []).append(idx)
+            pinned_names.add(name)
+        self.residency_pins = tuple(sorted(pinned_names))
+        pinned = resident = seeded = 0
+        for bucket in self._buckets:
+            result = bucket.pin_mega(per_bucket.get(id(bucket), ()))
+            pinned += result["pinned"]
+            resident += result["resident"]
+            seeded += result["seeded"]
+        return {"pinned": pinned, "resident": resident, "seeded": seeded,
+                "unknown": sorted(unknown)}
 
     def can_score(self, name: str) -> bool:
         return name in self._by_name or name in self._lazy
@@ -1655,11 +2275,16 @@ class ServingEngine:
             prec_requests[b.precision] = prec_requests.get(b.precision, 0) + b.request_count
             counts = by_shape.setdefault(f"{b.shape_key}/{_compute_dtype(b.template)}",
                                          {"dispatches": 0, "requests": 0})
-            counts["dispatches"] += b.dispatch_count
+            counts["dispatches"] += b.dispatch_count + b.warm_dispatch_count
             counts["requests"] += b.request_count
+        mega_dispatches = sum(b.mega_dispatch_count for b in buckets)
+        mega_requests = sum(b.mega_request_count for b in buckets)
         return {
             "machines": len(self._by_name),
             "buckets": len(buckets),
+            # the (path, rows, k) shapes the buckets ran: the reference's
+            # compiled programs (an eager program compiles nothing)
+            "compiled_programs": sum(len(b._programs) for b in buckets),
             "dispatches": dispatches,
             "batched_requests": requests,
             "max_dispatch_batch": max((b.max_batch_seen for b in buckets), default=0),
@@ -1670,19 +2295,24 @@ class ServingEngine:
             # machines scored on the host path, with the reason
             "host_path_machines": self.host_path_machines(),
             "dispatch_depth": buckets[0].dispatch_depth if buckets else 0,
-            # every dispatch runs the one fused program, so the block's
-            # counts are the engine's; the reference's block counts its
-            # resident program's share
+            # 0: replicated; else the devices each bucket's stack is split
+            # over (shard mode)
+            "shard_mesh_devices": len(self.mesh) if self.mesh else 0,
+            # shard mode's hot cache: machines holding a copy, and the
+            # requests it served
+            "hot_machines": sum(len(b._hot) for b in buckets),  # lint: allow-unguarded(point-in-time len() for stats; GIL-atomic read and staleness is fine in a gauge)
+            "hot_requests": sum(b.hot_request_count for b in buckets),
+            # the mega path's share: its dispatches and requests, the
+            # resident machines, how fill windows closed, its repairs
             "megabatch": {
-                # fusing happens whenever the fill window is open; every
-                # machine is resident under a cap of at least their count
-                "enabled": self.fill_window_us > 0,
+                "enabled": self.megabatch,
                 "fill_window_us": self.fill_window_us,
-                "residency_cap": self.residency_cap,
-                "resident_machines": len(self._by_name),
-                "dispatches": dispatches,
-                "requests": requests,
-                "fusion_ratio": round(requests / dispatches, 3) if dispatches else None,
+                "residency_cap": self.megabatch_residency,
+                "resident_machines": sum(len(b._mega_slots) for b in buckets),  # lint: allow-unguarded(point-in-time len() for stats; GIL-atomic read and staleness is fine in a gauge)
+                "dispatches": mega_dispatches,
+                "requests": mega_requests,
+                "fusion_ratio": (round(mega_requests / mega_dispatches, 3)
+                                 if mega_dispatches else None),
                 "fill_timeout_total": sum(b.fill_timeout_count for b in buckets),
                 "fill_size_total": sum(b.fill_size_count for b in buckets),
                 "fallback_cold": sum(b.fallback_cold_count for b in buckets),

@@ -131,6 +131,14 @@ partition. Answers carry ``X-Gordo-Shard: <i>``, timelines ``shard``, and
 ``remote_or_lazy``); the engine counts ``gordo_mesh_requests_total`` by
 rung, ``owned`` or ``fallback``.
 
+Host-sharded capacity mode (reference ``server.py:311-318``,
+``:364-382``, ``:429-545``, ``:979``): ``shard_fleet=True`` (``run-server
+--shard-fleet``) builds every state's engine (boot, reload, rollback)
+over ``parallel.mesh.fleet_mesh`` of the server's device type, every
+visible card: each bucket's stack is split over them, scored on the first,
+with the engine's hot cache and megabatching off. The boot log says which
+dispatch mode a state serves with.
+
 Warm boot (reference ``server.py:483``, ``:546-547``, ``:2340-2370``):
 every state's engine (boot, reload, rollback) resolves the kernel
 libraries it launches through one store, ``compile_cache_store=`` (or
@@ -195,6 +203,7 @@ from ..observability import ledger as control_ledger
 from ..observability import slo as slo_engine
 from ..observability import telemetry as telemetry_engine
 from ..observability.registry import REGISTRY
+from ..parallel.mesh import fleet_mesh
 from ..resilience import deadline, faults, qos
 from ..resilience.admission import (
     DRAINING_HEADER,
@@ -381,7 +390,7 @@ class _ServerState:
     def __init__(self, machines: Dict[str, _Machine], single: bool, device,
                  lazy_loaders: Optional[Dict[str, Callable[[], Dict[str, Any]]]] = None,
                  compile_cache: Any = None, mesh_shard: Optional[Tuple[int, int]] = None,
-                 mesh_remote: Optional[set] = None):
+                 mesh_remote: Optional[set] = None, shard_fleet: bool = False):
         self._inflight = 0
         self._cond = lockcheck.named_condition("server.state_cond")
         self.machines = machines
@@ -390,6 +399,10 @@ class _ServerState:
         # loads each through its spill tier at the first touch
         lazy_loaders = lazy_loaders or {}
         self.lazy_names = frozenset(lazy_loaders)
+        # capacity mode: every bucket's stack split over the local devices
+        # of the server's device type, at the cost of a gather per cold
+        # dispatch (engine.py's shard mode)
+        mesh = fleet_mesh(device=device.type) if shard_fleet else None
         self.engine = ServingEngine(
             {name: m.model for name, m in machines.items()},
             target_cols={name: m.target_columns for name, m in machines.items()},
@@ -405,6 +418,7 @@ class _ServerState:
             # machine stays "owned" in the accounting)
             mesh_shard=mesh_shard,
             mesh_remote=mesh_remote,
+            mesh=mesh,
         )
         for name, reason in self.engine.skipped.items():
             logger.warning("Machine %r is scored on the host path: %s", name, reason)
@@ -412,7 +426,21 @@ class _ServerState:
             logger.info("Lazy fleet boot: %d machine(s) eager, %d lazy behind the host-RAM "
                         "spill tier (GORDO_HOST_CACHE_MB=%d)", len(machines), len(lazy_loaders),
                         self.engine.host_cache_mb)
-        ladder = self.engine.stats()["precision"]["machines"]
+        # the dispatch mode this state serves with, readable from the log
+        stats = self.engine.stats()
+        megabatch = stats["megabatch"]
+        if megabatch["enabled"]:
+            logger.info("Cross-machine megabatching ON: fill window %d us, %d/%d machines "
+                        "resident in the stacked program(s)", megabatch["fill_window_us"],
+                        megabatch["resident_machines"], len(self.engine.machines()))
+        else:
+            logger.info("Cross-machine megabatching off (%s)",
+                        "shard mode" if shard_fleet else "disabled by config")
+        if mesh is not None:
+            logger.info("Shard mode: every bucket's stack split over %d device(s) of %s, hot "
+                        "cache of %d machine(s) per bucket", len(mesh), device.type,
+                        self.engine.hot_cap)
+        ladder = stats["precision"]["machines"]
         if set(ladder) - {"f32"}:
             logger.info("Precision ladder: %s",
                         ", ".join(f"{k}={v}" for k, v in sorted(ladder.items())))
@@ -465,7 +493,9 @@ class ModelServer:
     ``mesh_shard`` (defaults ``GORDO_MESH_SHARDS`` / ``GORDO_MESH_SHARD``, the
     shard falling back to ``worker_id`` mod shards): this process is shard
     ``mesh_shard`` of a fleet-sharded serving mesh (see the module
-    docstring); 0 shards is single-host serving. :meth:`close` drains and
+    docstring); 0 shards is single-host serving. ``shard_fleet``: every
+    state's engine runs the host-sharded capacity mode (see the module
+    docstring), kept across reload and rollback. :meth:`close` drains and
     stops the engine.
     """
 
@@ -483,8 +513,11 @@ class ModelServer:
         compile_cache_store: Optional[str] = None,
         mesh_shards: Optional[int] = None,
         mesh_shard: Optional[int] = None,
+        shard_fleet: bool = False,
     ):
         self.device = resolve_device(device)
+        # the host-sharded capacity mode of every state this server builds
+        self.shard_fleet = bool(shard_fleet)
         if worker_id is None:
             raw_worker = os.environ.get("GORDO_WORKER_ID")
             worker_id = int(raw_worker) if raw_worker else None
@@ -811,7 +844,8 @@ class ModelServer:
                              lazy_loaders=self._lazy_loaders(),
                              compile_cache=self.compile_cache,
                              mesh_shard=self._mesh_tuple(),
-                             mesh_remote=set(self._mesh_remote))
+                             mesh_remote=set(self._mesh_remote),
+                             shard_fleet=self.shard_fleet)
         state.engine.warmup()
         # the autopilot's applied values carry over: a new engine reads the
         # environment's, which would revert every adaptation at a reload

@@ -446,6 +446,88 @@ def test_sticky_fault_fails_each_waiter_once(models, X, stage):
     engine.close()
 
 
+@pytest.mark.parametrize("stage", ["enqueue", "fetch"])
+def test_cold_batch_failure_fails_only_the_bad_machines_waiters(models, X, stage):
+    """Megabatch off, so every dispatch is cold: a cold batch of three
+    machines that fails (at enqueue on its bad machine, or at fetch) is
+    rescored one request per cold dispatch, and only the bad machine's
+    waiter gets the error."""
+    engine = ServingEngine(models, fill_window_us=0, device="cpu", megabatch=False)
+    names = engine.machines()[:3]
+    bucket = engine._buckets[0]
+    bad_idx = engine._by_name[names[0]][1]
+    ref = {n: engine.anomaly(n, X) for n in names}
+    engine.quiesce()
+    orig_fetch, program = bucket._fetch, bucket._program
+
+    def poisoned_program(idxs, xs):
+        # at enqueue the bad machine fails any dispatch it is in; at fetch
+        # its batch fails and its own isolated retry fails too
+        if bad_idx in idxs and (stage == "enqueue" or len(idxs) == 1):
+            raise RuntimeError("injected bad-machine failure")
+        return program(idxs, xs)
+
+    def poisoned_fetch(job):
+        if len(job.items) > 1:
+            raise RuntimeError("injected batch execution failure")
+        return orig_fetch(job)
+
+    bucket._program = poisoned_program
+    if stage == "fetch":
+        bucket._fetch = poisoned_fetch
+    try:
+        results, errors = _three_pending(engine, X, names)
+    finally:
+        del bucket._program
+        if stage == "fetch":
+            del bucket._fetch
+    assert set(errors) == {names[0]} and "bad-machine" in errors[names[0]], errors
+    for name in names[1:]:
+        assert _bits(results[name]) == _bits(ref[name])  # lone cold dispatches both
+    mega = engine.stats()["megabatch"]
+    assert mega["dispatches"] == 0 and (mega["fallback_cold"], mega["retry_isolated"]) == (
+        (1, 0) if stage == "enqueue" else (0, 1))
+    engine.quiesce()
+    assert _bits(engine.anomaly(names[0], X)) == _bits(ref[names[0]])  # served again
+    engine.close()
+
+
+def test_demoted_machine_in_a_mixed_batch_fails_only_its_own_waiters(models, X):
+    """A fully resident engine whose machine was demoted (a mega failure):
+    a batch holding it routes cold, and while it keeps failing, the healthy
+    machines batched with it are rescored one per cold dispatch and
+    answered."""
+    engine = ServingEngine(models, fill_window_us=0, device="cpu")
+    names = engine.machines()[:3]
+    bucket = engine._buckets[0]
+    bad_idx = engine._by_name[names[0]][1]
+    ref = {n: engine.anomaly(n, X) for n in names}
+    engine.quiesce()
+    bucket._mega_demote(bad_idx)
+    mega_before = engine.stats()["megabatch"]["dispatches"]
+    program = bucket._program
+
+    def poisoned_program(idxs, xs):
+        if bad_idx in idxs:
+            raise RuntimeError("injected bad-machine failure")
+        return program(idxs, xs)
+
+    bucket._program = poisoned_program
+    try:
+        results, errors = _three_pending(engine, X, names)
+    finally:
+        del bucket._program
+    assert set(errors) == {names[0]} and "bad-machine" in errors[names[0]], errors
+    for name in names[1:]:
+        assert _bits(results[name]) == _bits(ref[name])
+    engine.quiesce()
+    mega = engine.stats()["megabatch"]
+    assert mega["dispatches"] == mega_before  # the mixed batch went cold
+    assert (mega["fallback_cold"], mega["retry_isolated"]) == (1, 0)
+    assert bad_idx not in bucket._mega_slots
+    engine.close()
+
+
 def test_programs_racing_on_one_template_keep_every_answer_right(models, X):
     """Stress: the leader and the collector (an isolated retry) may run
     the program of one bucket at once, and ``functional_call`` swaps the
@@ -535,10 +617,12 @@ def test_chunked_backfill_identical_at_depth_one_and_two(models):
 
 
 def test_mid_pipeline_error_surfaces_on_exactly_its_own_waiters(models, requests_x):
-    """A lone dispatch's fetch failure errors exactly its own waiters (a
-    fused batch repairs instead, tested above)."""
+    """A lone cold dispatch's fetch failure errors exactly its own waiters.
+    Megabatch off, as in the reference's test: this pins the cold
+    pipeline's error fan-out (the mega path repairs a fetch failure by the
+    isolated cold retry instead, tested above)."""
     name = sorted(models)[0]
-    engine = _engine({name: models[name]}, depth=4)
+    engine = _engine({name: models[name]}, depth=4, megabatch=False)
     reference = {rows: _bits(engine.anomaly(name, X)) for rows, X in requests_x.items()}
     bucket, _ = engine._by_name[name]
     engine.quiesce()
@@ -623,6 +707,10 @@ def test_close_and_reuse(models, requests_x):
     assert bucket._collector is None  # a lone request fetches inline
 
     def concurrent_round():
+        """The four requests (four row buckets) queued behind a held latch:
+        one leader drains them as four dispatches, and every one but the
+        last hands its fetch to the collector, however the threads are
+        scheduled."""
         errors = []
 
         def work(X):
@@ -631,31 +719,33 @@ def test_close_and_reuse(models, requests_x):
             except Exception as exc:  # pragma: no cover
                 errors.append(exc)
 
-        _run_threads(work, [(X,) for X in requests_x.values()])
+        threads = [threading.Thread(target=work, args=(X,)) for X in requests_x.values()]
+        with _held_bucket(bucket, expected_pending=len(threads)):
+            for t in threads:
+                t.start()
+        for t in threads:
+            t.join(timeout=JOIN_S)
+        assert not any(t.is_alive() for t in threads), "a client thread did not finish"
         assert not errors
 
-    for _ in range(10):  # concurrency engages the pipeline (timing-bound)
-        concurrent_round()
-        if bucket._collector is not None:
-            break
+    concurrent_round()  # concurrency engages the pipeline
     collector = bucket._collector
     assert collector is not None and collector.is_alive()
     engine.close()
     assert not collector.is_alive()
     assert _bits(engine.anomaly(name, X)) == _bits(first)  # a closed engine serves
-    for _ in range(10):
-        concurrent_round()
-        if bucket._collector is not None:
-            break
+    concurrent_round()
     assert bucket._collector is not None and bucket._collector.is_alive()
     engine.close()
 
 
 def test_failed_dispatch_does_not_pin_dropped_engine(models):
     """A failed fetch's traceback references the bucket; the collector must
-    not keep its last job alive, or a dropped engine is never collected."""
+    not keep its last job alive, or a dropped engine is never collected.
+    Megabatch off, as in the reference's test: a cold fetch failure fails
+    its waiter (the mega path would rescore it)."""
     name = sorted(models)[0]
-    engine = _engine({name: models[name]})
+    engine = _engine({name: models[name]}, megabatch=False)
     X = np.zeros((100, TAGS), np.float32)
     engine.anomaly(name, X)
     bucket, idx = engine._by_name[name]
