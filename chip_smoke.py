@@ -175,13 +175,16 @@ Phases; any failure exits non-zero before the result line:
    ``flash_fwd_f32`` ms, device_execute + fetch alone in the median;
    ``?format=chrome`` parses; the ``gordo_stage_seconds`` exemplars of the
    run name recorded traces; ``metered`` alone gets 429 + ``Retry-After``;
-   a fused dispatch of both PatchTST machines under ``torch.profiler`` has
-   the same kernels (3 ``flash_fwd_f32``) and synchronizes with the
-   recorder on and off; the slow machine's ``dispatch`` stage is at least
-   50 ms; the ledger directory holds the fault plan and the quarantine,
-   each valid. Printed with the card's name and power limit: req/s, p50
-   and p99 per class, the median stage breakdown of a dense and a PatchTST
-   request, recorder on against off;
+   a fused dispatch of both PatchTST machines under ``torch.profiler``,
+   profiled ``SEAMS_PROFILES`` times with the recorder on and as often off
+   (interleaved), launches 3 ``flash_fwd_f32`` each time and has the same
+   kernels and synchronizes on and off, each the most any one profile of
+   its setting saw (a profile that lost a record is named); the slow
+   machine's ``dispatch`` stage is at least 50 ms; the ledger directory
+   holds the fault plan and the quarantine, each valid. Printed with the
+   card's name and power limit: req/s, p50 and p99 per class, the median
+   stage breakdown of a dense and a PatchTST request, recorder on against
+   off;
 12. the bulk client (``phase_client``): the in-repo InfluxDB 1.x double
    (``tests/influx_double.py``, loaded by path, its points indexed by tag so
    that a query scans one tag's points) filled through the port's
@@ -490,6 +493,31 @@ Phases; any failure exits non-zero before the result line:
    bytes, 3 fp32 launches per dispatch. Printed with the card: the store's
    warm, the boot, the reload, the cold, cold and hot walls of a W = 16
    slice request beside the single-host one, each promotion's wall.
+22. ring attention (``phase_ring``, in this process once the side is done,
+   before phase 10): two ranks of one gloo group (this script with
+   ``--ring-rank R``, a ``file://`` rendezvous) time-slice the card, each
+   K/V hop staged through host memory. (a) ``ring_attention`` at the slice
+   machine's widths and W = 16 with 180 patches (``RING_LOOKBACK`` 1448;
+   the slice's 179 are prime), ``(1024, 180, 8, 64)``, 90 patches a rank:
+   ``ring_flash`` and ``ring`` in fp32 and ``ring_flash`` in bf16, the
+   output and dq, dk, dv of Σout² against the single-process
+   ``flash_attention`` of the whole sequence (its autograd) and the plain
+   version (dense attention in fp32), within ``RING_ATOL`` in fp32 and
+   ``bf16_atol`` (output) or BF16_ULPS units of the largest grad in bf16;
+   both ranks return
+   the same output; each ``ring_flash`` call launches its dtype's forward
+   kernel twice and its backward kernel twice per rank, ``ring`` none; a
+   K/V hop alone is timed. (b) the full-width slice machine at
+   ``ring_flash`` (lookback 1448) fitted for two Adam steps of one batch of
+   8 windows on both ranks (the ring group set for the fit), 2 forward and
+   2 backward launches per layer per step, the ranks' losses equal, and
+   within TRAIN_RTOL of the same fit at ``flash`` in this process. (c) the
+   slice machine (179 patches) built at ``ring_flash`` and at ``flash``
+   from one seed, scored W = 16 by one ``ServingEngine`` here (one rank:
+   one hop): the answers within SERVE_RTOL, 3 fp32 launches per dispatch.
+   Printed with the card: each rank's join, wall, peak memory, hop walls,
+   each call's forward and backward walls and errors, the fits' walls and
+   losses, the engine's walls.
 
 Every phase prints its wall (``phase wall``), and the script its total.
 The script runs in 1200 s at most, build included, and aims at 1000: for
@@ -499,7 +527,8 @@ each cut). After phase 2, phases 11, 13, 14, 15, 17 and 21 run in a second
 process of this script (``--side``, ``SIDE_PHASES``) beside phases 3-9b,
 12 and 16 in this one, in order 3-9b, 12, 16 (18 beside it); phases 10
 and 19 (20 beside its drill), which need about all of the card, run once
-both are done. The side's stdout follows this process's phases. A thread
+both are done, after phase 22. The side's stdout follows this process's
+phases. A thread
 samples the card's memory in use (every process on it), and its peak
 during each phase is printed before the script's wall; each phase's start
 goes to stderr, and every thread's stack too after ``DUMP_STACKS_S``.
@@ -524,6 +553,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+from collections import Counter
 
 import numpy as np
 
@@ -1020,7 +1050,8 @@ def sensor_rows(rng: np.random.Generator, n: int, tags: int = N_TAGS) -> np.ndar
 
 
 def build_artifact(dest: str, device, compute_dtype: str = "float32", seed: int = SEED,
-                   precision: str = None, scalers: tuple = ("MinMaxScaler",)) -> list:
+                   precision: str = None, scalers: tuple = ("MinMaxScaler",),
+                   attention_impl: str = "flash") -> list:
     """The slice machine with seeded weights and scalers, dumped by the port
     (at ``precision``: its metadata pins the rung, and at int8
     ``write_artifact_files`` writes the quantized sidecar). ``scalers``: the
@@ -1039,7 +1070,8 @@ def build_artifact(dest: str, device, compute_dtype: str = "float32", seed: int 
                                 *scalers,
                                 {"PatchTSTAutoEncoder": {
                                     "kind": "patchtst", "lookback_window": LOOKBACK,
-                                    "attention_impl": "flash", "compute_dtype": compute_dtype,
+                                    "attention_impl": attention_impl,
+                                    "compute_dtype": compute_dtype,
                                     **SLICE,
                                 }},
                             ]
@@ -3153,6 +3185,10 @@ SEAMS_TRAFFIC = {"batch": (8, 80), "ops-dense": (1, 60), "ops-patchtst": (1, 30)
 SEAMS_STAGES = ("admission", "queue_wait", "dispatch", "device_execute", "fetch", "score",
                 "encode")
 SEAMS_TOP_STAGES = ("admission", "score", "encode")  # they partition a request
+# profiles of the fused PatchTST dispatch with the recorder on, and as many
+# off: a profile can lose a kernel's record, so each setting's kernels are
+# the most that any one of its profiles saw
+SEAMS_PROFILES = 3
 
 
 def seams_plan(rng) -> list:
@@ -3232,8 +3268,8 @@ def seams_classes(plan, results, started) -> dict:
 def profile_seams_dispatch(torch, engine, Xs: list, recorded: bool) -> tuple:
     """One fused dispatch of both PatchTST machines under torch.profiler,
     its requests' span contexts bound to a timeline (``recorded``) or to
-    none: (kernels by name with counts, synchronize calls, flash launches,
-    the outputs)."""
+    none: (a Counter of launches by the kernel's full name, synchronize
+    calls, flash launches, the outputs)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3270,8 +3306,8 @@ def profile_seams_dispatch(torch, engine, Xs: list, recorded: bool) -> tuple:
         results = dispatch()
     launches = {n: _kernels.LAUNCHES[n] for n in KERNELS}
     averages = prof.key_averages()
-    kernels = sorted((kernel_label(evt.key), evt.count) for evt in averages
-                     if evt.device_type == DeviceType.CUDA and evt.self_device_time_total)
+    kernels = Counter({evt.key: evt.count for evt in averages
+                       if evt.device_type == DeviceType.CUDA and evt.self_device_time_total})
     syncs = sum(evt.count for evt in averages if "ynchronize" in evt.key
                 and evt.device_type != DeviceType.CUDA)
     return kernels, syncs, launches, results
@@ -3372,8 +3408,10 @@ def phase_seams(torch, device, tmp: str, kernels: dict, card: str) -> dict:
                     "POST", f"{base}/gordo/v0/project/{machine}/anomaly/prediction",
                     encoded[(machine, 0)], {"X-Gordo-Tenant": "ops"})[:3:2])
         Xs = [bodies[(name, 0)] for name in SEAMS_PATCHTST]
-        trace_on = profile_seams_dispatch(torch, engine, Xs, recorded=True)
-        trace_off = profile_seams_dispatch(torch, engine, Xs, recorded=False)
+        traces = {True: [], False: []}
+        for _ in range(SEAMS_PROFILES):
+            for setting in (True, False):
+                traces[setting].append(profile_seams_dispatch(torch, engine, Xs, setting))
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -3519,19 +3557,44 @@ def phase_seams(torch, device, tmp: str, kernels: dict, card: str) -> dict:
              f"(fault {SEAMS_LATENCY * 1e3} ms)")
     print(f"seams: {SEAMS_SLOW}: {len(slow)} timelines, dispatch stage >= {min(slow):.1f} ms")
 
-    # 6. the recorder adds no device work: the same kernels and synchronizes
-    (k_on, sync_on, l_on, r_on), (k_off, sync_off, l_off, r_off) = trace_on, trace_off
+    # 6. the recorder adds no device work: the same kernels and synchronizes.
+    # Each setting's are the most that any one of its profiles saw (the
+    # union): a kernel the recorder adds shows in the union of its
+    # profiles, while a record one profile lost does not hide the kernel
     fused = {**NO_LAUNCHES, "flash_fwd_f32": SLICE["n_layers"]}
-    if k_on != k_off or sync_on != sync_off or l_on != fused or l_off != fused:
-        fail(f"seams: fused PatchTST dispatch, recorder on: {len(k_on)} kernels, {sync_on} "
-             f"synchronizes, launches {l_on}; off: {len(k_off)}, {sync_off}, {l_off}")
-    for a, b in zip(r_on, r_off):
-        for field_a, field_b in zip(a, b):
-            if not np.array_equal(field_a, field_b):
-                fail("seams: the profiled fused dispatch changed with the recorder off")
-    print(f"seams: fused PatchTST dispatch of 2 under torch.profiler, recorder on and off: "
-          f"{sum(n for _, n in k_on)} kernel launches of {len(k_on)} kernels each, "
-          f"{sync_on} synchronizes each, launches {l_on}")
+    seen, syncs, short = {}, {}, []
+    for setting, runs in traces.items():
+        seen[setting] = Counter()
+        for profiled, _, launches_run, _ in runs:
+            seen[setting] |= profiled
+            if launches_run != fused:
+                fail(f"seams: a profiled fused PatchTST dispatch (recorder "
+                     f"{'on' if setting else 'off'}) launched {launches_run}, not {fused}")
+        syncs[setting] = max(sync for _, sync, _, _ in runs)
+        for i, (profiled, sync, _, _) in enumerate(runs):
+            if profiled != seen[setting] or sync != syncs[setting]:
+                lost = {k[:120]: n for k, n in (seen[setting] - profiled).items()}
+                short.append(f"recorder {'on' if setting else 'off'} profile {i}: "
+                             f"{sync} synchronizes, missing {json.dumps(lost)}")
+    if seen[True] != seen[False] or syncs[True] != syncs[False]:
+        differ = {k[:120]: [seen[True][k], seen[False][k]]
+                  for k in seen[True] | seen[False] if seen[True][k] != seen[False][k]}
+        fail(f"seams: fused PatchTST dispatch over {SEAMS_PROFILES} profiles each, recorder "
+             f"on: {len(seen[True])} kernels, {syncs[True]} synchronizes; off: "
+             f"{len(seen[False])}, {syncs[False]}; launches [on, off] of the kernels that "
+             f"differ {json.dumps(differ)}; profiles short of their setting's: {short}")
+    first = traces[True][0][3]
+    for _, _, _, results in traces[True][1:] + traces[False]:
+        for a, b in zip(first, results):
+            for field_a, field_b in zip(a, b):
+                if not np.array_equal(field_a, field_b):
+                    fail("seams: the profiled fused dispatch changed between profiles or "
+                         "with the recorder off")
+    print(f"seams: fused PatchTST dispatch of 2 under torch.profiler, {SEAMS_PROFILES} "
+          f"profiles with the recorder on and {SEAMS_PROFILES} off: "
+          f"{sum(seen[True].values())} kernel launches of {len(seen[True])} kernels each, "
+          f"{syncs[True]} synchronizes each, launches {fused}; profiles that lost a record: "
+          f"{short or 'none'}")
 
     # the flash kernel on the recorder-on run: once per layer per dispatch
     expected = {**NO_LAUNCHES, "flash_fwd_f32": SLICE["n_layers"] * patchtst_dispatches}
@@ -8039,6 +8102,353 @@ def phase_shard(torch, device, tmp: str, card: str) -> dict:
             proc.wait()
 
 
+# -- phase 22: ring attention over torch.distributed ----------------------------
+
+RING_WORLD = 2
+RING_LOOKBACK = 1448  # 180 patches: the slice's 179 are prime and divide over no 2 ranks
+RING_WINDOWS = 16  # windows of the kernel-level inputs: BH = 16·64·8 = 8192
+RING_TRAIN_WINDOWS = 8  # one batch of the model-level fit
+RING_TRAIN_STEPS = 2  # Adam steps: epochs of one batch
+RING_HOPS = 3  # timed K/V hops alone
+RING_TIMEOUT_S = 420.0  # each rank's wall; one rank's death ends both
+RING_ATOL = 2e-5  # float32: the reference's ring-vs-dense bound (tests/test_transformer.py)
+# bf16 gradients of Σout² reach magnitudes of 10 and more, where one unit in
+# the last place is past BF16_ATOL's cap: they are held to BF16_ULPS units
+# of the largest |grad| (a ring sums its hops' bf16 grads, each rounded once,
+# where the one-process backward rounds once: about one unit apart)
+RING_CONFIG = "ring-config.json"
+RING_CALLS = (("ring_flash f32", "float32", "flash"), ("ring f32", "float32", "dense"),
+              ("ring_flash bf16", "bfloat16", "flash"))
+
+
+def ring_config(device) -> dict:
+    """What both ranks read: the card or the CPU, the kernel-level shape
+    (windows x tags, patches, heads, head dim) and the model-level fit."""
+    patches = (RING_LOOKBACK - SLICE["patch_length"]) // SLICE["stride"] + 1
+    return {"device": device.type, "timeout_s": RING_TIMEOUT_S,
+            "shape": [RING_WINDOWS * N_TAGS, patches, SLICE["n_heads"],
+                      SLICE["d_model"] // SLICE["n_heads"]],
+            "lookback": RING_LOOKBACK, "slice": SLICE, "tags": N_TAGS,
+            "train_windows": RING_TRAIN_WINDOWS, "train_steps": RING_TRAIN_STEPS}
+
+
+def ring_train_rows(config: dict) -> np.ndarray:
+    return sensor_rows(np.random.default_rng(SEED + 22),
+                       config["lookback"] + config["train_windows"] - 1, config["tags"])
+
+
+def ring_fit(torch, device, config: dict, attention_impl: str) -> dict:
+    """The model-level run: the slice machine's regressor at ``lookback``
+    fitted for ``train_steps`` Adam steps of one batch, parameters from
+    the estimator's seed; its loss history, wall, peak memory, launches."""
+    from gordo_components_tpu_torch.ops import _kernels
+    from gordo_components_tpu_torch.serializer import pipeline_from_definition
+
+    model = pipeline_from_definition(slice_definition(
+        attention_impl, **config["slice"], lookback_window=config["lookback"],
+        batch_size=config["train_windows"], epochs=config["train_steps"]))
+    est = model.base_estimator.regressor.steps[-1][1].to(device)
+    rows = ring_train_rows(config)
+    ring_sync(torch, device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    started = time.perf_counter()
+    model.base_estimator.fit(rows)
+    ring_sync(torch, device)
+    return {"history": [float(v) for v in est.history_],
+            "wall_s": round(time.perf_counter() - started, 3),
+            "peak_gib": ring_peak_gib(torch, device),
+            "launches": {name: _kernels.LAUNCHES[name] for name in KERNELS}}
+
+
+def ring_sync(torch, device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def ring_peak_gib(torch, device) -> float:
+    return round(torch.cuda.max_memory_allocated() / 2**30, 2) if device.type == "cuda" else 0.0
+
+
+def ring_digest(t) -> str:
+    import hashlib
+
+    return hashlib.sha1(t.detach().float().contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def ring_call(torch, device, group, dtype: str, impl: str, config: dict) -> dict:
+    """One ``ring_attention`` call at the kernel-level shape and its
+    backward (Σout²): launches counted from 0 around each, walls, and the
+    worst differences of out, dq, dk, dv against the single-process
+    ``flash_attention`` of the whole sequence (its autograd) and the plain
+    version (dense attention in float32), all on this rank's device."""
+    from gordo_components_tpu_torch.ops import _kernels
+    from gordo_components_tpu_torch.ops.attention import dense_attention, ring_attention
+    from gordo_components_tpu_torch.ops.flash_attention import flash_attention
+
+    generator = torch.Generator(device=device).manual_seed(SEED + 22)
+    shape = config["shape"]
+    q, k, v = (torch.randn(shape, generator=generator, device=device)
+               .to(getattr(torch, dtype)).requires_grad_() for _ in range(3))
+    ring_sync(torch, device)
+    _kernels.reset_launches()
+    started = time.perf_counter()
+    out = ring_attention(q, k, v, group=group, block_impl=impl)
+    ring_sync(torch, device)
+    forward_s = time.perf_counter() - started
+    forward = {name: _kernels.LAUNCHES[name] for name in KERNELS}
+    _kernels.reset_launches()
+    started = time.perf_counter()
+    grads = torch.autograd.grad((out.float() ** 2).sum(), (q, k, v))
+    ring_sync(torch, device)
+    backward_s = time.perf_counter() - started
+    backward = {name: _kernels.LAUNCHES[name] for name in KERNELS}
+    result = {"forward_launches": forward, "backward_launches": backward,
+              "forward_s": round(forward_s, 4), "backward_s": round(backward_s, 4),
+              "digest": ring_digest(out), "errors": {}}
+    # the yardsticks (their launches are comparisons, not counted)
+    for label, fn, cast in (("flash", flash_attention, None),
+                            ("plain", dense_attention, torch.float32)):
+        inputs = [t.detach().to(cast or t.dtype).requires_grad_() for t in (q, k, v)]
+        ref = fn(*inputs)
+        ref_grads = torch.autograd.grad((ref.float() ** 2).sum(), inputs)
+        for name, got, want in zip(("out", "dq", "dk", "dv"), (out, *grads), (ref, *ref_grads)):
+            if dtype == "float32":
+                atol = RING_ATOL
+            elif name == "out":
+                atol = bf16_atol(want)
+            else:
+                top = want.float().abs().max().item()
+                atol = BF16_ULPS * math.ldexp(1.0, math.frexp(top)[1] - 8)
+            err = (got.float() - want.float()).abs().max().item()
+            result["errors"][f"{name} vs {label}"] = [err, atol]
+        del inputs, ref, ref_grads
+    return result
+
+
+def ring_rank_main(rank: int, tmp: str) -> None:
+    """One rank of phase 22 (``--ring-rank R TMP``): joins the gloo group
+    through a ``file://`` store in TMP, runs the kernel-level calls, times
+    K/V hops alone, runs the model-level fit at ``ring_flash``, writes its
+    record to ``TMP/ring-rank<R>.json``."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from gordo_components_tpu_torch.ops.attention import _Rotation, set_ring_group
+
+    with open(os.path.join(tmp, RING_CONFIG)) as fh:
+        config = json.load(fh)
+    device = torch.device(config["device"], 0) if config["device"] == "cuda" else \
+        torch.device("cpu")
+    started = time.perf_counter()
+    dist.init_process_group("gloo", init_method=f"file://{os.path.join(tmp, 'rendezvous')}",
+                            rank=rank, world_size=RING_WORLD,
+                            timeout=timedelta(seconds=config["timeout_s"]))
+    group = dist.group.WORLD
+    record = {"rank": rank, "join_s": round(time.perf_counter() - started, 3), "calls": {}}
+    for label, dtype, impl in RING_CALLS:
+        record["calls"][label] = ring_call(torch, device, group, dtype, impl, config)
+    # a hop alone: this rank's K and V blocks of the float32 shape, one rank on
+    batch, seq, heads, head_dim = config["shape"]
+    block = torch.randn((batch, seq // RING_WORLD, heads, head_dim), device=device)
+    hops = []
+    for _ in range(RING_HOPS):
+        ring_sync(torch, device)
+        hop_started = time.perf_counter()
+        _Rotation(group, [block, block]).wait()
+        ring_sync(torch, device)
+        hops.append(round(time.perf_counter() - hop_started, 4))
+    record["hop_s"] = hops
+    record["hop_bytes"] = 2 * block.numel() * block.element_size()
+    del block
+    set_ring_group(group)
+    try:
+        record["fit"] = ring_fit(torch, device, config, "ring_flash")
+    finally:
+        set_ring_group(None)
+    record["peak_gib"] = ring_peak_gib(torch, device)
+    record["wall_s"] = round(time.perf_counter() - started, 3)
+    with open(os.path.join(tmp, f"ring-rank{rank}.json"), "w") as fh:
+        json.dump(record, fh)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def ring_spawn(tmp: str) -> list:
+    """Both ranks, each with its log; their wall is bounded by
+    RING_TIMEOUT_S, and one rank's failure stops the other."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    for rank in range(RING_WORLD):
+        log = open(os.path.join(tmp, f"ring-rank{rank}.log"), "w")
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--ring-rank", str(rank), tmp],
+            cwd=repo, stdout=log, stderr=subprocess.STDOUT,
+            env={**os.environ, "PYTHONPATH": repo}, start_new_session=True))
+        log.close()
+    deadline = time.monotonic() + RING_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline or any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    codes = [p.returncode for p in procs]
+    if codes != [0] * RING_WORLD:
+        tails = []
+        for rank in range(RING_WORLD):
+            with open(os.path.join(tmp, f"ring-rank{rank}.log")) as fh:
+                tails.append(f"rank {rank}:\n{fh.read()[-2000:]}")
+        fail(f"phase 22: the ranks exited {codes} (limit {RING_TIMEOUT_S:.0f} s)\n"
+             + "\n".join(tails))
+    records = []
+    for rank in range(RING_WORLD):
+        with open(os.path.join(tmp, f"ring-rank{rank}.json")) as fh:
+            records.append(json.load(fh))
+    return records
+
+
+def ring_launch_checks(records: list, n_layers: int) -> dict:
+    """Each ``ring_flash`` call launches its dtype's forward kernel once per
+    hop (RING_WORLD per rank) and its backward kernel once per hop; a
+    ``ring`` call launches none; the fit launches both once per hop per
+    layer per step. Returns the launches of every rank summed."""
+    total = dict(NO_LAUNCHES)
+    for record in records:
+        for label, dtype, impl in RING_CALLS:
+            call = record["calls"][label]
+            suffix = "f32" if dtype == "float32" else "bf16"
+            want_fwd = {**NO_LAUNCHES, f"flash_fwd_{suffix}": RING_WORLD} if impl == "flash" \
+                else dict(NO_LAUNCHES)
+            want_bwd = {**NO_LAUNCHES, f"flash_bwd_{suffix}": RING_WORLD} if impl == "flash" \
+                else dict(NO_LAUNCHES)
+            if call["forward_launches"] != want_fwd or call["backward_launches"] != want_bwd:
+                fail(f"phase 22 (a) rank {record['rank']} {label}: launches forward "
+                     f"{call['forward_launches']}, backward {call['backward_launches']} "
+                     f"(want {want_fwd}, {want_bwd})")
+            for name in KERNELS:
+                total[name] += call["forward_launches"][name] + call["backward_launches"][name]
+        hops = RING_WORLD * n_layers * RING_TRAIN_STEPS
+        want = {**NO_LAUNCHES, "flash_fwd_f32": hops, "flash_bwd_f32": hops}
+        if record["fit"]["launches"] != want:
+            fail(f"phase 22 (b) rank {record['rank']}: the fit's launches "
+                 f"{record['fit']['launches']} (want {want})")
+        for name in KERNELS:
+            total[name] += record["fit"]["launches"][name]
+    return total
+
+
+def ring_engine(torch, device, tmp: str) -> dict:
+    """(c): the slice machine built twice from one seed, at ``flash`` and
+    at ``ring_flash`` (179 patches, one rank: one hop), scored W = 16 by
+    one ``ServingEngine``; the ring's answer within SERVE_RTOL of the
+    flash one's, one forward launch per layer per dispatch."""
+    from gordo_components_tpu_torch.ops import _kernels
+    from gordo_components_tpu_torch.serializer import load
+    from gordo_components_tpu_torch.server.engine import ServingEngine
+
+    models = {}
+    for impl in ("flash", "ring_flash"):
+        dest = os.path.join(tmp, f"ring-engine-{impl}")
+        build_artifact(dest, device, attention_impl=impl)
+        models[impl] = load(dest, device="cpu")
+    engine = ServingEngine(models, device=device)
+    try:
+        if engine.skipped:
+            fail(f"phase 22 (c): the engine could not lift {engine.skipped}")
+        X = sensor_rows(np.random.default_rng(SEED + 23), LOOKBACK + RING_WINDOWS - 1)
+        answers, launches, walls = {}, {}, {}
+        for impl in ("flash", "ring_flash"):
+            engine.anomaly(impl, X)  # the bucket's first dispatch
+            ring_sync(torch, device)
+            dispatches = engine.stats()["dispatches"]
+            _kernels.reset_launches()
+            started = time.perf_counter()
+            scored = engine.anomaly(impl, X)
+            ring_sync(torch, device)
+            walls[impl] = round((time.perf_counter() - started) * 1e3, 3)
+            launches[impl] = {name: _kernels.LAUNCHES[name] for name in KERNELS}
+            dispatched = engine.stats()["dispatches"] - dispatches
+            answers[impl] = {"model-input": scored.model_input,
+                             "model-output": scored.model_output,
+                             "tag-anomaly-scores": scored.tag_anomaly_scores,
+                             "total-anomaly-score": scored.total_anomaly_score}
+            want = {**NO_LAUNCHES, "flash_fwd_f32": SLICE["n_layers"] * dispatched}
+            if dispatched < 1 or launches[impl] != want:
+                fail(f"phase 22 (c) {impl}: {dispatched} dispatch(es) launched "
+                     f"{launches[impl]} (want {want})")
+        worst = compare_arrays("phase 22 (c) ring_flash vs flash", RING_WINDOWS,
+                               answers["ring_flash"], answers["flash"], SERVE_RTOL, N_TAGS)
+    finally:
+        engine.close()
+    return {"launches": launches["ring_flash"], "worst": worst, "walls_ms": walls}
+
+
+def phase_ring(torch, device, tmp: str, card: str) -> dict:
+    """Phase 22: ring attention over two gloo ranks on the card (a, b) and
+    at one rank in the engine (c); returns the ring's launches."""
+    ring_dir = os.path.join(tmp, "ring")
+    os.makedirs(ring_dir, exist_ok=True)
+    config = ring_config(device)
+    with open(os.path.join(ring_dir, RING_CONFIG), "w") as fh:
+        json.dump(config, fh)
+    started = time.perf_counter()
+    records = ring_spawn(ring_dir)
+    ranks_s = time.perf_counter() - started
+    for record in records:
+        print(f"ring [{card}] rank {record['rank']}: join {record['join_s']} s, wall "
+              f"{record['wall_s']} s, peak {record['peak_gib']} GiB; hop of "
+              f"{record['hop_bytes'] / 2**20:.1f} MiB (K+V) {record['hop_s']} s")
+        for label, _, _ in RING_CALLS:
+            call = record["calls"][label]
+            errors = ", ".join(f"{what} {err:.3g} (limit {atol:.3g})"
+                               for what, (err, atol) in call["errors"].items())
+            print(f"ring [{card}] rank {record['rank']} {label} {tuple(config['shape'])}: "
+                  f"forward {call['forward_s']} s, backward {call['backward_s']} s, "
+                  f"launches {call['forward_launches']} / {call['backward_launches']}; "
+                  f"max |Δ| {errors}")
+        fit = record["fit"]
+        print(f"ring [{card}] rank {record['rank']} ring_flash fit ({config['train_windows']} "
+              f"windows, {RING_TRAIN_STEPS} Adam steps, lookback {config['lookback']}): "
+              f"{fit['wall_s']} s, peak {fit['peak_gib']} GiB, losses {fit['history']}")
+    launches = ring_launch_checks(records, SLICE["n_layers"])
+    for label, _, _ in RING_CALLS:
+        digests = {record["calls"][label]["digest"] for record in records}
+        if len(digests) != 1:
+            fail(f"phase 22 (a) {label}: the ranks returned different outputs")
+        for record in records:
+            for what, (err, atol) in record["calls"][label]["errors"].items():
+                if not err <= atol:
+                    fail(f"phase 22 (a) rank {record['rank']} {label}: {what} differs by "
+                         f"{err:.3g} (limit {atol:.3g})")
+    histories = [record["fit"]["history"] for record in records]
+    if any(h != histories[0] for h in histories):
+        fail(f"phase 22 (b): the ranks' loss histories differ: {histories}")
+    flash_fit = ring_fit(torch, device, config, "flash")
+    ring_h, flash_h = np.asarray(histories[0]), np.asarray(flash_fit["history"])
+    if ring_h.shape != (RING_TRAIN_STEPS,) or not np.isfinite(ring_h).all():
+        fail(f"phase 22 (b): loss history {ring_h.tolist()}")
+    loss_rel = float(np.max(np.abs(ring_h - flash_h) / np.abs(flash_h)))
+    if not loss_rel <= TRAIN_RTOL:
+        fail(f"phase 22 (b): ring_flash losses {ring_h.tolist()} vs one-process flash "
+             f"{flash_h.tolist()}: {loss_rel:.3g} relative (limit {TRAIN_RTOL})")
+    engine = ring_engine(torch, device, tmp)
+    for name in KERNELS:
+        launches[name] += engine["launches"][name]
+    print(f"ring [{card}]: ranks {ranks_s:.1f} s; one-process flash fit {flash_fit['wall_s']} "
+          f"s, losses {flash_fit['history']} (ring vs flash {loss_rel:.3g} relative); engine "
+          f"at one rank: ring_flash vs flash {engine['worst']:.3g} relative, W = "
+          f"{RING_WINDOWS} walls {engine['walls_ms']} ms, launches {engine['launches']}")
+    return launches
+
+
 # phases 11, 13, 14, 15, 17 and 21 run in a second process of this script
 # (``--side TMP``) beside phases 3-9b, 12 and 16 (18 beside it) in this one.
 # They share the temporary directory (each phase keeps to subdirectories of
@@ -8315,6 +8725,7 @@ def main() -> None:
             print(f"side process [{card}]: phases {', '.join(SIDE_PHASES)} beside this "
                   f"process's 3-9b, 12 and 16; this process's were done at "
                   f"{concurrent_s:.1f} s of the script, the side's joined at {joined_s:.1f} s")
+            ring = timed("22 ring", phase_ring, torch, device, tmp, card)
             fleet_built = timed("10 fleet build", phase_fleet_build, torch, device, tmp)
             mesh_run = {}
 
@@ -8344,7 +8755,7 @@ def main() -> None:
         for name in KERNELS:
             launches[name] += (trained[name] + trained_bf16[name] + built[name]
                                + fleet_built[name] + client[name] + fleet_control[name]
-                               + witness[name] + multirank[name] + mesh[name]
+                               + witness[name] + multirank[name] + mesh[name] + ring[name]
                                + sum(side_launches[label][name] for label in SIDE_PHASES))
     print(f"card memory in use [{card}], peak GiB during each phase (every process on the "
           f"card): {json.dumps({label: memory.peak(*span) for label, span in spans.items()})}")
@@ -8369,5 +8780,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--side"]:
         side_main(sys.argv[2])
+    elif sys.argv[1:2] == ["--ring-rank"]:
+        ring_rank_main(int(sys.argv[2]), sys.argv[3])
     else:
         main()

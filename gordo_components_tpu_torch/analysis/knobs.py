@@ -380,6 +380,9 @@ KNOBS: Dict[str, Knob] = dict(
               "admission gate: waiters allowed behind a full gate "
               "(micro-burst absorption)",
               "serving"),
+        _knob("GORDO_QUEUE_TIMEOUT", "1.0", "float",
+              "seconds a waiter queues for admission before shedding 503",
+              "serving"),
         _knob("GORDO_MESH_SHARDS", "0", "int",
               "fleet-sharded serving mesh: total shard count the stacked "
               "fleet partitions across by ring position; 0 = single-host "

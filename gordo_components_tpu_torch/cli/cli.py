@@ -2,8 +2,8 @@
 ``fleet-build``, ``rollback``, ``cache``, ``run-server``,
 ``run-fleet-server``, ``run-watchman``, ``trace``, ``slo``, ``tenants``,
 ``autopilot``, ``fleet``, ``telemetry``, ``incidents``, ``layout``,
-``client predict`` and ``lint`` commands of the reference's CLI
-(``gordo_components_tpu/cli/cli.py:164-528, 519-831, 894-1546``), on
+``workflow generate``, ``client predict`` and ``lint`` commands of the
+reference's CLI (``gordo_components_tpu/cli/cli.py:164-1546``), on
 ``argparse``.
 
 The arguments, environment variables (``MODEL_CONFIG``, ``DATA_CONFIG``,
@@ -28,11 +28,12 @@ fleet tier's workers inherit; it needs ``--models-dir``, whose
 ``GORDO_MESH_SHARDS``/``GORDO_MESH_SHARD``) and ``--shard-fleet`` (the
 host-sharded capacity mode: every bucket's stack split over the visible
 cards, megabatching off) and ``--megabatch/--no-megabatch`` (exported as
-``GORDO_MEGABATCH``, so that every reload agrees); ``cache warm`` accepts
+``GORDO_MEGABATCH``, so that every reload agrees) and ``--fill-window-us``
+(exported as ``GORDO_FILL_WINDOW_US``); ``cache warm`` accepts
 ``--shard-fleet`` as the reference does, and stores the same libraries
 with it or without it.
-``run-fleet-server`` spawns ``--workers`` such servers (``--device``
-passed on, ``GORDO_MEGABATCH`` inherited; with ``--mesh-shards N`` worker i serves shard i mod N, and
+``run-fleet-server`` spawns ``--workers`` such servers (``--device`` and
+``--megabatch/--no-megabatch`` passed on; with ``--mesh-shards N`` worker i serves shard i mod N, and
 more shards than workers exits 2) behind a router that never touches the
 card; SIGTERM drains the router, then each worker, and leaves no worker
 behind. ``run-watchman`` probes each machine's ``/healthz`` at a target
@@ -68,11 +69,12 @@ client.ClientError`.
         --models-dir DIR) [--host H] [--port N] [--project P] [--max-inflight N]
         [--tenants SPEC] [--faults SPEC] [--worker-id N] [--lazy-boot]
         [--compile-cache-store STORE|off] [--mesh-shards N [--mesh-shard I]]
-        [--shard-fleet] [--megabatch|--no-megabatch] [--device cpu]
+        [--shard-fleet] [--megabatch|--no-megabatch] [--fill-window-us US] [--device cpu]
     python -m gordo_components_tpu_torch.cli run-fleet-server --models-dir DIR
         [--workers 2] [--host H] [--port 5555] [--worker-base-port 5600]
         [--project P] [--replicas 2] [--hot-rps 50] [--probe-interval 2]
-        [--max-inflight N] [--tenants SPEC] [--mesh-shards N] [--device cpu]
+        [--megabatch|--no-megabatch] [--max-inflight N] [--tenants SPEC]
+        [--mesh-shards N] [--device cpu]
     python -m gordo_components_tpu_torch.cli run-watchman --project P --machine M ...
         --target-url URL [--host H] [--port 5556] [--manifest FILE]
     python -m gordo_components_tpu_torch.cli run-watchman --watch --manifest FILE
@@ -99,6 +101,9 @@ client.ClientError`.
     python -m gordo_components_tpu_torch.cli incidents show ID --base-url URL
     python -m gordo_components_tpu_torch.cli incidents ledger --base-url URL
         [--window 10m] [--limit 200]
+    python -m gordo_components_tpu_torch.cli workflow generate --machine-config FLEET
+        [--output-file F] [--image I] [--parallelism 10] [--tpu] [--tpu-chips 16]
+        [--tpu-hosts 1] [--slice-timeout-s 1800] [--active-deadline-s 86400]
     python -m gordo_components_tpu_torch.cli client predict START END --base-url URL
         [--project P] [--machine M ...] [--max-interval 1D] [--parallelism 10]
         [--output-dir DIR]
@@ -352,6 +357,8 @@ def run_server(args: argparse.Namespace) -> int:
     # every reload's engine agree
     if args.megabatch is not None:
         os.environ["GORDO_MEGABATCH"] = "1" if args.megabatch else "0"
+    if args.fill_window_us is not None:
+        os.environ["GORDO_FILL_WINDOW_US"] = str(args.fill_window_us)
     lazy_boot = os.environ.get("GORDO_LAZY_BOOT", "0").strip().lower() in (
         "1", "true", "on", "yes")
     if lazy_boot and not args.models_dir:
@@ -468,6 +475,8 @@ def run_fleet_server(args: argparse.Namespace) -> int:
                      "shard (got %d)", args.mesh_shards, args.workers)
         return EXIT_USAGE
     worker_args: List[str] = []
+    if args.megabatch is not None:
+        worker_args += ["--megabatch" if args.megabatch else "--no-megabatch"]
     if args.max_inflight is not None:
         worker_args += ["--max-inflight", str(args.max_inflight)]
     if args.tenants is not None:
@@ -859,6 +868,56 @@ def client_predict(args: argparse.Namespace) -> int:
     return 0
 
 
+def workflow_generate(args: argparse.Namespace) -> int:
+    """Fleet config → an Argo Workflow, or with ``--tpu`` the one-Job fleet
+    spec (its limits request ``nvidia.com/gpu``); prints the manifest, or
+    writes it to ``--output-file`` and prints that path. A config the
+    generator rejects exits ``EXIT_CONFIG``, as the reference's does."""
+    from ..workflow import generate_argo_workflow, generate_tpu_job
+    from ..workflow.workflow_generator import validate_generated
+
+    try:
+        config = _load_config(args.machine_config, "machine-config")
+    except ValueError as exc:
+        logger.error("%s", exc)
+        return EXIT_USAGE
+    try:
+        if args.tpu_mode:
+            manifest = generate_tpu_job(
+                config, image=args.image, tpu_chips=args.tpu_chips, hosts=args.tpu_hosts,
+                slice_timeout_s=args.slice_timeout_s,
+                active_deadline_s=args.active_deadline_s,
+            )
+        else:
+            manifest = generate_argo_workflow(config, image=args.image,
+                                              parallelism=args.parallelism)
+        validate_generated(manifest)
+    except ValueError as exc:
+        logger.error("Config error generating workflow: %s", exc)
+        return EXIT_CONFIG
+    if args.output_file:
+        with open(args.output_file, "w") as fh:
+            fh.write(manifest)
+        print(args.output_file)
+    else:
+        print(manifest)
+    return 0
+
+
+def _int_at_least(low: int):
+    """An argparse type: an integer no less than ``low`` (click's
+    ``IntRange(min=low)``)."""
+
+    def parse(text: str) -> int:
+        value = int(text)
+        if value < low:
+            raise argparse.ArgumentTypeError(f"{value} is smaller than the minimum {low}")
+        return value
+
+    parse.__name__ = f"integer >= {low}"
+    return parse
+
+
 _COMPILE_CACHE_DIR_HELP = (
     "the kernel-library store the build's fit loads its CUDA libraries from and writes "
     "them to ('off': none, the package's build directory). Default: "
@@ -1019,15 +1078,18 @@ def parser() -> argparse.ArgumentParser:
                    help="cross-machine megabatching: concurrent requests for different "
                         "machines fuse into one dispatch through the resident stack (default "
                         "on; always off with --shard-fleet); overrides GORDO_MEGABATCH")
+    s.add_argument("--fill-window-us", type=int, default=env("GORDO_FILL_WINDOW_US"),
+                   help="bounded megabatch fill window in microseconds: how long a dispatch "
+                        "leader that observes concurrency collects further requests before "
+                        "dispatching the fused batch (core-aware default; 0 disables the "
+                        "wait; idle requests never wait); exported as GORDO_FILL_WINDOW_US")
     s.add_argument("--device", default=None,
                    help="cuda (default) or cpu; there is no silent fallback")
     s.set_defaults(run=run_server)
 
     fs = commands.add_parser(
         "run-fleet-server", help="the horizontal serving tier: a router over supervised "
-                                 "worker server processes",
-        epilog="Not offered: --megabatch/--no-megabatch (the workers inherit "
-               "GORDO_MEGABATCH from this process's environment).")
+                                 "worker server processes")
     fs.add_argument("--models-dir", required=True,
                     help="directory whose immediate subdirectories are model dirs; every "
                          "worker serves this tree")
@@ -1047,6 +1109,8 @@ def parser() -> argparse.ArgumentParser:
     fs.add_argument("--probe-interval", type=float, default=2.0,
                     help="control-plane health-probe interval in seconds, each tick "
                          "jittered by 10%% (default 2)")
+    fs.add_argument("--megabatch", action=argparse.BooleanOptionalAction, default=None,
+                    help="forwarded to every worker (see run-server)")
     fs.add_argument("--max-inflight", type=int, default=None,
                     help="per-WORKER admission bound (see run-server)")
     fs.add_argument("--tenants", default=env("GORDO_TENANTS"),
@@ -1221,6 +1285,35 @@ def parser() -> argparse.ArgumentParser:
                          "architecture or debug flag) or that fail verification; without it "
                          "the whole store is cleared")
     cg.set_defaults(run=cache_purge)
+
+    wf = commands.add_parser("workflow", help="fleet-workflow manifest generation")
+    workflow_commands = wf.add_subparsers(dest="workflow_command", required=True)
+    wg = workflow_commands.add_parser(
+        "generate", help="fleet config -> an Argo Workflow, or with --tpu the one-Job fleet "
+                         "spec (its limits request nvidia.com/gpu)")
+    wg.add_argument("--machine-config", required=True,
+                    help="the fleet config: a JSON/YAML file, or the mapping inline")
+    wg.add_argument("--output-file", default=None)
+    wg.add_argument("--image", default="gordo-components-tpu:latest",
+                    help="container image (default gordo-components-tpu:latest)")
+    wg.add_argument("--parallelism", type=int, default=10,
+                    help="Argo builder pods at once (default 10)")
+    wg.add_argument("--tpu", dest="tpu_mode", action="store_true",
+                    help="emit the single-Job fleet spec instead of pod-per-machine Argo")
+    wg.add_argument("--tpu-chips", type=int, default=16,
+                    help="cards the fleet-build pod requests (default 16)")
+    wg.add_argument("--tpu-hosts", type=int, default=1,
+                    help="(with --tpu) >1 emits the multi-host layout: an Indexed Job (one "
+                         "pod per host) + a headless coordinator Service wiring "
+                         "fleet-build's rank flags (default 1)")
+    wg.add_argument("--slice-timeout-s", type=_int_at_least(0), default=1800,
+                    help="(with --tpu --tpu-hosts>1) GORDO_SLICE_TIMEOUT_S on the build pods: "
+                         "the slice watchdog's budget, after which a wedged collective exits "
+                         "the retryable 75; 0 disables the watchdog (default 1800)")
+    wg.add_argument("--active-deadline-s", type=_int_at_least(1), default=86400,
+                    help="(with --tpu) the Job's activeDeadlineSeconds: the wall-clock bound "
+                         "on the build and on retryable (exit 75) crash loops (default 86400)")
+    wg.set_defaults(run=workflow_generate)
 
     c = commands.add_parser("client", help="bulk prediction against running servers")
     client_commands = c.add_subparsers(dest="client_command", required=True)

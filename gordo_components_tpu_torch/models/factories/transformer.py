@@ -4,8 +4,12 @@
 Channel-independent patching: each tag's lookback window is cut into
 patches, embedded, run through a shared pre-norm transformer encoder, and
 a linear head per channel emits the reconstruction. The attention core is
-``dense`` (plain PyTorch) or ``flash`` (the hand-written CUDA kernel on the
-card; see :mod:`gordo_components_tpu_torch.ops.flash_attention`).
+``dense`` (plain PyTorch), ``flash`` (the hand-written CUDA kernel on the
+card; see :mod:`gordo_components_tpu_torch.ops.flash_attention`), or
+``ring`` / ``ring_flash``: the patch axis split over the ranks of the ring
+group (:func:`~gordo_components_tpu_torch.ops.attention.set_ring_group`;
+unset, one rank), each hop dense or the flash kernel (see
+:mod:`gordo_components_tpu_torch.ops.attention`).
 
 Parity with the flax modules, point by point:
 
@@ -29,7 +33,8 @@ float32.
 Training, as the reference trains: with a dropout ``generator`` the forward
 applies dropout after the patch embedding and on both residual branches,
 and on the attention weights of the dense path (the flash path never
-materialises them, so it trains with residual dropout only); ``remat``
+materialises them, so it and the ring paths train with residual dropout
+only); ``remat``
 recomputes each encoder layer in the backward pass
 (``torch.utils.checkpoint``) and leaves the parameters as they are.
 """
@@ -43,7 +48,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from ...ops.attention import dense_attention
+from ...ops.attention import dense_attention, ring_attention, ring_group, ring_size
 from ...ops.flash_attention import flash_attention, launches_kernel
 from ..modules import (KeyStream, activation, dropout, dropout_generator, linear,
                        replay_generator, resolve_dtype)
@@ -72,10 +77,10 @@ class MultiHeadSelfAttention(nn.Module):
             raise ValueError(
                 f"d_model ({d_model}) must be divisible by n_heads ({n_heads})"
             )
-        if attention_impl not in ("dense", "flash"):
+        if attention_impl not in _ATTENTION_IMPLS:
             raise ValueError(
-                f"attention_impl {attention_impl!r} is not available in the "
-                "port; use 'dense' or 'flash'"
+                f"Unknown attention_impl {attention_impl!r}; "
+                "use 'dense', 'flash', 'ring', or 'ring_flash'"
             )
         self.n_heads = n_heads
         self.head_dim = d_model // n_heads
@@ -89,7 +94,12 @@ class MultiHeadSelfAttention(nn.Module):
     ) -> torch.Tensor:
         qkv = linear(x, self.qkv).unflatten(-1, (3, self.n_heads, self.head_dim))
         q, k, v = qkv.unbind(dim=-3)  # each (..., seq, heads, head_dim)
-        if self.attention_impl == "flash":
+        if self.attention_impl in ("ring", "ring_flash"):
+            out = ring_attention(
+                q, k, v, group=ring_group(),
+                block_impl="flash" if self.attention_impl == "ring_flash" else "dense",
+            )
+        elif self.attention_impl == "flash":
             out = flash_attention(q, k, v)
         elif self.dropout_rate > 0.0 and generator is not None:
             # the weights are materialised here, so dropout can reach them
@@ -171,10 +181,13 @@ class PatchTSTModule(nn.Module):
 
     def flash_dtype(self) -> Optional[torch.dtype]:
         """The dtype of the flash kernel this module's forward launches (its
-        compute dtype), or None where its attention is dense or its patch
-        sequence fits one tile: what a caller must load before it runs."""
-        flash = any(layer.attn.attention_impl == "flash" for layer in self.layers)
-        return self.dtype if flash and launches_kernel(self.n_patches) else None
+        compute dtype), or None where its attention is dense (or ring) or a
+        flash patch sequence fits one tile: what a caller must load before
+        it runs. A ``ring_flash`` hop always launches the kernel."""
+        impls = {layer.attn.attention_impl for layer in self.layers}
+        if "ring_flash" in impls or ("flash" in impls and launches_kernel(self.n_patches)):
+            return self.dtype
+        return None
 
     def forward(
         self, x: torch.Tensor, generator: Optional[KeyStream] = None
@@ -254,16 +267,21 @@ def patchtst(
             f"Unknown attention_impl {attention_impl!r}; "
             "use 'dense', 'flash', 'ring', or 'ring_flash'"
         )
-    if attention_impl in ("ring", "ring_flash"):
-        raise NotImplementedError(
-            f"attention_impl={attention_impl!r} needs ring attention over "
-            "torch.distributed, which is not ported yet (ROADMAP.md, "
-            "Queue 1: ring and ring_flash)"
-        )
     if d_model % n_heads != 0:
         raise ValueError(
             f"d_model ({d_model}) must be divisible by n_heads ({n_heads})"
         )
+    if attention_impl in ("ring", "ring_flash"):
+        n_patches = (lookback_window - patch_length) // stride + 1
+        n_devices = ring_size(ring_group())
+        if n_patches % n_devices != 0:
+            raise ValueError(
+                f"attention_impl={attention_impl!r} shards the patch axis "
+                f"over {n_devices} device(s), but {n_patches} patches do "
+                "not divide evenly; pick lookback_window/patch_length/"
+                "stride so (lookback_window - patch_length)//stride + 1 is "
+                "a multiple of the device count"
+            )
     module = PatchTSTModule(
         n_features=n_features,
         n_features_out=n_features_out,

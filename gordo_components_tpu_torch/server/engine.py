@@ -180,6 +180,14 @@ logger = logging.getLogger(__name__)
 
 # -- engine telemetry (the reference's series; the process-wide registry,
 # so a scrape survives a reload's engine swap)
+_M_DISPATCH_SECONDS = REGISTRY.histogram(
+    "gordo_engine_dispatch_seconds",
+    "Compile-free enqueue-to-fetch-complete latency of one device "
+    "dispatch, by path (cold=stacked gather, hot=unsharded hot-cache "
+    "copy); under pipelined dispatch this includes any in-flight queue "
+    "wait ahead of the fetch",
+    labels=("path",),
+)
 _M_DISPATCH_BATCH = REGISTRY.histogram(
     "gordo_engine_dispatch_batch_size",
     "Requests coalesced into one device dispatch (micro-batching)",
@@ -213,6 +221,11 @@ _M_FILL_TRIGGER = REGISTRY.counter(
     "Fill-window outcomes per leadership: size (a full max_batch was "
     "pending before the window elapsed), timeout (window elapsed)",
     labels=("trigger",),
+)
+_M_FILL_OCCUPANCY = REGISTRY.histogram(
+    "gordo_engine_fill_window_occupancy",
+    "Pending requests at fill-window close, as a fraction of max_batch",
+    buckets=(0.05, 0.1, 0.25, 0.5, 0.75, 0.9, 1.0),
 )
 _M_PRECISION = REGISTRY.counter(
     "gordo_engine_precision_total",
@@ -1088,6 +1101,7 @@ class _Bucket:
         else:
             self.fill_timeout_count += 1
         _M_FILL_TRIGGER.labels(trigger).inc()
+        _M_FILL_OCCUPANCY.observe(min(1.0, largest / float(self.max_batch)))
         # how long THIS request's leader held the window, and what it saw
         spans.record_into(item.ctx, "megabatch", started, time.perf_counter() - started,
                           trigger=trigger, collected=largest)
@@ -1404,6 +1418,7 @@ class _Bucket:
         for it in job.items:
             spans.record_into(it.ctx, "fetch", fetch_started, fetched - fetch_started,
                               path=job.kind, batch=len(job.items))
+        _M_DISPATCH_SECONDS.labels(job.kind).observe(fetched - job.started)
         self.dispatch_seconds_total += fetched - job.started
         try:
             # results are filled before any accounting: a fill failure
@@ -1459,6 +1474,7 @@ class _Bucket:
                               retry=retry)
             spans.record_into(it.ctx, "fetch", enqueued, fetched - enqueued, path="cold",
                               retry=retry)
+        _M_DISPATCH_SECONDS.labels("cold").observe(fetched - started)
         self.dispatch_seconds_total += fetched - started
         self._fill_results(items, x_tail, pred, scaled, total)
         self._account(len(items), "cold")
@@ -1886,6 +1902,21 @@ class ServingEngine:
                 "Serving engine: %d machine(s) in %d bucket(s) on %s",
                 len(self._by_name), len(self._buckets), self.device,
             )
+        # last-write-wins gauges: a reload's new engine overwrites the old
+        # one's values
+        REGISTRY.gauge(
+            "gordo_engine_machines",
+            "Machines lifted into the stacked serving engine",
+        ).set(len(self._by_name))
+        REGISTRY.gauge(
+            "gordo_engine_buckets",
+            "Architecture buckets (one stacked pytree + program set each)",
+        ).set(len(self._buckets))
+        REGISTRY.gauge(
+            "gordo_engine_host_path_machines",
+            "Machines the engine could not lift (serving via the slow host "
+            "path; see /metrics JSON engine.host_path_machines for reasons)",
+        ).set(len(self.skipped))
         if self.mesh_shard is not None:
             _M_MESH_MACHINES.labels(str(self.mesh_shard[0])).set(len(self._by_name))
 
@@ -2204,6 +2235,7 @@ class ServingEngine:
             x_tail, pred, scaled, total = _Bucket._host(outputs)
         elapsed = time.perf_counter() - started
         rung = scorer.precision
+        _M_DISPATCH_SECONDS.labels("spill").observe(elapsed)
         _M_REQUESTS.labels("spill").inc()
         _M_PRECISION.labels(rung).inc()
         self._spill_dispatch_seconds[rung] = self._spill_dispatch_seconds.get(rung, 0.0) + elapsed

@@ -532,6 +532,7 @@ class ModelServer:
         self.admission = AdmissionController(
             max_inflight=max_inflight,
             max_queue=int(os.environ.get("GORDO_MAX_QUEUE", "32")),
+            queue_timeout=float(os.environ.get("GORDO_QUEUE_TIMEOUT", "1.0")),
             tenants=self.tenants,
         )
         self.quarantine = Quarantine(cooldown=quarantine_cooldown)

@@ -1,5 +1,5 @@
-"""Fleet-config normalization of the port (copy of
-``gordo_components_tpu/workflow/config_elements.py``); the reference's
-Argo workflow generator is not ported."""
+"""Fleet-config normalization and workflow generation of the port (copies
+of ``gordo_components_tpu/workflow/``)."""
 
 from .config_elements import Machine, NormalizedConfig  # noqa: F401
+from .workflow_generator import generate_argo_workflow, generate_tpu_job  # noqa: F401

@@ -24,7 +24,7 @@ PORT = ROOT / "gordo_components_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gordo_components_tpu", "sklearn",
              "pandas", "click", "requests", "werkzeug", "aiohttp", "influxdb")
 # packages the card's machine may lack: imported lazily, where they are needed
-LAZY_ONLY = ("yaml", "pyarrow", "azure")
+LAZY_ONLY = ("yaml", "pyarrow", "azure", "jinja2")
 
 
 def _sources():
@@ -109,8 +109,9 @@ def test_package_imports_with_jax_blocked():
 
 def test_package_imports_with_pandas_pyarrow_yaml_and_click_blocked(tmp_path):
     """What the card's machine lacks: every module imports without it, a
-    JSON config still loads, and the places that need yaml, pyarrow or the
-    Azure SDK raise naming the package (a parquet request body is a 415)."""
+    JSON config still loads, and the places that need yaml, pyarrow, jinja2
+    or the Azure SDK raise naming the package (a parquet request body is a
+    415)."""
     (tmp_path / "map.yaml").write_text("m: int8\n")
     (tmp_path / "T.parquet").write_bytes(b"")
     extra = f"""
@@ -142,8 +143,15 @@ with pytest.raises(ImportError, match="'pyarrow'"):
     Client("http://127.0.0.1:1").predict_frame("m", np.zeros((1, 1)), columns=["a"])
 with pytest.raises(RuntimeError, match="azure-datalake-store"):
     DataLakeProvider(storename="s", interactive=True).can_handle_tag(SensorTag("t", "a"))
+from gordo_components_tpu_torch.workflow import generate_argo_workflow
+from gordo_components_tpu_torch.workflow.workflow_generator import validate_generated
+with pytest.raises(ImportError, match="'jinja2'"):
+    generate_argo_workflow({{"machines": [{{"name": "m", "dataset": {{"x": 1}},
+                                           "model": {{"m": {{}}}}}}]}})
+with pytest.raises(ImportError, match="'yaml'"):
+    validate_generated("kind: Job")
 """
-    _import_everything(FORBIDDEN + ("pyarrow", "yaml", "azure"), extra)
+    _import_everything(FORBIDDEN + ("pyarrow", "yaml", "azure", "jinja2"), extra)
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(tmp_path, monkeypatch):

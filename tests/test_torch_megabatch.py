@@ -351,6 +351,40 @@ def test_full_pending_batch_size_triggers_before_timeout(models, X):
     engine.close()
 
 
+def test_a_closing_fill_window_observes_its_occupancy(models, X):
+    """``gordo_engine_fill_window_occupancy``: each fill window that closes
+    observes its largest pending batch over ``max_batch``; a size trigger
+    observes 1.0, as the reference's engine does."""
+    from gordo_components_tpu_torch.observability.registry import REGISTRY
+
+    occupancy = {m.name: m for m in REGISTRY.metrics()}["gordo_engine_fill_window_occupancy"]
+
+    def observed():
+        data = occupancy.collect().get((), {"count": 0, "sum": 0.0})
+        return data["count"], data["sum"]
+
+    engine = ServingEngine(models, fill_window_us=10_000_000, max_batch=3, device="cpu")
+    names = engine.machines()
+    for n in names:
+        engine.anomaly(n, X)
+    engine.quiesce()
+    before = observed()
+    threads = [threading.Thread(target=engine.anomaly, args=(names[i % len(names)], X))
+               for i in range(4)]
+    with _held_bucket(engine._buckets[0], expected_pending=4):
+        for t in threads:
+            t.start()
+    for t in threads:
+        t.join(timeout=JOIN_S)
+    assert not any(t.is_alive() for t in threads)
+    windows = engine.stats()["megabatch"]["fill_size_total"]
+    windows += engine.stats()["megabatch"]["fill_timeout_total"]
+    count, total = observed()
+    assert windows >= 1 and count - before[0] == windows
+    assert total - before[1] >= 1.0  # the size-triggered window was full
+    engine.close()
+
+
 # -- repairs -----------------------------------------------------------------
 
 

@@ -69,8 +69,11 @@ def test_factory_validation_matches_reference():
         with pytest.raises(ValueError):
             ref_factory("patchtst")(**kw)
     for impl in ("ring", "ring_flash"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_factory("patchtst")(**_kwargs(64, attention_impl=impl))
+        # 8 patches: the reference's ring spans this suite's 8 CPU devices,
+        # the port's one rank (no ring group set)
+        built = get_factory("patchtst")(**_kwargs(72, attention_impl=impl))
+        assert built.config == ref_factory("patchtst")(**_kwargs(72, attention_impl=impl)).config
+        assert {layer.attn.attention_impl for layer in built.module.layers} == {impl}
     ours = get_factory("patchtst")(**_kwargs(64))
     ref = ref_factory("patchtst")(**_kwargs(64))
     assert ours.config == ref.config and ours.input_kind == ref.input_kind

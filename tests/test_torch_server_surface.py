@@ -31,6 +31,7 @@ from werkzeug.test import Client  # noqa: E402
 
 from gordo_components_tpu import wire as ref_wire  # noqa: E402
 from gordo_components_tpu.observability import exposition as ref_exposition  # noqa: E402
+from gordo_components_tpu.observability.registry import REGISTRY as REF_REGISTRY  # noqa: E402
 from gordo_components_tpu.observability.registry import Registry as RefRegistry  # noqa: E402
 from gordo_components_tpu.resilience import deadline as ref_deadline  # noqa: E402
 from gordo_components_tpu.resilience import qos as ref_qos  # noqa: E402
@@ -50,7 +51,7 @@ from gordo_components_tpu.store import current_generation as ref_current_generat
 
 from gordo_components_tpu_torch import wire  # noqa: E402
 from gordo_components_tpu_torch.observability import exposition  # noqa: E402
-from gordo_components_tpu_torch.observability.registry import Registry  # noqa: E402
+from gordo_components_tpu_torch.observability.registry import REGISTRY, Registry  # noqa: E402
 from gordo_components_tpu_torch.resilience import deadline  # noqa: E402
 from gordo_components_tpu_torch.resilience.admission import (  # noqa: E402
     AdmissionController,
@@ -269,6 +270,70 @@ def test_admission_sheds_with_retry_after_as_the_reference(models_root):
             assert "overloaded" in json.loads(raw)["error"]
             held.release()
             assert ask(server, "POST", f"{_M}/bare/prediction", _BODY)[0] == 200
+    finally:
+        ours.close()
+        app.engine.close()
+
+
+QUEUE_TIMEOUT_S = 0.2
+
+
+def test_queue_timeout_bounds_a_waiters_shed_as_the_reference(models_root, monkeypatch):
+    """``GORDO_QUEUE_TIMEOUT``: a request queued behind a full gate sheds
+    503 after that many seconds (the default is 1.0), in both packages."""
+    monkeypatch.setenv("GORDO_QUEUE_TIMEOUT", str(QUEUE_TIMEOUT_S))
+    ours, theirs, app = _servers(models_root, max_inflight=1)
+    try:
+        for ask, server, gate in ((_ask_ours, ours, ours.admission),
+                                  (_ask_theirs, theirs, app.admission)):
+            assert gate.queue_timeout == QUEUE_TIMEOUT_S
+            held = gate.admit()
+            started = time.perf_counter()
+            status, headers, raw = ask(server, "POST", f"{_M}/bare/prediction", _BODY)
+            waited = time.perf_counter() - started
+            held.release()
+            assert status == 503 and int(headers["Retry-After"]) >= 1
+            assert QUEUE_TIMEOUT_S <= waited < QUEUE_TIMEOUT_S + 0.6, waited
+            assert ask(server, "POST", f"{_M}/bare/prediction", _BODY)[0] == 200
+    finally:
+        ours.close()
+        app.engine.close()
+
+
+ENGINE_SERIES = ("gordo_engine_dispatch_seconds", "gordo_engine_fill_window_occupancy",
+                 "gordo_engine_machines", "gordo_engine_buckets",
+                 "gordo_engine_host_path_machines")
+
+
+def test_the_references_engine_series_are_scraped(models_root):
+    """The five engine series of the reference, with its names, help,
+    labels and buckets, in a Prometheus scrape after one served request;
+    the gauges hold the engine's shape, the dispatch histogram the
+    request's path."""
+    ours, theirs, app = _servers(models_root)
+    try:
+        assert _ask_ours(ours, "POST", f"{_M}/dense/anomaly/prediction", _BODY)[0] == 200
+        raw = _ask_ours(ours, "GET", "/metrics?format=prometheus")[2].decode()
+        samples, _, types, helps = exposition.parse_prometheus_text(raw, return_meta=True)
+        port_metrics = {m.name: m for m in REGISTRY.metrics()}
+        ref_metrics = {m.name: m for m in REF_REGISTRY.metrics()}
+        for name in ENGINE_SERIES:
+            ours_m, ref_m = port_metrics[name], ref_metrics[name]
+            assert types[name] == ours_m.kind == ref_m.kind
+            assert helps[name] == ours_m.help == ref_m.help
+            assert ours_m.labelnames == ref_m.labelnames
+            if ours_m.kind == "histogram":
+                assert ours_m.buckets == ref_m.buckets
+        stats = ours.engine.stats()
+        gauges = {name: samples[name][0][1] for name in ENGINE_SERIES[2:]}
+        assert gauges == {"gordo_engine_machines": len(ours.engine._by_name),
+                          "gordo_engine_buckets": stats["buckets"],
+                          "gordo_engine_host_path_machines": len(ours.engine.skipped)}
+        assert gauges["gordo_engine_machines"] >= 1
+        dispatched = {labels["path"]: value
+                      for labels, value in samples["gordo_engine_dispatch_seconds_count"]}
+        assert set(dispatched) <= {"cold", "mega", "hot", "spill"}
+        assert sum(dispatched.values()) >= 1
     finally:
         ours.close()
         app.engine.close()
