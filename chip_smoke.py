@@ -518,6 +518,21 @@ Phases; any failure exits non-zero before the result line:
    Printed with the card: each rank's join, wall, peak memory, hop walls,
    each call's forward and backward walls and errors, the fits' walls and
    losses, the engine's walls.
+23. the numeric sanitizer (``phase_debug_nans``, in this process after
+   phase 8b): ``--debug-nans``'s check of every operator's output. The slice
+   machine of phase 3 with one NaN in its patch embedding (``dn_nan_weight``)
+   raises ``FloatingPointError`` naming the op from the engine's scoring and
+   from an Adam step; ``sqrt(square(x @ v))`` at ``v = 0`` raises from its
+   backward, on autograd's device thread, where a hook sees the sanitizer;
+   an ``inf`` in one q entry raises at ``gordo::flash_fwd`` in fp32 and bf16,
+   and without the flag each kernel marks NaN the rows its plain version
+   marks; ``run-server`` with ``GORDO_DEBUG_NANS=1`` (a process, beside the
+   checks) answers the clean machine 200 and the NaN one 503 (quarantined),
+   as the CPU test holds. Then, under the flag, a W = 16 fp32 answer and a
+   bf16 one (phases 3 and 3b's artifacts) and one fp32 Adam step of batch
+   32 give the unflagged bytes through the kernels (3 launches an answer,
+   3 + 3 the step). Printed with the card: each unit's wall with and
+   without the flag, the ops named.
 
 Every phase prints its wall (``phase wall``), and the script its total.
 The script runs in 1200 s at most, build included, and aims at 1000: for
@@ -525,9 +540,9 @@ that, work that would wait runs beside other work, every check kept
 (phases 9b, 14, 17, 18 beside 16, 20 beside 19's drill; PERF.md §5 lists
 each cut). After phase 2, phases 11, 13, 14, 15, 17 and 21 run in a second
 process of this script (``--side``, ``SIDE_PHASES``) beside phases 3-9b,
-12 and 16 in this one, in order 3-9b, 12, 16 (18 beside it); phases 10
-and 19 (20 beside its drill), which need about all of the card, run once
-both are done, after phase 22. The side's stdout follows this process's
+23, 12 and 16 in this one, in order 3-8b, 23, 9, 9b, 12, 16 (18 beside
+it); phases 10 and 19 (20 beside its drill), which need about all of the
+card, run once both are done, after phase 22. The side's stdout follows this process's
 phases. A thread
 samples the card's memory in use (every process on it), and its peak
 during each phase is printed before the script's wall; each phase's start
@@ -8450,13 +8465,311 @@ def phase_ring(torch, device, tmp: str, card: str) -> dict:
 
 
 # phases 11, 13, 14, 15, 17 and 21 run in a second process of this script
-# (``--side TMP``) beside phases 3-9b, 12 and 16 (18 beside it) in this one.
+# (``--side TMP``) beside phases 3-9b, 23, 12 and 16 (18 beside it) in this one.
 # They share the temporary directory (each phase keeps to subdirectories of
 # its own; phases 20 and 21 read phase 14's artifacts later, 21 phase 15's
 # too) and none of them
 # depends on another's state in the process. The side holds none of the
 # phases that fill most of the card (8, 9b and 12's builds stay here), and
 # phases 10 and 19, which need about all of it, run after both.
+DN_WINDOWS = 16  # windows of the flagged answers: BH 8192, the slice shape phase 2 holds
+DN_BATCH = 32  # windows of the flagged Adam step: BH 16384, phase 8's step
+DN_SERVER_S = 240.0  # the flagged run-server's boot, at most
+DN_CLEAN, DN_NAN = "dn-slice", "dn-slice-nan"  # sorted: the boot warms the clean machine
+DN_DEVICE_ARGS = ()  # the card; a CPU rehearsal passes ("--device", "cpu")
+
+
+def dn_nan_weight(est) -> str:
+    """One NaN in the slice machine's patch embedding (``Dense_0``'s first
+    kernel entry, in the flax tree its artifact holds), its module rebuilt
+    from it; returns the weight's name."""
+    params = dict(est.params_)
+    kernel = np.array(params["Dense_0"]["kernel"], np.float32)
+    kernel.flat[0] = np.nan
+    params["Dense_0"] = {**params["Dense_0"], "kernel": kernel}
+    est.set_state({**est.get_state(), "params": params})
+    return "Dense_0.kernel[0, 0]"
+
+
+def dn_server(tmp: str, models_dir: str) -> tuple:
+    """``run-server`` over ``models_dir`` as a process (CLI_RUNNER records
+    its launches) with ``GORDO_DEBUG_NANS=1`` in its environment, as a
+    fleet tier's worker gets it; (process, record, log path)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    record = os.path.join(tmp, "dn-server.json")
+    log_path = os.path.join(tmp, "dn-server.log")
+    env = {**os.environ, "GORDO_DEBUG_NANS": "1", "PYTHONPATH": root}
+    with open(log_path, "wb") as log:
+        proc = subprocess.Popen([sys.executable, "-c", CLI_RUNNER, record, "run-server",
+                                 "--models-dir", models_dir, "--host", "127.0.0.1", "--port", "0",
+                                 *DN_DEVICE_ARGS], cwd=root, env=env, stdout=log,
+                                stderr=subprocess.STDOUT)
+    return proc, record, log_path
+
+
+def dn_raises(label: str, fn) -> str:
+    """``fn()`` must raise ``FloatingPointError`` naming the op; returns
+    the message."""
+    try:
+        fn()
+    except FloatingPointError as exc:
+        message = str(exc)
+        if "invalid value (nan) encountered in " not in message:
+            fail(f"debug nans: {label} raised {message!r}, which names no op")
+        print(f"debug nans: {label} raised FloatingPointError: {message}")
+        return message
+    fail(f"debug nans: {label} raised nothing under the flag")
+
+
+def dn_step(torch, est, rows, flagged: bool) -> tuple:
+    """One Adam step of batch ``DN_BATCH`` (the library's batch step) from
+    copies of the estimator's parameters, under the sanitizer when
+    ``flagged``; (parameters after the step as host bytes, loss, wall s)."""
+    from gordo_components_tpu_torch.models import train
+    from gordo_components_tpu_torch.ops import windowing
+    from gordo_components_tpu_torch.utils import backend
+
+    device = est.device
+    spec = est._make_spec(est.n_features_, est.n_features_out_)
+    module = est.module_
+    params = {k: v.detach().clone().requires_grad_() for k, v in module.named_parameters()}
+    x_rows = torch.as_tensor(rows, device=device)
+    starts = torch.arange(DN_BATCH, device=device)
+    y = x_rows[LOOKBACK - 1:LOOKBACK - 1 + DN_BATCH]
+    w = torch.ones(DN_BATCH, device=device)
+
+    def apply(p, s, g):
+        return torch.func.functional_call(
+            module, p, (windowing.gather_windows(x_rows, s, LOOKBACK),), {"generator": g})
+
+    step = train.make_batch_step(apply, spec.optimizer, loss=spec.loss)
+    state = spec.optimizer.init(list(params.values()))
+    backend.set_debug_nans(flagged)
+    try:
+        torch.cuda.synchronize()
+        started = time.perf_counter()
+        with backend.nan_guard():
+            _, loss, _ = step(params, state, (starts, y, w, None))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - started
+    finally:
+        backend.set_debug_nans(False)
+    return [p.detach().cpu().numpy().tobytes() for p in params.values()], float(loss), wall
+
+
+def dn_backward_thread(torch, device) -> dict:
+    """``sqrt(square(x @ v))`` with ``v = 0`` is 0 forward and NaN in its
+    backward (``g / 0`` through the sqrt, then ``inf * 0``). Autograd runs a
+    CUDA backward on its device thread: a hook there records the thread
+    and whether the sanitizer is on it, and the NaN must raise."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+    from gordo_components_tpu_torch.utils import backend
+
+    x = torch.randn(8, 3, device=device)
+    w = torch.randn(3, 3, device=device, requires_grad=True)
+    v = torch.zeros(3, 1, device=device, requires_grad=True)
+    seen = []
+    backend.set_debug_nans(True)
+    try:
+        with backend.nan_guard():
+            root = torch.sqrt(torch.square(x @ v))
+            root.register_hook(lambda grad: seen.append((
+                threading.get_ident(), any(isinstance(mode, backend.NanSanitizer)
+                                           for mode in _get_current_dispatch_mode_stack()))))
+            loss = (x @ w + root).square().sum()
+            message = dn_raises("a NaN born in a CUDA backward",
+                                lambda: torch.autograd.grad(loss, [w, v]))
+    finally:
+        backend.set_debug_nans(False)
+    if not seen or seen[0][0] == threading.get_ident() or not seen[0][1]:
+        fail(f"debug nans: the backward's hook ran on {seen} (this thread "
+             f"{threading.get_ident()}): expected autograd's device thread, under the sanitizer")
+    return {"message": message, "device_thread": seen[0][0] != threading.get_ident()}
+
+
+def dn_inf_in_q(torch, device) -> None:
+    """One ``inf`` in q and no NaN in the inputs: under the flag the kernel's
+    operator raises naming ``gordo::flash_fwd``; without it, the kernel's
+    output marks NaN the rows its plain version marks."""
+    from gordo_components_tpu_torch.ops.flash_attention import flash_fwd, flash_fwd_reference
+    from gordo_components_tpu_torch.utils import backend
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 23)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(64, SLICE_SHAPE[1], SLICE_SHAPE[2], device=device, generator=gen,
+                               dtype=dtype) for _ in range(3))
+        q[0, 1, 2] = float("inf")
+        scale = SLICE_SHAPE[2] ** -0.5
+        backend.set_debug_nans(True)
+        try:
+            with backend.nan_guard():
+                message = dn_raises(f"an inf in q ({dtype})", lambda: flash_fwd(q, k, v, scale))
+        finally:
+            backend.set_debug_nans(False)
+        if "gordo::flash_fwd" not in message:
+            fail(f"debug nans: an inf in q raised at {message!r}, not at gordo::flash_fwd")
+        out, _ = flash_fwd(q, k, v, scale)
+        plain, _ = flash_fwd_reference(q, k, v, scale)
+        rows, plain_rows = torch.isnan(out).any(-1), torch.isnan(plain).any(-1)
+        if not torch.equal(rows, plain_rows) or int(rows.sum()) < 1:
+            fail(f"debug nans: the {dtype} kernel marks {int(rows.sum())} rows NaN, its plain "
+                 f"version {int(plain_rows.sum())}, at other rows")
+        print(f"debug nans: an inf in q ({dtype}): {int(rows.sum())} NaN row(s), the kernel's "
+              f"and the plain version's the same")
+
+
+def dn_units(torch, device, f32: str, bf16: str, X: np.ndarray, rng) -> tuple:
+    """The clean machine under the flag gives the unflagged bytes through
+    the kernels: a W = 16 fp32 answer, a bf16 one and one fp32 Adam step of
+    batch ``DN_BATCH``, each run unflagged (a warm-up, then timed) and
+    flagged; (walls by (unit, flagged), the flagged runs' launches)."""
+    from gordo_components_tpu_torch.ops import _kernels
+    from gordo_components_tpu_torch.serializer import load
+    from gordo_components_tpu_torch.server.engine import ServingEngine
+    from gordo_components_tpu_torch.utils import backend
+
+    walls, launches = {}, dict(NO_LAUNCHES)
+    for label, path in (("W=16 fp32 answer", f32), ("W=16 bf16 answer", bf16)):
+        engine = ServingEngine({"m": load(path, device=device)}, device=device)
+        try:
+            answers = {}
+            for flagged in (False, False, True):
+                backend.set_debug_nans(flagged)
+                try:
+                    _kernels.reset_launches()
+                    torch.cuda.synchronize()
+                    started = time.perf_counter()
+                    result = engine.anomaly("m", X)
+                    walls[(label, flagged)] = time.perf_counter() - started
+                    counted = {n: _kernels.LAUNCHES[n] for n in KERNELS}
+                finally:
+                    backend.set_debug_nans(False)
+                answers[flagged] = [np.asarray(a).tobytes() for a in result]
+        finally:
+            engine.close()
+        dtype = "bf16" if "bf16" in label else "f32"
+        if counted != {**NO_LAUNCHES, f"flash_fwd_{dtype}": SLICE["n_layers"]}:
+            fail(f"debug nans: the flagged {label} launched {counted}, expected "
+                 f"{SLICE['n_layers']} flash_fwd_{dtype} launches")
+        if answers[True] != answers[False]:
+            fail(f"debug nans: the flagged {label} differs from the unflagged bytes")
+        for name in KERNELS:
+            launches[name] += counted[name]
+    est = load(f32, device=device).base_estimator.regressor.steps[-1][1]
+    rows = sensor_rows(rng, LOOKBACK + DN_BATCH - 1)
+    dn_step(torch, est, rows, flagged=False)
+    plain_params, plain_loss, walls[("fp32 Adam step", False)] = dn_step(
+        torch, est, rows, flagged=False)
+    _kernels.reset_launches()
+    params, loss, walls[("fp32 Adam step", True)] = dn_step(torch, est, rows, flagged=True)
+    counted = {n: _kernels.LAUNCHES[n] for n in KERNELS}
+    if counted != {**NO_LAUNCHES, "flash_fwd_f32": SLICE["n_layers"],
+                   "flash_bwd_f32": SLICE["n_layers"]}:
+        fail(f"debug nans: the flagged Adam step launched {counted}")
+    if params != plain_params or loss != plain_loss:
+        fail(f"debug nans: the flagged Adam step (loss {loss}) differs from the unflagged bytes "
+             f"(loss {plain_loss})")
+    for name in KERNELS:
+        launches[name] += counted[name]
+    return walls, launches
+
+
+def dn_ask_server(proc, log_path: str, X: np.ndarray, started: float, card: str) -> None:
+    """The flagged server answers the clean machine 200 and the NaN one 503
+    (quarantined: FloatingPointError), as the CPU test holds."""
+    base = None
+    while base is None and time.perf_counter() - started < DN_SERVER_S:
+        if proc.poll() is not None:
+            break
+        time.sleep(0.2)
+        base = served_url(log_path)
+    if base is None:
+        with open(log_path, "rb") as fh:
+            fail(f"debug nans: the flagged server did not come up: "
+                 f"{fh.read()[-3000:].decode(errors='replace')}")
+    ready_s = time.perf_counter() - started
+    answers = {name: post(f"{base}/gordo/v0/project/{name}/anomaly/prediction", X)
+               for name in (DN_NAN, DN_CLEAN)}
+    if answers[DN_CLEAN][0] != 200 or answers[DN_NAN][0] != 503 or \
+            "FloatingPointError: invalid value (nan)" not in json.dumps(answers[DN_NAN][1]):
+        fail(f"debug nans: the flagged server answered {answers[DN_CLEAN][0]} for the clean "
+             f"machine and {answers[DN_NAN][0]} {answers[DN_NAN][1]} for the NaN one; the "
+             "CPU test holds 200 and 503 (quarantined: FloatingPointError)")
+    print(f"debug nans [{card}]: run-server with GORDO_DEBUG_NANS=1 ready {ready_s:.1f} s after "
+          f"its start; the clean machine 200 in {answers[DN_CLEAN][2]:.1f} ms, the NaN one 503: "
+          f"{answers[DN_NAN][1]}")
+
+
+def phase_debug_nans(torch, device, tmp: str, card: str) -> dict:
+    """Phase 23: the numeric sanitizer (``--debug-nans``) on the card,
+    through the flash kernels; returns the launches of its flagged units
+    and of its flagged server."""
+    from gordo_components_tpu_torch.serializer import dump, load
+    from gordo_components_tpu_torch.server.engine import ServingEngine
+    from gordo_components_tpu_torch.utils import backend
+
+    root = os.path.join(tmp, "debug-nans")
+    os.makedirs(root)
+    f32, bf16 = (os.path.join(tmp, name) for name in ("turbine-long-window",
+                                                      "turbine-long-window-bf16"))
+    os.symlink(f32, os.path.join(root, DN_CLEAN))
+    nan_model = load(f32, device=device)
+    nan_est = nan_model.base_estimator.regressor.steps[-1][1]
+    poisoned = dn_nan_weight(nan_est)
+    dump(nan_model, os.path.join(root, DN_NAN),
+         metadata=artifact_metadata([f"TAG-{i:03d}" for i in range(N_TAGS)]))
+    # the server boots (a process's first flash launch among it) beside the
+    # checks and the timed units
+    server_started = time.perf_counter()
+    proc, record, log_path = dn_server(tmp, root)
+    try:
+        # a first flagged op pays the dispatch mode's one-time import
+        backend.set_debug_nans(True)
+        with backend.nan_guard():
+            torch.ones(1, device=device).add(1)
+        backend.set_debug_nans(False)
+        rng = np.random.default_rng(SEED + 23)
+        X = sensor_rows(rng, LOOKBACK + DN_WINDOWS - 1)
+
+        # the NaN machine: scoring and a fit step raise, naming the op
+        nan_engine = ServingEngine({"nan": nan_model}, device=device)
+        backend.set_debug_nans(True)
+        try:
+            scoring = dn_raises("scoring the NaN machine", lambda: nan_engine.anomaly("nan", X))
+        finally:
+            backend.set_debug_nans(False)
+            nan_engine.close()
+        scaled = nan_model.base_estimator.regressor.steps[0][1].transform(
+            sensor_rows(rng, LOOKBACK + DN_BATCH - 1))
+        fitting = dn_raises("a fit step of the NaN machine",
+                            lambda: dn_step(torch, nan_est, scaled, flagged=True))
+        del nan_model, nan_est
+        backward = dn_backward_thread(torch, device)
+        dn_inf_in_q(torch, device)
+        walls, launches = dn_units(torch, device, f32, bf16, X, rng)
+        dn_ask_server(proc, log_path, X, server_started, card)
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    with open(record) as fh:
+        served = json.load(fh)["launches"]
+    for name in KERNELS:
+        launches[name] += served[name]
+    print(f"debug nans [{card}]: flagged units give the unflagged bytes; walls in ms, "
+          f"unflagged -> flagged: " + json.dumps({
+              label: [round(1e3 * walls[(label, False)], 3), round(1e3 * walls[(label, True)], 3)]
+              for label in ("W=16 fp32 answer", "W=16 bf16 answer", "fp32 Adam step")}))
+    print(f"debug nans [{card}]: NaN weight {poisoned}: scoring raised {scoring!r}, the fit step "
+          f"{fitting!r}; the backward's NaN on autograd's device thread: "
+          f"{backward['message']!r}; launches of the flagged units and the server {launches}")
+    return launches
+
+
 SIDE_PHASES = ("11 seams", "13 control", "14 tier", "15 spill", "17 warm boot", "21 shard")
 SIDE_IN, SIDE_OUT, SIDE_STDOUT = "side-in.json", "side-out.json", "side-stdout.txt"
 SIDE_FAILED = "side-failed.txt"  # the side's failing phase and why, for the main's message
@@ -8692,6 +9005,7 @@ def main() -> None:
             timed("7 surface", phase_surface, torch, device, tmp)
             trained = timed("8 train", phase_train, torch, device, tmp)["launches"]
             trained_bf16 = timed("8b train bf16", phase_train_bf16, torch, device)
+            debug_nans = timed("23 debug nans", phase_debug_nans, torch, device, tmp, card)
             timed("9 build", phase_build, torch, device, tmp)
             built = timed("9b cli build", phase_cli_build, torch, device, tmp)
             client = timed("12 client", phase_client, torch, device, tmp, kernels, card)
@@ -8723,7 +9037,7 @@ def main() -> None:
             spans.update({f"{label} (side)": tuple(span) for label, span in
                           sided["spans"].items()})
             print(f"side process [{card}]: phases {', '.join(SIDE_PHASES)} beside this "
-                  f"process's 3-9b, 12 and 16; this process's were done at "
+                  f"process's 3-9b, 23, 12 and 16; this process's were done at "
                   f"{concurrent_s:.1f} s of the script, the side's joined at {joined_s:.1f} s")
             ring = timed("22 ring", phase_ring, torch, device, tmp, card)
             fleet_built = timed("10 fleet build", phase_fleet_build, torch, device, tmp)
@@ -8756,6 +9070,7 @@ def main() -> None:
             launches[name] += (trained[name] + trained_bf16[name] + built[name]
                                + fleet_built[name] + client[name] + fleet_control[name]
                                + witness[name] + multirank[name] + mesh[name] + ring[name]
+                               + debug_nans[name]
                                + sum(side_launches[label][name] for label in SIDE_PHASES))
     print(f"card memory in use [{card}], peak GiB during each phase (every process on the "
           f"card): {json.dumps({label: memory.peak(*span) for label, span in spans.items()})}")

@@ -345,6 +345,10 @@ KNOBS: Dict[str, Knob] = dict(
               "torch.profiler Chrome trace of a build (`--trace-dir` on "
               "`build` / `fleet-build`)",
               "observability"),
+        _knob("GORDO_DEBUG_NANS", "0", "bool",
+              "the numeric sanitizer: every op's output checked, "
+              "FloatingPointError at the first NaN (diagnostics only; "
+              "`--debug-nans`)", "observability"),
         # -- resilience ----------------------------------------------------
         _knob("GORDO_FAULTS", "unset", "spec",
               "fault-injection plan (`point:target:kind[:arg]`, "

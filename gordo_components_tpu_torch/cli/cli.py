@@ -8,13 +8,16 @@ reference's CLI (``gordo_components_tpu/cli/cli.py:164-1546``), on
 
 The arguments, environment variables (``MODEL_CONFIG``, ``DATA_CONFIG``,
 ``OUTPUT_DIR``, ``MODEL_REGISTER_DIR``, ``METADATA``, ``GORDO_TRACE_DIR``,
-``GORDO_LOG_LEVEL``, ``GORDO_LOG_FORMAT``, ``MODEL_LOCATION``,
+``GORDO_LOG_LEVEL``, ``GORDO_LOG_FORMAT``, ``GORDO_DEBUG_NANS``, ``MODEL_LOCATION``,
 ``GORDO_MAX_INFLIGHT``, ``GORDO_TENANTS``, ``GORDO_FAULTS``) and exit codes
 are the reference's: 0 ok, 2 a bad command line, 64 a bad config
 (permanent), 66 data unavailable or short (retryable), 70 a deterministic
 device failure (an out-of-memory on the card), 75 another device failure,
 a failed collective of a build of several ranks or its tripped slice
-watchdog (retryable), 1 anything else. Configs are JSON, or YAML read through
+watchdog (retryable), 1 anything else. The root's ``--debug-nans/--no-debug-nans``
+(default ``GORDO_DEBUG_NANS``) turns on the numeric sanitizer for the process
+(``utils/backend.py``), whose guarded paths (fits, predictions, a server's
+dispatches) then check every op. Configs are JSON, or YAML read through
 ``yaml`` (imported only there). ``--device`` picks the card (default) or
 the CPU; there is no silent fallback. ``run-server`` offers the flags
 whose machinery the port has, ``--worker-id`` among them, and
@@ -119,6 +122,7 @@ import sys
 from typing import Any, List, Optional
 
 from ..precision import PRECISIONS
+from ..utils.debug_flags import parse_flag, set_debug_nans
 
 EXIT_USAGE = 2
 EXIT_CONFIG = 64
@@ -935,6 +939,11 @@ def parser() -> argparse.ArgumentParser:
                       choices=["text", "json"],
                       help="'json' emits one JSON object per record, trace and span ids as "
                            "fields; 'text' the plain line format")
+    root.add_argument("--debug-nans", action=argparse.BooleanOptionalAction, default=None,
+                      help="Enable the numeric sanitizer: every operator's output is checked "
+                           "and the first op that makes a NaN raises FloatingPointError naming "
+                           "it (the reference's jax_debug_nans; large slowdown, diagnostics "
+                           "only). Default: GORDO_DEBUG_NANS, else off")
     commands = root.add_subparsers(dest="command", required=True)
 
     b = commands.add_parser("build", help="build one machine's model (idempotent via the "
@@ -1362,7 +1371,16 @@ def main(argv: Optional[List[str]] = None) -> int:
         args.lint_args = extra + list(args.lint_args)
     elif extra:
         root.error("unrecognized arguments: " + " ".join(extra))
+    if args.debug_nans is None:
+        try:
+            args.debug_nans = bool(parse_flag(os.environ.get("GORDO_DEBUG_NANS")))
+        except ValueError as exc:
+            root.error(f"GORDO_DEBUG_NANS: {exc}")
     configure_logging(args.log_level, args.log_format)
+    set_debug_nans(args.debug_nans)
+    if args.debug_nans:
+        logger.warning("debug nans enabled: training and scoring check every op's output "
+                       "for NaN and will be much slower")
     return args.run(args)
 
 

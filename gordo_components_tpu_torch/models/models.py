@@ -35,7 +35,7 @@ import torch
 from torch import nn
 
 from ..ops import windowing
-from ..utils.backend import DeviceLike, resolve_device
+from ..utils.backend import DeviceLike, nan_guard, resolve_device
 from .base import GordoBase
 from .convert import flax_from_params, params_from_flax
 from .factories.transformer import PatchTSTModule
@@ -141,8 +141,9 @@ class BaseTorchEstimator(GordoBase):
         estimator's device; ``history_`` holds each epoch's loss. Works
         from a caller under ``no_grad`` or ``inference_mode`` too: the
         fit's tensors are ordinary ones, and grad mode (thread-local) is
-        the caller's again afterwards."""
-        with torch.inference_mode(False), torch.enable_grad():
+        the caller's again afterwards. Under the numeric sanitizer while it
+        is on (``utils.backend.nan_guard``)."""
+        with torch.inference_mode(False), torch.enable_grad(), nan_guard():
             return self._fit(X, y)
 
     def _fit(self, X, y) -> "BaseTorchEstimator":
@@ -226,7 +227,7 @@ class BaseTorchEstimator(GordoBase):
         x = torch.as_tensor(_as_float32(X), device=resolve_device(self.device))
         if self.lookahead is not None:
             x = windowing.sliding_windows(x, self.lookback_window, self.lookahead)
-        with torch.inference_mode():
+        with torch.inference_mode(), nan_guard():
             return self.module_(x).cpu().numpy()
 
     # -- introspection / persistence ----------------------------------------

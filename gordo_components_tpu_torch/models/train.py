@@ -21,7 +21,9 @@ Gradients are taken under ``torch.enable_grad()`` inside the step, so a
 fit called from a thread under ``no_grad`` or ``inference_mode`` still
 trains, and grad mode never leaks out: it is thread-local, and serving
 threads keep their own. The loss history is read back once, after the
-last epoch.
+last epoch. The loop runs under the numeric sanitizer while it is on
+(``utils.backend.nan_guard``): a NaN made in a forward or a backward op
+raises ``FloatingPointError`` at that op.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tu
 import numpy as np
 import torch
 
+from ..utils.backend import nan_guard
 from .factories.spec import GradientTransformation, apply_updates
 from .modules import KeyStream
 
@@ -127,31 +130,32 @@ def make_fit_fn(
             raise ValueError(f"{n} rows are not a whole number of batches of {batch_size}")
         if perms is not None and len(perms) != epochs:
             raise ValueError(f"got {len(perms)} permutations for {epochs} epochs")
-        opt_state = optimizer.init(list(params.values()))
-        history = []
-        for epoch in range(epochs):
-            if perms is not None:
-                perm = torch.as_tensor(np.array(perms[epoch]), dtype=torch.long)
-            elif shuffle:
-                perm = torch.randperm(n, generator=generator)
-            else:
-                perm = torch.arange(n)
-            perm = perm.to(X.device)
-            losses, wsums = [], []
-            for start in range(0, n, batch_size):
-                idx = perm[start:start + batch_size]
-                masks = None
-                if use_dropout:
-                    key = torch.randint(0, 2**31, (), generator=generator)
-                    masks = KeyStream(key.to(X.device))
-                opt_state, batch_loss, wsum = batch_step(
-                    params, opt_state, (X[idx], y[idx], w[idx], masks)
-                )
-                losses.append(batch_loss)
-                wsums.append(wsum)
-            losses, wsums = torch.stack(losses), torch.stack(wsums)
-            history.append(torch.sum(losses * wsums) / torch.clamp(torch.sum(wsums), min=1.0))
-        return FitResult(params=params, loss_history=torch.stack(history).tolist())
+        with nan_guard():
+            opt_state = optimizer.init(list(params.values()))
+            history = []
+            for epoch in range(epochs):
+                if perms is not None:
+                    perm = torch.as_tensor(np.array(perms[epoch]), dtype=torch.long)
+                elif shuffle:
+                    perm = torch.randperm(n, generator=generator)
+                else:
+                    perm = torch.arange(n)
+                perm = perm.to(X.device)
+                losses, wsums = [], []
+                for start in range(0, n, batch_size):
+                    idx = perm[start:start + batch_size]
+                    masks = None
+                    if use_dropout:
+                        key = torch.randint(0, 2**31, (), generator=generator)
+                        masks = KeyStream(key.to(X.device))
+                    opt_state, batch_loss, wsum = batch_step(
+                        params, opt_state, (X[idx], y[idx], w[idx], masks)
+                    )
+                    losses.append(batch_loss)
+                    wsums.append(wsum)
+                losses, wsums = torch.stack(losses), torch.stack(wsums)
+                history.append(torch.sum(losses * wsums) / torch.clamp(torch.sum(wsums), min=1.0))
+            return FitResult(params=params, loss_history=torch.stack(history).tolist())
 
     return fit
 
@@ -178,7 +182,7 @@ def make_predict_fn(apply_fn: ApplyFn) -> Callable:
     """Deterministic forward pass: ``(params, X) → predictions``."""
 
     def predict(params, X):
-        with torch.no_grad():
+        with torch.no_grad(), nan_guard():
             return apply_fn(params, X, None)
 
     return predict

@@ -60,7 +60,7 @@ from ..models.modules import KeyStream
 from ..models.train import make_batch_step, make_loss_fn
 from ..ops import windowing
 from ..ops.scaling import ScalerParams
-from ..utils.backend import DeviceLike, resolve_device
+from ..utils.backend import DeviceLike, nan_guard, resolve_device
 from .mesh import pad_to_multiple
 
 logger = logging.getLogger(__name__)
@@ -411,8 +411,15 @@ def train_fleet_arrays(
     template's layout, instead of drawing them. ``perms``: the permutations
     instead of drawing them, ``perms[m][j][epoch]`` for machine m's fit j
     (folds 0..K-1, then the final fit), each a permutation of the padded
-    sample count."""
-    device = resolve_device(device)
+    sample count. Runs under the numeric sanitizer while it is on
+    (``utils.backend.nan_guard``)."""
+    with nan_guard():
+        return _train_fleet_arrays(spec, batch, resolve_device(device), params0, perms)
+
+
+def _train_fleet_arrays(spec: FleetSpec, batch: MachineBatch, device: torch.device,
+                        params0: Optional[Params],
+                        perms: Optional[Sequence[Any]]) -> MachineResult:
     X, y, w = (_as_tensor(a, device) for a in (batch.X, batch.y, batch.w))
     keys = [int(k) for k in np.asarray(batch.keys).reshape(-1)]
     M = X.shape[0]
@@ -488,15 +495,19 @@ def train_fleet_arrays(
     fallback = wt * (~use_cv).to(wt.dtype)
     masks = torch.cat([fold_test_masks, fallback[:, None]], dim=1) > 0  # (M, K+1, P)
     scaled = errs * e_scale[:, None, None] + error_scaler.offset[:, None, None]
-    scaled = torch.where(masks[..., None], scaled, float("nan"))
-    norms = (torch.linalg.vector_norm(torch.nan_to_num(scaled), dim=-1)
-             + torch.where(masks, 0.0, float("nan")))
-    # per machine, outside any vmap: torch.quantile caps its input at 2**24
+    norms = torch.linalg.vector_norm(
+        torch.nan_to_num(torch.where(masks[..., None], scaled, 0.0)), dim=-1)
+    # per machine over its masked rows, picked out rather than set to NaN
+    # (the numeric sanitizer takes any NaN for a fault), outside any vmap:
+    # torch.quantile caps its input at 2**24; a machine with no such row
+    # gets 0
+    real = masks.reshape(M, -1).sum(dim=1).tolist()
     tag_thresholds = torch.stack([
-        torch.nan_to_num(torch.nanquantile(scaled[m].reshape(-1, T), 0.99, dim=0))
-        for m in range(M)])
+        torch.nan_to_num(torch.nanquantile(scaled[m][masks[m]], 0.99, dim=0)) if real[m]
+        else scaled.new_zeros(T) for m in range(M)])
     total_threshold = torch.stack([
-        torch.nan_to_num(torch.nanquantile(norms[m].reshape(-1), 0.99)) for m in range(M)])
+        torch.nan_to_num(torch.nanquantile(norms[m][masks[m]], 0.99)) if real[m]
+        else norms.new_zeros(()) for m in range(M)])
     return MachineResult(
         params=final_params,
         input_scaler=program.sx,

@@ -173,7 +173,7 @@ from ..parallel.mesh import pad_to_multiple
 from ..ops.scaling import ScalerParams
 from ..resilience import deadline, faults, qos
 from ..serializer.persistence import estimators
-from ..utils.backend import DeviceLike, resolve_device
+from ..utils.backend import DeviceLike, nan_guard, resolve_device
 from .host_cache import HostTierCache
 
 logger = logging.getLogger(__name__)
@@ -752,7 +752,8 @@ def _collector_loop(bucket_ref: "weakref.ref", fetch_queue: "queue.Queue"):
             fetch_queue.task_done()
             continue
         try:
-            bucket._complete(job)
+            with nan_guard():  # a repair rescores on this thread
+                bucket._complete(job)
         finally:
             bucket._inflight_slots.release()
             # after _complete (and any isolated retry): quiesce() joins on
@@ -973,7 +974,8 @@ class _Bucket:
         machine of ``stack`` (None: the bucket's own), fetched; ``rows`` is
         the padded row bucket the key names."""
         xs = np.zeros((1, n, self.n_features), np.float32)
-        self._host(self._enqueue([0], xs, stack))
+        with nan_guard():
+            self._host(self._enqueue([0], xs, stack))
         self.warm_dispatch_count += 1
         self._programs.add((kind, rows, 1))
 
@@ -1149,21 +1151,23 @@ class _Bucket:
     def _dispatch(self, rows: int, items: List[_Item], defer: bool) -> None:
         """Route one drained batch: mega when every machine in it is
         resident; hot when it is a pure batch of one machine with a hot
-        copy (shard mode); else cold."""
-        if self._mega_enabled and self._mega_route(items):
-            self._dispatch_mega(rows, items, defer)
-            return
-        hot = None
-        idx0 = items[0].idx
-        if self._hot_cap and all(it.idx == idx0 for it in items):
-            with self._hot_lock:
-                hot = self._hot.get(idx0)
-                if hot is not None:
-                    self._hot.move_to_end(idx0)  # LRU touch
-        if hot is not None:
-            self._dispatch_hot(rows, idx0, hot, items, defer)
-        else:
-            self._dispatch_cold(rows, items, defer)
+        copy (shard mode); else cold. Every path runs under the numeric
+        sanitizer while it is on (``utils.backend.nan_guard``)."""
+        with nan_guard():
+            if self._mega_enabled and self._mega_route(items):
+                self._dispatch_mega(rows, items, defer)
+                return
+            hot = None
+            idx0 = items[0].idx
+            if self._hot_cap and all(it.idx == idx0 for it in items):
+                with self._hot_lock:
+                    hot = self._hot.get(idx0)
+                    if hot is not None:
+                        self._hot.move_to_end(idx0)  # LRU touch
+            if hot is not None:
+                self._dispatch_hot(rows, idx0, hot, items, defer)
+            else:
+                self._dispatch_cold(rows, items, defer)
 
     def _mega_route(self, items: List[_Item]) -> bool:
         """Whether every item's machine is resident (then each is touched
@@ -2227,7 +2231,7 @@ class ServingEngine:
     def _spill_score_once(self, name: str, bundle: Dict[str, Any], scorer: _SpillScorer,
                           x_padded: np.ndarray, m_valid: int) -> ScoreResult:
         started = time.perf_counter()
-        with spans.stage("dispatch", path="spill", machine=name):
+        with spans.stage("dispatch", path="spill", machine=name), nan_guard():
             # the copy the spill tier exists for: one machine's tree to the
             # device, instead of a disk read and a deserialisation
             outputs = scorer.enqueue(bundle["entry"], x_padded, m_valid)

@@ -391,7 +391,7 @@ def test_a_dead_port_knob_is_stale_whatever_the_readme_says(monkeypatch):
     fake = "GORDO_TEST_" + "ONLY_FAKE_KNOB"
     monkeypatch.setitem(knobs.KNOBS, fake, knobs.Knob(
         name=fake, default="0", parser="bool", doc="corpus-only", component="test"))
-    dead_elsewhere = "GORDO_" + "DEBUG_NANS"  # named in the README's reference part
+    dead_elsewhere = "GORDO_" + "FORCED_CPU"  # named in the README's reference part
     ref_knob = knobs.Knob(name=dead_elsewhere, default="1", parser="bool", doc="-",
                           component="engine")
     monkeypatch.setitem(knobs.KNOBS, dead_elsewhere, ref_knob)
